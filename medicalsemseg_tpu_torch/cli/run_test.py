@@ -1,0 +1,174 @@
+"""Label-free prediction on one GPU (counterpart of
+medicalsemseg_tpu/cli/run_test.py).
+
+    python -m medicalsemseg_tpu_torch.cli.run_test --data_path <dir> \\
+        --task <Task> --resume model.pth --save_eval_output --output_dir out
+
+Takes the JAX package's flags (``medicalsemseg_tpu.config.build_parser``)
+plus ``--device`` (default ``cuda``). Loads the test datalist, runs Gaussian
+sliding-window prediction of the flagship with the hand-written kernels,
+argmaxes to uint8 labels, restores the original spacing by nearest-neighbour
+resampling when ``--t_voxel_spacings`` is set, and writes NIfTIs under
+``test_output/Fold{k}/{pred,img,rs}``. ``--resume`` is a torch checkpoint of
+the port or of the reference (``{'model': state_dict}`` or a bare one).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from medicalsemseg_tpu.config import Config, build_parser as jax_build_parser
+from medicalsemseg_tpu.data import nifti
+from medicalsemseg_tpu.data.datalist import load_decathlon_datalist
+
+from medicalsemseg_tpu_torch.data.preprocess import (
+    CachedVolumeDataset,
+    EvalLoader,
+)
+from medicalsemseg_tpu_torch.infer.sliding_window import (
+    bucket_pad,
+    sliding_window_inference,
+)
+from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
+from medicalsemseg_tpu_torch.utils.params import load_checkpoint
+
+
+def build_parser():
+    p = jax_build_parser()
+    p.add_argument("--device", default="cuda",
+                   help="torch device to predict on (default cuda); a CUDA "
+                        "device that is not there is an error")
+    return p
+
+
+def get_args(argv: Optional[Sequence[str]] = None) -> Tuple[Config, str]:
+    """Parse flags into (Config, device), collapsing 1-element lists to
+    scalars as the JAX package's get_args does."""
+    d = vars(build_parser().parse_args(argv))
+    device = d.pop("device")
+    for k, v in list(d.items()):
+        if isinstance(v, list):
+            d[k] = v[0] if len(v) == 1 else tuple(v)
+    known = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in d.items() if k in known}), device
+
+
+def resolve_device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: torch.cuda.is_available() is "
+                           "false; pass --device cpu to run the plain path")
+    return dev
+
+
+def resample_3d_nearest(vol: np.ndarray, target_size) -> np.ndarray:
+    """scipy zoom(order=0), as the JAX CLI restores spacing."""
+    from scipy import ndimage
+
+    ratios = tuple(float(t) / float(s) for t, s in zip(target_size, vol.shape))
+    return ndimage.zoom(vol, ratios, order=0, prefilter=False)
+
+
+def test_model(model: torch.nn.Module, loader, cfg: Config,
+               device: torch.device) -> List[Dict]:
+    """Predict every volume of ``loader``; returns one record per volume:
+    name, shape, windows, predictor calls, seconds from the preprocessed
+    volume to the label map on the host (``predict_seconds``) and to the
+    written files (``seconds``)."""
+    air_cval = ((0.0 - cfg.t_norm_mean) / cfg.t_norm_std
+                if cfg.t_normalize else 0.0)
+    records = []
+    for sample in loader:
+        t0 = time.perf_counter()
+        calls, windows = 0, 0
+
+        def predictor(model_in):
+            nonlocal calls, windows
+            calls += 1
+            windows += model_in[0].shape[0]
+            return model(model_in)
+
+        padded, orig = bucket_pad(sample.image, cfg.sw_bucket_multiple,
+                                  air_cval)
+        vol = torch.from_numpy(padded)[None].to(device)
+        aff = torch.from_numpy(
+            np.diag(sample.original_affine)[:3].astype(np.float32))[None]
+        logits = sliding_window_inference(
+            vol, aff.to(device), cfg.vol_size3(), cfg.batch_size_val,
+            predictor, cfg.output_dim, overlap=cfg.val_infer_overlap,
+            mode="gaussian", cval=air_cval)
+        logits = logits[0, :orig[0], :orig[1], :orig[2]]
+        pred = logits.argmax(-1).to(torch.uint8).cpu().numpy()
+        predict_seconds = time.perf_counter() - t0
+
+        pred_rs = None
+        if cfg.t_voxel_spacings:
+            pred_rs = resample_3d_nearest(pred, sample.original_shape)
+
+        img_name = os.path.basename(sample.name).split("img")[-1]
+        if cfg.save_eval_output and cfg.output_dir:
+            out_dir = os.path.join(cfg.output_dir, "test_output",
+                                   f"Fold{cfg.cv_fold}")
+            # zero translation, as the reference writes them
+            affine = sample.affine.copy()
+            affine[0:3, 3] = 0
+            orig_affine = sample.original_affine.copy()
+            orig_affine[0:3, 3] = 0
+            outputs = [("pred", pred, affine),
+                       ("img", sample.image[..., 0], affine)]
+            if pred_rs is not None:
+                outputs.append(("rs", pred_rs, orig_affine))
+            for sub, arr, aff_out in outputs:
+                d = os.path.join(out_dir, sub)
+                os.makedirs(d, exist_ok=True)
+                nifti.save(nifti.NiftiImage(arr, aff_out),
+                           os.path.join(d, img_name))
+        seconds = time.perf_counter() - t0
+        print(f"{img_name}: predicted in {seconds:.1f}s shape {pred.shape}")
+        records.append({"name": img_name, "shape": tuple(pred.shape),
+                        "windows": windows, "predictor_calls": calls,
+                        "predict_seconds": predict_seconds,
+                        "seconds": seconds})
+    return records
+
+
+def main(cfg: Config, device: str = "cuda") -> List[Dict]:
+    dev = resolve_device(device)
+    if cfg.tta_mirror:
+        raise NotImplementedError("--tta_mirror is not ported yet (ROADMAP "
+                                  "queue 1 item 10, inference extras)")
+    if cfg.world_size > 1:
+        raise NotImplementedError("more than one device is not ported yet "
+                                  "(ROADMAP queue 1 item 11, multi-GPU)")
+    data_json = os.path.join(cfg.data_path, cfg.task, cfg.json_list)
+    files = load_decathlon_datalist(data_json, "test")
+    loader = EvalLoader(CachedVolumeDataset(files, cfg, cache_rate=0.0,
+                                            mode="test"))
+
+    model = build_model(cfg)
+    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    if cfg.resume:
+        model.load_state_dict(load_checkpoint(cfg.resume), strict=True)
+        print(f"Loaded checkpoint {cfg.resume}")
+    model = model.to(dev).eval()
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        records = test_model(model, loader, cfg, dev)
+    print(f"Testing took {time.perf_counter() - t0:.1f}s for "
+          f"{len(records)} volumes")
+    return records
+
+
+if __name__ == "__main__":
+    args, device = get_args()
+    if args.output_dir:
+        Path(args.output_dir).mkdir(parents=True, exist_ok=True)
+    main(args, device)

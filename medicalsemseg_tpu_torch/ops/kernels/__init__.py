@@ -1,0 +1,140 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), which is loaded with ``ctypes``. The library's name carries
+a hash of the sources, so an edited source is rebuilt and a stale library is
+never loaded. The build directory is ``build/kernels`` at the root of the
+checkout (listed in ``.gitignore``).
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises if that is not 0, because a
+refused launch never runs and a later synchronise would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME / nvcc)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + _headers():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libmedseg_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.medseg_window_attention_fwd.argtypes = (
+        [p] * 9 + [i] * 15 + [f, f, p])
+    lib.medseg_window_attention_fwd.restype = i
+    lib.medseg_fused_mlp_fwd.argtypes = [p] * 7 + [i] * 5 + [f, p]
+    lib.medseg_fused_mlp_fwd.restype = i
+    lib.medseg_cuda_error_string.argtypes = [i]
+    lib.medseg_cuda_error_string.restype = ctypes.c_char_p
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+            _declare(lib)
+            _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.medseg_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> Optional[ctypes.c_void_p]:
+    """Device pointer of a tensor, or NULL for None."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def check_tensor(name, t, device, dtype, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this device, dtype and
+    shape: the kernels take raw pointers and trust all four."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def layer_norm(xf, ln, eps: float):
+    """fp32 LayerNorm of ``xf`` (..., C) with (2, C) scale/bias rows and the
+    fast variance max(0, E[x^2] - E[x]^2), flax.linen.LayerNorm's formula
+    (``torch.nn.LayerNorm``'s two-pass variance does not reproduce it)."""
+    import torch
+
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    return (xf - mu) * (torch.rsqrt(var + eps) * ln[0]) + ln[1]
