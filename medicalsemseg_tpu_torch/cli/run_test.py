@@ -4,8 +4,8 @@ medicalsemseg_tpu/cli/run_test.py).
     python -m medicalsemseg_tpu_torch.cli.run_test --data_path <dir> \\
         --task <Task> --resume model.pth --save_eval_output --output_dir out
 
-Takes the JAX package's flags (``medicalsemseg_tpu.config.build_parser``)
-plus ``--device`` (default ``cuda``). Loads the test datalist, runs Gaussian
+Takes the flags of ``medicalsemseg_tpu_torch.config`` (the JAX package's,
+plus ``--device``, default ``cuda``). Loads the test datalist, runs Gaussian
 sliding-window prediction of the flagship with the hand-written kernels,
 argmaxes to uint8 labels, restores the original spacing by nearest-neighbour
 resampling when ``--t_voxel_spacings`` is set, and writes NIfTIs under
@@ -15,20 +15,18 @@ the port or of the reference (``{'model': state_dict}`` or a bare one).
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
 
-from medicalsemseg_tpu.config import Config, build_parser as jax_build_parser
-from medicalsemseg_tpu.data import nifti
-from medicalsemseg_tpu.data.datalist import load_decathlon_datalist
-
-from medicalsemseg_tpu_torch.data.preprocess import (
+from medicalsemseg_tpu_torch.config import Config, get_args, resolve_device
+from medicalsemseg_tpu_torch.data import nifti
+from medicalsemseg_tpu_torch.data.datalist import load_decathlon_datalist
+from medicalsemseg_tpu_torch.data.dataset import (
     CachedVolumeDataset,
     EvalLoader,
 )
@@ -38,34 +36,6 @@ from medicalsemseg_tpu_torch.infer.sliding_window import (
 )
 from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
 from medicalsemseg_tpu_torch.utils.params import load_checkpoint
-
-
-def build_parser():
-    p = jax_build_parser()
-    p.add_argument("--device", default="cuda",
-                   help="torch device to predict on (default cuda); a CUDA "
-                        "device that is not there is an error")
-    return p
-
-
-def get_args(argv: Optional[Sequence[str]] = None) -> Tuple[Config, str]:
-    """Parse flags into (Config, device), collapsing 1-element lists to
-    scalars as the JAX package's get_args does."""
-    d = vars(build_parser().parse_args(argv))
-    device = d.pop("device")
-    for k, v in list(d.items()):
-        if isinstance(v, list):
-            d[k] = v[0] if len(v) == 1 else tuple(v)
-    known = {f.name for f in dataclasses.fields(Config)}
-    return Config(**{k: v for k, v in d.items() if k in known}), device
-
-
-def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: torch.cuda.is_available() is "
-                           "false; pass --device cpu to run the plain path")
-    return dev
 
 
 def resample_3d_nearest(vol: np.ndarray, target_size) -> np.ndarray:
@@ -139,8 +109,8 @@ def test_model(model: torch.nn.Module, loader, cfg: Config,
     return records
 
 
-def main(cfg: Config, device: str = "cuda") -> List[Dict]:
-    dev = resolve_device(device)
+def main(cfg: Config) -> List[Dict]:
+    dev = resolve_device(cfg.device)
     if cfg.tta_mirror:
         raise NotImplementedError("--tta_mirror is not ported yet (ROADMAP "
                                   "queue 1 item 10, inference extras)")
@@ -168,7 +138,7 @@ def main(cfg: Config, device: str = "cuda") -> List[Dict]:
 
 
 if __name__ == "__main__":
-    args, device = get_args()
+    args = get_args()
     if args.output_dir:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    main(args, device)
+    main(args)

@@ -52,4 +52,113 @@ __device__ __forceinline__ void row_stats(const __nv_bfloat16* row, int c,
   *rstd = 1.0f / sqrtf(var + eps);
 }
 
+// Pre-shift region label of a token along one axis: 0 unless the window is
+// the last along the axis; there, tokens at or past ws - ss were wrapped
+// from the volume start by the cyclic roll.
+__device__ __forceinline__ int region(int pos, bool last, int w, int s) {
+  return last ? (pos < w - s ? 1 : 2) : 0;
+}
+
+__device__ __forceinline__ int token_label(int t, int w1, int w2, int w0,
+                                           int s0, int s1, int s2, bool ld,
+                                           bool lh, bool lw) {
+  const int pd = t / (w1 * w2), ph = (t / w2) % w1, pw = t % w2;
+  return region(pd, ld, w0, s0) * 9 + region(ph, lh, w1, s1) * 3 +
+         region(pw, lw, w2, s2);
+}
+
+// out[i] = sum over p < nparts of part[p * len + i], in that order
+// (csrc/reduce.cu).
+cudaError_t sum_partials(const float* part, float* out, int nparts,
+                         long long len, cudaStream_t st);
+
+// Phi(h) = 0.5 * (1 + erf(h / sqrt 2)), the exact-GELU gate, with erf from
+// Abramowitz & Stegun 7.1.26 (abs err <= 1.5e-7): the polynomial the JAX
+// MLP kernels evaluate.
+__device__ __forceinline__ float gelu_cdf(float h) {
+  const float x = h * 0.7071067811865476f;
+  const float a = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * a);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float erf_a = 1.0f - poly * expf(-a * a);
+  return 0.5f * (1.0f + (x < 0.f ? -erf_a : erf_a));
+}
+
+// Tiles of the backward kernels: kTile token rows at a time.
+constexpr int kTile = 32;
+
+// acc[i] += sum_r ls[r][j] * xs[r][ch] over the kTile rows of a tile, for
+// the entries e = tid + i * kThreads = j * c + ch (e < ne) that this thread
+// owns. Lanes run along ch: the xs reads are conflict-free, ls broadcasts.
+template <int kMaxE>
+__device__ __forceinline__ void outer_accumulate(const float* ls, int lstride,
+                                                 const float* xs, int xstride,
+                                                 int c, int ne,
+                                                 float (&acc)[kMaxE]) {
+#pragma unroll
+  for (int i = 0; i < kMaxE; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (e < ne) {
+      const int j = e / c, ch = e - j * c;
+      float a = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < kTile; ++r)
+        a += ls[r * lstride + j] * xs[r * xstride + ch];
+      acc[i] += a;
+    }
+  }
+}
+
+// The end of a dx tile, shared by the attention and the MLP backward. dxn
+// (c x (kTile + 1) fp32 in shared memory, dxn[ch * (kTile + 1) + r]) is the
+// gradient with respect to the LayerNorm's output for rows r0 .. r0 + rows.
+// With ln: dx = LN backward of dxn (xhat and rstd recomputed from x, mu, rs),
+// and accs[0..c) += sum_r dxn * xhat, accs[c..2c) += sum_r dxn. Without:
+// dx = dxn. With residual, + dy. Called by the whole block.
+__device__ __forceinline__ void ln_backward_tile(
+    const __nv_bfloat16* x, const __nv_bfloat16* dy, const float* ln,
+    const float* mu, const float* rs, const float* dxn, long long r0, int rows,
+    int c, int residual, __nv_bfloat16* dx, float* accs) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ds = kTile + 1;
+  for (int r = warp; r < rows; r += kWarps) {
+    const long long row = (r0 + r) * c;
+    float m1 = 0.f, m2 = 0.f;
+    if (ln != nullptr) {
+      for (int ch = lane; ch < c; ch += 32) {
+        const float xh = (ld_bf16(x + row + ch) - mu[r]) * rs[r];
+        const float dxh = dxn[ch * ds + r] * ln[ch];
+        m1 += dxh;
+        m2 += dxh * xh;
+      }
+      m1 = warp_sum(m1) / c;
+      m2 = warp_sum(m2) / c;
+    }
+    for (int ch = lane; ch < c; ch += 32) {
+      float v = dxn[ch * ds + r];
+      if (ln != nullptr) {
+        const float xh = (ld_bf16(x + row + ch) - mu[r]) * rs[r];
+        v = (v * ln[ch] - m1 - xh * m2) * rs[r];
+      }
+      if (residual) v += ld_bf16(dy + row + ch);
+      dx[row + ch] = __float2bfloat16(v);
+    }
+  }
+  if (ln != nullptr) {
+    for (int ch = tid; ch < c; ch += kThreads) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float d = dxn[ch * ds + r];
+        a0 += d * ((ld_bf16(x + (r0 + r) * c + ch) - mu[r]) * rs[r]);
+        a1 += d;
+      }
+      accs[ch] += a0;
+      accs[c + ch] += a1;
+    }
+  }
+}
+
 }  // namespace medseg

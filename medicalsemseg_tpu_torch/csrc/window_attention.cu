@@ -58,21 +58,6 @@ struct HeadsParams {
   float eps, scale;
 };
 
-// Pre-shift region label of a token along one axis: 0 unless the window is
-// the last along the axis; there, tokens at or past ws - ss were wrapped
-// from the volume start by the cyclic roll.
-__device__ __forceinline__ int region(int pos, bool last, int w, int s) {
-  return last ? (pos < w - s ? 1 : 2) : 0;
-}
-
-__device__ __forceinline__ int token_label(int t, int w1, int w2, int w0,
-                                           int s0, int s1, int s2, bool ld,
-                                           bool lh, bool lw) {
-  const int pd = t / (w1 * w2), ph = (t / w2) % w1, pw = t % w2;
-  return region(pd, ld, w0, s0) * 9 + region(ph, lh, w1, s1) * 3 +
-         region(pw, lw, w2, s2);
-}
-
 __global__ void __launch_bounds__(kThreads)
     window_attention_heads(HeadsParams p) {
   extern __shared__ float smem[];

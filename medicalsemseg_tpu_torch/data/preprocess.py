@@ -1,12 +1,15 @@
-"""Host-side preprocessing for evaluation and prediction, free of jax.
+"""Host-side preprocessing for training, evaluation and prediction, free of
+jax.
 
-Counterpart of the val/test modes of medicalsemseg_tpu/data/transforms.py
-``load_and_preprocess``, of the spacing resample in
-medicalsemseg_tpu/ops/resize.py, and of ``CachedVolumeDataset`` /
-``EvalLoader`` in medicalsemseg_tpu/data/dataset.py. The JAX package's
-modules import jax on the way (transforms -> ops.resize), so the NumPy
-helpers the port needs live here; NIfTI I/O and the native resampler are the
-JAX package's own jax-free modules.
+Counterpart of medicalsemseg_tpu/data/transforms.py (``load_and_preprocess``
+and the random crops and augmentations of ``sample_training_crops``, which
+draw from an explicit ``np.random.Generator`` in the same order, so that the
+same seed gives bit-equal crops) and of the spacing resample in
+medicalsemseg_tpu/ops/resize.py. The JAX package's modules import jax on
+the way (transforms -> ops.resize), so the NumPy
+helpers the port needs live here; NIfTI I/O (``data/nifti.py``) and the
+binding of the native resampler (``data/native.py``) are the port's own
+copies.
 
 Volumes are channels-last (D, H, W, C) numpy arrays.
 """
@@ -14,12 +17,12 @@ Volumes are channels-last (D, H, W, C) numpy arrays.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from medicalsemseg_tpu.config import Config, as_tuple3
-from medicalsemseg_tpu.data import native, nifti
+from medicalsemseg_tpu_torch.config import Config, as_tuple3
+from medicalsemseg_tpu_torch.data import native, nifti
 
 Tuple3 = Tuple[int, int, int]
 
@@ -71,16 +74,47 @@ def normalize_intensity(img, subtrahend: Optional[float] = None,
     return (img - subtrahend) / divisor
 
 
+def rand_shift_intensity(img, offsets: float, rng: np.random.Generator):
+    return img + np.float32(rng.uniform(-offsets, offsets))
+
+
+def rand_scale_intensity(img, factors: float, rng: np.random.Generator):
+    return img * np.float32(1.0 + rng.uniform(-factors, factors))
+
+
 # ------------------------------------------------------------------ spatial
 
-def crop_foreground_bbox(img) -> Tuple[np.ndarray, np.ndarray]:
+def crop_foreground_bbox(img, k_divisible: Optional[Tuple3] = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
     """Bounding box (start, end) of img > 0 over channels (MONAI
-    CropForegroundd); the whole volume when nothing is positive."""
+    CropForegroundd); the whole volume when nothing is positive. With
+    ``k_divisible`` the box grows symmetrically to multiples of it and may
+    then exceed the volume."""
     fg = (img > 0).any(axis=-1)
     if not fg.any():
-        return np.zeros(3, np.int64), np.asarray(fg.shape, np.int64)
-    coords = np.argwhere(fg)
-    return coords.min(0), coords.max(0) + 1
+        start, end = np.zeros(3, np.int64), np.asarray(fg.shape, np.int64)
+    else:
+        coords = np.argwhere(fg)
+        start, end = coords.min(0), coords.max(0) + 1
+    if k_divisible is not None:
+        k = np.asarray(k_divisible)
+        size = end - start
+        extra = np.ceil(size / k).astype(int) * k - size
+        start = start - extra // 2
+        end = end + (extra - extra // 2)
+    return start, end
+
+
+def crop_with_bbox(img, start, end, constant=0.0):
+    """Crop (D, H, W, C) to [start, end), padding what lies outside."""
+    shape = np.asarray(img.shape[:3])
+    pad_lo, pad_hi = np.maximum(-start, 0), np.maximum(end - shape, 0)
+    s, e = np.maximum(start, 0), np.minimum(end, shape)
+    out = img[s[0]:e[0], s[1]:e[1], s[2]:e[2]]
+    if pad_lo.any() or pad_hi.any():
+        pads = [(pad_lo[i], pad_hi[i]) for i in range(3)] + [(0, 0)]
+        out = np.pad(out, pads, constant_values=constant)
+    return out
 
 
 def spatial_pad(img, target: Tuple3, constant=0.0):
@@ -93,6 +127,131 @@ def spatial_pad(img, target: Tuple3, constant=0.0):
     if any(p != (0, 0) for p in pads):
         img = np.pad(img, pads, constant_values=constant)
     return img
+
+
+def _correct_center(center, roi: Tuple3, shape: Tuple3) -> np.ndarray:
+    """Clamp a crop centre so that the roi fits inside the volume (MONAI
+    correct_crop_centers)."""
+    c = np.asarray(center, np.int64)
+    lo = np.asarray([r // 2 for r in roi])
+    hi = np.asarray([max(shape[i] - roi[i] + roi[i] // 2, lo[i])
+                     for i in range(3)])
+    return np.minimum(np.maximum(c, lo), hi)
+
+
+def crop_at_center(img, center, roi: Tuple3):
+    start = np.asarray(center) - np.asarray([r // 2 for r in roi])
+    return img[start[0]:start[0] + roi[0], start[1]:start[1] + roi[1],
+               start[2]:start[2] + roi[2]]
+
+
+def rand_crop_pos_neg_centers(label, image, roi: Tuple3, pos: float,
+                              neg: float, num_samples: int,
+                              rng: np.random.Generator,
+                              image_threshold: float = 0.0) -> List[np.ndarray]:
+    """Centre sampling of MONAI RandCropByPosNegLabeld: with probability
+    pos / (pos + neg) a uniformly random foreground voxel is the (clamped)
+    crop centre, else a background voxel with image > threshold."""
+    fg_mask = (label != 0).any(axis=-1)
+    valid = (image > image_threshold).any(axis=-1)
+    fg_idx = np.flatnonzero(fg_mask)
+    bg_idx = np.flatnonzero((~fg_mask) & valid)
+    pos_ratio = pos / max(pos + neg, 1e-12)
+    if len(fg_idx) == 0 and len(bg_idx) == 0:
+        raise ValueError("no valid crop centers: empty label and image")
+    shape = fg_mask.shape
+    centers = []
+    for _ in range(num_samples):
+        use_fg = rng.random() < pos_ratio
+        pool = fg_idx if (use_fg and len(fg_idx)) else bg_idx
+        if len(pool) == 0:
+            pool = fg_idx if len(fg_idx) else bg_idx
+        flat = pool[rng.integers(len(pool))]
+        center = np.asarray(np.unravel_index(flat, shape))
+        centers.append(_correct_center(center, roi, shape))
+    return centers
+
+
+def rand_crop_class_centers(label, image, roi: Tuple3, ratios: Sequence[float],
+                            num_samples: int, rng: np.random.Generator,
+                            image_threshold: float = 0.0) -> List[np.ndarray]:
+    """Centre sampling of MONAI RandCropByLabelClassesd: a class drawn by
+    ``ratios``, then a uniform voxel of that class."""
+    shape = label.shape[:3]
+    lab = label[..., 0]
+    valid = (image > image_threshold).any(axis=-1)
+    pools = []
+    for c in range(len(ratios)):
+        mask = lab == c
+        if c == 0:
+            mask = mask & valid
+        pools.append(np.flatnonzero(mask))
+    r = np.asarray(ratios, np.float64)
+    r = np.where(np.asarray([len(p) > 0 for p in pools]), r, 0.0)
+    if r.sum() == 0:
+        raise ValueError("no valid class centers")
+    r = r / r.sum()
+    centers = []
+    for _ in range(num_samples):
+        c = rng.choice(len(pools), p=r)
+        flat = pools[c][rng.integers(len(pools[c]))]
+        center = np.asarray(np.unravel_index(flat, shape))
+        centers.append(_correct_center(center, roi, shape))
+    return centers
+
+
+def dilated_center_mask(label, n_classes: int, iterations: int = 48
+                        ) -> np.ndarray:
+    """Each class dilated by ``iterations`` voxels (city-block distance
+    transform <= iterations), one channel per class: the sampling mask of
+    ``--t_rand_crop_dilated_center``."""
+    from scipy.ndimage import distance_transform_cdt
+
+    lab = label[..., 0]
+    masks = []
+    for c in range(n_classes):
+        cls = lab == c
+        if not cls.any():
+            masks.append(np.zeros_like(cls))
+            continue
+        masks.append(distance_transform_cdt(~cls, metric="taxicab")
+                     <= iterations)
+    return np.stack(masks, axis=-1).astype(np.uint8)
+
+
+def rand_spatial_crop(img_shape, roi: Tuple3, rng: np.random.Generator):
+    """Uniform start of RandSpatialCropd(random_size=False)."""
+    return np.asarray([rng.integers(0, max(img_shape[i] - roi[i], 0) + 1)
+                       for i in range(3)])
+
+
+def rand_flip(img, label, prob: float, rng: np.random.Generator):
+    """Three independent per-axis flips."""
+    for ax in range(3):
+        if rng.random() < prob:
+            img = np.flip(img, axis=ax)
+            if label is not None:
+                label = np.flip(label, axis=ax)
+    return img, label
+
+
+def rand_rotate90(img, label, prob: float, rng: np.random.Generator,
+                  max_k: int = 3):
+    """MONAI RandRotate90d over the first two spatial axes."""
+    if rng.random() < prob:
+        k = int(rng.integers(max_k)) + 1
+        img = np.rot90(img, k, axes=(0, 1))
+        if label is not None:
+            label = np.rot90(label, k, axes=(0, 1))
+    return img, label
+
+
+def convert_labels_to_brats(label: np.ndarray) -> np.ndarray:
+    """BRATS multi-channel conversion: TC = 1|4, WT = 1|2|4, ET = 4."""
+    lab = label[..., 0]
+    tc = np.logical_or(lab == 1, lab == 4)
+    return np.stack([tc, np.logical_or(tc, lab == 2), lab == 4],
+                    axis=-1).astype(np.float32)
 
 
 def resample_to_shape(vol: np.ndarray, out_shape, mode: str) -> np.ndarray:
@@ -147,6 +306,7 @@ class Sample:
     affine: np.ndarray           # 4x4 post-transform affine
     original_affine: np.ndarray  # 4x4 on-disk affine (pre-orientation)
     original_shape: Tuple3       # pre-resample spatial shape
+    crop_mask: Optional[np.ndarray] = None  # dilated sampling mask (train)
     name: str = ""
 
 
@@ -154,13 +314,13 @@ def load_and_preprocess(image_path: str, label_path: Optional[str],
                         cfg: Config, mode: str = "test") -> Sample:
     """LoadImaged -> channels-last -> [RAS] -> [Spacingd] -> intensity chain.
 
-    val:  reorientation to RAS, plain crop-foreground, spatial pad, normalise;
-    test: no reorientation, no crop-foreground, no spatial pad, normalise.
-    The training pipeline (random crops and augmentation) is not ported."""
-    if mode not in ("val", "test"):
-        raise NotImplementedError(
-            f"mode {mode!r}: the training pipeline is not ported yet "
-            "(ROADMAP queue 1 item 9, training)")
+    train: reorientation to RAS, crop-foreground (plain and/or k-divisible),
+           spatial pad; the normalisation runs per crop in
+           :func:`sample_training_crops`, after the intensity augmentations;
+    val:   reorientation to RAS, plain crop-foreground, spatial pad, normalise;
+    test:  no reorientation, no crop-foreground, no spatial pad, normalise."""
+    if mode not in ("train", "val", "test"):
+        raise ValueError(f"mode {mode!r}: expected train, val or test")
     is_test = mode == "test"
     img_nii = nifti.load(image_path)
     img, affine = np.asarray(img_nii.data), img_nii.affine
@@ -196,66 +356,95 @@ def load_and_preprocess(image_path: str, label_path: Optional[str],
         img = scale_intensity_range_percentiles(img)
 
     if cfg.t_convert_labels_to_brats and label is not None and cfg.in_chans > 1:
-        raise NotImplementedError("--t_convert_labels_to_brats is not ported "
-                                  "yet (ROADMAP queue 1 item 9, training)")
+        label = convert_labels_to_brats(label)
 
     if not is_test:
-        if cfg.t_crop_foreground_img:
-            start, end = crop_foreground_bbox(img)
-            img = img[start[0]:end[0], start[1]:end[1], start[2]:end[2]]
+        do_kdiv = cfg.t_crop_foreground_kdiv and mode == "train"
+        if cfg.t_crop_foreground_img or do_kdiv:
+            start, end = crop_foreground_bbox(
+                img, k_divisible=cfg.vol_size3() if do_kdiv else None)
+            img = crop_with_bbox(img, start, end)
             if label is not None:
-                label = label[start[0]:end[0], start[1]:end[1],
-                              start[2]:end[2]]
+                label = crop_with_bbox(label, start, end)
         if cfg.t_spatial_pad:
             img = spatial_pad(img, cfg.vol_size3())
             if label is not None:
                 label = spatial_pad(label, cfg.vol_size3())
 
-    if cfg.t_normalize:
-        if cfg.t_normalize_channel_wise:
-            img = normalize_intensity(img, nonzero=True, channel_wise=True)
-        else:
-            img = normalize_intensity(img, cfg.t_norm_mean, cfg.t_norm_std)
+    if cfg.t_normalize and mode != "train":
+        img = _normalize(img, cfg)
+
+    crop_mask = None
+    if cfg.t_rand_crop_dilated_center and label is not None and mode == "train":
+        crop_mask = dilated_center_mask(label, cfg.output_dim)
 
     return Sample(image=np.ascontiguousarray(img, np.float32),
                   label=None if label is None else np.ascontiguousarray(label),
                   affine=affine, original_affine=original_affine,
-                  original_shape=original_shape, name=image_path)
+                  original_shape=original_shape, crop_mask=crop_mask,
+                  name=image_path)
 
 
-class CachedVolumeDataset:
-    """Preprocessed volumes; the first ``cache_rate`` share is kept in host
-    memory, the rest is preprocessed on access."""
-
-    def __init__(self, files: Sequence[Dict], cfg: Config,
-                 cache_rate: float = 1.0, mode: str = "test"):
-        self.files = list(files)
-        self.cfg, self.mode = cfg, mode
-        self._cache: Dict[int, Sample] = {
-            i: self._load(i) for i in range(int(len(self.files) * cache_rate))}
-
-    def _load(self, idx: int) -> Sample:
-        f = self.files[idx]
-        return load_and_preprocess(f["image"], f.get("label"), self.cfg,
-                                   mode=self.mode)
-
-    def __len__(self) -> int:
-        return len(self.files)
-
-    def __getitem__(self, idx: int) -> Sample:
-        return self._cache[idx] if idx in self._cache else self._load(idx)
+def _normalize(img, cfg: Config):
+    if cfg.t_normalize_channel_wise:
+        return normalize_intensity(img, nonzero=True, channel_wise=True)
+    return normalize_intensity(img, cfg.t_norm_mean, cfg.t_norm_std)
 
 
-class EvalLoader:
-    """Whole-volume iterator for evaluation and prediction (batch size 1)."""
+def sample_training_crops(sample: Sample, cfg: Config,
+                          rng: np.random.Generator
+                          ) -> List[Dict[str, np.ndarray]]:
+    """Random crop and augmentation, the per-step random suffix of the train
+    pipeline. Returns ``t_n_patches_per_image`` dicts with image / label /
+    crop_loc / affine entries of static shapes."""
+    roi = cfg.vol_size3()
+    # the roi must fit (MONAI's crops pad on demand; here up front)
+    img = spatial_pad(sample.image, roi)
+    label = None if sample.label is None else spatial_pad(sample.label, roi)
+    n = cfg.t_n_patches_per_image
+    shape = img.shape[:3]
 
-    def __init__(self, dataset: CachedVolumeDataset):
-        self.ds = dataset
+    if cfg.t_rand_crop_fgbg or cfg.t_rand_crop_dilated_center:
+        lab_for_crop = label
+        if cfg.t_rand_crop_dilated_center:
+            lab_for_crop = sample.crop_mask
+            if lab_for_crop is not None:
+                lab_for_crop = spatial_pad(lab_for_crop, roi)
+        centers = rand_crop_pos_neg_centers(
+            lab_for_crop, img, roi, cfg.t_rand_crop_pos_weight,
+            cfg.t_rand_crop_neg_weight, n, rng)
+    elif cfg.t_rand_crop_classes:
+        ratios = np.full(cfg.output_dim, cfg.t_rand_crop_pos_weight)
+        ratios[0] = cfg.t_rand_crop_neg_weight
+        centers = rand_crop_class_centers(label, img, roi, ratios, n, rng)
+    elif cfg.t_rand_spatial_crop:
+        half = np.asarray([r // 2 for r in roi])
+        centers = [rand_spatial_crop(shape, roi, rng) + half for _ in range(n)]
+    else:
+        centers = [np.asarray([s // 2 for s in shape])] * n
 
-    def __len__(self) -> int:
-        return len(self.ds)
-
-    def __iter__(self) -> Iterator[Sample]:
-        for i in range(len(self.ds)):
-            yield self.ds[i]
-
+    affine_xyz = np.diag(sample.original_affine)[:3].astype(np.float32)
+    out = []
+    for center in centers:
+        ci = crop_at_center(img, center, roi)
+        cl = crop_at_center(label, center, roi) if label is not None else None
+        ci, cl = rand_flip(ci, cl, cfg.t_flip_prob, rng)
+        ci, cl = rand_rotate90(ci, cl, cfg.t_rot_prob, rng)
+        if (cfg.t_intensity_shift_prob > 0
+                and rng.random() < cfg.t_intensity_shift_prob):
+            ci = rand_shift_intensity(ci, cfg.t_intensity_shift_os, rng)
+        if (cfg.t_intensity_scale_prob > 0
+                and rng.random() < cfg.t_intensity_scale_prob):
+            ci = rand_scale_intensity(ci, cfg.t_intensity_scale_factors, rng)
+        if cfg.t_normalize:
+            ci = _normalize(ci, cfg)
+        # relative crop location = centre / volume size
+        crop_loc = np.asarray(center, np.float32) / np.asarray(shape, np.float32)
+        out.append({
+            "image": np.ascontiguousarray(ci, np.float32),
+            "label": None if cl is None else
+                     np.ascontiguousarray(cl[..., 0]).astype(np.int32),
+            "crop_loc": crop_loc,
+            "affine": affine_xyz,
+        })
+    return out

@@ -9,8 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from medicalsemseg_tpu.config import Config
-
+from medicalsemseg_tpu_torch.config import Config
 from medicalsemseg_tpu_torch.models.decoders import SwinUNETRCustom
 from medicalsemseg_tpu_torch.models.layers import Conv3d, ConvTranspose3d
 from medicalsemseg_tpu_torch.models.swin import SwinEncoder3D, WindowAttention
@@ -40,7 +39,8 @@ def build_model(cfg: Config) -> SwinUNETRCustom:
         img_size=cfg.vol_size3(), patch_size=patch, in_chans=cfg.in_chans,
         embed_dim=cfg.hidden_dim, depths=tuple(cfg.depths),
         num_heads=tuple(cfg.num_heads), window_sizes=cfg.window_sizes(),
-        mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias)
+        mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
+        drop_path_rate=cfg.drop_path_rate)
     return SwinUNETRCustom(encoder, cfg.in_chans, cfg.output_dim,
                            hidden_size=cfg.hidden_dim, patch_size=patch[0],
                            dtype=DTYPES[cfg.compute_dtype])

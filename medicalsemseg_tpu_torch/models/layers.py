@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops.kernels import layer_norm
-from medicalsemseg_tpu_torch.ops.kernels.mlp import fused_mlp
+from medicalsemseg_tpu_torch.ops.kernels.mlp import FusedMlpFn, fused_mlp
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -29,6 +29,39 @@ def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.01)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None,
+              keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample stochastic depth (timm DropPath semantics): each sample of
+    the batch is kept with probability 1 - rate and scaled by 1 / keep.
+    ``keep_mask`` (B,) bool replaces the draw (tests inject the mask that
+    the JAX package drew)."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if keep_mask is None:
+        keep_mask = torch.rand(x.shape[0], generator=generator,
+                               device=x.device) < keep
+    mask = keep_mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth on the residual branch. Draws from ``generator``
+    when one is set (``set_generator``; it must live on the input's device),
+    else from torch's global generator of that device."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor,
+                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return drop_path(x, self.rate, self.training, self.generator,
+                         keep_mask)
 
 
 class LayerNorm(nn.Module):
@@ -119,20 +152,26 @@ class InstanceNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 token MLP, run as the fused kernel K2 with
-    the block's pre-MLP LayerNorm and shortcut absorbed (the JAX block's
-    inference form with Pallas on)."""
+    """fc1 -> exact GELU -> fc2 token MLP, run as the fused kernels with the
+    block's pre-MLP LayerNorm absorbed: K2 alone without gradients (the JAX
+    block's inference form with Pallas on), K2 forward + K4 backward through
+    ``FusedMlpFn`` with them (its ``fused_mlp_trainable``)."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor, ln: torch.Tensor) -> torch.Tensor:
-        """x + mlp(LN(x)) for raw tokens x (M, C) in the compute dtype, with
-        the LayerNorm's (2, C) scale/bias rows ``ln``."""
+    def forward(self, x: torch.Tensor, ln: torch.Tensor,
+                residual: bool = True) -> torch.Tensor:
+        """[x +] mlp(LN(x)) for raw tokens x (M, C) in the compute dtype,
+        with the LayerNorm's (2, C) scale/bias rows ``ln``."""
+        if torch.is_grad_enabled():
+            return FusedMlpFn.apply(x.contiguous(), ln, self.fc1.weight,
+                                    self.fc1.bias, self.fc2.weight,
+                                    self.fc2.bias, 1e-5, residual)
         dt = x.dtype
         return fused_mlp(x.contiguous(), self.fc1.weight.to(dt),
                          self.fc1.bias.float(), self.fc2.weight.to(dt),
-                         self.fc2.bias.float(), ln=ln, residual=True)
+                         self.fc2.bias.float(), ln=ln, residual=residual)
 

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), which is loaded with ``ctypes``. The library's name carries
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package (one
+process per source, side by side) and links them into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds),
+which is loaded with ``ctypes``. The library's name carries
 a hash of the sources, so an edited source is rebuilt and a stale library is
 never loaded. The build directory is ``build/kernels`` at the root of the
 checkout (listed in ``.gitignore``).
@@ -27,7 +28,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
+
+# token rows per tile of the backward kernels (kTile in csrc/common.cuh)
+TILE_ROWS = 32
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -58,20 +62,32 @@ def library_path() -> str:
 
 
 def _build(path: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *[obj for _, obj, _ in jobs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, path)  # atomic: a concurrent loader never sees half a file
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -81,6 +97,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_window_attention_fwd.restype = i
     lib.medseg_fused_mlp_fwd.argtypes = [p] * 7 + [i] * 5 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i
+    lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 18 + [f, f, p]
+    lib.medseg_window_attention_bwd.restype = i
+    lib.medseg_fused_mlp_bwd.argtypes = [p] * 11 + [i] * 6 + [f, p]
+    lib.medseg_fused_mlp_bwd.restype = i
     lib.medseg_cuda_error_string.argtypes = [i]
     lib.medseg_cuda_error_string.restype = ctypes.c_char_p
 
@@ -109,6 +129,14 @@ def stream_handle(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def resident_blocks(device) -> int:
+    """Blocks a backward launch spreads its tiles over: four per SM, enough
+    to fill the card while the per-block partial sums stay few."""
+    import torch
+
+    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t) -> Optional[ctypes.c_void_p]:

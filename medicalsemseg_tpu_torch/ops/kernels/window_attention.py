@@ -1,15 +1,23 @@
-"""Fused 3D window attention (forward): the wrapper of kernel K1 and its plain
-PyTorch version.
+"""Fused 3D window attention: the wrappers of kernels K1 (forward) and K3
+(backward), their plain PyTorch versions, and the autograd function that
+joins them.
 
-Replaces the TPU kernel ``medicalsemseg_tpu/ops/pallas/window_attention.py``
-``fused_window_attention`` (``_kernel`` + ``_window_mask``). The CUDA source
-is ``csrc/window_attention.cu``; its header says what bounds it on the card
-and how the design answers that.
+Replaces the TPU kernels of
+``medicalsemseg_tpu/ops/pallas/window_attention.py``:
+``fused_window_attention`` (``_kernel`` + ``_window_mask``), and the two
+backward functions ``_fused_bwd_windows`` (``_bwd_kernel``) and
+``_fused_bwd_windows_hsplit`` (``_bwd_kernel_hsplit``), which one Hopper
+kernel covers. The CUDA sources are ``csrc/window_attention.cu`` and
+``csrc/window_attention_bwd.cu``; their headers say what bounds them on the
+card and how the designs answer that.
 
 :func:`window_attention` takes windows that were already partitioned (and,
 for a shifted block, cyclically rolled by -shift) in batch-major window
-order, and returns the attention output windows. A CPU tensor goes through
-:func:`window_attention_plain`; a CUDA tensor launches the kernel or raises.
+order, and returns the attention output windows;
+:func:`window_attention_bwd` returns the gradients for an output gradient. A
+CPU tensor goes through :func:`window_attention_plain` /
+:func:`window_attention_bwd_plain`; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -26,8 +34,40 @@ Tuple3 = Tuple[int, int, int]
 # kernel launches through window_attention() (one per call; the call is two
 # CUDA launches: heads, then projection)
 launches = 0
+# kernel launches through window_attention_bwd() (one per call; the call is
+# three CUDA launches and three sums of partials)
+bwd_launches = 0
 
 MAX_HEAD_DIM = 32
+ATTN_BWD_MAX_WIDTH = 512
+
+
+def _qkv_heads(xn, wqkv, bqkv, nh):
+    """q, k, v (T, nh, N, hd) as fp32 values rounded to ``xn.dtype``."""
+    dt = xn.dtype
+    t, n, c = xn.shape
+    qkv = xn.float() @ wqkv.to(dt).float().t()
+    if bqkv is not None:
+        qkv = qkv + bqkv.float()
+    qkv = qkv.to(dt).float().reshape(t, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+    return qkv[0], qkv[1], qkv[2]
+
+
+def _scores(q, k, bias, grid_dims, window, shift):
+    """fp32 logits (T, nh, N, N): q k^T * hd^-0.5 + bias + shifted mask. The
+    mask comes from the region grid (``_shift_mask_np``), independently of
+    the kernels' per-token label formula."""
+    t, nh, n, hd = q.shape
+    attn = (q @ k.transpose(-1, -2)) * (hd ** -0.5) + bias.float()[None]
+    if any(s > 0 for s in shift):
+        if len(set(window)) != 1 or len(set(shift)) != 1:
+            raise NotImplementedError("plain mask needs a cubic window/shift")
+        dims = tuple(g * w for g, w in zip(grid_dims, window))
+        mask = torch.from_numpy(_shift_mask_np(dims, window[0], shift[0]))
+        nw = mask.shape[0]
+        attn = (attn.reshape(t // nw, nw, nh, n, n)
+                + mask.to(attn.device)[None, :, None]).reshape(t, nh, n, n)
+    return attn
 
 
 def window_attention_plain(
@@ -38,29 +78,15 @@ def window_attention_plain(
     residual: bool = False,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, rounding to ``wins.dtype`` at
-    the kernel's points and accumulating in fp32. The shifted-window mask
-    comes from the region grid (``_shift_mask_np``), independently of the
-    kernel's per-token label formula."""
+    the kernel's points and accumulating in fp32."""
     dt = wins.dtype
     t, n, c = wins.shape
     nh = bias.shape[0]
     hd = c // nh
     xf = wins.float()
     xn = kernels.layer_norm(xf, ln, ln_eps).to(dt) if ln is not None else wins
-    qkv = xn.float() @ wqkv.to(dt).float().t()
-    if bqkv is not None:
-        qkv = qkv + bqkv.float()
-    qkv = qkv.to(dt).float().reshape(t, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]                   # (T, nh, N, hd)
-    attn = (q @ k.transpose(-1, -2)) * (hd ** -0.5) + bias.float()[None]
-    if any(s > 0 for s in shift):
-        if len(set(window)) != 1 or len(set(shift)) != 1:
-            raise NotImplementedError("plain mask needs a cubic window/shift")
-        dims = tuple(g * w for g, w in zip(grid_dims, window))
-        mask = torch.from_numpy(_shift_mask_np(dims, window[0], shift[0]))
-        nw = mask.shape[0]
-        attn = (attn.reshape(t // nw, nw, nh, n, n)
-                + mask.to(attn.device)[None, :, None]).reshape(t, nh, n, n)
+    q, k, v = _qkv_heads(xn, wqkv, bqkv, nh)
+    attn = _scores(q, k, bias, grid_dims, window, shift)
     p = torch.softmax(attn, dim=-1).to(dt).float()
     out = (p @ v).permute(0, 2, 1, 3).reshape(t, n, c).to(dt)
     out = (out.float() @ wproj.to(dt).float().t() + bproj.float()).to(dt)
@@ -127,3 +153,190 @@ def window_attention(
     kernels.check(lib, err, "window_attention")
     launches += 1
     return out
+
+
+def window_attention_bwd_plain(
+    wins: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional[torch.Tensor],
+    wproj: torch.Tensor, bias: torch.Tensor, dy: torch.Tensor, *,
+    grid_dims: Tuple3, window: Tuple3, shift: Tuple3,
+    ln: Optional[torch.Tensor] = None, ln_eps: float = 1e-5,
+    residual: bool = False,
+):
+    """The backward kernel's function in plain PyTorch, written out with
+    the kernel's rounding points (not autograd of the forward). Returns
+    (dx, dwqkv (3C, C), dbqkv, dwproj (C, C), dbproj, dbias (nh, N, N),
+    dln (2, C) or None); dx in ``wins.dtype``, the rest fp32."""
+    dt = wins.dtype
+    t, n, c = wins.shape
+    nh = bias.shape[0]
+    hd = c // nh
+    scale = hd ** -0.5
+    xf = wins.float()
+    if ln is not None:
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        inv = torch.rsqrt(var + ln_eps)
+        xhat = (xf - mu) * inv
+        xn = (xhat * ln[0] + ln[1]).to(dt)
+    else:
+        xn = wins
+    q, k, v = _qkv_heads(xn, wqkv, bqkv, nh)
+    p32 = torch.softmax(_scores(q, k, bias, grid_dims, window, shift), dim=-1)
+    p = p32.to(dt).float()
+    dyf = dy.to(dt).float()
+    wqkvf, wprojf = wqkv.to(dt).float(), wproj.to(dt).float()
+
+    heads = lambda a: a.reshape(t, n, nh, hd).permute(0, 2, 1, 3)  # noqa: E731
+    merge = lambda a: a.permute(0, 2, 1, 3).reshape(t, n, c)       # noqa: E731
+    o = merge((p @ v).to(dt).float())
+    dout = heads((dyf @ wprojf).to(dt).float())
+    dp = dout @ v.transpose(-1, -2)
+    dv = p.transpose(-1, -2) @ dout
+    ds = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
+    dbias = ds.sum(0)
+    ds_l = (ds * scale).to(dt).float()
+    dq = ds_l @ k
+    dk = ds_l.transpose(-1, -2) @ q
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], -1).to(dt).float()
+
+    rows = lambda a: a.reshape(t * n, -1)  # noqa: E731
+    dwproj = rows(dyf).t() @ rows(o)
+    dbproj = rows(dyf).sum(0)
+    dwqkv = rows(dqkv).t() @ rows(xn.float())
+    dbqkv = rows(dqkv).sum(0)
+    dx = dqkv @ wqkvf
+    dln = None
+    if ln is not None:
+        dxn = dx
+        dxhat = dxn * ln[0]
+        m1 = dxhat.mean(-1, keepdim=True)
+        m2 = (dxhat * xhat).mean(-1, keepdim=True)
+        dx = (dxhat - m1 - xhat * m2) * inv
+        dln = torch.stack([rows(dxn * xhat).sum(0), rows(dxn).sum(0)])
+    if residual:
+        dx = dx + dyf
+    return dx.to(dt), dwqkv, dbqkv, dwproj, dbproj, dbias, dln
+
+
+def window_attention_bwd(
+    wins: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional[torch.Tensor],
+    wproj: torch.Tensor, bias: torch.Tensor, dy: torch.Tensor, *,
+    grid_dims: Tuple3, window: Tuple3, shift: Tuple3,
+    ln: Optional[torch.Tensor] = None, ln_eps: float = 1e-5,
+    residual: bool = False,
+):
+    """Gradients of :func:`window_attention` for the output gradient ``dy``
+    (T, N, C); arguments and results as in
+    :func:`window_attention_bwd_plain`."""
+    kw = dict(grid_dims=tuple(grid_dims), window=tuple(window),
+              shift=tuple(shift), ln=ln, ln_eps=ln_eps, residual=residual)
+    if wins.device.type == "cpu":
+        return window_attention_bwd_plain(wins, wqkv, bqkv, wproj, bias, dy,
+                                          **kw)
+    if wins.device.type != "cuda":
+        raise ValueError(f"window_attention_bwd: no kernel for {wins.device}")
+
+    t, n, c = wins.shape
+    nh = bias.shape[0]
+    hd = c // nh
+    nwin = grid_dims[0] * grid_dims[1] * grid_dims[2]
+    if n != window[0] * window[1] * window[2] or t % nwin != 0:
+        raise ValueError(f"windows {tuple(wins.shape)} do not match window "
+                         f"{window} / grid {grid_dims}")
+    if hd * nh != c or hd > MAX_HEAD_DIM:
+        raise ValueError(f"C={c} with {nh} heads: head dim must divide C and "
+                         f"be <= {MAX_HEAD_DIM}")
+    if c % 16 != 0 or c > ATTN_BWD_MAX_WIDTH:
+        raise ValueError(f"C={c}: the backward kernel takes multiples of 16 "
+                         f"up to {ATTN_BWD_MAX_WIDTH}")
+    dev, bf, f32 = wins.device, torch.bfloat16, torch.float32
+    kernels.check_tensor("wins", wins, dev, bf)
+    kernels.check_tensor("dy", dy, dev, bf, (t, n, c))
+    kernels.check_tensor("wqkv", wqkv, dev, bf, (3 * c, c))
+    kernels.check_tensor("wproj", wproj, dev, bf, (c, c))
+    kernels.check_tensor("bias", bias, dev, f32, (nh, n, n))
+    if bqkv is not None:
+        kernels.check_tensor("bqkv", bqkv, dev, f32, (3 * c,))
+    if ln is not None:
+        kernels.check_tensor("ln", ln, dev, f32, (2, c))
+
+    global bwd_launches
+    lib = kernels.load()
+    blocks = kernels.resident_blocks(dev)
+    # one block per (run of windows, head); every run holds a window
+    wins_per_chunk = -(-t // max(1, blocks // nh))
+    nchunk = -(-t // wins_per_chunk)
+    tiles = -(-(t * n) // kernels.TILE_ROWS)
+    grid_dx = min(tiles, blocks)
+    nsplit = max(1, min(tiles, blocks // (4 * c // 16)))
+    nw = 4 * c * c + 4 * c
+    bias_t = bias.transpose(1, 2).contiguous()
+    attn = torch.empty_like(wins)
+    dqkv = torch.empty((t, n, 3 * c), dtype=bf, device=dev)
+    dx = torch.empty_like(wins)
+    dbias_part = torch.empty((nchunk, nh, n, n), dtype=f32, device=dev)
+    dbias = torch.empty((nh, n, n), dtype=f32, device=dev)
+    part_ln = torch.empty((grid_dx, 2 * c), dtype=f32, device=dev)
+    out_ln = torch.empty((2, c), dtype=f32, device=dev)
+    part_w = torch.empty((nsplit, nw), dtype=f32, device=dev)
+    out_w = torch.empty(nw, dtype=f32, device=dev)
+    shifted = int(any(s > 0 for s in shift))
+    err = lib.medseg_window_attention_bwd(
+        kernels.ptr(wins), kernels.ptr(ln), kernels.ptr(wqkv),
+        kernels.ptr(bqkv), kernels.ptr(wproj), kernels.ptr(bias),
+        kernels.ptr(bias_t), kernels.ptr(dy), kernels.ptr(attn),
+        kernels.ptr(dqkv), kernels.ptr(dx), kernels.ptr(dbias_part),
+        kernels.ptr(dbias), kernels.ptr(part_ln), kernels.ptr(out_ln),
+        kernels.ptr(part_w), kernels.ptr(out_w),
+        t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
+        nchunk, grid_dx, nsplit, float(ln_eps), float(hd ** -0.5),
+        kernels.stream_handle(dev))
+    kernels.check(lib, err, "window_attention_bwd")
+    bwd_launches += 1
+    cc = c * c
+    return (dx, out_w[:3 * cc].view(3 * c, c), out_w[4 * cc:4 * cc + 3 * c],
+            out_w[3 * cc:4 * cc].view(c, c), out_w[4 * cc + 3 * c:], dbias,
+            out_ln if ln is not None else None)
+
+
+class WindowAttentionFn(torch.autograd.Function):
+    """Window attention on partitioned windows (T, N, C) in the compute
+    dtype: forward = K1, backward = K3. Takes the fp32 parameters and the
+    relative-position bias table (L, nh) with its (N*N,) gather index, casts
+    the weights to the compute dtype inside and returns fp32 gradients. The
+    (nh, N, N) bias gradient is scattered onto the table with ``index_add_``
+    outside the kernel, as the JAX package's ``segment_sum`` is."""
+
+    @staticmethod
+    def forward(ctx, wins, ln, wqkv, bqkv, wproj, bproj, table, rel_index,
+                grid_dims, window, shift, ln_eps, residual):
+        dt = wins.dtype
+        n, nh = wins.shape[1], table.shape[1]
+        bias = (table.float()[rel_index].reshape(n, n, nh).permute(2, 0, 1)
+                .contiguous())
+        ctx.save_for_backward(wins, ln, wqkv, bqkv, wproj, table, rel_index)
+        ctx.geom = dict(grid_dims=grid_dims, window=window, shift=shift,
+                        ln_eps=ln_eps, residual=residual)
+        return window_attention(
+            wins, wqkv.to(dt), None if bqkv is None else bqkv.float(),
+            wproj.to(dt), bproj.float(), bias,
+            ln=None if ln is None else ln.float(), **ctx.geom)
+
+    @staticmethod
+    def backward(ctx, dy):
+        wins, ln, wqkv, bqkv, wproj, table, rel_index = ctx.saved_tensors
+        dt = wins.dtype
+        n, nh = wins.shape[1], table.shape[1]
+        bias = (table.float()[rel_index].reshape(n, n, nh).permute(2, 0, 1)
+                .contiguous())
+        dx, dwqkv, dbqkv, dwproj, dbproj, dbias, dln = window_attention_bwd(
+            wins, wqkv.to(dt), None if bqkv is None else bqkv.float(),
+            wproj.to(dt), bias, dy.to(dt).contiguous(),
+            ln=None if ln is None else ln.float(), **ctx.geom)
+        dtable = torch.zeros_like(table, dtype=torch.float32).index_add_(
+            0, rel_index, dbias.permute(1, 2, 0).reshape(n * n, nh))
+        return (dx, None if ln is None else dln.to(ln.dtype),
+                dwqkv.to(wqkv.dtype),
+                None if bqkv is None else dbqkv.to(bqkv.dtype),
+                dwproj.to(wproj.dtype), dbproj.to(wproj.dtype),
+                dtable.to(table.dtype), None, None, None, None, None, None)

@@ -66,6 +66,15 @@ def test_spacing_resample_matches_jax():
 
 
 def test_training_mode_is_not_ported(tmp_path):
+    """Kept under the name it had while ``mode="train"`` still raised; the
+    mode is ported now (``tests/test_torch_train_data.py`` holds its crops
+    against the JAX package)."""
     img_path, lab_path = _files(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pp.load_and_preprocess(img_path, lab_path, Config(), mode="train")
+    got = pp.load_and_preprocess(img_path, lab_path, Config(), mode="train")
+    assert got.label is not None and got.image.shape[:3] == got.label.shape[:3]
+
+
+def test_unknown_mode_raises(tmp_path):
+    img_path, lab_path = _files(tmp_path)
+    with pytest.raises(ValueError, match="expected train, val or test"):
+        pp.load_and_preprocess(img_path, lab_path, Config(), mode="predict")

@@ -61,10 +61,10 @@ def test_preds_match_jax_cli(tmp_path, monkeypatch):
     _write_test_set(tmp_path)
     argv = ARGV + ["--data_path", str(tmp_path)]
     cfg_j = get_args(argv + ["--output_dir", str(tmp_path / "jax")])
-    cfg_t, device = port_cli.get_args(
+    cfg_t = port_cli.get_args(
         argv + ["--output_dir", str(tmp_path / "port"), "--device", "cpu",
                 "--resume", str(tmp_path / "w.pth")])
-    assert device == "cpu"
+    assert cfg_t.device == "cpu"
 
     _, params = jax_params(cfg_j, seed=3)
     torch.save({"model": state_dict_from_jax(params)}, tmp_path / "w.pth")
@@ -77,7 +77,7 @@ def test_preds_match_jax_cli(tmp_path, monkeypatch):
     monkeypatch.setattr(jax, "local_devices", lambda *a, **k: real_devices()[:1])
     jax_cli.main(cfg_j)
 
-    records = port_cli.main(cfg_t, device)
+    records = port_cli.main(cfg_t)
     assert [r["predictor_calls"] for r in records] == [
         -(-r["windows"] // 2) for r in records]
 
@@ -105,25 +105,32 @@ def test_preds_match_jax_cli(tmp_path, monkeypatch):
 def test_cuda_device_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    cfg, device = port_cli.get_args(ARGV + ["--data_path", str(tmp_path)])
-    assert device == "cuda"
+    cfg = port_cli.get_args(ARGV + ["--data_path", str(tmp_path)])
+    assert cfg.device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
-        port_cli.main(cfg, device)
+        port_cli.main(cfg)
 
 
 def test_unported_flags_raise(tmp_path):
-    cfg, _ = port_cli.get_args(ARGV + ["--tta_mirror", "--device", "cpu"])
+    cfg = port_cli.get_args(ARGV + ["--tta_mirror", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(cfg, "cpu")
+        port_cli.main(cfg)
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, medicalsemseg_tpu_torch, "
-            "medicalsemseg_tpu_torch.cli.run_test, "
-            "medicalsemseg_tpu_torch.models.factory; "
-            "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax')); "
-            "print(bad); sys.exit(1 if bad else 0)")
+    """After importing every module of the port (and chip_smoke.py), no jax
+    package and nothing of the JAX package ``medicalsemseg_tpu`` is loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import medicalsemseg_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "assert len(names) > 25, names\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'medicalsemseg_tpu'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
