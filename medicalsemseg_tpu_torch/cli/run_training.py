@@ -9,8 +9,12 @@ A full run: config -> data (cached, fold-split) -> model -> train step
 sliding-window validation, best-model tracking, periodic checkpoints with
 end-of-run clean-up, JSON-lines logging. ``--resume <file.pth>`` restores
 model, optimizer, counters and the DropPath generator and continues with the
-next epoch. Runs on ``--device`` (default ``cuda``); ``--device cpu`` takes
-the kernels' plain versions.
+next epoch; ``--pretrained <file.pth>`` puts a reference-format checkpoint's
+encoder weights into the fresh model first. ``--fused_loss`` computes DiceCE
+through kernel K8, and at ``--n_images_per_batch`` 2 to 4 of 96^3 crops the
+full-resolution convs take kernel K5 for their weight gradient
+(``ops/convgrad.py``). Runs on ``--device`` (default ``cuda``);
+``--device cpu`` takes the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from medicalsemseg_tpu_torch.train.state import (
     make_train_step,
 )
 from medicalsemseg_tpu_torch.utils import checkpoint as ckpt
+from medicalsemseg_tpu_torch.utils.params import load_pretrained_encoder
 from medicalsemseg_tpu_torch.utils.tags import experiment_tags, log_metrics
 
 # flags of the JAX entry point whose paths are not ported: (flag, is it set?, what)
@@ -49,8 +54,6 @@ _UNPORTED = (
      "ROADMAP queue 1 item 11, multi-GPU"),
     ("--device_data_pipeline", lambda c: c.device_data_pipeline,
      "ROADMAP queue 1 item 9, the device-resident data pipeline"),
-    ("--pretrained", lambda c: bool(c.pretrained),
-     "ROADMAP queue 1 item 9, reference backbone import for training"),
     ("--profile_dir", lambda c: bool(c.profile_dir),
      "ROADMAP queue 1 item 12, profiling"),
     ("--remat full / mixed", lambda c: c.remat in ("full", "mixed"),
@@ -133,6 +136,10 @@ def main(cfg: Config) -> dict:
     train_step = make_train_step(cfg)
 
     start_epoch = cfg.start_epoch
+    if cfg.pretrained:
+        keys = load_pretrained_encoder(model, cfg.pretrained)
+        print(f"Loaded pretrained encoder from {cfg.pretrained} "
+              f"({len(keys)} tensors)")
     if cfg.resume:
         state, start_epoch = ckpt.load_checkpoint(cfg.resume, state)
         print(f"Resumed from {cfg.resume} at epoch {start_epoch}")

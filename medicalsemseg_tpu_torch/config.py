@@ -188,8 +188,8 @@ class Config:
     # ported yet
     flat_optimizer: bool = False  # not ported (make_optimizer raises)
     device_hd95: bool = False  # HD95 on the accelerator; not ported yet
-    fused_loss: bool = False  # the fused DiceCE kernel; not ported yet
-    # (build_loss raises)
+    fused_loss: bool = False  # DiceCE through the fused kernel K8
+    # (ops/kernels/dice_ce.py) where no mask is given
     device: str = "cuda"  # torch device of the entry points; a CUDA device
     # that is not there is an error, "cpu" runs the kernels' plain versions
     use_pallas_attention: bool = True  # the JAX package's switch for its

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from medicalsemseg_tpu_torch.ops.convgrad import Conv3x3x3Fn
 from medicalsemseg_tpu_torch.ops.kernels import layer_norm
 from medicalsemseg_tpu_torch.ops.kernels.mlp import FusedMlpFn, fused_mlp
 
@@ -86,8 +87,11 @@ class Conv3d(nn.Module):
     """Channels-last 3D convolution; weight (O, I, k, k, k) as in torch.
 
     1x1x1 / stride 1 runs as a matmul over the channel axis (the JAX
-    package's ``_Fast1x1Conv``); every other shape goes to cuDNN (oneDNN on
-    the CPU) on the channels_last_3d view."""
+    package's ``_Fast1x1Conv``). 3x3x3 / stride 1 / SAME with gradients
+    enabled goes through ``Conv3x3x3Fn`` (its ``_FastConv3dS1``), whose
+    weight gradient may take kernel K5. Every other shape, and every shape
+    without gradients, goes to cuDNN (oneDNN on the CPU) on the
+    channels_last_3d view."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: Optional[int] = None,
@@ -105,6 +109,10 @@ class Conv3d(nn.Module):
         b = None if self.bias is None else self.bias.to(dt)
         if self.kernel_size == 1 and self.stride == 1:
             return F.linear(x, self.weight[:, :, 0, 0, 0].to(dt), b)
+        if (self.kernel_size == 3 and self.stride == 1 and self.padding == 1
+                and torch.is_grad_enabled()):
+            y = Conv3x3x3Fn.apply(x, self.weight.to(dt))
+            return y if b is None else y + b
         y = F.conv3d(to_ncdhw(x), self.weight.to(dt), b, stride=self.stride,
                      padding=self.padding)
         return to_ndhwc(y)

@@ -92,6 +92,7 @@ def _build(path: str) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     lib.medseg_window_attention_fwd.argtypes = (
         [p] * 9 + [i] * 15 + [f, f, p])
     lib.medseg_window_attention_fwd.restype = i
@@ -101,6 +102,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_window_attention_bwd.restype = i
     lib.medseg_fused_mlp_bwd.argtypes = [p] * 11 + [i] * 6 + [f, p]
     lib.medseg_fused_mlp_bwd.restype = i
+    lib.medseg_dw27.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.medseg_dw27.restype = i
+    lib.medseg_dice_ce_sums.argtypes = [p] * 4 + [i, ll, i, i, i, p]
+    lib.medseg_dice_ce_sums.restype = i
+    lib.medseg_dice_ce_dlogits.argtypes = [p] * 6 + [i, ll, i, i, p]
+    lib.medseg_dice_ce_dlogits.restype = i
     lib.medseg_cuda_error_string.argtypes = [i]
     lib.medseg_cuda_error_string.restype = ctypes.c_char_p
 
@@ -132,8 +139,8 @@ def stream_handle(device) -> ctypes.c_void_p:
 
 
 def resident_blocks(device) -> int:
-    """Blocks a backward launch spreads its tiles over: four per SM, enough
-    to fill the card while the per-block partial sums stay few."""
+    """Blocks that a launch with per-block partial sums spreads its tiles
+    over: four per SM, enough to fill the card while the partials stay few."""
     import torch
 
     return 4 * torch.cuda.get_device_properties(device).multi_processor_count

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.config import Config
+from medicalsemseg_tpu_torch.ops.kernels.dice_ce import dice_ce_fused
 
 _SPATIAL = (1, 2, 3)
 
@@ -95,12 +96,15 @@ def dice_focal_loss(logits, labels, gamma: float = 2.0,
 
 def build_loss(cfg: Config):
     """--loss_fn name -> loss(logits, labels, mask=None)."""
-    if cfg.fused_loss:
-        raise NotImplementedError(
-            "--fused_loss: the fused DiceCE kernel K8 "
-            "(medicalsemseg_tpu/ops/pallas/dice_ce.py) is not ported yet "
-            "(ROADMAP queue 2)")
     if cfg.loss_fn == "DiceCE":
+        if cfg.fused_loss:
+            # kernel K8; it has no masked form, so validation's masked loss
+            # stays unfused. Other --loss_fn values ignore the flag.
+            return lambda lg, lb, mask=None: (
+                dice_ce_fused(lg, lb, True, cfg.smooth_nr, cfg.smooth_dr)
+                if mask is None else
+                dice_ce_loss(lg, lb, smooth_nr=cfg.smooth_nr,
+                             smooth_dr=cfg.smooth_dr, mask=mask))
         return lambda lg, lb, mask=None: dice_ce_loss(
             lg, lb, smooth_nr=cfg.smooth_nr, smooth_dr=cfg.smooth_dr,
             mask=mask)

@@ -18,6 +18,9 @@ change is a permutation of a leaf's elements, so the same functions carry
 gradients and optimizer moments as well as weights.
 :func:`load_adamw_state_from_optax` fills ``torch.optim.AdamW``'s state from
 optax's (mu, nu, count). All take numpy and import no jax.
+:func:`load_pretrained_encoder` puts the ``encoder.*`` weights of a reference
+checkpoint into a model, resizing relative-position bias tables that were
+trained with another window size.
 """
 
 from __future__ import annotations
@@ -185,3 +188,67 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(payload, dict) and isinstance(payload.get("model"), dict):
         payload = payload["model"]
     return strip_module_prefix(payload)
+
+
+def _interp_grid(arr: np.ndarray, dst_shape) -> np.ndarray:
+    """Trilinear resize of a (S1, S2, S3, C) grid to (*dst_shape, C) with
+    align_corners=False sampling (torch F.interpolate semantics)."""
+    from scipy.ndimage import map_coordinates
+
+    src = arr.shape[:3]
+    axes = [np.clip((np.arange(d) + 0.5) * s / d - 0.5, 0, s - 1)
+            for d, s in zip(dst_shape, src)]
+    grid = np.meshgrid(*axes, indexing="ij")
+    coords = np.stack([g.ravel() for g in grid])
+    out = np.empty(tuple(dst_shape) + arr.shape[3:], np.float32)
+    for c in range(arr.shape[3]):
+        out[..., c] = map_coordinates(
+            arr[..., c].astype(np.float64), coords, order=1,
+            mode="nearest").reshape(dst_shape)
+    return out
+
+
+def resize_rel_pos_bias_table(table: np.ndarray, src_window,
+                              dst_window) -> np.ndarray:
+    """Resize a 3D-window relative-position bias table across window sizes:
+    (prod(2 ws - 1), nH) -> (prod(2 wd - 1), nH), the (2w - 1)^3 displacement
+    grid resized trilinearly (align_corners=False) per head."""
+    def grid_of(window):
+        w3 = window if hasattr(window, "__len__") else (window,) * 3
+        return tuple(2 * int(w) - 1 for w in w3)
+
+    src, dst = grid_of(src_window), grid_of(dst_window)
+    nh = table.shape[-1]
+    if table.shape[0] != int(np.prod(src)):
+        raise ValueError(f"table rows {table.shape[0]} != prod{src}")
+    if src == dst:
+        return table.astype(np.float32)
+    grid = table.reshape(*src, nh).astype(np.float32)
+    return _interp_grid(grid, dst).reshape(-1, nh)
+
+
+def load_pretrained_encoder(model: torch.nn.Module, path: str) -> List[str]:
+    """Load the ``encoder.*`` weights of the reference-format checkpoint at
+    ``path`` into ``model`` (the rest of the model keeps its values) and
+    return the keys loaded. A relative-position bias table whose row count
+    differs from the model's (2 w - 1)^3 comes from another (cubic) window
+    size and is resized to the model's. Raises if an encoder key of the
+    model is missing from the file or the file has one the model lacks."""
+    def window_of(rows: int) -> Tuple[int, int, int]:
+        return (int(round((rows ** (1 / 3) + 1) / 2)),) * 3
+
+    own = model.state_dict()
+    enc = {k: v for k, v in load_checkpoint(path).items()
+           if k.startswith("encoder.")}
+    for key, value in enc.items():
+        if (key.endswith("relative_position_bias_table") and key in own
+                and value.shape[0] != own[key].shape[0]):
+            enc[key] = torch.from_numpy(resize_rel_pos_bias_table(
+                value.float().numpy(), window_of(value.shape[0]),
+                window_of(own[key].shape[0])))
+    missing, unexpected = model.load_state_dict(enc, strict=False)
+    missing = [k for k in missing if k.startswith("encoder.")]
+    if missing or unexpected:
+        raise KeyError(f"{path}: encoder keys missing {missing[:5]}, "
+                       f"unexpected {list(unexpected)[:5]}")
+    return sorted(enc)

@@ -78,5 +78,7 @@ def test_masked_loss_equals_loss_of_the_slice():
 def test_unknown_and_unported_losses_raise():
     with pytest.raises(ValueError, match="DiceCE, Tversky, DiceFocal"):
         pl.build_loss(Config(loss_fn="Lovasz"))
-    with pytest.raises(NotImplementedError, match="K8"):
-        pl.build_loss(Config(fused_loss=True))
+    # --fused_loss is ported (kernel K8) and changes no other loss's errors
+    assert callable(pl.build_loss(Config(fused_loss=True)))
+    with pytest.raises(ValueError, match="DiceCE, Tversky, DiceFocal"):
+        pl.build_loss(Config(loss_fn="Lovasz", fused_loss=True))

@@ -106,13 +106,115 @@ def test_train_validate_checkpoint_and_resume(tmp_path):
 @pytest.mark.parametrize("flag,match", [
     (["--world_size", "2"], "multi-GPU"),
     (["--device_data_pipeline"], "device-resident"),
-    (["--pretrained", "x.pth"], "backbone"),
     (["--profile_dir", "p"], "profiling"),
     (["--remat", "full"], "rematerialisation"),
 ])
 def test_unported_flags_raise(flag, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(get_args(ARGV + flag))
+
+
+def test_fused_loss_run_then_pretrained_run(tmp_path, monkeypatch):
+    """One epoch with ``--fused_loss`` and accumulation (K8's plain version on
+    the CPU; validation's masked loss stays unfused), then a fresh run with
+    ``--pretrained`` on the file it wrote: the encoder starts from the
+    file's weights, the decoder from its own initialisation."""
+    from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
+    from medicalsemseg_tpu_torch.utils import params as pparams
+
+    _write_train_set(tmp_path)
+    out = str(tmp_path / "out")
+    os.makedirs(out)
+    calls = []
+    real = k8.dice_ce_sums
+    monkeypatch.setattr(k8, "dice_ce_sums",
+                        lambda lg, lb: calls.append(lg.shape) or real(lg, lb))
+    argv = ARGV + ["--data_path", str(tmp_path), "--output_dir", out,
+                   "--epochs", "1", "--fused_loss"]
+    cli.main(get_args(argv + ["--grad_accum_steps", "2"]))
+    # 4 train volumes at batch 2: two micro-steps, one update; validation
+    # (2 volumes, masked loss) never reaches the fused function
+    assert [tuple(s) for s in calls] == [(2, 16 ** 3, 3)] * 2
+    first = os.path.join(out, "checkpoint-0.pth")
+    payload = torch.load(first, weights_only=True)
+    assert payload["step"] == 2 and payload["updates"] == 1
+    log = _log(out)
+    assert np.isfinite(log[0]["train/loss"]) and np.isfinite(log[0]["val/loss"])
+
+    loaded = {}
+    real_load = pparams.load_pretrained_encoder
+    monkeypatch.setattr(cli, "load_pretrained_encoder", lambda model, *a: (
+        loaded.update(keys=real_load(model, *a),
+                      sd={k: v.clone() for k, v in model.state_dict().items()})
+        or loaded["keys"]))
+    out2 = str(tmp_path / "out2")
+    os.makedirs(out2)
+    cli.main(get_args(ARGV + ["--data_path", str(tmp_path), "--output_dir",
+                              out2, "--epochs", "1", "--seed", "5",
+                              "--pretrained", first]))
+    want = payload["model"]
+    enc = [k for k in want if k.startswith("encoder.")]
+    assert loaded["keys"] == sorted(enc) and len(enc) > 20
+    for k in enc:      # right after the load: the file's encoder, bit for bit
+        assert torch.equal(loaded["sd"][k], want[k]), k
+    dec = [k for k in want if not k.startswith("encoder.")]
+    assert any(not torch.equal(loaded["sd"][k], want[k]) for k in dec)
+    assert os.path.exists(os.path.join(out2, "checkpoint-0.pth"))
+
+
+def test_pretrained_table_from_another_window_is_resized(tmp_path):
+    """A checkpoint trained with window 3 loads into a window-2 model: its
+    (2*3-1)^3-row bias tables are resized as the JAX package's
+    ``resize_rel_pos_bias_table`` resizes them; other tensors load as they
+    are; a file that lacks an encoder key is refused."""
+    from medicalsemseg_tpu.utils.torch_import import resize_rel_pos_bias_table
+
+    from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
+    from medicalsemseg_tpu_torch.utils.params import (
+        load_pretrained_encoder, resize_rel_pos_bias_table as port_resize)
+
+    def model_for(window):
+        argv = [a for a in ARGV]
+        argv[argv.index("--window_size") + 1] = str(window)
+        cfg = get_args(argv)
+        return cfg, init_weights(build_model(cfg),
+                                 torch.Generator().manual_seed(window))
+
+    _, src = model_for(3)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in src.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                p.normal_(0.0, 0.5, generator=gen)
+    path = str(tmp_path / "w3.pth")
+    torch.save({"model": {"module." + k: v for k, v in
+                          src.state_dict().items()}}, path)
+    _, dst = model_for(2)
+    before = {k: v.clone() for k, v in dst.state_dict().items()}
+    keys = load_pretrained_encoder(dst, path)
+    after, want = dst.state_dict(), src.state_dict()
+    tables = [k for k in keys if k.endswith("relative_position_bias_table")]
+    assert len(tables) == 2
+    for k in keys:
+        if k in tables:
+            assert want[k].shape[0] == 125 and after[k].shape[0] == 27
+            ref = resize_rel_pos_bias_table(want[k].numpy(), 3, 2)
+            np.testing.assert_allclose(after[k].numpy(), ref, rtol=0, atol=0)
+            np.testing.assert_array_equal(
+                port_resize(want[k].numpy(), (3, 3, 3), (2, 2, 2)), ref)
+        else:
+            assert torch.equal(after[k], want[k]), k
+    for k in after:
+        if not k.startswith("encoder."):
+            assert torch.equal(after[k], before[k]), k
+    # same window: the table is taken as it is
+    assert port_resize(want[tables[0]].numpy(), 3, 3).shape == (125, 2)
+
+    sd = dict(src.state_dict())
+    del sd["encoder.patch_embed.proj.weight"]
+    torch.save(sd, path)
+    with pytest.raises(KeyError, match="patch_embed.proj.weight"):
+        load_pretrained_encoder(dst, path)
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):
