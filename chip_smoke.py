@@ -11,34 +11,45 @@ Phases, in order; any failure exits non-zero:
                  the four flagship stage shapes (batch 2; batch 16 = one
                  predictor call; batch 8 = one training step), every output
                  with its error, and CUDA-event times beside the bound that
-                 the FLOP and byte counts give; K5 (3^3 conv weight gradient)
+                 the FLOP and byte counts give; K6 (GC-ViT global-query
+                 attention) at the same four stages, K7 (SegFormer
+                 spatial-reduction attention) at the four SegFormer3D stages
+                 and K2 at GC-ViT's hidden width 3C, all at batch 16; K5 (3^3
+                 conv weight gradient)
                  at the full-resolution decoder shapes for batch 1 to 8 and a
                  ragged shape, beside cuDNN's weight gradient; K8 (fused
                  DiceCE, forward sums and dlogits) at batch 4 and 8 of 96^3 x
                  14 classes and a voxel count that is no multiple of its tile;
   4. model     - the full-width flagship on one 96^3 window in bf16 with the
                  kernels, against the same weights in fp32 on the CPU (plain);
-  5. cli       - the label-free prediction CLI on two synthetic CT volumes,
+  5. zoo       - GCViTUNETR, SegFormer3D and SwinSegFormer at full width: one
+                 96^3 window in bf16 with the kernels against fp32 on the
+                 CPU, the launch counts of one predictor call of 16 windows,
+                 its time with the kernels and with their plain versions
+                 swapped in, and peak memory;
+  6. cli       - the label-free prediction CLI on two synthetic CT volumes,
                  with the kernels' launch counts checked against the
-                 predictor calls;
-  6. train     - the full-width flagship, batch 8 of 96^3, bf16: a few steps
+                 predictor calls; then --model GCViTUNETR, --model SegFormer3D
+                 and the flagship with --tta_mirror on the smaller volume;
+  7. train     - the full-width flagship, batch 8 of 96^3, bf16: a few steps
                  through make_train_step (loss finite and falling, launch
                  counts, ms per step, peak memory), and one step's gradients
                  against the fp32 plain path on the same weights, and each
                  Swin block on its own with the kernels against plain;
-  7. train_b4  - the same model at batch 4 with --grad_accum_steps 2 and
+  8. train_b4  - the same model at batch 4 with --grad_accum_steps 2 and
                  --fused_loss, where the three full-resolution convs take K5
                  for their weight gradient and the loss K8: micro-steps
                  through make_train_step (loss, launch counts, ms, peak
                  memory), one micro-step's gradients against the fp32 plain
                  path and against cuDNN's weight gradient with the unfused
                  loss, and the micro-step timed with and without each kernel;
-  8. train_cli - the training CLI on a synthetic Decathlon folder: 2 epochs,
+  9. train_cli - the training CLI on a synthetic Decathlon folder: 2 epochs,
                  validation, checkpoints, then a --resume run; an epoch at
                  batch 4 with accumulation and the fused loss, and a run that
                  starts from its checkpoint's encoder with --pretrained.
 `--phases profile` (not run by default) prints torch.profiler tables of one
-training step at batch 8 and one micro-step at batch 4. Then one JSON line with the kernels' numbers, and last the line
+training step at batch 8, one micro-step at batch 4 and one predictor call of
+each zoo model. Then one JSON line with the kernels' numbers, and last the line
 {"ok": true, "device": {...}}. Imports torch and the port, never jax.
 """
 
@@ -53,8 +64,8 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("card", "build", "kernels", "model", "cli", "train", "train_b4",
-          "train_cli")
+PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
+          "train_b4", "train_cli")
 EXTRA_PHASES = ("profile",)
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
@@ -137,16 +148,17 @@ def _attn_case(gen, batch, grid, c, nh, shift, ln, res):
     return wins, args, kw
 
 
-def _mlp_case(gen, batch, grid, c, ln, res):
+def _mlp_case(gen, batch, grid, c, ln, res, ratio=4):
     import torch
 
     dev, bf = "cuda", torch.bfloat16
     m = batch * grid ** 3
+    hid = ratio * c
     x = torch.randn(m, c, generator=gen, device=dev).to(bf)
     args = dict(
-        w1=(torch.randn(4 * c, c, generator=gen, device=dev) * c ** -0.5).to(bf),
-        b1=torch.randn(4 * c, generator=gen, device=dev) * 0.1,
-        w2=(torch.randn(c, 4 * c, generator=gen, device=dev) * (4 * c) ** -0.5).to(bf),
+        w1=(torch.randn(hid, c, generator=gen, device=dev) * c ** -0.5).to(bf),
+        b1=torch.randn(hid, generator=gen, device=dev) * 0.1,
+        w2=(torch.randn(c, hid, generator=gen, device=dev) * hid ** -0.5).to(bf),
         b2=torch.randn(c, generator=gen, device=dev) * 0.1)
     kw = dict(residual=res,
               ln=(torch.stack([1 + 0.3 * torch.randn(c, generator=gen, device=dev),
@@ -276,6 +288,10 @@ def _kernel_reports():
              "window_attention.py:457"),
             ("K4", "fused_mlp_bwd", "mlp_bwd.cu", "mlp.py:276"),
             ("K5", "dw27", "dw27.cu", "dw27.py:114"),
+            # K6 shares K1's source file and its projection launch
+            ("K6", "global_window_attention", "window_attention.cu",
+             "window_attention.py:775"),
+            ("K7", "sr_attention", "sr_attention.cu", "sr_attention.py:85"),
             # forward sums :137 and the backward call inside _fused_for :176
             ("K8", "dice_ce_sums", "dice_ce.cu", "dice_ce.py:137"),
             ("K8", "dice_ce_dlogits", "dice_ce.cu", "dice_ce.py:176"))
@@ -291,9 +307,10 @@ K4_NAMES = ("dx", "dln", "dw1", "db1", "dw2", "db2")
 
 def phase_kernels():
     """Every kernel against its plain version at the shapes the main paths
-    give it; the list of their reports, in the order K1-K5, K8."""
+    give it; the list of their reports, in the order K1-K8."""
     rep = _kernel_reports()
     _swin_kernels(rep)
+    _zoo_kernels(rep)
     _dw27_kernel(rep["dw27"])
     _dice_ce_kernels(rep["dice_ce_sums"], rep["dice_ce_dlogits"])
     for k in rep.values():
@@ -418,12 +435,193 @@ def _swin_kernels(rep):
     # backward kernels at the training step's
     for k, path in ((k1, "predict"), (k2, "predict"), (k3, "train"),
                     (k4, "train")):
-        stages = [s for s in k["per_stage"] if s["path"] == path]
-        for key in ("ms", "plain_ms", "bound_ms"):
-            k[key] = sum(s[key] for s in stages)
-        ops = sum(s["flops"] for s in stages) / PEAK_BF16_FLOPS
-        mem = sum(s["bytes"] for s in stages) / PEAK_HBM_BYTES
-        k["bound_by"] = "operations" if ops >= mem else "bytes"
+        _sum_stages(k, path)
+
+
+GCVIT_MLP_RATIO = 3   # GC-ViT's token MLP: hidden 3C
+# SegFormer3D stages at roi 96: (tokens N, C, heads); M = 27 reduced tokens
+SR_STAGES = ((24 ** 3, 48, 3), (12 ** 3, 96, 6), (6 ** 3, 192, 12),
+             (3 ** 3, 384, 24))
+SR_M = 27
+
+
+def _rel_bias(gen, nh, quirk):
+    """(nh, N, N) fp32 bias gathered from a seeded table with the standard
+    index, or with the reference's colliding-stride one (the pre_bias the
+    GC-ViT module gathers under --ref_quirk_rel_pos)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import window as tw
+
+    table = torch.randn((2 * WS - 1) ** 3, nh, generator=gen, device="cuda")
+    index = (tw.relative_position_index_ref_quirk if quirk
+             else tw.relative_position_index)((WS,) * 3)
+    idx = torch.from_numpy(index.reshape(-1).astype("int64")).to("cuda")
+    return tw.gather_rel_bias(table, idx, WS ** 3)
+
+
+def _global_case(gen, batch, grid, c, nh, absorbed, quirk):
+    """K6's arguments: the absorbed form (LN and shortcut in the kernel, kv
+    bias) or the bare form (neither, and no kv bias)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import window as tw
+
+    dev, bf = "cuda", torch.bfloat16
+    n = WS ** 3
+    x = torch.randn(batch, grid, grid, grid, c, generator=gen,
+                    device=dev).to(bf)
+    wins = tw.window_partition(x, WS).contiguous()
+    s = c ** -0.5
+    args = dict(
+        q_global=torch.randn(batch, n, c, generator=gen, device=dev).to(bf),
+        wkv=(torch.randn(2 * c, c, generator=gen, device=dev) * s).to(bf),
+        bkv=(torch.randn(2 * c, generator=gen, device=dev) * 0.1
+             if absorbed else None),
+        wproj=(torch.randn(c, c, generator=gen, device=dev) * s).to(bf),
+        bproj=torch.randn(c, generator=gen, device=dev) * 0.1,
+        bias=_rel_bias(gen, nh, quirk))
+    kw = dict(residual=absorbed,
+              ln=(torch.stack([1 + 0.3 * torch.randn(c, generator=gen, device=dev),
+                               0.1 * torch.randn(c, generator=gen, device=dev)])
+                  if absorbed else None))
+    return wins, args, kw
+
+
+def _sr_case(gen, batch, n, c, nh, res, bq):
+    import torch
+
+    dev, bf = "cuda", torch.bfloat16
+    s = c ** -0.5
+
+    def act(rows):
+        return torch.randn(batch, rows, c, generator=gen, device=dev).to(bf)
+
+    x = act(n)
+    args = dict(
+        k=act(SR_M), v=act(SR_M),
+        wq=(torch.randn(c, c, generator=gen, device=dev) * s).to(bf),
+        bq=torch.randn(c, generator=gen, device=dev) * 0.1 if bq else None,
+        wproj=(torch.randn(c, c, generator=gen, device=dev) * s).to(bf),
+        bproj=torch.randn(c, generator=gen, device=dev) * 0.1,
+        num_heads=nh, residual=act(n) if res else None)
+    return x, args
+
+
+def _stage_report(report, label, c, batch, ms, pms, flops, nbytes):
+    bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+    report["per_stage"].append({
+        "C": c, "batch": batch, "path": label, "ms": ms, "plain_ms": pms,
+        "flops": flops, "bytes": nbytes, "bound_ms": bound, "bound_by": by})
+    print(f"  {report['tag']} {label} x{batch}, C={c}: kernel {ms:.3f} ms, "
+          f"plain {pms:.3f} ms, bound {bound:.4f} ms by {by} "
+          f"({flops:.3e} FLOP, {nbytes:.3e} B)", flush=True)
+
+
+def _sum_stages(report, path):
+    """One launch at each of the four stages of ``path``."""
+    stages = [s for s in report["per_stage"] if s["path"] == path]
+    for key in ("ms", "plain_ms", "bound_ms"):
+        report[key] = sum(s[key] for s in stages)
+    ops = sum(s["flops"] for s in stages) / PEAK_BF16_FLOPS
+    mem = sum(s["bytes"] for s in stages) / PEAK_HBM_BYTES
+    report["bound_by"] = "operations" if ops >= mem else "bytes"
+
+
+def _zoo_kernels(rep):
+    """K6 at the four GC-ViT stages and K7 at the four SegFormer3D stages, at
+    the shapes of one predictor call (16 windows of 96^3), and K2 at GC-ViT's
+    hidden width 3C, each against its plain version."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
+    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    k2, k6, k7 = (rep["fused_mlp"], rep["global_window_attention"],
+                  rep["sr_attention"])
+    n = WS ** 3
+    with torch.inference_mode():
+        for grid, c, nh in STAGES:
+            # batch 2 with its own queries per element, then the predictor
+            # call's batch; the absorbed form with the standard bias comes
+            # last and is the one timed
+            for batch, absorbed, quirk in ((2, True, False),
+                                           (PREDICT_BATCH, False, False),
+                                           (PREDICT_BATCH, False, True),
+                                           (PREDICT_BATCH, True, True),
+                                           (PREDICT_BATCH, True, False)):
+                wins, a, kw = _global_case(gen, batch, grid, c, nh, absorbed,
+                                           quirk)
+                got = kga.global_window_attention(wins, **a, **kw)
+                want = kga.global_window_attention_plain(wins, **a, **kw)
+                torch.cuda.synchronize()
+                _compare(f"K6 grid {grid}^3 x{batch}, C={c}, nh={nh}, "
+                         f"ln+res+bkv {absorbed}, "
+                         f"{'quirk' if quirk else 'standard'} bias", got, want,
+                         k6)
+                del got, want
+            t = wins.shape[0]
+            m = t * n
+            _stage_report(
+                k6, "predict", c, PREDICT_BATCH,
+                _time_ms(lambda: kga.global_window_attention(wins, **a, **kw),
+                         10),
+                _time_ms(lambda: kga.global_window_attention_plain(
+                    wins, **a, **kw), 10),
+                # kv and proj; q k^T and p v per head
+                6 * m * c * c + 4 * t * n * n * c,
+                # windows in and out, queries, weights, biases, LN, bias
+                2 * m * c * 2 + PREDICT_BATCH * n * c * 2 + 3 * c * c * 2
+                + 5 * c * 4 + nh * n * n * 4)
+            del wins, a, kw
+            torch.cuda.empty_cache()
+
+            x, a, kw = _mlp_case(gen, PREDICT_BATCH, grid, c, True, True,
+                                 GCVIT_MLP_RATIO)
+            got = kmlp.fused_mlp(x, **a, **kw)
+            want = kmlp.fused_mlp_plain(x, **a, **kw)
+            torch.cuda.synchronize()
+            _compare(f"K2 grid {grid}^3 x{PREDICT_BATCH}, C={c}, hidden "
+                     f"{GCVIT_MLP_RATIO * c}, ln+res True", got, want, k2)
+            del got, want
+            m = x.shape[0]
+            _stage_report(
+                k2, "predict_3c", c, PREDICT_BATCH,
+                _time_ms(lambda: kmlp.fused_mlp(x, **a, **kw), 10),
+                _time_ms(lambda: kmlp.fused_mlp_plain(x, **a, **kw), 10),
+                4 * GCVIT_MLP_RATIO * m * c * c,
+                2 * m * c * 2 + 2 * GCVIT_MLP_RATIO * c * c * 2
+                + (GCVIT_MLP_RATIO + 1) * c * 4 + 2 * c * 4)
+            del x, a, kw
+            torch.cuda.empty_cache()
+
+        for ntok, c, nh in SR_STAGES:
+            # the last stage's 27 tokens are one ragged tile; with the
+            # shortcut and the q bias comes last and is the one timed
+            for res, bq in ((False, False), (False, True), (True, True)):
+                x, a = _sr_case(gen, PREDICT_BATCH, ntok, c, nh, res, bq)
+                got = ksr.sr_attention(x, **a)
+                want = ksr.sr_attention_plain(x, **a)
+                torch.cuda.synchronize()
+                _compare(f"K7 {PREDICT_BATCH}x{ntok} tokens, M={SR_M}, C={c}, "
+                         f"nh={nh}, residual {res}, bq {bq}", got, want, k7)
+                del got, want
+            rows = PREDICT_BATCH * ntok
+            _stage_report(
+                k7, "predict", c, PREDICT_BATCH,
+                _time_ms(lambda: ksr.sr_attention(x, **a), 10),
+                _time_ms(lambda: ksr.sr_attention_plain(x, **a), 10),
+                # q and proj; q k^T and p v
+                4 * rows * c * c + 4 * rows * SR_M * c,
+                # x, shortcut, out; k, v; weights; biases
+                3 * rows * c * 2 + 2 * PREDICT_BATCH * SR_M * c * 2
+                + 2 * c * c * 2 + 2 * c * 4)
+            del x, a
+            torch.cuda.empty_cache()
+    _sum_stages(k6, "predict")
+    _sum_stages(k7, "predict")
 
 
 # K5 and K8 against plain. Both sides multiply the same numbers (products of
@@ -627,23 +825,10 @@ def phase_model():
     import torch
 
     from medicalsemseg_tpu_torch.config import get_args
-    from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
 
     cfg = get_args(FLAGSHIP_ARGS)
     gen = torch.Generator().manual_seed(cfg.seed)
-    model = init_weights(build_model(cfg), gen)
-    # the JAX initialisers (dense std 0.02) leave attention and MLP outputs
-    # near zero; wider weights make every kernel matter to the logits
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith(("qkv.weight", "proj.weight", "fc1.weight",
-                              "fc2.weight")):
-                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
-            elif name.endswith("relative_position_bias_table"):
-                p.normal_(0.0, 0.5, generator=gen)
-            elif name.startswith("encoder") and name.endswith("bias"):
-                p.normal_(0.0, 0.1, generator=gen)
-    model.eval()
+    model = _seeded_model(cfg, gen)
     ref = copy.deepcopy(model)
     ref.dtype = torch.float32
     vol = torch.randn(1, 96, 96, 96, 1, generator=gen)
@@ -677,6 +862,148 @@ def phase_model():
     torch.cuda.empty_cache()
 
 
+ZOO_MODELS = ("GCViTUNETR", "SegFormer3D", "SwinSegFormer")
+# kernel launches of one predictor call: GC-ViT has a local (K1) and a
+# global (K6) block at each of 4 levels and the MLP (K2) in all 8; SegFormer3D
+# has 8 blocks (K7); SwinSegFormer has the flagship's encoder
+ZOO_LAUNCHES = {
+    "GCViTUNETR": {"window_attention": 4, "global_window_attention": 4,
+                   "fused_mlp": 8},
+    "SegFormer3D": {"sr_attention": 8},
+    "SwinSegFormer": {"window_attention": 8, "fused_mlp": 8},
+}
+
+
+def _zoo_args(name):
+    return ["--model", name] + FLAGSHIP_ARGS[2:] + [
+        "--depths", "2", "2", "2", "2", "--num_heads", "3", "6", "12", "24"]
+
+
+def _seeded_model(cfg, gen):
+    """The model with the JAX initialisers, then widened: dense std 0.02
+    leaves attention and MLP outputs near zero, so the dense weights get
+    variance 1 / fan_in, bias tables and encoder biases a spread, and the
+    BatchNorm running statistics values away from 0 and 1: every kernel and
+    every statistic then matters to the logits."""
+    import torch
+
+    from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
+
+    model = init_weights(build_model(cfg), gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("qkv.weight", "proj.weight", "fc1.weight",
+                              "fc2.weight", ".q.weight", ".kv.weight")):
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            elif name.endswith("relative_position_bias_table"):
+                p.normal_(0.0, 0.5, generator=gen)
+            elif name.startswith("encoder") and name.endswith("bias"):
+                p.normal_(0.0, 0.1, generator=gen)
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0.0, 0.3, generator=gen)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 1.5, generator=gen)
+    return model.eval()
+
+
+def phase_zoo():
+    """GCViTUNETR, SegFormer3D and SwinSegFormer at the full default widths:
+    bf16 + kernels on the card against fp32 + plain on the CPU on one window,
+    then one predictor call of 16 windows: launch counts, ms with the kernels
+    and with their plain versions, peak device memory."""
+    import copy
+
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    total = None
+    for name in ZOO_MODELS:
+        cfg = get_args(_zoo_args(name))
+        gen = torch.Generator().manual_seed(cfg.seed)
+        model = _seeded_model(cfg, gen)
+        ref = copy.deepcopy(model)
+        ref.dtype = torch.float32
+        vol = torch.randn(1, 96, 96, 96, 1, generator=gen)
+        x_in = (vol, torch.full((1, 3), 0.5), torch.ones(1, 3))
+        # the encoder's pyramid of the same two forwards: the logits lean on
+        # the full-resolution skip, the deepest scale only on the encoder
+        pyramids = []
+        hooks = [m.encoder.register_forward_hook(
+            lambda mod, args, out: pyramids.append([o.float().cpu() for o in out]))
+            for m in (ref, model)]
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            want = ref(x_in)
+            cpu_s = time.perf_counter() - t0
+            del ref
+            gpu = model.to("cuda")
+            x_gpu = tuple(t.to("cuda") for t in x_in)
+            got = gpu(x_gpu)
+            torch.cuda.synchronize()
+            for h in hooks:
+                h.remove()
+            scales = [float((g - w).norm() / w.norm())
+                      for w, g in zip(*pyramids)]
+            print(f"zoo: {name} encoder pyramid, rel norm err per scale "
+                  f"{' '.join(f'{v:.3e}' for v in scales)} (tol "
+                  f"{MODEL_REL_TOL})", flush=True)
+            _require(len(scales) == 5 and max(scales) <= MODEL_REL_TOL,
+                     f"zoo {name}: the encoder's bf16 pyramid disagrees with "
+                     "the fp32 CPU reference")
+            del pyramids
+            _require(got.shape == (1, 96, 96, 96, 14)
+                     and got.dtype == torch.float32,
+                     f"zoo {name}: logits {tuple(got.shape)} {got.dtype}")
+            _require(bool(torch.isfinite(got).all()),
+                     f"zoo {name}: non-finite logits")
+            got = got.cpu()
+            rel = float((got - want).norm() / want.norm())
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            print(f"zoo: {name} 96^3, bf16+kernels (card) vs fp32 plain (CPU, "
+                  f"{cpu_s:.1f} s): rel norm err {rel:.3e} (tol "
+                  f"{MODEL_REL_TOL}), argmax agreement {agree:.4f}",
+                  flush=True)
+            _require(rel <= MODEL_REL_TOL, f"zoo {name}: bf16 card logits "
+                     "disagree with the fp32 CPU reference")
+            del got, want
+
+            xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_gpu)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            out = gpu(xb)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            _require(out.shape == (PREDICT_BATCH, 96, 96, 96, 14)
+                     and bool(torch.isfinite(out).all()),
+                     f"zoo {name}: logits of {PREDICT_BATCH} windows")
+            del out
+            _require_launches(f"zoo {name} (one predictor call)", launches,
+                              {**dict.fromkeys(launches, 0),
+                               **ZOO_LAUNCHES[name]})
+            total = launches if total is None else {
+                k: total[k] + v for k, v in launches.items()}
+
+            def call_ms(plain):
+                if plain:
+                    with _plain_kernels():
+                        return _time_ms(lambda: gpu(xb), 2)
+                return _time_ms(lambda: gpu(xb), 2)
+
+            ms = [call_ms(plain) for plain in (False, True, True, False)]
+            print(f"zoo: {name} one predictor call ({PREDICT_BATCH} windows): "
+                  f"kernels {ms[0]:.1f} ms, plain {ms[1]:.1f}, plain "
+                  f"{ms[2]:.1f}, kernels {ms[3]:.1f}; peak device memory "
+                  f"{peak / 2 ** 30:.2f} GiB; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        del model, gpu, xb
+        torch.cuda.empty_cache()
+    return total
+
+
 def _ct_volume(rng, shape):
     """A CT-like volume in HU: air around an elliptic body of soft tissue,
     two brighter organs and a bony ring, with noise."""
@@ -697,7 +1024,10 @@ def _ct_volume(rng, shape):
 
 def phase_cli():
     """The prediction CLI on two synthetic CT volumes; the kernels' launch
-    counts must be 8 per predictor call (8 Swin blocks)."""
+    counts must be 8 per predictor call (8 Swin blocks). Then the smaller
+    volume again with --model GCViTUNETR and --model SegFormer3D (their
+    counts per call as in the zoo phase), and with the flagship and
+    --tta_mirror (8 model calls per window batch)."""
     import numpy as np
     import torch
 
@@ -708,72 +1038,112 @@ def phase_cli():
     shapes = ((240, 240, 140), (200, 180, 120))
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
-        task = os.path.join(tmp, "Task01_SmokeCT")
-        os.makedirs(os.path.join(task, "imagesTs"))
+        # Task01: both volumes; Task02: the smaller one alone
+        for task, ids in (("Task01_SmokeCT", (0, 1)), ("Task02_SmokeSmall", (1,))):
+            os.makedirs(os.path.join(tmp, task, "imagesTs"))
+            with open(os.path.join(tmp, task, "dataset.json"), "w") as f:
+                json.dump({"training": [], "test": [
+                    f"./imagesTs/img{i}.nii.gz" for i in ids]}, f)
         for i, shape in enumerate(shapes):
+            path = os.path.join(tmp, "Task01_SmokeCT", "imagesTs",
+                                f"img{i}.nii.gz")
             nifti.save(nifti.NiftiImage(_ct_volume(rng, shape),
-                                        np.diag([0.8, 0.8, 2.5, 1.0])),
-                       os.path.join(task, "imagesTs", f"img{i}.nii.gz"))
-        with open(os.path.join(task, "dataset.json"), "w") as f:
-            json.dump({"training": [], "test": [
-                f"./imagesTs/img{i}.nii.gz" for i in range(len(shapes))]}, f)
-        out_dir = os.path.join(tmp, "out")
-        cfg = get_args(FLAGSHIP_ARGS + [
-            "--data_path", tmp, "--task", "Task01_SmokeCT",
-            "--output_dir", out_dir, "--device", "cuda"])
+                                        np.diag([0.8, 0.8, 2.5, 1.0])), path)
+        os.link(path, os.path.join(tmp, "Task02_SmokeSmall", "imagesTs",
+                                   "img1.nii.gz"))
 
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
-        t0 = time.perf_counter()
-        records = run_test.main(cfg)
-        wall = time.perf_counter() - t0
-        launches = _read_launches()
-        peak = torch.cuda.max_memory_allocated()
+        total = {}
 
-        calls = sum(r["predictor_calls"] for r in records)
-        _require(len(records) == len(shapes) and calls > 0,
-                 f"cli: {len(records)} volumes, {calls} predictor calls")
-        _require_launches(f"cli ({calls} predictor calls)", launches, {
-            **dict.fromkeys(launches, 0), "window_attention": 8 * calls,
+        def run(label, model_args, task, ids, extra=()):
+            """One run of the CLI, the counts set to 0 just before it; its
+            records and the launches it made."""
+            out_dir = os.path.join(tmp, "out_" + label)
+            cfg = get_args(model_args + list(extra) + [
+                "--data_path", tmp, "--task", task, "--output_dir", out_dir,
+                "--device", "cuda"])
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            records = run_test.main(cfg)
+            wall = time.perf_counter() - t0
+            delta = _read_launches()
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+            peak = torch.cuda.max_memory_allocated()
+            calls = sum(r["predictor_calls"] for r in records)
+            _require(len(records) == len(ids) and calls > 0,
+                     f"cli {label}: {len(records)} volumes, {calls} predictor "
+                     "calls")
+            for i in ids:
+                path = os.path.join(out_dir, "test_output", "Fold0", "pred",
+                                    f"{i}.nii.gz")
+                _require(os.path.exists(path), f"cli {label}: no prediction "
+                         f"{path}")
+                pred = nifti.load(path).data
+                _require(pred.shape == shapes[i],
+                         f"cli {label}: pred {pred.shape} != {shapes[i]}")
+                _require(pred.dtype == np.uint8 and int(pred.max()) < 14,
+                         f"cli {label}: pred labels out of range")
+            for r in records:
+                print(f"cli: {label} {r['name']} {r['shape']}: {r['windows']} "
+                      f"windows, {r['predictor_calls']} predictor calls, "
+                      f"predicted in {r['predict_seconds']:.2f} s, written in "
+                      f"{r['seconds']:.2f} s", flush=True)
+            print(f"cli: {label}: {len(records)} volumes in {wall:.2f} s, peak "
+                  f"device memory {peak / 2 ** 30:.2f} GiB, launches "
+                  f"{ {k: v for k, v in delta.items() if v} }", flush=True)
+            return records, calls, delta
+
+        _, calls, delta = run("nnFormerUNETR", FLAGSHIP_ARGS, "Task01_SmokeCT",
+                              (0, 1))
+        _require_launches(f"cli ({calls} predictor calls)", delta, {
+            **dict.fromkeys(delta, 0), "window_attention": 8 * calls,
             "fused_mlp": 8 * calls})
-        for i, shape in enumerate(shapes):
-            path = os.path.join(out_dir, "test_output", "Fold0", "pred",
-                                f"{i}.nii.gz")
-            _require(os.path.exists(path), f"cli: no prediction {path}")
-            pred = nifti.load(path).data
-            _require(pred.shape == shape, f"cli: pred {pred.shape} != {shape}")
-            _require(pred.dtype == np.uint8 and int(pred.max()) < 14,
-                     "cli: pred labels out of range")
-        for r in records:
-            print(f"cli: {r['name']} {r['shape']}: {r['windows']} windows, "
-                  f"{r['predictor_calls']} predictor calls, predicted in "
-                  f"{r['predict_seconds']:.2f} s, written in "
-                  f"{r['seconds']:.2f} s", flush=True)
-        print(f"cli: {len(records)} volumes in {wall:.2f} s, peak device "
-              f"memory {peak / 2 ** 30:.2f} GiB, launches {launches}",
-              flush=True)
-    return launches
+        small_calls = None
+        for name in ("GCViTUNETR", "SegFormer3D"):
+            records, calls, delta = run(name, _zoo_args(name),
+                                        "Task02_SmokeSmall", (1,))
+            small_calls = calls
+            _require_launches(f"cli {name} ({calls} predictor calls)", delta, {
+                **dict.fromkeys(delta, 0),
+                **{k: n * calls for k, n in ZOO_LAUNCHES[name].items()}})
+        # mirror TTA: 8 model calls for each of the plain run's window batches
+        records, calls, delta = run("tta_mirror", FLAGSHIP_ARGS,
+                                    "Task02_SmokeSmall", (1,), ["--tta_mirror"])
+        _require(calls == 8 * small_calls, f"cli tta_mirror: {calls} model "
+                 f"calls, want 8 x {small_calls}")
+        _require_launches(f"cli tta_mirror ({calls} model calls)", delta, {
+            **dict.fromkeys(delta, 0), "window_attention": 8 * calls,
+            "fused_mlp": 8 * calls})
+        return total
 
 
 def _reset_launches():
     from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
     from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
+    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
     from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
     from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
 
     kwa.launches = kwa.bwd_launches = kmlp.launches = kmlp.bwd_launches = 0
     k5.launches = k8.launches = k8.bwd_launches = 0
+    kga.launches = ksr.launches = 0
 
 
 def _read_launches():
     from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
     from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
+    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
     from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
     from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
 
     return {"window_attention": kwa.launches, "fused_mlp": kmlp.launches,
             "window_attention_bwd": kwa.bwd_launches,
             "fused_mlp_bwd": kmlp.bwd_launches, "dw27": k5.launches,
+            "global_window_attention": kga.launches,
+            "sr_attention": ksr.launches,
             "dice_ce_sums": k8.launches, "dice_ce_dlogits": k8.bwd_launches}
 
 
@@ -842,11 +1212,14 @@ class _plain_kernels:
     def __enter__(self):
         from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
         from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
+        from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
         from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+        from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
         from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
 
         names = ((kwa, "window_attention"), (kwa, "window_attention_bwd"),
                  (kmlp, "fused_mlp"), (kmlp, "fused_mlp_bwd"), (k5, "dw27"),
+                 (kga, "global_window_attention"), (ksr, "sr_attention"),
                  (k8, "dice_ce_sums"), (k8, "dice_ce_dlogits"))
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in names]
         for mod, name in names:
@@ -1180,27 +1553,28 @@ def phase_train_b4():
 
 
 def phase_profile():
-    """torch.profiler over one warm training step at batch 8 and one warm
-    micro-step at batch 4 with the fused loss: device time by kernel name,
-    for PERF.md's "where the time goes"."""
+    """torch.profiler over one warm training step at batch 8, one warm
+    micro-step at batch 4 with the fused loss, and one warm predictor call of
+    16 windows of each zoo model: device time by kernel name, for PERF.md's
+    "where the time goes"."""
     with _dw27_mode(None):
         _profile_step(TRAIN_BATCH, ())
         _profile_step(TRAIN_B4_BATCH, TRAIN_B4_FLAGS)
+    for name in ZOO_MODELS:
+        _profile_call(name)
 
 
-def _profile_step(n_batch, extra_args):
+def _profiled(title, fn):
+    """Run ``fn`` (already warm) under torch.profiler and print its device
+    time by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, model, state, train_step = _train_setup(extra_args)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    batch = _train_batch(gen, n_batch, cfg.output_dim)
-    for _ in range(2):      # with accumulation over 2 micro-steps the profiled
-        train_step(state, batch)  # call is the first of a pair: no update
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(state, batch)
+        fn()
         torch.cuda.synchronize()
+
     def device_us(e):  # the attribute's name changed between releases
         return getattr(e, "device_time_total", None) or getattr(
             e, "cuda_time_total", 0)
@@ -1209,13 +1583,44 @@ def _profile_step(n_batch, extra_args):
                    for e in prof.key_averages() if device_us(e) > 0
                    and e.device_type.name == "CUDA"), reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile: one training step, batch {n_batch} "
-          f"{' '.join(extra_args)}: {total:.1f} ms "
-          f"of device kernel time in {len(rows)} kernels", flush=True)
+    print(f"profile: {title}: {total:.1f} ms of device kernel time in "
+          f"{len(rows)} kernels", flush=True)
     for ms, count, key in rows[:40]:
         print(f"  {ms:9.2f} ms {100 * ms / total:5.1f} %  x{count:<4d} "
               f"{key[:110]}", flush=True)
+
+
+def _profile_step(n_batch, extra_args):
+    import torch
+
+    cfg, model, state, train_step = _train_setup(extra_args)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = _train_batch(gen, n_batch, cfg.output_dim)
+    for _ in range(2):      # with accumulation over 2 micro-steps the profiled
+        train_step(state, batch)  # call is the first of a pair: no update
+    _profiled(f"one training step, batch {n_batch} {' '.join(extra_args)}",
+              lambda: train_step(state, batch))
     del model, state
+    torch.cuda.empty_cache()
+
+
+def _profile_call(name):
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    cfg = get_args(_zoo_args(name))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = _seeded_model(cfg, gen).to("cuda")
+    xb = (torch.randn(PREDICT_BATCH, 96, 96, 96, 1, generator=gen).to("cuda"),
+          torch.full((PREDICT_BATCH, 3), 0.5, device="cuda"),
+          torch.ones(PREDICT_BATCH, 3, device="cuda"))
+    with torch.inference_mode():
+        for _ in range(2):
+            model(xb)
+        _profiled(f"one predictor call of {PREDICT_BATCH} windows, {name}",
+                  lambda: model(xb))
+    del model, xb
     torch.cuda.empty_cache()
 
 
@@ -1418,7 +1823,8 @@ def main(argv=None) -> int:
         if "model" in phases:
             phase_model()
         # the main paths: each is driven with the counts at 0 and read after
-        for name, phase in (("cli", phase_cli), ("train", phase_train),
+        for name, phase in (("zoo", phase_zoo), ("cli", phase_cli),
+                            ("train", phase_train),
                             ("train_b4", phase_train_b4),
                             ("train_cli", phase_train_cli)):
             if name in phases:

@@ -6,8 +6,10 @@ medicalsemseg_tpu/cli/run_test.py).
 
 Takes the flags of ``medicalsemseg_tpu_torch.config`` (the JAX package's,
 plus ``--device``, default ``cuda``). Loads the test datalist, runs Gaussian
-sliding-window prediction of the flagship with the hand-written kernels,
-argmaxes to uint8 labels, restores the original spacing by nearest-neighbour
+sliding-window prediction of ``--model`` (nnFormerUNETR, SwinSegFormer,
+SegFormer3D or GCViTUNETR) with the hand-written kernels, with
+``--tta_mirror`` averaged over the 8 flips of every window batch, argmaxes to
+uint8 labels, restores the original spacing by nearest-neighbour
 resampling when ``--t_voxel_spacings`` is set, and writes NIfTIs under
 ``test_output/Fold{k}/{pred,img,rs}``. ``--resume`` is a torch checkpoint of
 the port or of the reference (``{'model': state_dict}`` or a bare one).
@@ -34,6 +36,7 @@ from medicalsemseg_tpu_torch.infer.sliding_window import (
     bucket_pad,
     sliding_window_inference,
 )
+from medicalsemseg_tpu_torch.infer.tta import mirror_tta
 from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
 from medicalsemseg_tpu_torch.utils.params import load_checkpoint
 
@@ -49,7 +52,8 @@ def resample_3d_nearest(vol: np.ndarray, target_size) -> np.ndarray:
 def test_model(model: torch.nn.Module, loader, cfg: Config,
                device: torch.device) -> List[Dict]:
     """Predict every volume of ``loader``; returns one record per volume:
-    name, shape, windows, predictor calls, seconds from the preprocessed
+    name, shape, windows, predictor calls (model forwards: 8 per window
+    batch with ``--tta_mirror``), seconds from the preprocessed
     volume to the label map on the host (``predict_seconds``) and to the
     written files (``seconds``)."""
     air_cval = ((0.0 - cfg.t_norm_mean) / cfg.t_norm_std
@@ -59,11 +63,18 @@ def test_model(model: torch.nn.Module, loader, cfg: Config,
         t0 = time.perf_counter()
         calls, windows = 0, 0
 
-        def predictor(model_in):
-            nonlocal calls, windows
+        def forward(model_in):
+            nonlocal calls
             calls += 1
-            windows += model_in[0].shape[0]
             return model(model_in)
+
+        # with TTA the stitcher blends the mean probabilities of the flips
+        tta = mirror_tta(forward) if cfg.tta_mirror else forward
+
+        def predictor(model_in):
+            nonlocal windows
+            windows += model_in[0].shape[0]
+            return tta(model_in)
 
         padded, orig = bucket_pad(sample.image, cfg.sw_bucket_multiple,
                                   air_cval)
@@ -111,9 +122,6 @@ def test_model(model: torch.nn.Module, loader, cfg: Config,
 
 def main(cfg: Config) -> List[Dict]:
     dev = resolve_device(cfg.device)
-    if cfg.tta_mirror:
-        raise NotImplementedError("--tta_mirror is not ported yet (ROADMAP "
-                                  "queue 1 item 10, inference extras)")
     if cfg.world_size > 1:
         raise NotImplementedError("more than one device is not ported yet "
                                   "(ROADMAP queue 1 item 11, multi-GPU)")

@@ -58,6 +58,10 @@ _UNPORTED = (
      "ROADMAP queue 1 item 12, profiling"),
     ("--remat full / mixed", lambda c: c.remat in ("full", "mixed"),
      "ROADMAP queue 1 item 9, block rematerialisation"),
+    # the port has these models for prediction only
+    ("training of --model GCViTUNETR / SegFormer3D / SwinSegFormer",
+     lambda c: c.model in ("GCViTUNETR", "SegFormer3D", "SwinSegFormer"),
+     "ROADMAP queue 1 item 13, training of the model zoo"),
 )
 
 

@@ -174,8 +174,7 @@ class Config:
     # card as autograd saves it), so "none" and "conv" run the same code;
     # "full" and "mixed" are not ported and the training entry point raises
     # for them
-    tta_mirror: bool = False  # nn-UNet-style 8-way flip TTA at inference;
-    # not ported yet
+    tta_mirror: bool = False  # nn-UNet-style 8-way flip TTA at inference
     sw_bucket_multiple: int = 32  # pad eval volumes to spatial multiples
     val_group_policy: str = "bucket"  # multi-device validation grouping;
     # one device here, no effect
@@ -184,8 +183,7 @@ class Config:
     pallas_train: bool = True  # the JAX package's switch for its fused
     # kernels in training; the port always trains through its kernels
     ref_quirk_rel_pos: bool = False  # reproduce the reference's colliding
-    # GC-ViT/nnFormer rel-pos index strides; belongs to models that are not
-    # ported yet
+    # GC-ViT/nnFormer rel-pos index strides (GCViTUNETR reads it)
     flat_optimizer: bool = False  # not ported (make_optimizer raises)
     device_hd95: bool = False  # HD95 on the accelerator; not ported yet
     fused_loss: bool = False  # DiceCE through the fused kernel K8

@@ -1,6 +1,7 @@
-// Fused 3D window attention, forward (inference).
+// Fused 3D window attention, forward (inference): local windows (K1) and
+// GC-ViT's global-query windows (K6).
 //
-// Replaces the TPU kernel medicalsemseg_tpu/ops/pallas/window_attention.py:
+// K1 replaces the TPU kernel medicalsemseg_tpu/ops/pallas/window_attention.py:
 // fused_window_attention (_kernel, _window_mask). Per window of N = ws^3
 // tokens: optional fp32 LayerNorm -> QKV projection (fp32 accumulation,
 // + bias in fp32, then bf16) -> per head q.k^T * hd^-0.5 in fp32 + relative
@@ -30,6 +31,24 @@
 // (nh x N x N fp32) is shared by all windows and stays in L2. Moving the
 // three products onto the tensor cores (mma.sync / wgmma with head dim 16
 // as the k-step) is the next step and is left to a later change.
+//
+// K6 replaces fused_global_window_attention (_global_kernel) of the same
+// file. Per window: optional fp32 LayerNorm -> KV projection (C -> 2C: the
+// first C columns K, the last C columns V, head-major) -> bf16; the queries
+// are not projected: they are the ws^3 grid q_global[b] of the window's batch
+// element b = window / (windows per volume), scaled by hd^-0.5 in fp32 and
+// rounded to bf16 before the dot, and never LayerNorm'ed; per head q.k^T in
+// fp32 + relative position bias (no mask) -> fp32 softmax -> bf16 -> .V ->
+// bf16 -> output projection -> optional add of the raw window. It is K1's
+// two launches with three differences inside the heads launch: two projected
+// column groups instead of three, the q slot of the block's [q | k | v] tile
+// filled from q_global, and the scale folded into q. The TPU kernel's tile
+// of windows per grid step and its rule that a tile must not straddle batch
+// elements have no counterpart: a block is one (window, head).
+// What bounds K6: as K1, shared-memory bandwidth and FMA issue. By its
+// counts it is bound by bytes at C = 48 (batch 16: 170 MB of windows in, 170
+// MB out against 36 GFLOP) and by operations from C = 96 on; q_global
+// (B x N x C) and the bias stay in L2.
 
 #include <math.h>
 #include <stdint.h>
@@ -50,8 +69,12 @@ struct HeadsParams {
   const __nv_bfloat16* wqkv;  // (3C, C) [out, in]
   const float* bqkv;          // (3C) or nullptr
   const float* bias;          // (nh, N, N)
+  // K6: (B, N, C) global queries, wqkv is then (2C, C) = [K | V] and bqkv
+  // (2C); nullptr for K1
+  const __nv_bfloat16* qg;
   __nv_bfloat16* attn;        // (T, N, C) attention output, heads concatenated
   int n, c, hd;
+  int nwin;                   // windows per volume (K6: batch element of a window)
   int w0, w1, w2, s0, s1, s2;
   int nwd, nwh, nww;
   int shifted;
@@ -72,6 +95,9 @@ __global__ void __launch_bounds__(kThreads)
   float* prow = qkv + n * qkv_stride;        // kWarps x n
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const __nv_bfloat16* xw = p.x + (size_t)win * n * c;
+  // columns [j0, 3hd) of the [q | k | v] tile are projected from the window:
+  // all three groups for K1, k and v for K6
+  const int j0 = p.qg != nullptr ? hd : 0, np = q3 - j0;
 
   if (p.ln != nullptr) {
     for (int t = warp; t < n; t += kWarps) {
@@ -85,7 +111,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int o = tid; o < n * qkv_stride; o += kThreads) qkv[o] = 0.f;
 
-  // this head's q, k, v columns: j in [0, 3hd) -> (j / hd) * C + h * hd + j % hd
+  // this head's projected columns: jj in [0, np) -> row (jj / hd) * C +
+  // h * hd + jj % hd of wqkv, tile column j0 + jj
   for (int c0 = 0; c0 < c; c0 += kKC) {
     __syncthreads();
     for (int e = tid; e < n * kKC; e += kThreads) {
@@ -98,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       xs[t * xs_stride + kk] = v;
     }
-    for (int e = tid; e < q3 * kKC; e += kThreads) {
+    for (int e = tid; e < np * kKC; e += kThreads) {
       const int j = e / kKC, kk = e - j * kKC, ch = c0 + kk;
       const int col = (j / hd) * c + h * hd + j % hd;
       wsm[kk * q3 + j] = ch < c ? ld_bf16(p.wqkv + (size_t)col * c + ch) : 0.f;
@@ -106,21 +133,29 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     // token index fastest across lanes: xs reads are conflict-free (odd
     // stride) and wsm reads broadcast
-    for (int e = tid; e < n * q3; e += kThreads) {
+    for (int e = tid; e < n * np; e += kThreads) {
       const int j = e / n, t = e - j * n;
       const float* xr = xs + t * xs_stride;
       float acc = 0.f;
 #pragma unroll 8
       for (int kk = 0; kk < kKC; ++kk) acc += xr[kk] * wsm[kk * q3 + j];
-      qkv[t * qkv_stride + j] += acc;
+      qkv[t * qkv_stride + j0 + j] += acc;
     }
   }
   __syncthreads();
-  for (int e = tid; e < n * q3; e += kThreads) {
+  for (int e = tid; e < n * np; e += kThreads) {
     const int j = e / n, t = e - j * n;
     const int col = (j / hd) * c + h * hd + j % hd;
     const float b = p.bqkv != nullptr ? p.bqkv[col] : 0.f;
-    qkv[t * qkv_stride + j] = bf16_round(qkv[t * qkv_stride + j] + b);
+    qkv[t * qkv_stride + j0 + j] = bf16_round(qkv[t * qkv_stride + j0 + j] + b);
+  }
+  if (p.qg != nullptr) {
+    // the batch element's query grid, scaled in fp32, then rounded
+    const __nv_bfloat16* qb = p.qg + ((size_t)(win / p.nwin) * n) * c + h * hd;
+    for (int e = tid; e < n * hd; e += kThreads) {
+      const int t = e / hd, d = e - t * hd;
+      qkv[t * qkv_stride + d] = bf16_round(ld_bf16(qb + (size_t)t * c + d) * p.scale);
+    }
   }
   __syncthreads();
 
@@ -129,6 +164,7 @@ __global__ void __launch_bounds__(kThreads)
             wi = (win / (p.nww * p.nwh)) % p.nwd;
   const bool ld = wi == p.nwd - 1, lh = wj == p.nwh - 1, lw = wk == p.nww - 1;
   const float* bias_h = p.bias + (size_t)h * n * n;
+  const float scale = p.qg != nullptr ? 1.f : p.scale;  // K6: already in q
   const float* K = qkv + hd;
   const float* V = qkv + 2 * hd;
   float* pr = prow + warp * n;
@@ -146,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int d = 0; d < kMaxHD; ++d)
         if (d < hd) s += qv[d] * K[m * qkv_stride + d];
-      s = s * p.scale + bias_h[(size_t)t * n + m];
+      s = s * scale + bias_h[(size_t)t * n + m];
       if (p.shifted &&
           token_label(m, p.w1, p.w2, p.w0, p.s0, p.s1, p.s2, ld, lh, lw) != lab_t)
         s += -100.f;
@@ -234,30 +270,14 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 }  // namespace medseg
 
-extern "C" int medseg_window_attention_fwd(
-    const void* x, const void* ln, const void* wqkv, const void* bqkv,
-    const void* wproj, const void* bproj, const void* bias, void* attn,
-    void* out, int t, int n, int c, int nh, int w0, int w1, int w2, int s0,
-    int s1, int s2, int nwd, int nwh, int nww, int shifted, int residual,
-    float ln_eps, float scale, void* stream) {
-  using namespace medseg;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hd = c / nh;
-  if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+namespace medseg {
+namespace {
 
-  HeadsParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.ln = static_cast<const float*>(ln);
-  p.wqkv = static_cast<const __nv_bfloat16*>(wqkv);
-  p.bqkv = static_cast<const float*>(bqkv);
-  p.bias = static_cast<const float*>(bias);
-  p.attn = static_cast<__nv_bfloat16*>(attn);
-  p.n = n; p.c = c; p.hd = hd;
-  p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
-  p.nwd = nwd; p.nwh = nwh; p.nww = nww;
-  p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
-
+// The two launches of K1 and K6: heads, then projection (+ shortcut).
+int launch_attention(HeadsParams p, const void* wproj, const void* bproj,
+                     void* out, int t, int nh, int residual,
+                     cudaStream_t st) {
+  const int n = p.n, c = p.c, hd = p.hd;
   const size_t heads_smem = sizeof(float) *
       (2 * n + n * (kKC + 1) + kKC * 3 * hd + n * (3 * hd + 1) + kWarps * n);
   cudaError_t err = cudaFuncSetAttribute(
@@ -277,11 +297,69 @@ extern "C" int medseg_window_attention_fwd(
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = (unsigned)((m_total + kRows - 1) / kRows);
   window_attention_proj<<<blocks, kThreads, proj_smem, st>>>(
-      static_cast<const __nv_bfloat16*>(attn),
-      static_cast<const __nv_bfloat16*>(wproj),
-      static_cast<const float*>(bproj), static_cast<const __nv_bfloat16*>(x),
+      p.attn, static_cast<const __nv_bfloat16*>(wproj),
+      static_cast<const float*>(bproj), p.x,
       static_cast<__nv_bfloat16*>(out), m_total, c, residual);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace medseg
+
+extern "C" int medseg_window_attention_fwd(
+    const void* x, const void* ln, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* bproj, const void* bias, void* attn,
+    void* out, int t, int n, int c, int nh, int w0, int w1, int w2, int s0,
+    int s1, int s2, int nwd, int nwh, int nww, int shifted, int residual,
+    float ln_eps, float scale, void* stream) {
+  using namespace medseg;
+  const int hd = c / nh;
+  if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  HeadsParams p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.ln = static_cast<const float*>(ln);
+  p.wqkv = static_cast<const __nv_bfloat16*>(wqkv);
+  p.bqkv = static_cast<const float*>(bqkv);
+  p.bias = static_cast<const float*>(bias);
+  p.qg = nullptr;
+  p.attn = static_cast<__nv_bfloat16*>(attn);
+  p.n = n; p.c = c; p.hd = hd; p.nwin = nwd * nwh * nww;
+  p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
+  p.nwd = nwd; p.nwh = nwh; p.nww = nww;
+  p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
+  return launch_attention(p, wproj, bproj, out, t, nh, residual,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// K6. x (T, N, C) windows in batch-major order, T = B * nwin; q (B, N, C);
+// wkv (2C, C) [out, in]; bkv (2C) or nullptr.
+extern "C" int medseg_global_window_attention_fwd(
+    const void* x, const void* ln, const void* q, const void* wkv,
+    const void* bkv, const void* wproj, const void* bproj, const void* bias,
+    void* attn, void* out, int t, int n, int c, int nh, int nwin,
+    int residual, float ln_eps, float scale, void* stream) {
+  using namespace medseg;
+  const int hd = c / nh;
+  if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 || nwin < 1 ||
+      t % nwin != 0 || q == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  HeadsParams p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.ln = static_cast<const float*>(ln);
+  p.wqkv = static_cast<const __nv_bfloat16*>(wkv);
+  p.bqkv = static_cast<const float*>(bkv);
+  p.bias = static_cast<const float*>(bias);
+  p.qg = static_cast<const __nv_bfloat16*>(q);
+  p.attn = static_cast<__nv_bfloat16*>(attn);
+  p.n = n; p.c = c; p.hd = hd; p.nwin = nwin;
+  p.w0 = p.w1 = p.w2 = 1; p.s0 = p.s1 = p.s2 = 0;
+  p.nwd = p.nwh = p.nww = 1;
+  p.shifted = 0; p.eps = ln_eps; p.scale = scale;
+  return launch_attention(p, wproj, bproj, out, t, nh, residual,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* medseg_cuda_error_string(int err) {

@@ -1,28 +1,35 @@
-"""UNETR-style decoder and the encoder + decoder model (counterpart of
-medicalsemseg_tpu/models/decoders.py: UnetResBlock, UnetrUpBlock,
-UnetOutBlock, SwinUNETRDecoder, SwinUNETRCustom).
+"""Segmentation decoders and the encoder + decoder models (counterpart of
+medicalsemseg_tpu/models/decoders.py): the UNETR-style decoder (UnetResBlock,
+UnetrUpBlock, UnetOutBlock, SwinUNETRDecoder, SwinUNETRCustom) and the
+SegFormer all-MLP heads (_LinearEmbed, _FuseConv, SegFormerHead,
+SegFormerHeadOfficial).
 
 Module names follow MONAI's blocks as the reference model nests them
 (``unet_encoders.{k}.layer.conv1.conv``, ``unet_decoders.{k}.transp_conv.conv``,
 ``out.conv.conv``), so a reference state_dict loads as it is. The 3^3 convs,
 InstanceNorm and the transposed convs are plain PyTorch (cuDNN on the card),
-as the JAX package leaves them to XLA by default.
+as the JAX package leaves them to XLA by default. The SegFormer heads follow
+the JAX scopes (``linear_c{k}.proj``, ``linear_fuse[_k].{conv,bn}``,
+``linear_pred``).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.models.layers import (
+    BatchNorm,
     Conv3d,
     ConvTranspose3d,
     InstanceNorm,
     leaky_relu,
+    linear,
 )
-from medicalsemseg_tpu_torch.models.swin import SwinEncoder3D
+from medicalsemseg_tpu_torch.ops.resize import resize_trilinear
 
 
 class Convolution(nn.Module):
@@ -125,17 +132,20 @@ class SwinUNETRDecoder(nn.Module):
 
 
 class SwinUNETRCustom(SwinUNETRDecoder):
-    """Swin encoder + UNETR decoder, the flagship ``nnFormerUNETR``.
+    """An encoder that returns a 5-scale pyramid + the UNETR decoder: the
+    flagship ``nnFormerUNETR`` (Swin encoder) and ``GCViTUNETR`` (GC-ViT,
+    whose stem at R/2 plays the patch embedding's part).
 
     forward((vol (B, D, H, W, Cin), crop_loc (B, 3), affine (B, 3))) ->
     (B, D, H, W, n_classes) fp32 logits. The decoder's modules sit at the top
     level, beside ``encoder``, as in the reference state_dict."""
 
-    def __init__(self, encoder: SwinEncoder3D, in_chans: int,
+    def __init__(self, encoder: nn.Module, in_chans: int,
                  out_channels: int, hidden_size: int = 48,
-                 patch_size: int = 2, dtype: torch.dtype = torch.bfloat16):
+                 patch_size: int = 2, num_layers: int = 4,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__(in_chans, out_channels, hidden_size, patch_size,
-                         num_layers=len(encoder.layers))
+                         num_layers=num_layers)
         self.encoder = encoder
         self.dtype = dtype
 
@@ -143,3 +153,95 @@ class SwinUNETRCustom(SwinUNETRDecoder):
                 ) -> torch.Tensor:
         vol = x_in[0].to(self.dtype)
         return self.decode(vol, self.encoder(vol))
+
+
+class LinearEmbed(nn.Module):
+    """Per-scale dense to the shared embedding width (the JAX
+    ``_LinearEmbed``)."""
+
+    def __init__(self, in_dim: int, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(in_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.proj)
+
+
+class FuseConv(nn.Module):
+    """1x1 conv + BatchNorm (eps 1e-3, running statistics) + exact GELU (the
+    JAX ``_FuseConv``)."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.conv = Conv3d(in_dim, features, 1, bias=True)
+        self.bn = BatchNorm(features, eps=1e-3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.bn(self.conv(x)))
+
+
+class SegFormerHead(nn.Module):
+    """Progressive top-down all-MLP head over a 5-scale pyramid: embed the
+    coarsest scale, resize it to the next finer one, fuse with that scale's
+    embedding, and so on; the fused 512-channel map is resized to the input
+    size before the 1x1 classifier (``SwinSegFormer``)."""
+
+    def __init__(self, encoder: nn.Module, in_dims: Sequence[int],
+                 num_classes: int, embedding_dim: int = 512,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if len(in_dims) != 5:
+            raise ValueError(f"SegFormerHead reads 5 scales, got {in_dims}")
+        self.encoder = encoder
+        self.dtype = dtype
+        e = embedding_dim
+        for k, dim in enumerate(in_dims):
+            self.add_module(f"linear_c{k}", LinearEmbed(dim, e))
+        for k in range(4):
+            self.add_module(f"linear_fuse_{k}", FuseConv(2 * e, e))
+        self.linear_pred = Conv3d(e, num_classes, 1, bias=True)
+
+    def forward(self, x_in: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                ) -> torch.Tensor:
+        vol = x_in[0].to(self.dtype)
+        z = self.encoder(vol)
+        c = self.linear_c4(z[4])
+        for k in (3, 2, 1, 0):
+            c = resize_trilinear(c, z[k].shape[1:4])
+            c = getattr(self, f"linear_fuse_{k}")(torch.cat(
+                [c, getattr(self, f"linear_c{k}")(z[k])], dim=-1))
+        c = resize_trilinear(c, vol.shape[1:4])
+        return self.linear_pred(c).float()
+
+
+class SegFormerHeadOfficial(nn.Module):
+    """Official SegFormer head over the last four scales: embed each, resize
+    all to the finest of them, concatenate, fuse once, classify, and resize
+    the logits to the input size (``SegFormer3D``)."""
+
+    def __init__(self, encoder: nn.Module, in_dims: Sequence[int],
+                 num_classes: int, embedding_dim: int = 512,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if len(in_dims) != 4:
+            raise ValueError(f"SegFormerHeadOfficial reads 4 scales, got "
+                             f"{in_dims}")
+        self.encoder = encoder
+        self.dtype = dtype
+        e = embedding_dim
+        for k, dim in enumerate(in_dims):
+            self.add_module(f"linear_c{k + 1}", LinearEmbed(dim, e))
+        self.linear_fuse = FuseConv(4 * e, e)
+        self.linear_pred = Conv3d(e, num_classes, 1, bias=True)
+
+    def forward(self, x_in: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                ) -> torch.Tensor:
+        vol = x_in[0].to(self.dtype)
+        c1, c2, c3, c4 = self.encoder(vol)[-4:]
+        target = c1.shape[1:4]
+        parts = [resize_trilinear(self.linear_c4(c4), target),
+                 resize_trilinear(self.linear_c3(c3), target),
+                 resize_trilinear(self.linear_c2(c2), target),
+                 self.linear_c1(c1)]
+        out = self.linear_pred(self.linear_fuse(torch.cat(parts, dim=-1)))
+        return resize_trilinear(out, vol.shape[1:4]).float()

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops.convgrad import Conv3x3x3Fn
 from medicalsemseg_tpu_torch.ops.kernels import layer_norm
-from medicalsemseg_tpu_torch.ops.kernels.mlp import FusedMlpFn, fused_mlp
+from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -26,6 +26,14 @@ def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
 
 def to_ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin`` with its fp32 parameters cast to the activation dtype (a flax
+    ``nn.Dense(dtype=...)``)."""
+    dt = x.dtype
+    return F.linear(x, lin.weight.to(dt),
+                    None if lin.bias is None else lin.bias.to(dt))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -84,37 +92,47 @@ class LayerNorm(nn.Module):
 
 
 class Conv3d(nn.Module):
-    """Channels-last 3D convolution; weight (O, I, k, k, k) as in torch.
+    """Channels-last 3D convolution; weight (O, I / groups, k, k, k) as in
+    torch. ``padding`` is the same on both sides of every axis (the JAX
+    modules' explicit ((p, p),) * 3, 0 for their VALID).
 
-    1x1x1 / stride 1 runs as a matmul over the channel axis (the JAX
-    package's ``_Fast1x1Conv``). 3x3x3 / stride 1 / SAME with gradients
+    Dense 1x1x1 / stride 1 runs as a matmul over the channel axis (the JAX
+    package's ``_Fast1x1Conv``). Dense 3x3x3 / stride 1 / SAME with gradients
     enabled goes through ``Conv3x3x3Fn`` (its ``_FastConv3dS1``), whose
-    weight gradient may take kernel K5. Every other shape, and every shape
-    without gradients, goes to cuDNN (oneDNN on the CPU) on the
-    channels_last_3d view."""
+    weight gradient may take kernel K5. Every other shape (strided, grouped),
+    and every shape without gradients, goes to cuDNN (oneDNN on the CPU) on
+    the channels_last_3d view (a grouped conv on a contiguous copy)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: Optional[int] = None,
-                 bias: bool = True):
+                 bias: bool = True, groups: int = 1):
         super().__init__()
-        self.kernel_size, self.stride = kernel_size, stride
+        self.kernel_size, self.stride, self.groups = kernel_size, stride, groups
         # "SAME" for odd kernels at stride 1, as the JAX Conv3d default
         self.padding = kernel_size // 2 if padding is None else padding
-        self.weight = nn.Parameter(
-            torch.empty(out_ch, in_ch, kernel_size, kernel_size, kernel_size))
+        self.weight = nn.Parameter(torch.empty(
+            out_ch, in_ch // groups, kernel_size, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        if self.kernel_size == 1 and self.stride == 1:
+        dense_s1 = self.groups == 1 and self.stride == 1
+        if self.kernel_size == 1 and dense_s1:
             return F.linear(x, self.weight[:, :, 0, 0, 0].to(dt), b)
-        if (self.kernel_size == 3 and self.stride == 1 and self.padding == 1
+        if (self.kernel_size == 3 and dense_s1 and self.padding == 1
                 and torch.is_grad_enabled()):
             y = Conv3x3x3Fn.apply(x, self.weight.to(dt))
             return y if b is None else y + b
-        y = F.conv3d(to_ncdhw(x), self.weight.to(dt), b, stride=self.stride,
-                     padding=self.padding)
+        xn = to_ncdhw(x)
+        if self.groups > 1:
+            # on the channels-last view cuDNN runs a depthwise conv as one
+            # small kernel per group; PyTorch's own depthwise kernel takes
+            # the contiguous layout and is several times faster, copies
+            # included
+            xn = xn.contiguous()
+        y = F.conv3d(xn, self.weight.to(dt), b, stride=self.stride,
+                     padding=self.padding, groups=self.groups)
         return to_ndhwc(y)
 
 
@@ -159,11 +177,36 @@ class InstanceNorm(nn.Module):
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
+class BatchNorm(nn.Module):
+    """Affine BatchNorm over (..., C) from its running statistics, in fp32
+    (flax ``nn.BatchNorm(use_running_average=True)``). ``running_mean`` and
+    ``running_var`` are the JAX model's ``batch_stats`` collection. Batch
+    statistics (training) are not ported."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm with batch statistics is not ported yet (ROADMAP "
+                "queue 1 item 13, training of the model zoo)")
+        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+        y = (x.float() - self.running_mean.float()) * mul + self.bias.float()
+        return y.to(x.dtype)
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 token MLP, run as the fused kernels with the
-    block's pre-MLP LayerNorm absorbed: K2 alone without gradients (the JAX
-    block's inference form with Pallas on), K2 forward + K4 backward through
-    ``FusedMlpFn`` with them (its ``fused_mlp_trainable``)."""
+    """fc1 -> exact GELU -> fc2 token MLP of any hidden width, run as the
+    fused kernels with the block's pre-MLP LayerNorm absorbed: K2 alone
+    without gradients (the JAX block's inference form with Pallas on), K2
+    forward + K4 backward through ``FusedMlpFn`` with them (its
+    ``fused_mlp_trainable``)."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -175,11 +218,11 @@ class Mlp(nn.Module):
         """[x +] mlp(LN(x)) for raw tokens x (M, C) in the compute dtype,
         with the LayerNorm's (2, C) scale/bias rows ``ln``."""
         if torch.is_grad_enabled():
-            return FusedMlpFn.apply(x.contiguous(), ln, self.fc1.weight,
-                                    self.fc1.bias, self.fc2.weight,
-                                    self.fc2.bias, 1e-5, residual)
+            return kmlp.FusedMlpFn.apply(x.contiguous(), ln, self.fc1.weight,
+                                         self.fc1.bias, self.fc2.weight,
+                                         self.fc2.bias, 1e-5, residual)
         dt = x.dtype
-        return fused_mlp(x.contiguous(), self.fc1.weight.to(dt),
-                         self.fc1.bias.float(), self.fc2.weight.to(dt),
-                         self.fc2.bias.float(), ln=ln, residual=residual)
+        return kmlp.fused_mlp(x.contiguous(), self.fc1.weight.to(dt),
+                              self.fc1.bias.float(), self.fc2.weight.to(dt),
+                              self.fc2.bias.float(), ln=ln, residual=residual)
 

@@ -27,11 +27,9 @@ from medicalsemseg_tpu_torch.models.layers import (
     LayerNorm,
     Mlp,
 )
-from medicalsemseg_tpu_torch.ops.kernels.window_attention import (
-    WindowAttentionFn,
-    window_attention,
-)
+from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
 from medicalsemseg_tpu_torch.ops.window import (
+    gather_rel_bias,
     pad_to_multiple,
     relative_position_index,
     resolve_window,
@@ -60,21 +58,20 @@ class WindowAttention(nn.Module):
 
     def gathered_bias(self) -> torch.Tensor:
         """(nh, N, N) fp32 bias gathered from the table."""
-        n = self.window_size ** 3
-        bias = self.relative_position_bias_table.float()[self.rel_index]
-        return bias.reshape(n, n, self.num_heads).permute(2, 0, 1).contiguous()
+        return gather_rel_bias(self.relative_position_bias_table,
+                               self.rel_index, self.window_size ** 3)
 
     def forward(self, wins: torch.Tensor, grid_dims: Tuple3, shift: int,
                 ln=None, residual: bool = False) -> torch.Tensor:
         dt = wins.dtype
         ws = self.window_size
         if torch.is_grad_enabled():
-            return WindowAttentionFn.apply(
+            return kwa.WindowAttentionFn.apply(
                 wins.contiguous(), ln, self.qkv.weight, self.qkv.bias,
                 self.proj.weight, self.proj.bias,
                 self.relative_position_bias_table, self.rel_index, grid_dims,
                 (ws,) * 3, (shift,) * 3, 1e-5, residual)
-        return window_attention(
+        return kwa.window_attention(
             wins, self.qkv.weight.to(dt),
             None if self.qkv.bias is None else self.qkv.bias.float(),
             self.proj.weight.to(dt), self.proj.bias.float(),

@@ -32,6 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # token rows per tile of the backward kernels (kTile in csrc/common.cuh)
 TILE_ROWS = 32
+# dynamic shared memory a block may ask for on sm_90 (227 KB)
+MAX_SMEM_BYTES = 232448
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -96,6 +98,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_window_attention_fwd.argtypes = (
         [p] * 9 + [i] * 15 + [f, f, p])
     lib.medseg_window_attention_fwd.restype = i
+    lib.medseg_global_window_attention_fwd.argtypes = (
+        [p] * 10 + [i] * 6 + [f, f, p])
+    lib.medseg_global_window_attention_fwd.restype = i
+    lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 5 + [f, p]
+    lib.medseg_sr_attention_fwd.restype = i
+    lib.medseg_sr_attention_smem_bytes.argtypes = [i, i]
+    lib.medseg_sr_attention_smem_bytes.restype = ll
     lib.medseg_fused_mlp_fwd.argtypes = [p] * 7 + [i] * 5 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i
     lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 18 + [f, f, p]

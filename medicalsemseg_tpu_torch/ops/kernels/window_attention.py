@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from medicalsemseg_tpu_torch.ops import kernels
-from medicalsemseg_tpu_torch.ops.window import _shift_mask_np
+from medicalsemseg_tpu_torch.ops.window import _shift_mask_np, gather_rel_bias
 
 Tuple3 = Tuple[int, int, int]
 
@@ -311,9 +311,7 @@ class WindowAttentionFn(torch.autograd.Function):
     def forward(ctx, wins, ln, wqkv, bqkv, wproj, bproj, table, rel_index,
                 grid_dims, window, shift, ln_eps, residual):
         dt = wins.dtype
-        n, nh = wins.shape[1], table.shape[1]
-        bias = (table.float()[rel_index].reshape(n, n, nh).permute(2, 0, 1)
-                .contiguous())
+        bias = gather_rel_bias(table, rel_index, wins.shape[1])
         ctx.save_for_backward(wins, ln, wqkv, bqkv, wproj, table, rel_index)
         ctx.geom = dict(grid_dims=grid_dims, window=window, shift=shift,
                         ln_eps=ln_eps, residual=residual)
@@ -327,8 +325,7 @@ class WindowAttentionFn(torch.autograd.Function):
         wins, ln, wqkv, bqkv, wproj, table, rel_index = ctx.saved_tensors
         dt = wins.dtype
         n, nh = wins.shape[1], table.shape[1]
-        bias = (table.float()[rel_index].reshape(n, n, nh).permute(2, 0, 1)
-                .contiguous())
+        bias = gather_rel_bias(table, rel_index, n)
         dx, dwqkv, dbqkv, dwproj, dbproj, dbias, dln = window_attention_bwd(
             wins, wqkv.to(dt), None if bqkv is None else bqkv.float(),
             wproj.to(dt), bias, dy.to(dt).contiguous(),

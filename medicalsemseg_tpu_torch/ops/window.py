@@ -104,6 +104,35 @@ def relative_position_index(window_size: Tuple3) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def relative_position_index_ref_quirk(window_size: Tuple3) -> np.ndarray:
+    """The reference's non-standard index for GC-ViT: strides (3 w1 - 1,
+    2 w1 - 1, 1) instead of ((2 w1 - 1)(2 w2 - 1), 2 w2 - 1, 1), which maps
+    distinct relative offsets onto shared table entries. Kept behind
+    ``--ref_quirk_rel_pos`` so that reference checkpoints of that model load
+    bit-compatibly."""
+    w0, w1, w2 = window_size
+    coords = np.stack(np.meshgrid(np.arange(w0), np.arange(w1), np.arange(w2),
+                                  indexing="ij"))
+    flat = coords.reshape(3, -1)
+    rel = flat[:, :, None] - flat[:, None, :]
+    rel = rel.transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += w0 - 1
+    rel[:, :, 1] += w1 - 1
+    rel[:, :, 2] += w2 - 1
+    rel[:, :, 0] *= 3 * w1 - 1
+    rel[:, :, 1] *= 2 * w1 - 1
+    return rel.sum(-1).astype(np.int32)
+
+
+def gather_rel_bias(table: torch.Tensor, rel_index: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """(L, nh) bias table and (N * N,) index -> contiguous (nh, N, N) fp32
+    bias, the form the attention kernels take."""
+    bias = table.float()[rel_index].reshape(n, n, table.shape[1])
+    return bias.permute(2, 0, 1).contiguous()
+
+
 def resolve_window(input_resolution: Sequence[int], window_size: int,
                    shift_size: int) -> Tuple[int, int]:
     """Clamp window/shift for small grids: a window covering the whole grid

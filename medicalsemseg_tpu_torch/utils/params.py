@@ -1,21 +1,26 @@
-"""Parameter conversion between the JAX flagship and the port, and torch
+"""Parameter conversion between the JAX models and the port, and torch
 checkpoints.
 
-One key map (:func:`key_map`) pairs every leaf of the JAX flagship's
-parameter tree (nested dicts of arrays) with its key in the port's
-state_dict, which is also the reference PyTorch layout, and names the layout
-change between them:
+One key map (:func:`key_map`) pairs every leaf of a ported JAX model's
+parameter tree (nested dicts of arrays; nnFormerUNETR, SwinSegFormer,
+SegFormer3D, GCViTUNETR) with its key in the port's state_dict, which for the
+flagship is also the reference PyTorch layout, and names the layout change
+between them:
 
   dense   Dense kernel (I, O)                  <-> Linear weight (O, I)
-  conv    Conv kernel (k, k, k, I, O)          <-> Conv3d weight (O, I, k, k, k)
+  conv    Conv kernel (k, k, k, I / g, O)      <-> Conv3d weight (O, I / g, k, k, k)
   convT   ConvTranspose kernel (k, k, k, I, O) <-> un-flipped, (I, O, k, k, k)
   plain   norm scale / bias, biases, tables    <-> weight / bias, unchanged
 
 :func:`state_dict_from_jax` (the inverse of
 ``medicalsemseg_tpu/utils/torch_import.py:import_swin_unetr_checkpoint``)
-and :func:`jax_tree_from_state_dict` walk it in the two directions. Every
-change is a permutation of a leaf's elements, so the same functions carry
-gradients and optimizer moments as well as weights.
+and :func:`jax_tree_from_state_dict` walk it in the two directions. Given the
+variables {'params': ..., 'batch_stats': ...} instead of the bare parameter
+tree, they also carry the BatchNorm running statistics of the SegFormer heads
+(``batch_stats/<fuse>/BatchNorm_0/BatchNorm_0/{mean,var}`` <->
+``<fuse>.bn.running_{mean,var}``). Every change is a permutation of a leaf's
+elements, so the same functions carry gradients and optimizer moments as well
+as weights.
 :func:`load_adamw_state_from_optax` fills ``torch.optim.AdamW``'s state from
 optax's (mu, nu, count). All take numpy and import no jax.
 :func:`load_pretrained_encoder` puts the ``encoder.*`` weights of a reference
@@ -52,7 +57,20 @@ def _t(a) -> torch.Tensor:
 
 def key_map(params: Dict) -> KeyMap:
     """(path in the JAX tree, state_dict key, layout change) for every leaf
-    of the flagship tree {'encoder': ..., 'decoder': ...}."""
+    of a ported model's tree. ``params`` is the parameter tree ({'encoder':
+    ..., 'decoder': ...} or, under a SegFormer head, {'encoder': ...,
+    'linear_c1': ..., ...}), or the variables {'params': ..., 'batch_stats':
+    ...}: then the paths start with the collection's name and the BatchNorm
+    running statistics are mapped too."""
+    if "params" in params:
+        out = [(("params",) + path, key, kind)
+               for path, key, kind in key_map(params["params"])]
+        for name in sorted(params.get("batch_stats", {})):
+            bn = ("batch_stats", name, "BatchNorm_0", "BatchNorm_0")
+            out.append((bn + ("mean",), f"{name}.bn.running_mean", "plain"))
+            out.append((bn + ("var",), f"{name}.bn.running_var", "plain"))
+        return out
+
     out: KeyMap = []
 
     def kernel(path, prefix, p, kind):
@@ -60,73 +78,165 @@ def key_map(params: Dict) -> KeyMap:
         if "bias" in p:
             out.append((path + ("bias",), f"{prefix}.bias", "plain"))
 
+    def conv(path, prefix, p):
+        # the Conv3d wrapper: the conv's leaves sit under 'Conv_0'
+        kernel(path + ("Conv_0",), prefix, p["Conv_0"], "conv")
+
     def norm(path, prefix, p):
-        # LayerNorm wrapper ({'LayerNorm_0': {scale, bias}}) or InstanceNorm
+        # LayerNorm wrapper ({'LayerNorm_0': {scale, bias}}), or InstanceNorm
+        # / BatchNorm leaves
         if "LayerNorm_0" in p:
             path = path + ("LayerNorm_0",)
         out.append((path + ("scale",), f"{prefix}.weight", "plain"))
         out.append((path + ("bias",), f"{prefix}.bias", "plain"))
 
+    def attn_leaves(path, prefix, p):
+        # raw leaves qkv_kernel / proj_kernel (the local window attention)
+        out.append((path + ("qkv_kernel",), f"{prefix}.qkv.weight", "dense"))
+        if "qkv_bias" in p:
+            out.append((path + ("qkv_bias",), f"{prefix}.qkv.bias", "plain"))
+        out.append((path + ("proj_kernel",), f"{prefix}.proj.weight", "dense"))
+        out.append((path + ("proj_bias",), f"{prefix}.proj.bias", "plain"))
+
+    def table(path, prefix):
+        out.append((path + ("relative_position_bias_table",),
+                    f"{prefix}.relative_position_bias_table", "plain"))
+
     def res_block(path, prefix, p):
         for k in ("1", "2", "3"):
             if f"conv{k}" in p:
-                kernel(path + (f"conv{k}", "Conv_0"), f"{prefix}.conv{k}.conv",
-                       p[f"conv{k}"]["Conv_0"], "conv")
+                conv(path + (f"conv{k}",), f"{prefix}.conv{k}.conv",
+                     p[f"conv{k}"])
                 norm(path + (f"norm{k}",), f"{prefix}.norm{k}", p[f"norm{k}"])
 
-    enc = params["encoder"]
-    pe = ("encoder", "patch_embed")
-    kernel(pe + ("Conv_0",), "encoder.patch_embed.proj",
-           enc["patch_embed"]["Conv_0"], "conv")
-    norm(pe + ("LayerNorm_0",), "encoder.patch_embed.norm",
-         enc["patch_embed"]["LayerNorm_0"])
-    i = 0
-    while f"layers_{i}" in enc:
-        layer, lp = enc[f"layers_{i}"], ("encoder", f"layers_{i}")
-        j = 0
-        while f"blocks_{j}" in layer:
-            blk, bp = layer[f"blocks_{j}"], lp + (f"blocks_{j}",)
-            base = f"encoder.layers.{i}.blocks.{j}"
-            norm(bp + ("LayerNorm_0",), f"{base}.norm1", blk["LayerNorm_0"])
-            norm(bp + ("LayerNorm_1",), f"{base}.norm2", blk["LayerNorm_1"])
-            ap = bp + ("attn",)
-            out.append((ap + ("qkv_kernel",), f"{base}.attn.qkv.weight", "dense"))
-            if "qkv_bias" in blk["attn"]:
-                out.append((ap + ("qkv_bias",), f"{base}.attn.qkv.bias", "plain"))
-            out.append((ap + ("proj_kernel",), f"{base}.attn.proj.weight", "dense"))
-            out.append((ap + ("proj_bias",), f"{base}.attn.proj.bias", "plain"))
-            out.append((ap + ("relative_position_bias_table",),
-                        f"{base}.attn.relative_position_bias_table", "plain"))
-            for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
-                kernel(bp + ("Mlp_0", d), f"{base}.mlp.{fc}",
-                       blk["Mlp_0"][d], "dense")
-            j += 1
-        down = layer["downsample"]
-        norm(lp + ("downsample", "LayerNorm_0"),
-             f"encoder.layers.{i}.downsample.norm", down["LayerNorm_0"])
-        kernel(lp + ("downsample", "reduction", "Conv_0"),
-               f"encoder.layers.{i}.downsample.reduction",
-               down["reduction"]["Conv_0"], "conv")
-        norm(("encoder", f"norm{i}"), f"encoder.norm{i}", enc[f"norm{i}"])
-        i += 1
+    def numbered(tree, stem):
+        i = 0
+        while f"{stem}{i}" in tree:
+            yield i, tree[f"{stem}{i}"]
+            i += 1
 
-    dec = params["decoder"]
-    k = 0
-    while f"encoder{k}" in dec:
-        res_block(("decoder", f"encoder{k}"), f"unet_encoders.{k}.layer",
-                  dec[f"encoder{k}"])
-        k += 1
-    k = 0
-    while f"decoder{k}" in dec:
-        d, dp = dec[f"decoder{k}"], ("decoder", f"decoder{k}")
-        kernel(dp + ("transp_conv", "ConvTranspose_0"),
-               f"unet_decoders.{k}.transp_conv.conv",
-               d["transp_conv"]["ConvTranspose_0"], "convT")
-        res_block(dp + ("conv_block",), f"unet_decoders.{k}.conv_block",
-                  d["conv_block"])
-        k += 1
-    kernel(("decoder", "out", "conv", "Conv_0"), "out.conv.conv",
-           dec["out"]["conv"]["Conv_0"], "conv")
+    def swin_encoder(enc):
+        pe = ("encoder", "patch_embed")
+        conv(pe, "encoder.patch_embed.proj", enc["patch_embed"])
+        norm(pe + ("LayerNorm_0",), "encoder.patch_embed.norm",
+             enc["patch_embed"]["LayerNorm_0"])
+        for i, layer in numbered(enc, "layers_"):
+            lp = ("encoder", f"layers_{i}")
+            for j, blk in numbered(layer, "blocks_"):
+                bp = lp + (f"blocks_{j}",)
+                base = f"encoder.layers.{i}.blocks.{j}"
+                norm(bp + ("LayerNorm_0",), f"{base}.norm1", blk["LayerNorm_0"])
+                norm(bp + ("LayerNorm_1",), f"{base}.norm2", blk["LayerNorm_1"])
+                attn_leaves(bp + ("attn",), f"{base}.attn", blk["attn"])
+                table(bp + ("attn",), f"{base}.attn")
+                for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+                    kernel(bp + ("Mlp_0", d), f"{base}.mlp.{fc}",
+                           blk["Mlp_0"][d], "dense")
+            down = layer["downsample"]
+            norm(lp + ("downsample", "LayerNorm_0"),
+                 f"encoder.layers.{i}.downsample.norm", down["LayerNorm_0"])
+            conv(lp + ("downsample", "reduction"),
+                 f"encoder.layers.{i}.downsample.reduction", down["reduction"])
+            norm(("encoder", f"norm{i}"), f"encoder.norm{i}", enc[f"norm{i}"])
+
+    def conv_se(path, prefix, p):
+        conv(path + ("Conv3d_0",), f"{prefix}.dwconv", p["Conv3d_0"])
+        conv(path + ("Conv3d_1",), f"{prefix}.pwconv", p["Conv3d_1"])
+        for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+            kernel(path + ("SE_0", d), f"{prefix}.se.{fc}", p["SE_0"][d],
+                   "dense")
+
+    def gcvit_encoder(enc):
+        conv(("encoder", "patch_embed"), "encoder.patch_embed",
+             enc["patch_embed"])
+        for i, level in numbered(enc, "levels_"):
+            lp, base = ("encoder", f"levels_{i}"), f"encoder.levels.{i}"
+            for k, fe in numbered(level, "to_q_global_"):
+                conv_se(lp + (f"to_q_global_{k}", "_ConvSE_0"),
+                        f"{base}.to_q_global.{k}.conv_se", fe["_ConvSE_0"])
+            for j, blk in numbered(level, "blocks_"):
+                bp, bb = lp + (f"blocks_{j}",), f"{base}.blocks.{j}"
+                norm(bp + ("norm1",), f"{bb}.norm1", blk["norm1"])
+                norm(bp + ("norm2",), f"{bb}.norm2", blk["norm2"])
+                if "qkv" in blk["attn"]:    # global: nn.Dense-named leaves
+                    for d in ("qkv", "proj"):
+                        kernel(bp + ("attn", d), f"{bb}.attn.{d}",
+                               blk["attn"][d], "dense")
+                else:
+                    attn_leaves(bp + ("attn",), f"{bb}.attn", blk["attn"])
+                table(bp + ("attn",), f"{bb}.attn")
+                for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+                    kernel(bp + ("mlp", d), f"{bb}.mlp.{fc}", blk["mlp"][d],
+                           "dense")
+            down, dp = level["downsample"], lp + ("downsample",)
+            norm(dp + ("norm1",), f"{base}.downsample.norm1", down["norm1"])
+            conv_se(dp + ("_ConvSE_0",), f"{base}.downsample.conv_se",
+                    down["_ConvSE_0"])
+            conv(dp + ("reduction",), f"{base}.downsample.reduction",
+                 down["reduction"])
+            norm(dp + ("norm2",), f"{base}.downsample.norm2", down["norm2"])
+            norm(("encoder", f"norm{i}"), f"encoder.norm{i}", enc[f"norm{i}"])
+
+    def segformer_encoder(enc):
+        s = 1
+        while f"patch_embed{s}" in enc:
+            pe, pp = enc[f"patch_embed{s}"], ("encoder", f"patch_embed{s}")
+            conv(pp + ("proj",), f"encoder.patch_embed{s}.proj", pe["proj"])
+            norm(pp + ("norm",), f"encoder.patch_embed{s}.norm", pe["norm"])
+            for i, blk in numbered(enc, f"block{s}_"):
+                bp, bb = ("encoder", f"block{s}_{i}"), f"encoder.block{s}_{i}"
+                norm(bp + ("norm1",), f"{bb}.norm1", blk["norm1"])
+                norm(bp + ("norm2",), f"{bb}.norm2", blk["norm2"])
+                at = blk["attn"]
+                for d in ("q", "kv", "proj"):
+                    kernel(bp + ("attn", d), f"{bb}.attn.{d}", at[d], "dense")
+                if "sr" in at:
+                    conv(bp + ("attn", "sr"), f"{bb}.attn.sr", at["sr"])
+                    norm(bp + ("attn", "norm"), f"{bb}.attn.norm", at["norm"])
+                for d in ("fc1", "fc2"):
+                    kernel(bp + ("mlp", d), f"{bb}.mlp.{d}", blk["mlp"][d],
+                           "dense")
+                conv(bp + ("mlp", "dwconv"), f"{bb}.mlp.dwconv",
+                     blk["mlp"]["dwconv"])
+            norm(("encoder", f"norm{s}"), f"encoder.norm{s}", enc[f"norm{s}"])
+            s += 1
+
+    def unetr_decoder(dec):
+        for k, blk in numbered(dec, "encoder"):
+            res_block(("decoder", f"encoder{k}"), f"unet_encoders.{k}.layer",
+                      blk)
+        for k, d in numbered(dec, "decoder"):
+            dp = ("decoder", f"decoder{k}")
+            kernel(dp + ("transp_conv", "ConvTranspose_0"),
+                   f"unet_decoders.{k}.transp_conv.conv",
+                   d["transp_conv"]["ConvTranspose_0"], "convT")
+            res_block(dp + ("conv_block",), f"unet_decoders.{k}.conv_block",
+                      d["conv_block"])
+        conv(("decoder", "out", "conv"), "out.conv.conv", dec["out"]["conv"])
+
+    def segformer_head(tree):
+        for name in sorted(tree):
+            if name.startswith("linear_c"):
+                kernel((name, "proj"), f"{name}.proj", tree[name]["proj"],
+                       "dense")
+            elif name.startswith("linear_fuse"):
+                conv((name, "Conv3d_0"), f"{name}.conv",
+                     tree[name]["Conv3d_0"])
+                norm((name, "BatchNorm_0", "BatchNorm_0"), f"{name}.bn",
+                     tree[name]["BatchNorm_0"]["BatchNorm_0"])
+        conv(("linear_pred",), "linear_pred", tree["linear_pred"])
+
+    enc = params["encoder"]
+    if "levels_0" in enc:
+        gcvit_encoder(enc)
+    elif "patch_embed1" in enc:
+        segformer_encoder(enc)
+    else:
+        swin_encoder(enc)
+    if "decoder" in params:
+        unetr_decoder(params["decoder"])
+    else:
+        segformer_head(params)
     return out
 
 
@@ -137,8 +247,9 @@ def _get(tree, path):
 
 
 def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
-    """JAX flagship tree {'encoder': ..., 'decoder': ...} (weights, or
-    gradients or moments of the same structure) -> port state_dict."""
+    """JAX parameter tree, or variables {'params': ..., 'batch_stats': ...},
+    of a ported model (weights, or gradients or moments of the same
+    structure) -> port state_dict."""
     return {key: _t(_TO_PORT[kind](np.asarray(_get(params, path))))
             for path, key, kind in key_map(params)}
 
@@ -146,8 +257,8 @@ def state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
 def jax_tree_from_state_dict(sd: Dict[str, torch.Tensor],
                              template: Dict) -> Dict:
     """Port state_dict (or gradients keyed like it) -> nested dicts of numpy
-    arrays in the JAX flagship's layout; ``template`` is any tree of that
-    structure (only its keys are read)."""
+    arrays in the JAX model's layout; ``template`` is any tree of that
+    structure, parameters or variables (only its keys are read)."""
     tree: Dict = {}
     for path, key, kind in key_map(template):
         node = tree

@@ -14,7 +14,9 @@ from medicalsemseg_tpu_torch.ops import convgrad
 from medicalsemseg_tpu_torch.ops import window as tw
 from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
 from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
+from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
 from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
 
 pytestmark = pytest.mark.cuda
@@ -368,3 +370,115 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
             wins, wins.new_zeros(72, 24), None, wins.new_zeros(24, 24),
             torch.zeros(3, 8, 8, device="cuda"), wins, grid_dims=(1, 1, 1),
             window=(2, 2, 2), shift=(0, 0, 0))
+
+
+@pytest.mark.parametrize("batch,dims,ws,c,nh,ln_res,kv_bias", [
+    (1, (4, 4, 6), 2, 8, 2, True, True),
+    (2, (6, 6, 9), 3, 12, 3, True, False),    # two query grids, 12 windows each
+    (3, (6, 6, 9), 3, 32, 1, False, True),    # head dim 32
+    (2, (12, 6, 6), 6, 48, 3, True, True),
+])
+def test_global_window_attention_kernel(gen, batch, dims, ws, c, nh, ln_res,
+                                        kv_bias):
+    dev, bf = "cuda", torch.bfloat16
+    n = ws ** 3
+    x = torch.randn(batch, *dims, c, generator=gen, device=dev).to(bf)
+    wins = tw.window_partition(x, ws).contiguous()
+    args = dict(
+        q_global=torch.randn(batch, n, c, generator=gen, device=dev).to(bf),
+        wkv=(torch.randn(2 * c, c, generator=gen, device=dev) * c ** -0.5).to(bf),
+        bkv=(torch.randn(2 * c, generator=gen, device=dev) * 0.1
+             if kv_bias else None),
+        wproj=(torch.randn(c, c, generator=gen, device=dev) * c ** -0.5).to(bf),
+        bproj=torch.randn(c, generator=gen, device=dev) * 0.1,
+        bias=torch.randn(nh, n, n, generator=gen, device=dev))
+    ln = torch.stack([1 + 0.3 * torch.randn(c, generator=gen, device=dev),
+                      0.1 * torch.randn(c, generator=gen, device=dev)])
+    kw = dict(ln=ln if ln_res else None, residual=ln_res)
+    before = kga.launches
+    got = kga.global_window_attention(wins, **args, **kw)
+    torch.cuda.synchronize()
+    assert kga.launches == before + 1
+    _close(got, kga.global_window_attention_plain(wins, **args, **kw))
+
+
+@pytest.mark.parametrize("b,n,m,c,nh,bq,res", [
+    (2, 27, 27, 16, 4, True, True),      # one ragged tile
+    (3, 100, 8, 24, 2, False, False),    # three whole tiles and a tail
+    (1, 1, 1, 8, 2, True, True),         # one token, one key
+    (2, 513, 64, 96, 3, True, True),     # head dim 32, M over a warp
+])
+def test_sr_attention_kernel(gen, b, n, m, c, nh, bq, res):
+    dev, bf = "cuda", torch.bfloat16
+
+    def act(rows):
+        return torch.randn(b, rows, c, generator=gen, device=dev).to(bf)
+
+    x = act(n)
+    args = dict(
+        k=act(m), v=act(m),
+        wq=(torch.randn(c, c, generator=gen, device=dev) * c ** -0.5).to(bf),
+        bq=torch.randn(c, generator=gen, device=dev) * 0.1 if bq else None,
+        wproj=(torch.randn(c, c, generator=gen, device=dev) * c ** -0.5).to(bf),
+        bproj=torch.randn(c, generator=gen, device=dev) * 0.1,
+        num_heads=nh, residual=act(n) if res else None)
+    before = ksr.launches
+    got = ksr.sr_attention(x, **args)
+    torch.cuda.synchronize()
+    assert ksr.launches == before + 1
+    _close(got, ksr.sr_attention_plain(x, **args))
+
+
+@pytest.mark.parametrize("m,c", [(37, 48), (300, 96), (70, 192), (33, 384)])
+def test_mlp_kernel_at_hidden_3c(gen, m, c):
+    """GC-ViT's MLP: hidden 3C = 144, 288, 576, 1152; 144 is four and a half
+    of the kernel's chunks of 32 hidden units."""
+    dev, bf = "cuda", torch.bfloat16
+    h = 3 * c
+    x = torch.randn(m, c, generator=gen, device=dev).to(bf)
+    args = dict(
+        w1=(torch.randn(h, c, generator=gen, device=dev) * c ** -0.5).to(bf),
+        b1=torch.randn(h, generator=gen, device=dev) * 0.1,
+        w2=(torch.randn(c, h, generator=gen, device=dev) * h ** -0.5).to(bf),
+        b2=torch.randn(c, generator=gen, device=dev) * 0.1)
+    ln = torch.stack([1 + 0.3 * torch.randn(c, generator=gen, device=dev),
+                      0.1 * torch.randn(c, generator=gen, device=dev)])
+    got = kmlp.fused_mlp(x, **args, ln=ln, residual=True)
+    torch.cuda.synchronize()
+    _close(got, kmlp.fused_mlp_plain(x, **args, ln=ln, residual=True))
+
+
+def test_zoo_wrappers_reject_what_the_kernels_do_not_take(gen):
+    dev, bf = "cuda", torch.bfloat16
+    c, nh, n = 16, 2, 8
+    wins = torch.zeros(4, n, c, device=dev, dtype=bf)
+    good = dict(q_global=torch.zeros(2, n, c, device=dev, dtype=bf),
+                wkv=torch.zeros(2 * c, c, device=dev, dtype=bf), bkv=None,
+                wproj=torch.zeros(c, c, device=dev, dtype=bf),
+                bproj=torch.zeros(c, device=dev),
+                bias=torch.zeros(nh, n, n, device=dev))
+    kga.global_window_attention(wins, **good)
+    with pytest.raises(ValueError, match="query grids"):
+        kga.global_window_attention(wins, **dict(
+            good, q_global=torch.zeros(3, n, c, device=dev, dtype=bf)))
+    with pytest.raises(ValueError, match="wkv"):      # a (3C, C) qkv weight
+        kga.global_window_attention(wins, **dict(
+            good, wkv=torch.zeros(3 * c, c, device=dev, dtype=bf)))
+    with pytest.raises(ValueError, match="wins is"):
+        kga.global_window_attention(wins.float(), **good)
+
+    x = torch.zeros(1, 40, 384, device=dev, dtype=bf)
+    w = torch.zeros(384, 384, device=dev, dtype=bf)
+    bp = torch.zeros(384, device=dev)
+
+    def kv(m):
+        return torch.zeros(1, m, 384, device=dev, dtype=bf)
+
+    ksr.sr_attention(x, kv(66), kv(66), w, None, w, bp, 24)
+    with pytest.raises(ValueError, match="shared memory"):
+        ksr.sr_attention(x, kv(67), kv(67), w, None, w, bp, 24)
+    with pytest.raises(ValueError, match="head dim"):
+        ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 6)
+    with pytest.raises(ValueError, match="residual"):
+        ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 24,
+                         residual=torch.zeros(1, 39, 384, device=dev, dtype=bf))

@@ -37,24 +37,30 @@ def small_cfg(**kw) -> Config:
     return Config(**base)
 
 
-def jax_params(cfg: Config, seed: int = 0):
-    """The JAX flagship for cfg and a parameter tree of its structure (from
-    ``jax.eval_shape`` of the init, so nothing is compiled) filled from a
-    seeded numpy generator: norm scales ~1, biases ~0.1, kernels with
-    variance 1 / fan_in, bias tables ~0.5, so every layer contributes."""
+def jax_variables(cfg: Config, seed: int = 0):
+    """The JAX model for cfg and its variables {'params': ...[,
+    'batch_stats': ...]} (structure from ``jax.eval_shape`` of the init, so
+    nothing is compiled) filled from a seeded numpy generator: norm scales
+    ~1, biases ~0.1, kernels with variance 1 / fan_in, bias tables ~0.5,
+    running means ~0.3 and running variances in 0.5-1.5, so every layer and
+    every statistic contributes."""
     model = jax_build_model(cfg)
     v = cfg.vol_size3()
     x_in = (jnp.zeros((1, *v, cfg.in_chans)), jnp.zeros((1, 3)),
             jnp.ones((1, 3)))
     shapes = jax.eval_shape(
         lambda r, x: model.init(r, x, deterministic=True),
-        jax.random.PRNGKey(0), x_in)["params"]
+        jax.random.PRNGKey(0), x_in)
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
         name = str(path[-1].key)
         z = rng.normal(size=leaf.shape)
-        if name == "scale":
+        if name == "var":
+            z = rng.uniform(0.5, 1.5, size=leaf.shape)
+        elif name == "mean":
+            z = 0.3 * z
+        elif name == "scale":
             z = 1.0 + 0.1 * z
         elif "bias" in name and name != "relative_position_bias_table":
             z = 0.1 * z
@@ -64,7 +70,14 @@ def jax_params(cfg: Config, seed: int = 0):
             z = z / np.sqrt(np.prod(leaf.shape[:-1]))
         return z.astype(np.float32)
 
-    return model, jax.tree_util.tree_map_with_path(fill, shapes)
+    return model, jax.tree_util.tree_map_with_path(fill, dict(shapes))
+
+
+def jax_params(cfg: Config, seed: int = 0):
+    """The JAX model for cfg and its seeded parameter tree (see
+    :func:`jax_variables`)."""
+    model, variables = jax_variables(cfg, seed)
+    return model, variables["params"]
 
 
 def port_model(cfg: Config, params) -> torch.nn.Module:

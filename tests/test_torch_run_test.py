@@ -112,7 +112,7 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 
 def test_unported_flags_raise(tmp_path):
-    cfg = port_cli.get_args(ARGV + ["--tta_mirror", "--device", "cpu"])
+    cfg = port_cli.get_args(ARGV + ["--world_size", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(cfg)
 

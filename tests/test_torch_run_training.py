@@ -108,6 +108,9 @@ def test_train_validate_checkpoint_and_resume(tmp_path):
     (["--device_data_pipeline"], "device-resident"),
     (["--profile_dir", "p"], "profiling"),
     (["--remat", "full"], "rematerialisation"),
+    (["--model", "GCViTUNETR"], "training of the model zoo"),
+    (["--model", "SegFormer3D"], "training of the model zoo"),
+    (["--model", "SwinSegFormer"], "training of the model zoo"),
 ])
 def test_unported_flags_raise(flag, match):
     with pytest.raises(NotImplementedError, match=match):
