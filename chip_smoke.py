@@ -20,6 +20,11 @@ Phases, in order; any failure exits non-zero:
                  ragged shape, beside cuDNN's weight gradient; K8 (fused
                  DiceCE, forward sums and dlogits) at batch 4 and 8 of 96^3 x
                  14 classes and a voxel count that is no multiple of its tile;
+                 K9 (Winograd F(2^3, 3^3) conv) at the shapes of one
+                 predictor call and of one training step, bare and with the
+                 scale / shift / LeakyReLU epilogue, and K10 (im2col conv,
+                 forward and dx) at the full-resolution shapes, each beside
+                 the library's conv (`--kernels conv` runs these two alone);
   4. model     - the full-width flagship on one 96^3 window in bf16 with the
                  kernels, against the same weights in fp32 on the CPU (plain);
   5. zoo       - GCViTUNETR, SegFormer3D and SwinSegFormer at full width: one
@@ -46,10 +51,24 @@ Phases, in order; any failure exits non-zero:
   9. train_cli - the training CLI on a synthetic Decathlon folder: 2 epochs,
                  validation, checkpoints, then a --resume run; an epoch at
                  batch 4 with accumulation and the fused loss, and a run that
-                 starts from its checkpoint's encoder with --pretrained.
+                 starts from its checkpoint's encoder with --pretrained;
+ 10. fused     - the paths that run K9 without gradients: one predictor call
+                 of the flagship with MEDSEG_FUSED_DECODER=1 and with
+                 MEDSEG_WINOGRAD=1 (logits against fp32 on the CPU and
+                 against the ungated card path, K9's launches as the gate
+                 requires, A/B/B/A times, peak memory), one GCViTUNETR call
+                 and the prediction CLI with the fused decoder;
+ 11. train_wino - a few steps at batch 8 with MEDSEG_WINOGRAD_TRAIN=1 (K9 for
+                 the forward and dx of every eligible conv): launches per
+                 step from the gate, one step's gradients against fp32 plain
+                 and against the ungated step, ms per step beside ungated;
+ 12. conv3d    - the function conv3x3x3 (K10 forward and dx, dW through K5)
+                 at the full-resolution shapes, batch 4: value and gradients
+                 against autograd through the library's conv, and times.
 `--phases profile` (not run by default) prints torch.profiler tables of one
-training step at batch 8, one micro-step at batch 4 and one predictor call of
-each zoo model. Then one JSON line with the kernels' numbers, and last the line
+training step at batch 8, one micro-step at batch 4, one predictor call of
+each zoo model and one of the flagship without and with the fused decoder;
+`--phases k9_parts` times K9 built with one part or another compiled out. Then one JSON line with the kernels' numbers, and last the line
 {"ok": true, "device": {...}}. Imports torch and the port, never jax.
 """
 
@@ -65,8 +84,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
-          "train_b4", "train_cli")
-EXTRA_PHASES = ("profile",)
+          "train_b4", "train_cli", "fused", "train_wino", "conv3d")
+# groups of the kernels phase, for --kernels
+KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv")
+EXTRA_PHASES = ("profile", "k9_parts")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -294,7 +315,11 @@ def _kernel_reports():
             ("K7", "sr_attention", "sr_attention.cu", "sr_attention.py:85"),
             # forward sums :137 and the backward call inside _fused_for :176
             ("K8", "dice_ce_sums", "dice_ce.cu", "dice_ce.py:137"),
-            ("K8", "dice_ce_dlogits", "dice_ce.cu", "dice_ce.py:176"))
+            ("K8", "dice_ce_dlogits", "dice_ce.cu", "dice_ce.py:176"),
+            ("K9", "winograd_conv3d_f23", "winograd3d.cu",
+             "winograd3d.py:212"),
+            # forward :113, which is also dx; its dW :164 is K5's function
+            ("K10", "conv3x3x3", "conv3d.cu", "conv3d.py:113"))
     return {name: {"tag": tag, "name": name, "route": "cuda",
                    "source": src + cu, "replaces": ref + at,
                    "library_ms": None, "per_stage": []}
@@ -305,14 +330,20 @@ K3_NAMES = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias", "dln")
 K4_NAMES = ("dx", "dln", "dw1", "db1", "dw2", "db2")
 
 
-def phase_kernels():
+def phase_kernels(groups=KERNEL_GROUPS):
     """Every kernel against its plain version at the shapes the main paths
-    give it; the list of their reports, in the order K1-K8."""
+    give it; the list of their reports, in the order K1-K10."""
     rep = _kernel_reports()
-    _swin_kernels(rep)
-    _zoo_kernels(rep)
-    _dw27_kernel(rep["dw27"])
-    _dice_ce_kernels(rep["dice_ce_sums"], rep["dice_ce_dlogits"])
+    if "swin" in groups:
+        _swin_kernels(rep)
+    if "zoo" in groups:
+        _zoo_kernels(rep)
+    if "dw27" in groups:
+        _dw27_kernel(rep["dw27"])
+    if "dice_ce" in groups:
+        _dice_ce_kernels(rep["dice_ce_sums"], rep["dice_ce_dlogits"])
+    if "conv" in groups:
+        _conv_kernels(rep["winograd_conv3d_f23"], rep["conv3x3x3"])
     for k in rep.values():
         k["launches"] = 0
         del k["tag"]
@@ -674,6 +705,191 @@ def _compare_sums(name, got, want, report, tol=SUM_NORM_TOL):
 def _bound(flops, nbytes, peak_flops):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# K9's launches of one flagship predictor call (16 windows of 96^3) under
+# MEDSEG_FUSED_DECODER=1: (volume edge, C = Co, launches): conv2 of
+# unet_encoders[0] and unet_decoders[0] at 96^3, of [1] at 48^3, of [2] at
+# 24^3 (the fused phase derives the count from the gate; this table only
+# picks the shapes to measure)
+WINO_PREDICT = ((96, 48, 2), (48, 48, 2), (24, 96, 2))
+# the full-resolution convs of one training step at batch 8 under
+# MEDSEG_WINOGRAD_TRAIN=1: (C, Co) of the forward and of dx (dy's channels in)
+WINO_TRAIN = ((48, 48), (96, 48))
+IM2COL_BATCHES = (1, 4)
+
+
+def _time_once_ms(fn):
+    """One timed run, for the plain versions of the conv kernels, which take
+    seconds at the main path's shapes (the comparison before it was the
+    warm-up)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _conv_work(batch, edge, c, co, epilogue=False):
+    """Of one 3^3 conv over batch x edge^3 voxels: the 27-tap FLOPs, the
+    FLOPs of the 64 Winograd products per 2^3 tile, and the bytes (x read
+    once, y written once, bf16; the weights once; the epilogue's fp32 scale
+    and shift)."""
+    m = batch * edge ** 3
+    tiles = batch * (-(-edge // 2)) ** 3
+    nbytes = m * (c + co) * 2 + 27 * c * co * 2
+    if epilogue:
+        nbytes += batch * 2 * c * 4
+    return 2 * 27 * m * c * co, 2 * 64 * tiles * c * co, nbytes
+
+
+def _lib_conv(x, w):
+    """The library's conv on the channels-last view: the yardstick."""
+    import torch.nn.functional as F
+
+    return F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1)
+
+
+def _conv_kernels(k9r, k10r):
+    """K9 and K10 against their plain versions, and timed beside the
+    library's conv, at the shapes the main paths give them."""
+    import torch
+    import torch.nn.functional as F
+
+    from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
+    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+
+    def case(batch, dims, c, co):
+        x = torch.randn(batch, *dims, c, generator=gen, device="cuda").to(bf)
+        w = (torch.randn(co, c, 3, 3, 3, generator=gen, device="cuda")
+             * (27 * c) ** -0.5).to(bf)
+        return x, w
+
+    def epilogue(batch, c):
+        # as a folded InstanceNorm gives them, distinct per sample; the shift
+        # is well off 0, so a halo that was activated and not set back to 0
+        # would show at every border voxel
+        return (1 + 0.3 * torch.randn(batch, c, generator=gen, device="cuda"),
+                1 + torch.randn(batch, c, generator=gen, device="cuda"))
+
+    def check(tag, rep, name, fn, plain):
+        got = fn()
+        torch.cuda.synchronize()
+        _compare(f"{tag} {name}", got, plain(), rep)
+        _require(torch.equal(got, fn()),
+                 f"{tag} {name}: a second run is not bit-equal")
+
+    with torch.inference_mode():
+        # small and odd first: masked tails, ragged channel tiles
+        for dims, c, co in (((5, 7, 9), 16, 24), ((6, 10, 35), 40, 56)):
+            x, w = case(2, dims, c, co)
+            ep = epilogue(2, c)
+            name = f"2x{'x'.join(map(str, dims))}, {c}->{co}"
+            check("K9", k9r, name + " bare",
+                  lambda: k9.winograd_conv3d_f23(x, w),
+                  lambda: k9.winograd_conv3d_f23_plain(x, w))
+            check("K9", k9r, name + " epilogue + lrelu",
+                  lambda: k9.winograd_conv3d_f23(x, w, epilogue=ep, lrelu=True),
+                  lambda: k9.winograd_conv3d_f23_plain(x, w, epilogue=ep,
+                                                       lrelu=True))
+            check("K10", k10r, name, lambda: k10.conv3x3x3_fwd(x, w),
+                  lambda: k10.conv3x3x3_plain(x, w))
+
+        def k9_stage(path, batch, edge, c, co, with_ep):
+            x, w = case(batch, (edge,) * 3, c, co)
+            kw = (dict(epilogue=epilogue(batch, c), lrelu=True) if with_ep
+                  else {})
+            form = "epilogue + lrelu" if with_ep else "bare"
+            name = f"{path} {batch}x{edge}^3, {c}->{co}, {form}"
+            check("K9", k9r, name,
+                  lambda: k9.winograd_conv3d_f23(x, w, **kw),
+                  lambda: k9.winograd_conv3d_f23_plain(x, w, **kw))
+            ms = _time_ms(lambda: k9.winograd_conv3d_f23(x, w, **kw), 5)
+            pms = _time_once_ms(
+                lambda: k9.winograd_conv3d_f23_plain(x, w, **kw))
+            if with_ep:
+                # no single call computes it; the chain the unfused model
+                # runs after the statistics, as a note
+                sc, sh = (t[:, None, None, None, :] for t in kw["epilogue"])
+                lms = None
+                chain = _time_ms(lambda: _lib_conv(F.leaky_relu(
+                    (x.float() * sc + sh).to(bf), 0.01), w), 5)
+            else:
+                lms = _time_ms(lambda: _lib_conv(x, w), 5)
+                chain = None
+            direct, wino, nbytes = _conv_work(batch, edge, c, co, with_ep)
+            bound, by = _bound(wino, nbytes, PEAK_BF16_FLOPS)
+            k9r["per_stage"].append({
+                "path": path, "batch": batch, "edge": edge, "C": c, "Co": co,
+                "epilogue": with_ep, "ms": ms, "plain_ms": pms,
+                "library_ms": lms, "chain_ms": chain, "flops": wino,
+                "direct_flops": direct, "bytes": nbytes, "bound_ms": bound,
+                "bound_by": by})
+            lib = (f"normalize -> leaky_relu -> F.conv3d {chain:.3f} ms"
+                   if with_ep else f"F.conv3d {lms:.3f} ms")
+            print(f"  K9 {name}: kernel {ms:.3f} ms, plain {pms:.1f} ms, "
+                  f"{lib}, bound {bound:.4f} ms by {by} ({wino:.3e} Winograd "
+                  f"FLOP, {direct:.3e} direct FLOP, {nbytes:.3e} B)",
+                  flush=True)
+            del x, w, kw
+            torch.cuda.empty_cache()
+
+        for edge, c, _ in WINO_PREDICT:
+            for with_ep in (False, True):
+                k9_stage("predict", PREDICT_BATCH, edge, c, c, with_ep)
+        for c, co in WINO_TRAIN:
+            k9_stage("train fwd", TRAIN_BATCH, CROP, c, co, False)
+            if c != co:
+                k9_stage("train dx", TRAIN_BATCH, CROP, co, c, False)
+
+        for batch in IM2COL_BATCHES:
+            for c, co in DW27_CONVS:
+                for what, ci, cj in (("fwd", c, co), ("dx", co, c)):
+                    if what == "dx" and c == co:
+                        continue        # the forward's shape again
+                    x, w = case(batch, (CROP,) * 3, ci, cj)
+                    name = f"{what} {batch}x{CROP}^3, {ci}->{cj}"
+                    check("K10", k10r, name, lambda: k10.conv3x3x3_fwd(x, w),
+                          lambda: k10.conv3x3x3_plain(x, w))
+                    ms = _time_ms(lambda: k10.conv3x3x3_fwd(x, w), 5)
+                    pms = _time_once_ms(lambda: k10.conv3x3x3_plain(x, w))
+                    lms = _time_ms(lambda: _lib_conv(x, w), 5)
+                    flops, _, nbytes = _conv_work(batch, CROP, ci, cj)
+                    bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+                    k10r["per_stage"].append({
+                        "path": what, "batch": batch, "C": ci, "Co": cj,
+                        "ms": ms, "plain_ms": pms, "library_ms": lms,
+                        "flops": flops, "bytes": nbytes, "bound_ms": bound,
+                        "bound_by": by})
+                    print(f"  K10 {name}: kernel {ms:.3f} ms, plain {pms:.1f} "
+                          f"ms, F.conv3d {lms:.3f} ms, bound {bound:.4f} ms "
+                          f"by {by} ({flops:.3e} FLOP, {nbytes:.3e} B)",
+                          flush=True)
+                    del x, w
+                    torch.cuda.empty_cache()
+
+    # K9: the six launches of one predictor call with the fused decoder
+    stages = {(s["edge"], s["C"]): s for s in k9r["per_stage"]
+              if s["path"] == "predict" and s["epilogue"]}
+    for key in ("ms", "plain_ms", "chain_ms", "bound_ms"):
+        k9r[key] = sum(n * stages[(edge, c)][key]
+                       for edge, c, n in WINO_PREDICT)
+    k9r["bound_by"] = stages[WINO_PREDICT[0][:2]]["bound_by"]
+    # K10: one call of the function at batch 4, 48 -> 48: forward and dx
+    # (the same shape); its dW is K5's launch, in K5's row
+    main = next(s for s in k10r["per_stage"]
+                if s["batch"] == TRAIN_B4_BATCH and (s["C"], s["Co"]) == (48, 48))
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        k10r[key] = 2 * main[key]
+    k10r["bound_by"] = main["bound_by"]
 
 
 def _dw27_kernel(k5r):
@@ -1124,11 +1340,14 @@ def _reset_launches():
     from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
     from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
     from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+    from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
     from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 
     kwa.launches = kwa.bwd_launches = kmlp.launches = kmlp.bwd_launches = 0
     k5.launches = k8.launches = k8.bwd_launches = 0
     kga.launches = ksr.launches = 0
+    k9.launches = k10.launches = 0
 
 
 def _read_launches():
@@ -1137,9 +1356,12 @@ def _read_launches():
     from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
     from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
     from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+    from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
     from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 
     return {"window_attention": kwa.launches, "fused_mlp": kmlp.launches,
+            "winograd_conv3d_f23": k9.launches, "conv3x3x3": k10.launches,
             "window_attention_bwd": kwa.bwd_launches,
             "fused_mlp_bwd": kmlp.bwd_launches, "dw27": k5.launches,
             "global_window_attention": kga.launches,
@@ -1215,15 +1437,20 @@ class _plain_kernels:
         from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
         from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
         from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+        from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
         from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+        from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 
         names = ((kwa, "window_attention"), (kwa, "window_attention_bwd"),
                  (kmlp, "fused_mlp"), (kmlp, "fused_mlp_bwd"), (k5, "dw27"),
                  (kga, "global_window_attention"), (ksr, "sr_attention"),
-                 (k8, "dice_ce_sums"), (k8, "dice_ce_dlogits"))
+                 (k8, "dice_ce_sums"), (k8, "dice_ce_dlogits"),
+                 (k9, "winograd_conv3d_f23"))
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in names]
         for mod, name in names:
             setattr(mod, name, getattr(mod, name + "_plain"))
+        self.saved.append((k10, "conv3x3x3_fwd", k10.conv3x3x3_fwd))
+        k10.conv3x3x3_fwd = k10.conv3x3x3_plain
 
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
@@ -1562,6 +1789,67 @@ def phase_profile():
         _profile_step(TRAIN_B4_BATCH, TRAIN_B4_FLAGS)
     for name in ZOO_MODELS:
         _profile_call(name)
+    _profile_call("nnFormerUNETR")
+    _profile_call("nnFormerUNETR", "MEDSEG_FUSED_DECODER")
+
+
+K9_PARTS = (("whole", 0), ("without the V build", 1),
+            ("without ldmatrix, mma and folds", 2), ("without the u copies", 4),
+            ("without staging x", 8), ("staging, u copies and output only", 3),
+            ("output and barriers only", 15))
+
+
+def phase_k9_parts():
+    """K9 at 16 x 96^3, 48 -> 48, built with parts compiled out
+    (MEDSEG_K9_SKIP in csrc/winograd3d.cu): what each part costs, where no
+    kernel profiler runs. The variants' results are wrong by design; only
+    the whole kernel is compared with the library's conv."""
+    import ctypes
+
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "k9_parts")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(kernels.CSRC_DIR, "winograd3d.cu")
+    jobs = []
+    for _, mask in K9_PARTS:
+        so = os.path.join(out_dir, f"k9_skip_{mask}.so")
+        jobs.append((so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+             f"-DMEDSEG_K9_SKIP={mask}", "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, edge, c = PREDICT_BATCH, CROP, 48
+    x = torch.randn(b, edge, edge, edge, c, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w = (torch.randn(c, c, 3, 3, 3, generator=gen, device="cuda")
+         * (27 * c) ** -0.5).to(torch.bfloat16)
+    u = k9.pad_kernel_weights(k9._transform_weights(w).to(torch.bfloat16))
+    y = torch.empty_like(x)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for (label, mask), (so, proc) in zip(K9_PARTS, jobs):
+        out, err = proc.communicate()
+        _require(proc.returncode == 0, f"k9_parts: nvcc failed:\n{out}\n{err}")
+        fn = ctypes.CDLL(so).medseg_winograd_f23
+        fn.argtypes, fn.restype = [p] * 4 + [i] * 9 + [f, p], i
+
+        def launch():
+            rc = fn(kernels.ptr(x), kernels.ptr(u), None, kernels.ptr(y), b,
+                    edge, edge, edge, c, c, u.shape[2], u.shape[1], 0, 0.01,
+                    kernels.stream_handle(x.device))
+            _require(rc == 0, f"k9_parts: launch failed ({rc})")
+
+        ms = _time_ms(launch, 5)
+        if mask == 0:
+            lib = _lib_conv(x, w).permute(0, 2, 3, 4, 1).float()
+            rel = float((y.float() - lib).norm() / lib.norm())
+            _require(rel <= 2e-2, f"k9_parts: the whole kernel is {rel:.2e} "
+                     "from the library's conv")
+        print(f"k9_parts: 16x96^3, 48->48, kernel alone, {label}: "
+              f"{ms:.3f} ms", flush=True)
 
 
 def _profiled(title, fn):
@@ -1604,22 +1892,23 @@ def _profile_step(n_batch, extra_args):
     torch.cuda.empty_cache()
 
 
-def _profile_call(name):
+def _profile_call(name, *gates):
     import torch
 
     from medicalsemseg_tpu_torch.config import get_args
 
-    cfg = get_args(_zoo_args(name))
+    cfg = get_args(FLAGSHIP_ARGS if name == "nnFormerUNETR"
+                   else _zoo_args(name))
     gen = torch.Generator().manual_seed(cfg.seed)
     model = _seeded_model(cfg, gen).to("cuda")
     xb = (torch.randn(PREDICT_BATCH, 96, 96, 96, 1, generator=gen).to("cuda"),
           torch.full((PREDICT_BATCH, 3), 0.5, device="cuda"),
           torch.ones(PREDICT_BATCH, 3, device="cuda"))
-    with torch.inference_mode():
+    with torch.inference_mode(), _gates(*gates):
         for _ in range(2):
             model(xb)
-        _profiled(f"one predictor call of {PREDICT_BATCH} windows, {name}",
-                  lambda: model(xb))
+        _profiled(f"one predictor call of {PREDICT_BATCH} windows, {name} "
+                  f"{' '.join(g + '=1' for g in gates)}", lambda: model(xb))
     del model, xb
     torch.cuda.empty_cache()
 
@@ -1790,15 +2079,372 @@ def phase_train_cli():
     return _read_launches()
 
 
+WINO_GATES = ("MEDSEG_FUSED_DECODER", "MEDSEG_WINOGRAD", "MEDSEG_WINOGRAD_TRAIN")
+
+
+class _gates:
+    """Inside the block the named Winograd gates are set to 1 and the other
+    two are unset."""
+
+    def __init__(self, *on):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in WINO_GATES}
+        for k in self.on:
+            os.environ[k] = "1"
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def _is_conv3_s1(mod):
+    from medicalsemseg_tpu_torch.models.layers import Conv3d
+
+    return (isinstance(mod, Conv3d) and mod.kernel_size == 3
+            and mod.stride == 1 and mod.groups == 1 and mod.padding == 1)
+
+
+def _k9_launches_required(model, run, gate):
+    """K9's launches of one ``run()`` of ``model`` under ``gate``, from the
+    port's gate functions and the shapes the model gives its convs (seen by
+    hooks in an ungated run): ``MEDSEG_FUSED_DECODER`` asks
+    ``winograd_f23_applicable`` for conv1's output in every UnetResBlock,
+    ``MEDSEG_WINOGRAD`` asks ``wino23_eligible`` for the input of every 3^3 /
+    stride-1 / SAME conv, ``MEDSEG_WINOGRAD_TRAIN`` for its input (forward)
+    and, where the input needs a gradient, for its output (dx runs on dy)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.models.decoders import UnetResBlock
+    from medicalsemseg_tpu_torch.ops import convgrad
+    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
+
+    count = [0]
+
+    def conv1_hook(mod, args, out):
+        count[0] += int(out.is_cuda and out.dtype == torch.bfloat16
+                        and k9.winograd_f23_applicable(tuple(out.shape[1:4]),
+                                                       out.shape[-1]))
+
+    def conv_hook(mod, args, out):
+        x = args[0]
+        count[0] += int(convgrad.wino23_eligible(x))
+        if gate == "MEDSEG_WINOGRAD_TRAIN":
+            count[0] += int(x.requires_grad and convgrad.wino23_eligible(out))
+
+    hooks = []
+    for mod in model.modules():
+        if gate == "MEDSEG_FUSED_DECODER" and isinstance(mod, UnetResBlock):
+            hooks.append(mod.conv1.register_forward_hook(conv1_hook))
+        elif gate != "MEDSEG_FUSED_DECODER" and _is_conv3_s1(mod):
+            hooks.append(mod.register_forward_hook(conv_hook))
+    with _gates():
+        run()
+    for h in hooks:
+        h.remove()
+    return count[0]
+
+
+# one predictor call with K9 in the decoder against the same call through the
+# library's convs, both bf16 with K1/K2: Winograd in bf16 carries about twice
+# the direct conv's rounding (0.7 % against 0.3 % max relative error in the
+# JAX package's tests) in up to 11 convs, and InstanceNorm rescales it at
+# every decoder stage: the same order as bf16 against fp32 (MODEL_REL_TOL)
+WINO_MODEL_REL_TOL = 3e-2
+
+
+def phase_fused():
+    """The no-gradient paths that run K9, at full flagship width."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.cli import run_test
+    from medicalsemseg_tpu_torch.config import get_args
+    from medicalsemseg_tpu_torch.data import nifti
+
+    total = dict.fromkeys(_read_launches(), 0)
+
+    def add(delta):
+        for k, v in delta.items():
+            total[k] += v
+
+    for model_name, gates in (("nnFormerUNETR", ("MEDSEG_FUSED_DECODER",
+                                                 "MEDSEG_WINOGRAD")),
+                              ("GCViTUNETR", ("MEDSEG_FUSED_DECODER",))):
+        flagship = model_name == "nnFormerUNETR"
+        cfg = get_args(FLAGSHIP_ARGS if flagship else _zoo_args(model_name))
+        gen = torch.Generator().manual_seed(cfg.seed)
+        model = _seeded_model(cfg, gen)
+        vol = torch.randn(1, 96, 96, 96, 1, generator=gen)
+        x_in = (vol, torch.full((1, 3), 0.5), torch.ones(1, 3))
+        with torch.inference_mode():
+            want = None
+            if flagship:       # fp32 plain on the CPU, as the model phase
+                ref = copy.deepcopy(model)
+                ref.dtype = torch.float32
+                want = ref(x_in)
+                del ref
+            gpu = model.to("cuda")
+            x_gpu = tuple(t.to("cuda") for t in x_in)
+            xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_gpu)
+            with _gates():
+                base = gpu(x_gpu).cpu()
+            for gate in gates:
+                need = _k9_launches_required(gpu, lambda: gpu(xb), gate)
+                _require(need > 0, f"fused {model_name} {gate}: the gate "
+                         "opens for no conv")
+                with _gates(gate):
+                    got = gpu(x_gpu)
+                    torch.cuda.synchronize()
+                    _require(got.shape == (1, 96, 96, 96, 14)
+                             and bool(torch.isfinite(got).all()),
+                             f"fused {model_name} {gate}: logits")
+                    got = got.cpu()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    _reset_launches()
+                    out = gpu(xb)
+                    torch.cuda.synchronize()
+                    launches = _read_launches()
+                    peak = torch.cuda.max_memory_allocated()
+                    _require(bool(torch.isfinite(out).all()),
+                             f"fused {model_name} {gate}: logits of "
+                             f"{PREDICT_BATCH} windows")
+                    del out
+                add(launches)
+                others = (ZOO_LAUNCHES[model_name] if not flagship else
+                          {"window_attention": 8, "fused_mlp": 8})
+                _require_launches(
+                    f"fused {model_name} {gate} (one predictor call)", launches,
+                    {**dict.fromkeys(launches, 0), **others,
+                     "winograd_conv3d_f23": need})
+                rel_base = float((got - base).norm() / base.norm())
+                line = (f"fused: {model_name} {gate}=1, one 96^3 window, bf16: "
+                        f"rel norm err vs the ungated card path "
+                        f"{rel_base:.3e} (tol {WINO_MODEL_REL_TOL})")
+                if want is not None:
+                    rel = float((got - want).norm() / want.norm())
+                    agree = float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean())
+                    line += (f", vs fp32 plain (CPU) {rel:.3e} (tol "
+                             f"{MODEL_REL_TOL}), argmax agreement {agree:.4f}")
+                    _require(rel <= MODEL_REL_TOL, f"fused {gate}: bf16 card "
+                             "logits disagree with the fp32 CPU reference")
+                print(line, flush=True)
+                _require(rel_base <= WINO_MODEL_REL_TOL, f"fused {model_name} "
+                         f"{gate}: logits disagree with the ungated path")
+
+                def call_ms(on):
+                    with _gates(*((gate,) if on else ())):
+                        torch.cuda.reset_peak_memory_stats()
+                        ms = _time_ms(lambda: gpu(xb), 2)
+                        return ms, torch.cuda.max_memory_allocated()
+
+                t = [call_ms(on) for on in (True, False, False, True)]
+                print(f"fused: {model_name} one predictor call "
+                      f"({PREDICT_BATCH} windows), K9 launched {need} times: "
+                      f"{gate}=1 {t[0][0]:.1f} ms, unset {t[1][0]:.1f}, unset "
+                      f"{t[2][0]:.1f}, =1 {t[3][0]:.1f}; peak device memory "
+                      f"{max(peak, t[0][1]) / 2 ** 30:.2f} GiB against "
+                      f"{t[1][1] / 2 ** 30:.2f} unset", flush=True)
+        del model, gpu, xb
+        torch.cuda.empty_cache()
+
+    # the prediction CLI on the smaller synthetic volume, fused decoder
+    shape = (200, 180, 120)
+    with tempfile.TemporaryDirectory() as tmp:
+        task = os.path.join(tmp, "Task03_SmokeFused")
+        os.makedirs(os.path.join(task, "imagesTs"))
+        with open(os.path.join(task, "dataset.json"), "w") as f:
+            json.dump({"training": [], "test": ["./imagesTs/img0.nii.gz"]}, f)
+        nifti.save(nifti.NiftiImage(
+            _ct_volume(np.random.default_rng(1), shape),
+            np.diag([0.8, 0.8, 2.5, 1.0])),
+            os.path.join(task, "imagesTs", "img0.nii.gz"))
+        cfg = get_args(FLAGSHIP_ARGS + [
+            "--data_path", tmp, "--task", "Task03_SmokeFused", "--output_dir",
+            os.path.join(tmp, "out"), "--device", "cuda"])
+        with _gates("MEDSEG_FUSED_DECODER"):
+            _reset_launches()
+            records = run_test.main(cfg)
+            delta = _read_launches()
+        add(delta)
+        calls = sum(r["predictor_calls"] for r in records)
+        per_call = delta["winograd_conv3d_f23"] // max(calls, 1)
+        _require(calls > 0 and per_call > 0, "fused cli: no predictor call "
+                 "launched K9")
+        _require_launches(f"fused cli ({calls} predictor calls)", delta, {
+            **dict.fromkeys(delta, 0), "window_attention": 8 * calls,
+            "fused_mlp": 8 * calls, "winograd_conv3d_f23": per_call * calls})
+        pred = nifti.load(os.path.join(tmp, "out", "test_output", "Fold0",
+                                       "pred", "0.nii.gz")).data
+        _require(pred.shape == shape and pred.dtype == np.uint8
+                 and int(pred.max()) < 14, "fused cli: prediction file")
+        r = records[0]
+        print(f"fused: cli MEDSEG_FUSED_DECODER=1 {r['shape']}: "
+              f"{r['windows']} windows, {calls} predictor calls, predicted in "
+              f"{r['predict_seconds']:.2f} s, K9 launched {per_call} times "
+              f"per call", flush=True)
+    return total
+
+
+WINO_TRAIN_STEPS = 3
+# one step's gradients with K9 for the forward and dx of every eligible conv
+# against the same step through the library's convs, both bf16 with K1-K4:
+# Winograd's bf16 rounding (about twice the direct conv's) enters 10 forward
+# and 11 input-gradient convs; the same order as bf16 against fp32
+TRAIN_WINO_ALT_REL_TOL = 2e-2
+
+
+def phase_train_wino():
+    """Batch 8 with MEDSEG_WINOGRAD_TRAIN=1: K9's training path."""
+    import torch
+
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+
+    cfg, model, state, train_step = _train_setup()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = _train_batch(gen, TRAIN_BATCH, cfg.output_dim)
+    loss_fn = build_loss(cfg)
+    need = _k9_launches_required(
+        model, lambda: _grads_of(model, loss_fn, batch),
+        "MEDSEG_WINOGRAD_TRAIN")
+    _require(need > 0, "train_wino: the gate opens for no conv")
+
+    def steps(n):
+        losses, times = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            _require(all(bool(torch.isfinite(v).all()) for v in m.values()),
+                     "train_wino: non-finite metrics")
+        return losses, times
+
+    with _gates("MEDSEG_WINOGRAD_TRAIN"):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        losses, times = steps(WINO_TRAIN_STEPS)
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    with _gates():
+        _, base_times = steps(2)
+    with _gates("MEDSEG_WINOGRAD_TRAIN"):
+        _, again = steps(1)
+    print(f"train_wino: batch {TRAIN_BATCH} x 96^3, bf16, "
+          f"MEDSEG_WINOGRAD_TRAIN=1, {WINO_TRAIN_STEPS} steps: loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; ms per step "
+          f"{' '.join(f'{t:.0f}' for t in times)} (first includes the "
+          f"library's choice of algorithms), then unset "
+          f"{' '.join(f'{t:.0f}' for t in base_times)}, then set "
+          f"{again[0]:.0f}; peak device memory {peak / 2 ** 30:.2f} GiB; K9 "
+          f"launched {need} times per step; launches {launches}", flush=True)
+    _require(all(b < a for a, b in zip(losses, losses[1:])),
+             f"train_wino: the loss did not fall at every step: {losses}")
+    _require_launches(f"train_wino ({WINO_TRAIN_STEPS} steps)", launches, {
+        **dict.fromkeys(launches, 0),
+        **dict.fromkeys(SWIN_KERNELS, 8 * WINO_TRAIN_STEPS),
+        "winograd_conv3d_f23": need * WINO_TRAIN_STEPS})
+    del state
+
+    with _gates("MEDSEG_WINOGRAD_TRAIN"):
+        got_loss, got = _grads_of(model, loss_fn, batch)
+    with _gates():
+        alt_loss, alt = _grads_of(model, loss_fn, batch)
+        want_loss, want, _ = _fp32_plain_grads(
+            model, lambda net: _grads_of(net, loss_fn, batch))
+    for label, b, b_loss, tol in (
+            ("the ungated bf16 step", alt, alt_loss, TRAIN_WINO_ALT_REL_TOL),
+            ("fp32 plain", want, want_loss, TRAIN_GRAD_REL_TOL)):
+        rel = _rel_norm(got, b)
+        print(f"train_wino: gradients of one step (batch {TRAIN_BATCH}), "
+              f"bf16 + K9 vs {label}: loss {got_loss:.5f} vs {b_loss:.5f}, "
+              f"rel norm err {rel:.3e} (tol {tol})", flush=True)
+        _require(rel <= tol, f"train_wino: the gradients with K9 disagree "
+                 f"with {label}")
+    del model, got, alt, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_conv3d():
+    """The function conv3x3x3 (K10 forward and dx, K5 for dW) as a user
+    calls it, at the full-resolution shapes of the batch-4 path, against
+    autograd through the library's conv."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf = torch.bfloat16
+    total = dict.fromkeys(_read_launches(), 0)
+    for c, co in DW27_CONVS:
+        x = torch.randn(TRAIN_B4_BATCH, CROP, CROP, CROP, c, generator=gen,
+                        device="cuda").to(bf).requires_grad_(True)
+        w = (torch.randn(co, c, 3, 3, 3, generator=gen, device="cuda")
+             * (27 * c) ** -0.5).to(bf).requires_grad_(True)
+        dy = torch.randn(TRAIN_B4_BATCH, CROP, CROP, CROP, co, generator=gen,
+                         device="cuda").to(bf)
+
+        def ours():
+            y = k10.conv3x3x3(x, w)
+            return (y.detach(),) + torch.autograd.grad(y, (x, w), dy)
+
+        def library():
+            y = _lib_conv(x, w)
+            dx, dw = torch.autograd.grad(y, (x, w), dy.permute(0, 4, 1, 2, 3))
+            return y.detach().permute(0, 2, 3, 4, 1), dx, dw
+
+        _reset_launches()
+        got = ours()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        _require_launches(f"conv3d {c}->{co}", launches, {
+            **dict.fromkeys(launches, 0), "conv3x3x3": 2, "dw27": 1})
+        for k, v in launches.items():
+            total[k] += v
+        want = library()
+        name = f"conv3d: conv3x3x3 {TRAIN_B4_BATCH}x{CROP}^3, {c}->{co}"
+        for what, g, r in zip(("y", "dx", "dw"), got, want):
+            _require(g.shape == r.shape and g.dtype == r.dtype,
+                     f"{name} {what}: {tuple(g.shape)} {g.dtype}")
+            rel = float((g.float() - r.float()).norm() / r.float().norm())
+            print(f"{name} {what}: rel norm err vs the library {rel:.3e} "
+                  f"(tol {LIBRARY_REL_TOL})", flush=True)
+            _require(rel <= LIBRARY_REL_TOL, f"{name} {what}: disagrees with "
+                     "the library's conv")
+        del got, want
+        t = [_time_ms(fn, 3) for fn in (ours, library, library, ours)]
+        print(f"{name}: forward + dx + dW {t[0]:.2f} ms, library "
+              f"{t[1]:.2f}, library {t[2]:.2f}, ours {t[3]:.2f}", flush=True)
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--kernels", default=",".join(KERNEL_GROUPS),
+                    help="groups of the kernels phase to run, a "
+                         "comma-separated subset of " + ",".join(KERNEL_GROUPS))
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    groups = args.kernels.split(",")
+    if set(groups) - set(KERNEL_GROUPS):
+        ap.error(f"unknown kernel groups {sorted(set(groups) - set(KERNEL_GROUPS))}")
 
     if not os.path.isdir(os.path.join(REPO, "medicalsemseg_tpu_torch")):
         print("chip_smoke: medicalsemseg_tpu_torch not found beside this "
@@ -1812,6 +2458,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    for gate in WINO_GATES:      # every phase sets the gates it means to test
+        os.environ.pop(gate, None)
     kernels = []
     try:
         if "card" in phases:
@@ -1819,14 +2467,17 @@ def main(argv=None) -> int:
         if "build" in phases:
             phase_build()
         if "kernels" in phases:
-            kernels = phase_kernels()
+            kernels = phase_kernels(groups)
         if "model" in phases:
             phase_model()
         # the main paths: each is driven with the counts at 0 and read after
         for name, phase in (("zoo", phase_zoo), ("cli", phase_cli),
                             ("train", phase_train),
                             ("train_b4", phase_train_b4),
-                            ("train_cli", phase_train_cli)):
+                            ("train_cli", phase_train_cli),
+                            ("fused", phase_fused),
+                            ("train_wino", phase_train_wino),
+                            ("conv3d", phase_conv3d)):
             if name in phases:
                 launches = phase()
                 for k in kernels:
@@ -1834,7 +2485,9 @@ def main(argv=None) -> int:
                     k["launches"] += launches[k["name"]]
         if "profile" in phases:
             phase_profile()
-        if set(PHASES) <= set(phases):
+        if "k9_parts" in phases:
+            phase_k9_parts()
+        if set(PHASES) <= set(phases) and set(KERNEL_GROUPS) <= set(groups):
             for k in kernels:
                 _require(k["launches"] > 0, f"{k['name']} was launched no "
                          "time on the main paths")

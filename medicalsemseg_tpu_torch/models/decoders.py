@@ -8,13 +8,16 @@ Module names follow MONAI's blocks as the reference model nests them
 (``unet_encoders.{k}.layer.conv1.conv``, ``unet_decoders.{k}.transp_conv.conv``,
 ``out.conv.conv``), so a reference state_dict loads as it is. The 3^3 convs,
 InstanceNorm and the transposed convs are plain PyTorch (cuDNN on the card),
-as the JAX package leaves them to XLA by default. The SegFormer heads follow
+as the JAX package leaves them to XLA by default; with
+``MEDSEG_FUSED_DECODER=1`` the second conv of an eligible ``UnetResBlock``
+takes kernel K9 with the norm before it folded in. The SegFormer heads follow
 the JAX scopes (``linear_c{k}.proj``, ``linear_fuse[_k].{conv,bn}``,
 ``linear_pred``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence, Tuple
 
 import torch
@@ -29,7 +32,20 @@ from medicalsemseg_tpu_torch.models.layers import (
     leaky_relu,
     linear,
 )
+from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 from medicalsemseg_tpu_torch.ops.resize import resize_trilinear
+
+
+def decoder_fuse_enabled(x: torch.Tensor) -> bool:
+    """The fused decoder form (``MEDSEG_FUSED_DECODER``, read at call time,
+    off by default) for an activation ``x``: on the card in the kernel's
+    dtype, bf16. (A CPU tensor of any float dtype passes under the tests'
+    hook ``winograd3d.ALLOW_CPU`` and runs K9's plain version.)"""
+    if os.environ.get("MEDSEG_FUSED_DECODER", "0") == "0":
+        return False
+    if x.is_cuda:
+        return x.dtype == torch.bfloat16
+    return k9.ALLOW_CPU
 
 
 class Convolution(nn.Module):
@@ -45,7 +61,13 @@ class Convolution(nn.Module):
 
 class UnetResBlock(nn.Module):
     """conv3-IN-lrelu -> conv3-IN, plus a 1x1-IN shortcut when the channel
-    count changes, then lrelu."""
+    count changes, then lrelu.
+
+    Fused form (``eval()`` without gradients, ``decoder_fuse_enabled``, the
+    channel count inside K9's window): ``norm1`` is reduced to its fp32
+    statistics, and ``conv2`` runs as kernel K9 with the normalize and
+    LeakyReLU pass folded into its input as a per-(sample, channel) scale
+    and shift, so the normalized volume is never written."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
@@ -57,9 +79,24 @@ class UnetResBlock(nn.Module):
             self.conv3 = Convolution(Conv3d(in_ch, out_ch, 1, bias=False))
             self.norm3 = InstanceNorm(out_ch)
 
+    def _fused(self, y: torch.Tensor) -> bool:
+        return (not self.training and not torch.is_grad_enabled()
+                and decoder_fuse_enabled(y)
+                and k9.winograd_f23_applicable(tuple(y.shape[1:4]),
+                                               y.shape[-1]))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = leaky_relu(self.norm1(self.conv1(x)))
-        y = self.norm2(self.conv2(y))
+        y = self.conv1(x)
+        if self._fused(y):
+            var, mu = torch.var_mean(y.float(), dim=(1, 2, 3), correction=0)
+            sc = self.norm1.weight.float() * torch.rsqrt(var + self.norm1.eps)
+            sh = self.norm1.bias.float() - mu * sc
+            y = k9.winograd_conv3d_f23(
+                y.contiguous(), self.conv2.conv.weight.to(y.dtype),
+                epilogue=(sc, sh), lrelu=True)
+        else:
+            y = self.conv2(leaky_relu(self.norm1(y)))
+        y = self.norm2(y)
         res = self.norm3(self.conv3(x)) if hasattr(self, "conv3") else x
         return leaky_relu(y + res)
 

@@ -15,7 +15,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from medicalsemseg_tpu_torch.ops import convgrad
 from medicalsemseg_tpu_torch.ops.convgrad import Conv3x3x3Fn
+from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 from medicalsemseg_tpu_torch.ops.kernels import layer_norm
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
 
@@ -99,9 +101,12 @@ class Conv3d(nn.Module):
     Dense 1x1x1 / stride 1 runs as a matmul over the channel axis (the JAX
     package's ``_Fast1x1Conv``). Dense 3x3x3 / stride 1 / SAME with gradients
     enabled goes through ``Conv3x3x3Fn`` (its ``_FastConv3dS1``), whose
-    weight gradient may take kernel K5. Every other shape (strided, grouped),
-    and every shape without gradients, goes to cuDNN (oneDNN on the CPU) on
-    the channels_last_3d view (a grouped conv on a contiguous copy)."""
+    weight gradient may take kernel K5 and whose forward and input gradient
+    take kernel K9 under ``MEDSEG_WINOGRAD_TRAIN``; without gradients the
+    same shape takes K9 under ``MEDSEG_WINOGRAD`` (``ops.convgrad``). Every
+    other shape (strided, grouped), and without a gate every shape without
+    gradients, goes to cuDNN (oneDNN on the CPU) on the channels_last_3d
+    view (a grouped conv on a contiguous copy)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: Optional[int] = None,
@@ -120,10 +125,13 @@ class Conv3d(nn.Module):
         dense_s1 = self.groups == 1 and self.stride == 1
         if self.kernel_size == 1 and dense_s1:
             return F.linear(x, self.weight[:, :, 0, 0, 0].to(dt), b)
-        if (self.kernel_size == 3 and dense_s1 and self.padding == 1
-                and torch.is_grad_enabled()):
-            y = Conv3x3x3Fn.apply(x, self.weight.to(dt))
-            return y if b is None else y + b
+        if self.kernel_size == 3 and dense_s1 and self.padding == 1:
+            if torch.is_grad_enabled():
+                y = Conv3x3x3Fn.apply(x, self.weight.to(dt))
+                return y if b is None else y + b
+            if convgrad.winograd_infer_eligible(x):
+                y = k9.winograd_conv3d_f23(x.contiguous(), self.weight.to(dt))
+                return y if b is None else y + b
         xn = to_ncdhw(x)
         if self.groups > 1:
             # on the channels-last view cuDNN runs a depthwise conv as one

@@ -5,7 +5,9 @@ a shared header rebuilds it too; a failed build leaves no file behind that
 a later load could pick up.
 """
 
+import glob
 import os
+import re
 import shutil
 
 import pytest
@@ -18,11 +20,13 @@ def test_library_key_covers_every_source(tmp_path, monkeypatch):
     shutil.copytree(kernels.CSRC_DIR, csrc)
     monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
     paths = {kernels.library_path()}
-    for name in ("common.cuh", "mlp.cu", "window_attention.cu"):
+    names = ("common.cuh", "mlp.cu", "window_attention.cu", "conv_tile.cuh",
+             "winograd3d.cu", "conv3d.cu")
+    for name in names:
         with open(csrc / name, "a") as f:
             f.write("\n// edited\n")
         paths.add(kernels.library_path())
-    assert len(paths) == 4
+    assert len(paths) == len(names) + 1
 
 
 @pytest.mark.parametrize("nvcc", ["fails", "missing"])
@@ -39,3 +43,74 @@ def test_failed_build_leaves_no_library(tmp_path, monkeypatch, nvcc):
                        match="no sm_90a here" if nvcc == "fails" else None):
         kernels._build(path)
     assert os.listdir(build) == []
+
+
+class _FakeFunction:
+    pass
+
+
+class _FakeLibrary:
+    """Stands for the ctypes library: remembers what ``_declare`` sets."""
+
+    def __init__(self):
+        self.functions = {}
+
+    def __getattr__(self, name):
+        return self.functions.setdefault(name, _FakeFunction())
+
+
+def _entry_points():
+    """The ``medseg_*`` functions the wrappers call, and those the sources
+    export."""
+    here = os.path.dirname(kernels.__file__)
+    called, exported = set(), set()
+    for path in glob.glob(os.path.join(here, "*.py")):
+        with open(path) as f:
+            called.update(re.findall(r"lib\.(medseg_\w+)\(", f.read()))
+    for path in glob.glob(os.path.join(kernels.CSRC_DIR, "*.cu")):
+        with open(path) as f:
+            exported.update(re.findall(
+                r'extern "C"[^(;{]*?\b(medseg_\w+)\s*\(', f.read()))
+    return called, exported
+
+
+def test_every_entry_point_has_an_argtypes_row():
+    """Without ``argtypes`` ctypes passes a pointer as a 32-bit int and cuts
+    it: every function a wrapper calls is declared, and exported."""
+    lib = _FakeLibrary()
+    kernels._declare(lib)
+    called, exported = _entry_points()
+    assert {"medseg_winograd_f23", "medseg_conv3x3x3",
+            "medseg_dw27"} <= called
+    for name in sorted(called):
+        assert name in exported, f"{name} is exported by no source"
+        fn = lib.functions.get(name)
+        assert fn is not None and hasattr(fn, "argtypes"), name
+        assert hasattr(fn, "restype"), name
+    assert set(lib.functions) <= exported
+
+
+def test_argtypes_rows_match_the_c_signatures():
+    """Every row of ``_declare`` against the C declaration it binds: a
+    pointer for a pointer, an int for an int, in the same order."""
+    import ctypes
+
+    lib = _FakeLibrary()
+    kernels._declare(lib)
+    src = ""
+    for path in glob.glob(os.path.join(kernels.CSRC_DIR, "*.cu")):
+        with open(path) as f:
+            src += f.read()
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "long long": ctypes.c_longlong}
+    called, _ = _entry_points()
+    assert len(called) >= 13
+    for name in sorted(called):
+        args = re.search(r'extern "C" [\w *]+?\b' + name + r"\(([^)]*)\)",
+                         src).group(1)
+        kinds = [" ".join(a.split()).rsplit(" ", 1)[0] for a in args.split(",")]
+        want = [ctypes.c_void_p if k.endswith("*") else ctype[k]
+                for k in kinds]
+        assert list(lib.functions[name].argtypes) == want, name
+    conv = lib.functions["medseg_winograd_f23"].argtypes
+    assert (conv.count(ctypes.c_void_p), conv.count(ctypes.c_int)) == (5, 9)

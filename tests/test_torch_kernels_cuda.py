@@ -12,12 +12,14 @@ import torch
 
 from medicalsemseg_tpu_torch.ops import convgrad
 from medicalsemseg_tpu_torch.ops import window as tw
+from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
 from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
 from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
 from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
 from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
 from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 
 pytestmark = pytest.mark.cuda
 
@@ -482,3 +484,172 @@ def test_zoo_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="residual"):
         ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 24,
                          residual=torch.zeros(1, 39, 384, device=dev, dtype=bf))
+
+
+# K9 and K10 against plain: the same bf16 values are multiplied on both sides
+# (K9 rounds its transforms at the plain version's points), sums are fp32 in
+# another order, and the result rounds to bf16 once: a bf16 ulp apart where
+# that rounding flips, so TOL as for K1
+CONV_SHAPES = [
+    ((1, 1, 1, 1), 16, 16),      # borders only
+    ((2, 4, 8, 16), 48, 48),     # one whole block tile per sample
+    ((1, 5, 7, 9), 16, 8),       # odd D, H, W: masked tails
+    ((2, 6, 10, 24), 24, 40),    # channels in 8s that fill no 16-step or tile
+    ((1, 3, 9, 35), 17, 5),      # odd channel counts: scalar loads and stores
+    ((2, 12, 12, 12), 96, 96),   # two input chunks, two output-channel blocks
+    ((1, 6, 6, 6), 192, 96),     # four input chunks
+    ((1, 8, 16, 32), 48, 112),   # three output-channel blocks, the last ragged
+]
+
+
+def _conv_case(gen, shape, c, co):
+    x = torch.randn(*shape, c, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(co, c, 3, 3, 3, generator=gen, device="cuda")
+         * (27 * c) ** -0.5).bfloat16()
+    return x, w
+
+
+@pytest.mark.parametrize("epilogue", [None, "lrelu", "affine"])
+@pytest.mark.parametrize("shape,c,co", CONV_SHAPES)
+def test_winograd_kernel(gen, shape, c, co, epilogue):
+    x, w = _conv_case(gen, shape, c, co)
+    kw = {}
+    if epilogue is not None:
+        # distinct per sample; a shift of +3 makes an activated halo visible
+        b = shape[0]
+        kw = dict(epilogue=(1 + 0.3 * torch.randn(b, c, generator=gen,
+                                                  device="cuda"),
+                            3 + torch.randn(b, c, generator=gen,
+                                            device="cuda")),
+                  lrelu=epilogue == "lrelu")
+    before = k9.launches
+    got = k9.winograd_conv3d_f23(x, w, **kw)
+    torch.cuda.synchronize()
+    assert k9.launches == before + 1
+    assert got.shape == (*shape, co) and got.dtype == torch.bfloat16
+    _close(got, k9.winograd_conv3d_f23_plain(x, w, **kw))
+    assert torch.equal(got, k9.winograd_conv3d_f23(x, w, **kw))
+    # and against the library's conv on the activated input, more loosely:
+    # Winograd in bf16 carries about twice the direct conv's rounding
+    xa = x
+    if epilogue is not None:
+        sc, sh = kw["epilogue"]
+        xa = x.float() * sc[:, None, None, None] + sh[:, None, None, None]
+        if kw["lrelu"]:
+            xa = torch.where(xa >= 0, xa, xa * 0.01)
+        xa = xa.bfloat16()
+    lib = torch.nn.functional.conv3d(xa.permute(0, 4, 1, 2, 3).float(),
+                                     w.float(), padding=1)
+    lib = lib.permute(0, 2, 3, 4, 1)
+    assert (got.float() - lib).norm() <= 2e-2 * lib.norm()
+
+
+@pytest.mark.parametrize("shape,c,co", CONV_SHAPES)
+def test_im2col_conv_kernel(gen, shape, c, co):
+    x, w = _conv_case(gen, shape, c, co)
+    before = k10.launches
+    got = k10.conv3x3x3_fwd(x, w)
+    torch.cuda.synchronize()
+    assert k10.launches == before + 1
+    assert got.shape == (*shape, co) and got.dtype == torch.bfloat16
+    _close(got, k10.conv3x3x3_plain(x, w))
+    assert torch.equal(got, k10.conv3x3x3_fwd(x, w))
+    lib = torch.nn.functional.conv3d(x.permute(0, 4, 1, 2, 3).float(),
+                                     w.float(), padding=1)
+    assert (got.float() - lib.permute(0, 2, 3, 4, 1)).norm() <= 1e-2 * lib.norm()
+
+
+def test_im2col_conv_function_on_the_card(gen):
+    """Forward and dx are K10 launches, dW one K5 launch; against autograd
+    through the library's conv."""
+    x, w = _conv_case(gen, (2, 6, 7, 9), 32, 16)
+    dy = torch.randn(2, 6, 7, 9, 16, generator=gen, device="cuda").bfloat16()
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = (k10.launches, k5.launches)
+    y = k10.conv3x3x3(xr, wr)
+    dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+    torch.cuda.synchronize()
+    assert (k10.launches - before[0], k5.launches - before[1]) == (2, 1)
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yl = torch.nn.functional.conv3d(xl.permute(0, 4, 1, 2, 3), wl, padding=1)
+    dxl, dwl = torch.autograd.grad(yl, (xl, wl), dy.permute(0, 4, 1, 2, 3))
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert (dx.float() - dxl.float()).norm() <= 2 ** -7 * dxl.float().norm()
+    assert (dw.float() - dwl.float()).norm() <= 2 ** -7 * dwl.float().norm()
+
+
+def test_winograd_gates_on_the_card(gen, monkeypatch):
+    """MEDSEG_WINOGRAD (no gradients), MEDSEG_WINOGRAD_TRAIN (forward and dx)
+    and MEDSEG_FUSED_DECODER (conv2 with the norm folded in) launch K9 on
+    CUDA tensors; each against the ungated path."""
+    from medicalsemseg_tpu_torch.models.decoders import UnetResBlock
+    from medicalsemseg_tpu_torch.models.layers import Conv3d
+
+    for name in ("MEDSEG_WINOGRAD", "MEDSEG_WINOGRAD_TRAIN",
+                 "MEDSEG_FUSED_DECODER"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("MEDSEG_DW27_PALLAS", "0")
+    x, w = _conv_case(gen, (2, 6, 8, 10), 32, 48)
+    conv = Conv3d(32, 48, 3, bias=False).cuda()
+    with torch.no_grad():
+        conv.weight.copy_(w.float())
+
+    def launched(fn):
+        before = k9.launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, k9.launches - before
+
+    with torch.no_grad():
+        ref, n = launched(lambda: conv(x))
+        assert n == 0
+        monkeypatch.setenv("MEDSEG_WINOGRAD", "1")
+        got, n = launched(lambda: conv(x))
+        assert n == 1
+        _, n = launched(lambda: conv(x.float()))         # fp32: the library
+        assert n == 0
+    assert (got.float() - ref.float()).norm() <= 2e-2 * ref.float().norm()
+    monkeypatch.delenv("MEDSEG_WINOGRAD")
+
+    dy = torch.randn(2, 6, 8, 10, 48, generator=gen, device="cuda").bfloat16()
+
+    def grads():
+        xr = x.clone().requires_grad_(True)
+        y = conv(xr)
+        return (y.detach(),) + torch.autograd.grad(y, (xr, conv.weight), dy)
+
+    want, n = launched(grads)
+    assert n == 0
+    monkeypatch.setenv("MEDSEG_WINOGRAD_TRAIN", "1")
+    have, n = launched(grads)
+    assert n == 2
+    for g, r in zip(have, want):
+        assert (g.float() - r.float()).norm() <= 2e-2 * r.float().norm()
+    monkeypatch.delenv("MEDSEG_WINOGRAD_TRAIN")
+
+    blk = UnetResBlock(32, 48).cuda().eval()
+    for p in blk.parameters():
+        torch.nn.init.normal_(p, 0.5 if p.dim() == 1 else 0.0,
+                              0.2 if p.dim() == 1 else 0.05, generator=None)
+    with torch.no_grad():
+        want, n = launched(lambda: blk(x))
+        assert n == 0
+        monkeypatch.setenv("MEDSEG_FUSED_DECODER", "1")
+        have, n = launched(lambda: blk(x))
+        assert n == 1
+        _, n = launched(lambda: blk(x.float()))          # fp32 stays unfused
+        assert n == 0
+    _, n = launched(lambda: blk(x))                      # gradients enabled
+    assert n == 0
+    assert (have.float() - want.float()).norm() <= 3e-2 * want.float().norm()
+
+
+def test_conv_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x, w = _conv_case(gen, (1, 2, 2, 2), 16, 16)
+    for fn in (k9.winograd_conv3d_f23, k10.conv3x3x3_fwd):
+        with pytest.raises(ValueError, match="bfloat16"):
+            fn(x.float(), w.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.transpose(1, 2), w)
+        with pytest.raises(ValueError, match="not"):
+            fn(x, w[:, :8])
