@@ -25,6 +25,8 @@ Phases, in order; any failure exits non-zero:
                  scale / shift / LeakyReLU epilogue, and K10 (im2col conv,
                  forward and dx) at the full-resolution shapes, each beside
                  the library's conv (`--kernels conv` runs these two alone);
+                 and K1-K4, K6, K7 in fp32 at their four stages beside an
+                 fp32 bound (`--kernels fp32`);
   4. model     - the full-width flagship on one 96^3 window in bf16 with the
                  kernels, against the same weights in fp32 on the CPU (plain);
   5. zoo       - GCViTUNETR, SegFormer3D and SwinSegFormer at full width: one
@@ -64,11 +66,18 @@ Phases, in order; any failure exits non-zero:
                  and against the ungated step, ms per step beside ungated;
  12. conv3d    - the function conv3x3x3 (K10 forward and dx, dW through K5)
                  at the full-resolution shapes, batch 4: value and gradients
-                 against autograd through the library's conv, and times.
+                 against autograd through the library's conv, and times;
+ 13. fp32      - --compute_dtype float32 through the kernels: the prediction
+                 CLI on one volume (labels against the plain versions), two
+                 training steps through the training CLI at batch 2, one
+                 predictor call's logits and one step's gradients against
+                 the fp32 plain path, and one --compute_dtype float16 call.
 `--phases profile` (not run by default) prints torch.profiler tables of one
 training step at batch 8, one micro-step at batch 4, one predictor call of
 each zoo model and one of the flagship without and with the fused decoder;
-`--phases k9_parts` times K9 built with one part or another compiled out. Then one JSON line with the kernels' numbers, and last the line
+`--phases k9_parts` and `--phases k5_parts` time K9 and K5 built with one part
+or another compiled out. Then one JSON line with the kernels' numbers, and
+last the line
 {"ok": true, "device": {...}}. Imports torch and the port, never jax.
 """
 
@@ -84,10 +93,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
-          "train_b4", "train_cli", "fused", "train_wino", "conv3d")
+          "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32")
 # groups of the kernels phase, for --kernels
-KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv")
-EXTRA_PHASES = ("profile", "k9_parts")
+KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32")
+EXTRA_PHASES = ("profile", "k9_parts", "k5_parts")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -143,12 +152,12 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def _attn_case(gen, batch, grid, c, nh, shift, ln, res):
+def _attn_case(gen, batch, grid, c, nh, shift, ln, res, dtype=None):
     import torch
 
     from medicalsemseg_tpu_torch.ops import window as tw
 
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     n = WS ** 3
     nw = grid // WS
     x = torch.randn(batch, grid, grid, grid, c, generator=gen,
@@ -169,10 +178,10 @@ def _attn_case(gen, batch, grid, c, nh, shift, ln, res):
     return wins, args, kw
 
 
-def _mlp_case(gen, batch, grid, c, ln, res, ratio=4):
+def _mlp_case(gen, batch, grid, c, ln, res, ratio=4, dtype=None):
     import torch
 
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     m = batch * grid ** 3
     hid = ratio * c
     x = torch.randn(m, c, generator=gen, device=dev).to(bf)
@@ -188,7 +197,7 @@ def _mlp_case(gen, batch, grid, c, ln, res, ratio=4):
     return x, args, kw
 
 
-def _compare(name, got, want, report):
+def _compare(name, got, want, report, tol=KERNEL_ATOL):
     import torch
 
     _require(got.shape == want.shape and got.dtype == want.dtype,
@@ -198,11 +207,10 @@ def _compare(name, got, want, report):
     _require(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
     err = (g - w).abs()
     max_err = float(err.max())
-    ok = bool((err <= KERNEL_ATOL + KERNEL_RTOL * w.abs()).all())
+    ok = bool((err <= tol + tol * w.abs()).all())
     report["max_abs_err"] = max(report.get("max_abs_err", 0.0), max_err)
     print(f"  {name}: max_abs_err {max_err:.3e} "
-          f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|ref|) {'ok' if ok else 'FAIL'}",
-          flush=True)
+          f"(tol {tol} + {tol}*|ref|) {'ok' if ok else 'FAIL'}", flush=True)
     _require(ok, f"{name}: kernel disagrees with its plain version")
 
 
@@ -217,9 +225,12 @@ GRAD_NORM_TOL = 1e-2
 GRAD_MAX_TOL = 5e-2
 
 
-def _compare_grads(name, names, got, want, report):
+def _compare_grads(name, names, got, want, report, norm_tol=None,
+                   max_tol=None):
     import torch
 
+    norm_tol = GRAD_NORM_TOL if norm_tol is None else norm_tol
+    max_tol = GRAD_MAX_TOL if max_tol is None else max_tol
     for nm, g, w in zip(names, got, want):
         if w is None:
             _require(g is None, f"{name} {nm}: expected no gradient")
@@ -232,13 +243,13 @@ def _compare_grads(name, names, got, want, report):
         max_err = float((gf - wf).abs().max())
         scale = float(wf.abs().max())
         rel = float((gf - wf).norm() / wf.norm())
-        ok = rel <= GRAD_NORM_TOL and max_err <= GRAD_MAX_TOL * scale
+        ok = rel <= norm_tol and max_err <= max_tol * scale
         if nm == "dx":
             report["max_abs_err"] = max(report.get("max_abs_err", 0.0), max_err)
         report["max_rel_err"] = max(report.get("max_rel_err", 0.0), rel)
-        print(f"  {name} {nm}: rel norm err {rel:.3e} (tol {GRAD_NORM_TOL}), "
+        print(f"  {name} {nm}: rel norm err {rel:.3e} (tol {norm_tol}), "
               f"max_abs_err {max_err:.3e} of max|ref| {scale:.3e} "
-              f"(tol {GRAD_MAX_TOL}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"(tol {max_tol}) {'ok' if ok else 'FAIL'}", flush=True)
         _require(ok, f"{name} {nm}: kernel disagrees with its plain version")
 
 
@@ -248,33 +259,35 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
-def _work(kind, t, n, c, nh):
+def _work(kind, t, n, c, nh, elem=2):
     """(FLOPs, bytes) of one call on T windows of N tokens (M = T * N rows):
     every product of the function once, every input read once, every output
-    written once (bf16 activations and weights, fp32 biases, bias table and
-    weight gradients)."""
+    written once (activations and weights of ``elem`` bytes, fp32 biases,
+    bias table and weight gradients)."""
     m = t * n
-    act = m * c * 2
+    act = m * c * elem
     if kind == "window_attention":      # qkv, proj; q k^T and p v per head
         return (8 * m * c * c + 4 * t * n * n * c,
-                2 * act + 4 * c * c * 2 + 4 * c * 4 + 2 * c * 4
+                2 * act + 4 * c * c * elem + 4 * c * 4 + 2 * c * 4
                 + nh * n * n * 4)
     if kind == "window_attention_bwd":  # qkv, dout, dWproj, dx, dWqkv;
         # s, o, dp, dv, dq, dk per head
         return (22 * m * c * c + 12 * t * n * n * c,
-                3 * act + 4 * c * c * (2 + 4) + 4 * c * (4 + 4) + 2 * c * 8
+                3 * act + 4 * c * c * (elem + 4) + 4 * c * (4 + 4) + 2 * c * 8
                 + nh * n * n * 8)
     if kind == "fused_mlp":             # fc1, fc2 with hidden 4C
-        return (16 * m * c * c, 2 * act + 8 * c * c * 2 + 5 * c * 4 + 2 * c * 4)
+        return (16 * m * c * c,
+                2 * act + 8 * c * c * elem + 5 * c * 4 + 2 * c * 4)
     if kind == "fused_mlp_bwd":         # h, dW2, da, dW1, dxn
         return (40 * m * c * c,
-                3 * act + 8 * c * c * (2 + 4) + 5 * c * 8 + 2 * c * 8)
+                3 * act + 8 * c * c * (elem + 4) + 5 * c * 8 + 2 * c * 8)
     raise ValueError(kind)
 
 
-def _bound_ms(kind, t, n, c, nh):
-    flops, nbytes = _work(kind, t, n, c, nh)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def _bound_ms(kind, t, n, c, nh, elem=2, peak=None):
+    flops, nbytes = _work(kind, t, n, c, nh, elem)
+    peak = peak or PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return flops, nbytes, max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                                 else "bytes")
 
@@ -283,13 +296,14 @@ PREDICT_BATCH = 16   # windows per predictor call of the prediction path
 TRAIN_BATCH = 8      # crops per training step
 
 
-def _timed(report, kind, label, batch, grid, c, nh, fn, plain_fn, iters):
+def _timed(report, kind, label, batch, grid, c, nh, fn, plain_fn, iters,
+           elem=2, peak=None):
     """Time kernel and plain version (CUDA events) and put the stage's
     numbers, with the FLOP and byte counts behind its bound, into report."""
     t = batch * (grid // WS) ** 3
     ms = _time_ms(fn, iters)
     pms = _time_ms(plain_fn, iters)
-    flops, nbytes, bound, by = _bound_ms(kind, t, WS ** 3, c, nh)
+    flops, nbytes, bound, by = _bound_ms(kind, t, WS ** 3, c, nh, elem, peak)
     report["per_stage"].append({
         "C": c, "batch": batch, "path": label, "ms": ms, "plain_ms": pms,
         "flops": flops, "bytes": nbytes, "bound_ms": bound, "bound_by": by})
@@ -344,6 +358,8 @@ def phase_kernels(groups=KERNEL_GROUPS):
         _dice_ce_kernels(rep["dice_ce_sums"], rep["dice_ce_dlogits"])
     if "conv" in groups:
         _conv_kernels(rep["winograd_conv3d_f23"], rep["conv3x3x3"])
+    if "fp32" in groups:
+        _fp32_kernels(rep)
     for k in rep.values():
         k["launches"] = 0
         del k["tag"]
@@ -491,14 +507,14 @@ def _rel_bias(gen, nh, quirk):
     return tw.gather_rel_bias(table, idx, WS ** 3)
 
 
-def _global_case(gen, batch, grid, c, nh, absorbed, quirk):
+def _global_case(gen, batch, grid, c, nh, absorbed, quirk, dtype=None):
     """K6's arguments: the absorbed form (LN and shortcut in the kernel, kv
     bias) or the bare form (neither, and no kv bias)."""
     import torch
 
     from medicalsemseg_tpu_torch.ops import window as tw
 
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     n = WS ** 3
     x = torch.randn(batch, grid, grid, grid, c, generator=gen,
                     device=dev).to(bf)
@@ -519,10 +535,10 @@ def _global_case(gen, batch, grid, c, nh, absorbed, quirk):
     return wins, args, kw
 
 
-def _sr_case(gen, batch, n, c, nh, res, bq):
+def _sr_case(gen, batch, n, c, nh, res, bq, dtype=None):
     import torch
 
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     s = c ** -0.5
 
     def act(rows):
@@ -539,8 +555,9 @@ def _sr_case(gen, batch, n, c, nh, res, bq):
     return x, args
 
 
-def _stage_report(report, label, c, batch, ms, pms, flops, nbytes):
-    bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+def _stage_report(report, label, c, batch, ms, pms, flops, nbytes,
+                  peak=None):
+    bound, by = _bound(flops, nbytes, peak or PEAK_BF16_FLOPS)
     report["per_stage"].append({
         "C": c, "batch": batch, "path": label, "ms": ms, "plain_ms": pms,
         "flops": flops, "bytes": nbytes, "bound_ms": bound, "bound_by": by})
@@ -653,6 +670,125 @@ def _zoo_kernels(rep):
             torch.cuda.empty_cache()
     _sum_stages(k6, "predict")
     _sum_stages(k7, "predict")
+
+
+# K1-K4, K6, K7 in fp32 against their plain versions in fp32: no rounding to
+# flip, only fp32 sums in another order (outputs O(1): a few 1e-7 each, more
+# after the softmax's exp); weight gradients sum up to 884,736 terms, so the
+# same norm-and-largest-element rule as in bf16, far tighter
+FP32_KERNEL_TOL = 1e-4
+FP32_GRAD_NORM_TOL = 1e-5
+FP32_GRAD_MAX_TOL = 1e-4
+
+
+def _fp32_kernels(rep):
+    """K1-K4, K6 and K7 in fp32 (``--compute_dtype float32``) at the four
+    stages of their main paths: against their plain versions, and timed
+    beside a bound with fp32's rate (the products run on CUDA cores in
+    either dtype) and 4-byte activations and weights."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
+    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    f32, n = torch.float32, WS ** 3
+    k1, k2 = rep["window_attention"], rep["fused_mlp"]
+    k3, k4 = rep["window_attention_bwd"], rep["fused_mlp_bwd"]
+    k6, k7 = rep["global_window_attention"], rep["sr_attention"]
+    timed = dict(iters=5, elem=4, peak=PEAK_FP32_FLOPS)
+    with torch.inference_mode():
+        for grid, c, nh in STAGES:
+            wins, a, kw = _attn_case(gen, PREDICT_BATCH, grid, c, nh, WS // 2,
+                                     True, True, f32)
+            _compare(f"K1 fp32 grid {grid}^3 x{PREDICT_BATCH}, C={c}",
+                     kwa.window_attention(wins, **a, **kw),
+                     kwa.window_attention_plain(wins, **a, **kw), k1,
+                     FP32_KERNEL_TOL)
+            _timed(k1, "window_attention", "predict_fp32", PREDICT_BATCH, grid,
+                   c, nh, lambda: kwa.window_attention(wins, **a, **kw),
+                   lambda: kwa.window_attention_plain(wins, **a, **kw),
+                   **timed)
+            del wins, a, kw
+            wins, a, kw = _attn_case(gen, TRAIN_BATCH, grid, c, nh, WS // 2,
+                                     True, False, f32)
+            dy = torch.randn(wins.shape, generator=gen, device="cuda")
+            b = {k: v for k, v in a.items() if k != "bproj"}
+            _compare_grads(f"K3 fp32 grid {grid}^3 x{TRAIN_BATCH}, C={c}",
+                           K3_NAMES,
+                           kwa.window_attention_bwd(wins, dy=dy, **b, **kw),
+                           kwa.window_attention_bwd_plain(wins, dy=dy, **b,
+                                                          **kw),
+                           k3, FP32_GRAD_NORM_TOL, FP32_GRAD_MAX_TOL)
+            _timed(k3, "window_attention_bwd", "train_fp32", TRAIN_BATCH, grid,
+                   c, nh, lambda: kwa.window_attention_bwd(wins, dy=dy, **b,
+                                                           **kw),
+                   lambda: kwa.window_attention_bwd_plain(wins, dy=dy, **b,
+                                                          **kw), **timed)
+            del wins, a, b, kw, dy
+            torch.cuda.empty_cache()
+
+            x, a, kw = _mlp_case(gen, PREDICT_BATCH, grid, c, True, True,
+                                 dtype=f32)
+            _compare(f"K2 fp32 grid {grid}^3 x{PREDICT_BATCH}, C={c}",
+                     kmlp.fused_mlp(x, **a, **kw),
+                     kmlp.fused_mlp_plain(x, **a, **kw), k2, FP32_KERNEL_TOL)
+            _timed(k2, "fused_mlp", "predict_fp32", PREDICT_BATCH, grid, c, nh,
+                   lambda: kmlp.fused_mlp(x, **a, **kw),
+                   lambda: kmlp.fused_mlp_plain(x, **a, **kw), **timed)
+            del x, a, kw
+            x, a, kw = _mlp_case(gen, TRAIN_BATCH, grid, c, True, False,
+                                 dtype=f32)
+            b = dict(w1=a["w1"], b1=a["b1"], w2=a["w2"], ln=kw["ln"],
+                     dy=torch.randn(x.shape, generator=gen, device="cuda"),
+                     residual=False)
+            _compare_grads(f"K4 fp32 grid {grid}^3 x{TRAIN_BATCH}, C={c}",
+                           K4_NAMES, kmlp.fused_mlp_bwd(x, **b),
+                           kmlp.fused_mlp_bwd_plain(x, **b), k4,
+                           FP32_GRAD_NORM_TOL, FP32_GRAD_MAX_TOL)
+            _timed(k4, "fused_mlp_bwd", "train_fp32", TRAIN_BATCH, grid, c, nh,
+                   lambda: kmlp.fused_mlp_bwd(x, **b),
+                   lambda: kmlp.fused_mlp_bwd_plain(x, **b), **timed)
+            del x, a, b, kw
+            torch.cuda.empty_cache()
+
+            wins, a, kw = _global_case(gen, PREDICT_BATCH, grid, c, nh, True,
+                                       False, f32)
+            _compare(f"K6 fp32 grid {grid}^3 x{PREDICT_BATCH}, C={c}",
+                     kga.global_window_attention(wins, **a, **kw),
+                     kga.global_window_attention_plain(wins, **a, **kw), k6,
+                     FP32_KERNEL_TOL)
+            t = wins.shape[0]
+            m = t * n
+            _stage_report(
+                k6, "predict_fp32", c, PREDICT_BATCH,
+                _time_ms(lambda: kga.global_window_attention(wins, **a, **kw),
+                         5),
+                _time_ms(lambda: kga.global_window_attention_plain(
+                    wins, **a, **kw), 5),
+                6 * m * c * c + 4 * t * n * n * c,
+                2 * m * c * 4 + PREDICT_BATCH * n * c * 4 + 3 * c * c * 4
+                + 5 * c * 4 + nh * n * n * 4, PEAK_FP32_FLOPS)
+            del wins, a, kw
+            torch.cuda.empty_cache()
+
+        for ntok, c, nh in SR_STAGES:
+            x, a = _sr_case(gen, PREDICT_BATCH, ntok, c, nh, True, True, f32)
+            _compare(f"K7 fp32 {PREDICT_BATCH}x{ntok} tokens, C={c}",
+                     ksr.sr_attention(x, **a), ksr.sr_attention_plain(x, **a),
+                     k7, FP32_KERNEL_TOL)
+            rows = PREDICT_BATCH * ntok
+            _stage_report(
+                k7, "predict_fp32", c, PREDICT_BATCH,
+                _time_ms(lambda: ksr.sr_attention(x, **a), 5),
+                _time_ms(lambda: ksr.sr_attention_plain(x, **a), 5),
+                4 * rows * c * c + 4 * rows * SR_M * c,
+                3 * rows * c * 4 + 2 * PREDICT_BATCH * SR_M * c * 4
+                + 2 * c * c * 4 + 2 * c * 4, PEAK_FP32_FLOPS)
+            del x, a
+            torch.cuda.empty_cache()
 
 
 # K5 and K8 against plain. Both sides multiply the same numbers (products of
@@ -1794,7 +1930,7 @@ def phase_profile():
 
 
 K9_PARTS = (("whole", 0), ("without the V build", 1),
-            ("without ldmatrix, mma and folds", 2), ("without the u copies", 4),
+            ("without the products and folds", 2), ("without the u copies", 4),
             ("without staging x", 8), ("staging, u copies and output only", 3),
             ("output and barriers only", 15))
 
@@ -1827,7 +1963,7 @@ def phase_k9_parts():
                     device="cuda").to(torch.bfloat16)
     w = (torch.randn(c, c, 3, 3, 3, generator=gen, device="cuda")
          * (27 * c) ** -0.5).to(torch.bfloat16)
-    u = k9.pad_kernel_weights(k9._transform_weights(w).to(torch.bfloat16))
+    u = k9.kernel_weights_f23(k9._transform_weights(w).to(torch.bfloat16))
     y = torch.empty_like(x)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for (label, mask), (so, proc) in zip(K9_PARTS, jobs):
@@ -1838,7 +1974,8 @@ def phase_k9_parts():
 
         def launch():
             rc = fn(kernels.ptr(x), kernels.ptr(u), None, kernels.ptr(y), b,
-                    edge, edge, edge, c, c, u.shape[2], u.shape[1], 0, 0.01,
+                    edge, edge, edge, c, c, u.shape[1] * k9.CHUNK_CHANNELS,
+                    u.shape[0] * k9.CHUNK_CHANNELS, 0, 0.01,
                     kernels.stream_handle(x.device))
             _require(rc == 0, f"k9_parts: launch failed ({rc})")
 
@@ -1850,6 +1987,68 @@ def phase_k9_parts():
                      "from the library's conv")
         print(f"k9_parts: 16x96^3, 48->48, kernel alone, {label}: "
               f"{ms:.3f} ms", flush=True)
+
+
+K5_PARTS = (("whole", 0), ("without the products", 1),
+            ("without the row copies", 2), ("without the flushes", 4),
+            ("products only", 6), ("barriers and walk only", 7))
+
+
+def phase_k5_parts():
+    """K5's tensor-core kernel at batch 4 of 96^3, 96 -> 48, built with parts
+    compiled out (MEDSEG_K5_SKIP in csrc/dw27.cu), as phase_k9_parts does
+    for K9; only the whole kernel is compared with its plain version."""
+    import ctypes
+
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "k5_parts")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(kernels.CSRC_DIR, "dw27.cu")
+    masks = sorted({mask for _, mask in K5_PARTS})
+    jobs = {}
+    for mask in masks:
+        so = os.path.join(out_dir, f"k5_skip_{mask}.so")
+        jobs[mask] = (so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+             f"-DMEDSEG_K5_SKIP={mask}", "-o", so, src,
+             os.path.join(kernels.CSRC_DIR, "reduce.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape, c, co = (TRAIN_B4_BATCH, CROP, CROP, CROP), 96, 48
+    x = torch.randn(*shape, c, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(*shape, co, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    route = k5._ROUTE_TENSOR_CORES
+    shares = k5.launch_shares(x.shape, co, route, x.device)
+    part = torch.empty((shares, 27 * c * co), device="cuda")
+    out = torch.empty((3, 3, 3, c, co), device="cuda")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for mask in masks:
+        so, proc = jobs[mask]
+        o, err = proc.communicate()
+        _require(proc.returncode == 0, f"k5_parts: nvcc failed:\n{o}\n{err}")
+    for label, mask in K5_PARTS:
+        fn = ctypes.CDLL(jobs[mask][0]).medseg_dw27
+        fn.argtypes, fn.restype = [p] * 4 + [i] * 8 + [p], i
+
+        def launch():
+            rc = fn(kernels.ptr(x), kernels.ptr(dy), kernels.ptr(part),
+                    kernels.ptr(out), *shape, c, co, shares, route,
+                    kernels.stream_handle(x.device))
+            _require(rc == 0, f"k5_parts: launch failed ({rc})")
+
+        ms = _time_ms(launch, 5)
+        if mask == 0:
+            want = k5.dw27_plain(x, dy)
+            rel = float((out - want).norm() / want.norm())
+            _require(rel <= 1e-5, f"k5_parts: the whole kernel is {rel:.2e} "
+                     "from its plain version")
+        print(f"k5_parts: {TRAIN_B4_BATCH}x{CROP}^3, {c}->{co}, kernel alone, "
+              f"{label}: {ms:.3f} ms", flush=True)
 
 
 def _profiled(title, fn):
@@ -2430,6 +2629,209 @@ def phase_conv3d():
     return total
 
 
+# --compute_dtype float32 with the kernels against float32 with their plain
+# versions, on the card, TF32 off on both sides: no rounding differs, only
+# the order of fp32 sums inside K1-K5 (a few 1e-7 of each output), carried
+# through ~60 layers. Logits: 1e-4 of the norm. One step's gradients: 1e-3,
+# since the deep blocks amplify a change of their input about 100-fold at
+# seeded weights (PERF.md, on gradients of the deep Swin blocks).
+FP32_LOGIT_REL_TOL = 1e-4
+FP32_GRAD_REL_TOL = 1e-3
+FP32_TRAIN_BATCH = 2      # 1.77M voxels: K5's auto gate opens (fp32 route)
+FP32_CLI_SHAPE = (200, 180, 120)
+FP16_WINDOWS = 2
+
+
+class _no_tf32:
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.saved
+
+
+def phase_fp32():
+    """``--compute_dtype float32`` through the kernels, as the JAX package
+    runs it: the prediction CLI on one volume, two training steps through the
+    training CLI at batch 2, one predictor call's logits and one step's
+    gradients against the fp32 plain path; then one predictor call with
+    ``--compute_dtype float16`` (what ``--mixed_precision`` selects)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.cli import run_test, run_training
+    from medicalsemseg_tpu_torch.config import get_args
+    from medicalsemseg_tpu_torch.data import nifti
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+
+    fp32 = ["--compute_dtype", "float32"]
+    total = dict.fromkeys(_read_launches(), 0)
+
+    def add(delta):
+        for k, v in delta.items():
+            total[k] += v
+
+    rng = np.random.default_rng(32)
+    with tempfile.TemporaryDirectory() as tmp, _no_tf32():
+        # the prediction CLI, then the same volume with the plain versions
+        task = os.path.join(tmp, "Task03_SmokeFp32")
+        os.makedirs(os.path.join(task, "imagesTs"))
+        with open(os.path.join(task, "dataset.json"), "w") as f:
+            json.dump({"training": [], "test": ["./imagesTs/img0.nii.gz"]}, f)
+        nifti.save(nifti.NiftiImage(_ct_volume(rng, FP32_CLI_SHAPE),
+                                    np.diag([0.8, 0.8, 2.5, 1.0])),
+                   os.path.join(task, "imagesTs", "img0.nii.gz"))
+        preds = []
+        for plain in (False, True):
+            out_dir = os.path.join(tmp, "out_plain" if plain else "out")
+            cfg = get_args(FLAGSHIP_ARGS + fp32 + [
+                "--data_path", tmp, "--task", "Task03_SmokeFp32",
+                "--output_dir", out_dir, "--device", "cuda"])
+            _reset_launches()
+            t0 = time.perf_counter()
+            if plain:
+                with _plain_kernels():
+                    records = run_test.main(cfg)
+            else:
+                records = run_test.main(cfg)
+            wall = time.perf_counter() - t0
+            delta = _read_launches()
+            calls = sum(r["predictor_calls"] for r in records)
+            want = {**dict.fromkeys(delta, 0)}
+            if not plain:
+                want.update({"window_attention": 8 * calls,
+                             "fused_mlp": 8 * calls})
+                add(delta)
+            _require(calls > 0, "fp32 cli: no predictor call")
+            _require_launches(f"fp32 cli ({calls} predictor calls"
+                              f"{', plain' if plain else ''})", delta, want)
+            pred = nifti.load(os.path.join(out_dir, "test_output", "Fold0",
+                                           "pred", "0.nii.gz")).data
+            _require(pred.shape == FP32_CLI_SHAPE,
+                     f"fp32 cli: pred {pred.shape}")
+            preds.append(pred)
+            how = "with the plain versions" if plain else "with the kernels"
+            print(f"fp32: cli --compute_dtype float32 {how}"
+                  f": {calls} predictor calls in {wall:.2f} s, predicted in "
+                  f"{records[0]['predict_seconds']:.2f} s", flush=True)
+        agree = float((preds[0] == preds[1]).mean())
+        print(f"fp32: cli labels, kernels vs plain: {agree:.6f} of voxels "
+              "agree", flush=True)
+        _require(agree >= 0.999, "fp32 cli: the kernels' labels disagree with "
+                 "the plain versions'")
+
+        # two training steps through the CLI at batch 2 (4 training volumes)
+        _write_train_set(os.path.join(tmp, "Task04_SmokeTrain32"), 5,
+                         (128, 120, 100), 14, rng)
+        out = os.path.join(tmp, "out_train")
+        os.makedirs(out)
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _dw27_mode(None):
+            run_training.main(get_args(TRAIN_ARGS + fp32 + [
+                "--n_images_per_batch", str(FP32_TRAIN_BATCH), "--data_path",
+                tmp, "--task", "Task04_SmokeTrain32", "--log_dir",
+                os.path.join(tmp, "log32"), "--output_dir", out,
+                "--t_fixed_ct_intensity", "--t_rand_crop_fgbg",
+                "--t_spatial_pad", "--epochs", "1", "--val_interval", "1",
+                "--metric_readback_freq", "1"]))
+        wall = time.perf_counter() - t0
+        delta = _read_launches()
+        add(delta)
+        with open(os.path.join(out, "log.txt")) as f:
+            row = [json.loads(line) for line in f][-1]
+        steps = 4 // FP32_TRAIN_BATCH
+        _require_launches(f"fp32 train_cli ({steps} steps)", delta, {
+            "window_attention_bwd": 8 * steps, "fused_mlp_bwd": 8 * steps,
+            "dw27": 3 * steps})
+        _require(all(np.isfinite(row[k]) for k in ("train/loss", "val/loss")),
+                 f"fp32 train_cli: log row {row}")
+        print(f"fp32: run_training --compute_dtype float32, {steps} steps at "
+              f"batch {FP32_TRAIN_BATCH} and one validation in {wall:.1f} s, "
+              f"loss {row['train/loss']:.4f}, launches "
+              f"{ {k: v for k, v in delta.items() if v} }", flush=True)
+
+    # one predictor call's logits and one step's gradients against plain
+    cfg = get_args(FLAGSHIP_ARGS + fp32)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = _seeded_model(cfg, gen).to("cuda")
+    xb = (torch.randn(FP16_WINDOWS, 96, 96, 96, 1, generator=gen).to("cuda"),
+          torch.full((FP16_WINDOWS, 3), 0.5, device="cuda"),
+          torch.ones(FP16_WINDOWS, 3, device="cuda"))
+    with torch.inference_mode(), _no_tf32():
+        _reset_launches()
+        got = model(xb)
+        torch.cuda.synchronize()
+        n1 = _read_launches()["window_attention"]
+        with _plain_kernels():
+            want = model(xb)
+        rel = float((got - want).norm() / want.norm())
+        print(f"fp32: one predictor call ({FP16_WINDOWS} windows), kernels vs "
+              f"plain: rel norm err {rel:.3e} (tol {FP32_LOGIT_REL_TOL})",
+              flush=True)
+        _require(n1 == 8 and got.dtype == torch.float32
+                 and bool(torch.isfinite(got).all()),
+                 f"fp32 model: K1 launched {n1} times, logits {got.dtype}")
+        _require(rel <= FP32_LOGIT_REL_TOL, "fp32 model: the kernels' logits "
+                 "disagree with the plain versions'")
+
+        # --compute_dtype float16 (the same weights) against the fp32 plain
+        # logits: fp16 rounds every activation (2^-11 relative), finer than
+        # bf16, so MODEL_REL_TOL holds with room
+        half = copy.deepcopy(model)
+        half.dtype = torch.float16
+        _reset_launches()
+        got16 = half(xb)
+        torch.cuda.synchronize()
+        n16 = _read_launches()
+        rel16 = float((got16.float() - want).norm() / want.norm())
+        print(f"fp32: one predictor call with --compute_dtype float16 "
+              f"({FP16_WINDOWS} windows) vs fp32 plain: rel norm err "
+              f"{rel16:.3e} (tol {MODEL_REL_TOL}); launches "
+              f"{ {k: v for k, v in n16.items() if v} }", flush=True)
+        _require(n16["window_attention"] == 8 and n16["fused_mlp"] == 8
+                 and bool(torch.isfinite(got16).all()),
+                 "fp16 model: K1/K2 not launched or non-finite logits")
+        _require(rel16 <= MODEL_REL_TOL, "fp16 model: logits disagree with "
+                 "the fp32 plain path")
+        del half, got16, got, want
+    del model
+    torch.cuda.empty_cache()
+
+    cfg, model, _, _ = _train_setup(fp32 + ["--n_images_per_batch",
+                                            str(FP32_TRAIN_BATCH)])
+    loss_fn = build_loss(cfg)
+    batch = _train_batch(torch.Generator(device="cuda").manual_seed(1),
+                         FP32_TRAIN_BATCH, cfg.output_dim)
+    with _no_tf32(), _dw27_mode(None):
+        _reset_launches()
+        got_loss, got = _grads_of(model, loss_fn, batch)
+        delta = _read_launches()
+        with _plain_kernels():
+            want_loss, want = _grads_of(model, loss_fn, batch)
+    _require_launches("fp32 gradients (one step)", delta, {
+        **dict.fromkeys(SWIN_KERNELS, 8), "dw27": 3})
+    rel = _rel_norm(got, want)
+    print(f"fp32: gradients of one step (batch {FP32_TRAIN_BATCH}), fp32 "
+          f"kernels vs fp32 plain: loss {got_loss:.6f} vs {want_loss:.6f}, "
+          f"rel norm err {rel:.3e} (tol {FP32_GRAD_REL_TOL})", flush=True)
+    _require(rel <= FP32_GRAD_REL_TOL, "fp32: the kernels' gradients disagree "
+             "with the plain versions'")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2477,7 +2879,8 @@ def main(argv=None) -> int:
                             ("train_cli", phase_train_cli),
                             ("fused", phase_fused),
                             ("train_wino", phase_train_wino),
-                            ("conv3d", phase_conv3d)):
+                            ("conv3d", phase_conv3d),
+                            ("fp32", phase_fp32)):
             if name in phases:
                 launches = phase()
                 for k in kernels:
@@ -2487,6 +2890,8 @@ def main(argv=None) -> int:
             phase_profile()
         if "k9_parts" in phases:
             phase_k9_parts()
+        if "k5_parts" in phases:
+            phase_k5_parts()
         if set(PHASES) <= set(phases) and set(KERNEL_GROUPS) <= set(groups):
             for k in kernels:
                 _require(k["launches"] > 0, f"{k['name']} was launched no "

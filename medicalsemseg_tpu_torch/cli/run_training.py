@@ -53,11 +53,11 @@ _UNPORTED = (
     ("--world_size > 1", lambda c: c.world_size > 1,
      "ROADMAP queue 1 item 11, multi-GPU"),
     ("--device_data_pipeline", lambda c: c.device_data_pipeline,
-     "ROADMAP queue 1 item 9, the device-resident data pipeline"),
+     "ROADMAP queue 1 item 12, the device-resident data pipeline"),
     ("--profile_dir", lambda c: bool(c.profile_dir),
-     "ROADMAP queue 1 item 12, profiling"),
+     "ROADMAP queue 1 item 16, profiling"),
     ("--remat full / mixed", lambda c: c.remat in ("full", "mixed"),
-     "ROADMAP queue 1 item 9, block rematerialisation"),
+     "ROADMAP 'Do not port': block rematerialisation"),
     # the port has these models for prediction only
     ("training of --model GCViTUNETR / SegFormer3D / SwinSegFormer",
      lambda c: c.model in ("GCViTUNETR", "SegFormer3D", "SwinSegFormer"),
@@ -88,7 +88,7 @@ def main(cfg: Config) -> dict:
         raise ValueError("the CLIs feed 3D volumes only (--input_dim 3)")
     for flag, is_set, where in _UNPORTED:
         if is_set(cfg):
-            raise NotImplementedError(f"{flag} is not ported yet ({where})")
+            raise NotImplementedError(f"{flag} is not ported ({where})")
     device = resolve_device(cfg.device)
     if cfg.anomaly_detection:
         torch.autograd.set_detect_anomaly(True)

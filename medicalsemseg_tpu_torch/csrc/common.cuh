@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace medseg {
@@ -9,14 +10,51 @@ namespace medseg {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Round an fp32 value through bf16, the rounding point of a `.astype(bf16)`
-// in the JAX kernels.
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+// The element types of the kernels that take their activations' dtype, as
+// the JAX kernels do (K1-K4, K6, K7): the dtype argument of their C entry
+// points. Loads widen to fp32, products and sums are fp32, and each point
+// where a JAX kernel writes `.astype(x_ref.dtype)` rounds to T (round_to<T>;
+// the identity for fp32).
+constexpr int kBf16 = 0, kF16 = 1, kF32 = 2;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
-__device__ __forceinline__ float ld_bf16(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+template <class T>
+__device__ __forceinline__ float ld(const T* p) {
+  return to_f32(*p);
+}
+
+// f(T{}) for the element type of a dtype code; an unknown code is an error.
+template <class F>
+int with_dtype(int dtype, F f) {
+  switch (dtype) {
+    case kBf16: return f(__nv_bfloat16{});
+    case kF16: return f(__half{});
+    case kF32: return f(0.f);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -35,12 +73,13 @@ __device__ __forceinline__ float warp_max(float v) {
 // fp32 LayerNorm statistics of one row with the fast variance
 // var = max(0, E[x^2] - E[x]^2), as flax.linen.LayerNorm computes them.
 // Called by a whole warp; every lane gets the result.
-__device__ __forceinline__ void row_stats(const __nv_bfloat16* row, int c,
-                                          float eps, float* mu, float* rstd) {
+template <class T>
+__device__ __forceinline__ void row_stats(const T* row, int c, float eps,
+                                          float* mu, float* rstd) {
   const int lane = threadIdx.x & 31;
   float s = 0.f, ss = 0.f;
   for (int ch = lane; ch < c; ch += 32) {
-    float v = ld_bf16(row + ch);
+    float v = ld(row + ch);
     s += v;
     ss += v * v;
   }
@@ -118,10 +157,11 @@ __device__ __forceinline__ void outer_accumulate(const float* ls, int lstride,
 // With ln: dx = LN backward of dxn (xhat and rstd recomputed from x, mu, rs),
 // and accs[0..c) += sum_r dxn * xhat, accs[c..2c) += sum_r dxn. Without:
 // dx = dxn. With residual, + dy. Called by the whole block.
+template <class T>
 __device__ __forceinline__ void ln_backward_tile(
-    const __nv_bfloat16* x, const __nv_bfloat16* dy, const float* ln,
-    const float* mu, const float* rs, const float* dxn, long long r0, int rows,
-    int c, int residual, __nv_bfloat16* dx, float* accs) {
+    const T* x, const T* dy, const float* ln, const float* mu, const float* rs,
+    const float* dxn, long long r0, int rows, int c, int residual, T* dx,
+    float* accs) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ds = kTile + 1;
   for (int r = warp; r < rows; r += kWarps) {
@@ -129,7 +169,7 @@ __device__ __forceinline__ void ln_backward_tile(
     float m1 = 0.f, m2 = 0.f;
     if (ln != nullptr) {
       for (int ch = lane; ch < c; ch += 32) {
-        const float xh = (ld_bf16(x + row + ch) - mu[r]) * rs[r];
+        const float xh = (ld(x + row + ch) - mu[r]) * rs[r];
         const float dxh = dxn[ch * ds + r] * ln[ch];
         m1 += dxh;
         m2 += dxh * xh;
@@ -140,11 +180,11 @@ __device__ __forceinline__ void ln_backward_tile(
     for (int ch = lane; ch < c; ch += 32) {
       float v = dxn[ch * ds + r];
       if (ln != nullptr) {
-        const float xh = (ld_bf16(x + row + ch) - mu[r]) * rs[r];
+        const float xh = (ld(x + row + ch) - mu[r]) * rs[r];
         v = (v * ln[ch] - m1 - xh * m2) * rs[r];
       }
-      if (residual) v += ld_bf16(dy + row + ch);
-      dx[row + ch] = __float2bfloat16(v);
+      if (residual) v += ld(dy + row + ch);
+      dx[row + ch] = from_f32<T>(v);
     }
   }
   if (ln != nullptr) {
@@ -152,7 +192,7 @@ __device__ __forceinline__ void ln_backward_tile(
       float a0 = 0.f, a1 = 0.f;
       for (int r = 0; r < rows; ++r) {
         const float d = dxn[ch * ds + r];
-        a0 += d * ((ld_bf16(x + (r0 + r) * c + ch) - mu[r]) * rs[r]);
+        a0 += d * ((ld(x + (r0 + r) * c + ch) - mu[r]) * rs[r]);
         a1 += d;
       }
       accs[ch] += a0;

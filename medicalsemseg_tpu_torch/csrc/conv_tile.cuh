@@ -3,9 +3,10 @@
 // one sample and kCoB output channels, stages the input tile with its
 // one-voxel halo in shared memory once per chunk of kCK input channels
 // (positions outside the volume are zero: that is all the border handling),
-// streams the weights in slices with cp.async, multiplies on tensor cores
-// (mma.sync m16n8k16, bf16 in, fp32 out) and writes its outputs through
-// shared memory in 16-byte rows.
+// multiplies on tensor cores and writes its outputs through shared memory in
+// 16-byte rows. K10 streams its weights in slices with cp.async and
+// multiplies with mma.sync m16n8k16 (bf16 in, fp32 out); K9 takes the tile
+// shape and order and the output from here.
 #pragma once
 
 #include <stdint.h>
@@ -127,14 +128,15 @@ __device__ __forceinline__ void stage_weights_async(
 
 // Write the block's outputs, staged as os[v * kCoB + col] with
 // v = (od * kTH + oh) * kTW + ow, to y, the sample's (D, H, W, Co) block.
-// vec: Co is a multiple of 8.
+// vec: Co is a multiple of 8. Threads tid of nthr do it.
 __device__ __forceinline__ void store_output(const __nv_bfloat16* os,
                                              __nv_bfloat16* __restrict__ y,
                                              int D, int H, int W, int Co,
                                              int d0, int h0, int w0, int co0,
-                                             bool vec) {
+                                             bool vec, int tid = threadIdx.x,
+                                             int nthr = blockDim.x) {
   constexpr int nchunk = kCoB / 8;
-  for (int e = threadIdx.x; e < kVox * nchunk; e += blockDim.x) {
+  for (int e = tid; e < kVox * nchunk; e += nthr) {
     const int v = e / nchunk, cc = (e - v * nchunk) << 3;
     const int ow = v % kTW, oh = (v / kTW) % kTH, od = v / (kTW * kTH);
     const int gd = d0 + od, gh = h0 + oh, gw = w0 + ow, co = co0 + cc;

@@ -10,7 +10,11 @@
 //   dW1 = dhb^T . xn, db1 = sum dh, dxn = dhb . W1,
 //   dx = LN backward of dxn [+ dy], dLN = (sum dxn * xhat, sum dxn).
 // The (M, 4C) hidden activations and their gradient never reach device
-// memory. The rounding points are the TPU kernel's.
+// memory. The rounding points are the TPU kernel's. The element type T of x,
+// dy, dx and the weights is bf16, fp16 or fp32 (the JAX kernel takes its
+// input's dtype): "bf16" above stands for T. The weight chunks are staged in
+// T, so fp32 takes 16 hidden units per chunk of the dx launch where 32 would
+// not fit a block (C = 384).
 //
 // Design. The TPU kernel walks its token tiles in order on one core and keeps
 // every weight gradient in scratch memory from the first tile to the last.
@@ -42,7 +46,6 @@
 namespace medseg {
 namespace {
 
-constexpr int kHC = 32;     // hidden units per chunk of the dx launch
 constexpr int kHB = 16;     // hidden units owned by a block of the dw launch
 constexpr int kMaxC = 512;  // widest C the dw launch holds in registers
 constexpr int kMaxE = kHB * kMaxC / kThreads;
@@ -51,7 +54,8 @@ constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 // LN statistics of the tile's rows, then xs = bf16(xhat * g + b) and
 // ds = dy as fp32, both kTile x (c + 1); rows past the end are zero (they
 // then add nothing to any gradient). Ends with a __syncthreads().
-__device__ void load_tile(const __nv_bfloat16* x, const __nv_bfloat16* dy,
+template <class T>
+__device__ void load_tile(const T* x, const T* dy,
                           const float* ln, long long r0, int rows, int c,
                           float eps, float* mu, float* rs, float* xs,
                           float* ds) {
@@ -70,9 +74,9 @@ __device__ void load_tile(const __nv_bfloat16* x, const __nv_bfloat16* dy,
     const int r = e / c, ch = e - r * c;
     float xv = 0.f, dv = 0.f;
     if (r < rows) {
-      const float xh = (ld_bf16(x + (r0 + r) * c + ch) - mu[r]) * rs[r];
-      xv = bf16_round(xh * ln[ch] + ln[c + ch]);
-      dv = ld_bf16(dy + (r0 + r) * c + ch);
+      const float xh = (ld(x + (r0 + r) * c + ch) - mu[r]) * rs[r];
+      xv = round_to<T>(xh * ln[ch] + ln[c + ch]);
+      dv = ld(dy + (r0 + r) * c + ch);
     }
     xs[r * stride + ch] = xv;
     ds[r * stride + ch] = dv;
@@ -84,9 +88,9 @@ __device__ void load_tile(const __nv_bfloat16* x, const __nv_bfloat16* dy,
 // w1s (nj x c: W1 rows) and w2t (nj x c: W2 columns): hs = bf16(h * Phi),
 // dhs = dh (fp32), dhbs = bf16(dh), each kTile x (nj + 1). Units at or past
 // hdim give zeros. The caller synchronises.
+template <class T>
 __device__ void hidden_chunk(const float* xs, const float* ds,
-                             const __nv_bfloat16* w1s,
-                             const __nv_bfloat16* w2t, const float* b1, int j0,
+                             const T* w1s, const T* w2t, const float* b1, int j0,
                              int hdim, int nj, int c, float* hs, float* dhs,
                              float* dhbs) {
   const int stride = c + 1, hstride = nj + 1;
@@ -96,47 +100,49 @@ __device__ void hidden_chunk(const float* xs, const float* ds,
     if (j0 + j < hdim) {
       const float* xr = xs + r * stride;
       const float* dr = ds + r * stride;
-      const __nv_bfloat16* w1r = w1s + j * c;
-      const __nv_bfloat16* w2r = w2t + j * c;
+      const T* w1r = w1s + j * c;
+      const T* w2r = w2t + j * c;
       float a = 0.f, da = 0.f;
 #pragma unroll 8
       for (int ch = 0; ch < c; ++ch) {
-        a += xr[ch] * __bfloat162float(w1r[ch]);
-        da += dr[ch] * __bfloat162float(w2r[ch]);
+        a += xr[ch] * to_f32(w1r[ch]);
+        da += dr[ch] * to_f32(w2r[ch]);
       }
       a += b1[j0 + j];
       const float Phi = gelu_cdf(a);
       const float phi = expf(-0.5f * a * a) * kInvSqrt2Pi;
-      hb = bf16_round(a * Phi);
+      hb = round_to<T>(a * Phi);
       dh = da * (Phi + a * phi);
     }
     hs[r * hstride + j] = hb;
     dhs[r * hstride + j] = dh;
-    dhbs[r * hstride + j] = bf16_round(dh);
+    dhbs[r * hstride + j] = round_to<T>(dh);
   }
 }
 
 // Stage the weights of hidden units j0 .. j0 + nj: w1s[j][ch] = W1[j0+j][ch],
 // w2t[j][ch] = W2[ch][j0+j]. The caller synchronises.
-__device__ void load_units(const __nv_bfloat16* w1, const __nv_bfloat16* w2,
-                           int j0, int nj, int hdim, int c,
-                           __nv_bfloat16* w1s, __nv_bfloat16* w2t) {
+template <class T>
+__device__ void load_units(const T* w1, const T* w2, int j0, int nj, int hdim,
+                           int c, T* w1s, T* w2t) {
   for (int e = threadIdx.x; e < nj * c; e += kThreads) {
     const int j = e / c, ch = e - j * c;
     const bool in = j0 + j < hdim;
-    w1s[e] = in ? w1[(size_t)(j0 + j) * c + ch] : __float2bfloat16(0.f);
-    w2t[e] = in ? w2[(size_t)ch * hdim + j0 + j] : __float2bfloat16(0.f);
+    w1s[e] = in ? w1[(size_t)(j0 + j) * c + ch] : from_f32<T>(0.f);
+    w2t[e] = in ? w2[(size_t)ch * hdim + j0 + j] : from_f32<T>(0.f);
   }
 }
 
+// kHC hidden units per chunk
+template <class T, int kHC>
 __global__ void __launch_bounds__(kThreads)
-    fused_mlp_bwd_dx(const __nv_bfloat16* __restrict__ x,
+    fused_mlp_bwd_dx(const T* __restrict__ x,
                      const float* __restrict__ ln,
-                     const __nv_bfloat16* __restrict__ w1,
+                     const T* __restrict__ w1,
                      const float* __restrict__ b1,
-                     const __nv_bfloat16* __restrict__ w2,
-                     const __nv_bfloat16* __restrict__ dy,
-                     __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+                     const T* __restrict__ w2,
+                     const T* __restrict__ dy,
+                     T* __restrict__ dx, float* __restrict__ part,
                      long long m, int c, int hdim, int residual, float eps) {
   extern __shared__ float smem[];
   const int stride = c + 1, hstride = kHC + 1, dstride = kTile + 1;
@@ -149,8 +155,8 @@ __global__ void __launch_bounds__(kThreads)
   float* hs = dxn + c * dstride;           // kTile x (kHC + 1)
   float* dhs = hs + kTile * hstride;       // kTile x (kHC + 1)
   float* dhbs = dhs + kTile * hstride;     // kTile x (kHC + 1)
-  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(dhbs + kTile * hstride);
-  __nv_bfloat16* w2t = w1s + kHC * c;      // kHC x c each
+  T* w1s = reinterpret_cast<T*>(dhbs + kTile * hstride);
+  T* w2t = w1s + kHC * c;                  // kHC x c each
   const int tid = threadIdx.x;
   const long long ntiles = (m + kTile - 1) / kTile;
 
@@ -174,7 +180,7 @@ __global__ void __launch_bounds__(kThreads)
         float a = 0.f;
 #pragma unroll
         for (int j = 0; j < kHC; ++j)
-          a += dr[j] * __bfloat162float(w1s[j * c + ch]);
+          a += dr[j] * to_f32(w1s[j * c + ch]);
         dxn[ch * dstride + r] += a;
       }
     }
@@ -193,13 +199,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // grid (unit groups, shares). Partials per share: dW1 (hdim x c) | dW2
 // (c x hdim) | db1 (hdim).
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    fused_mlp_bwd_dw(const __nv_bfloat16* __restrict__ x,
+    fused_mlp_bwd_dw(const T* __restrict__ x,
                      const float* __restrict__ ln,
-                     const __nv_bfloat16* __restrict__ w1,
+                     const T* __restrict__ w1,
                      const float* __restrict__ b1,
-                     const __nv_bfloat16* __restrict__ w2,
-                     const __nv_bfloat16* __restrict__ dy,
+                     const T* __restrict__ w2,
+                     const T* __restrict__ dy,
                      float* __restrict__ part, long long m, int c, int hdim,
                      float eps) {
   extern __shared__ float smem[];
@@ -211,8 +218,8 @@ __global__ void __launch_bounds__(kThreads)
   float* hs = ds + kTile * stride;      // kTile x (kHB + 1)
   float* dhs = hs + kTile * hstride;
   float* dhbs = dhs + kTile * hstride;
-  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(dhbs + kTile * hstride);
-  __nv_bfloat16* w2t = w1s + kHB * c;   // kHB x c each
+  T* w1s = reinterpret_cast<T*>(dhbs + kTile * hstride);
+  T* w2t = w1s + kHB * c;               // kHB x c each
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * kHB;
   const long long ntiles = (m + kTile - 1) / kTile;
@@ -255,57 +262,55 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < kHB && j0 + tid < hdim) p[2 * (size_t)hdim * c + j0 + tid] = accb;
 }
 
-}  // namespace
-}  // namespace medseg
+template <class T>
+size_t dx_smem_bytes(int c, int hc) {
+  return sizeof(float) * (2 * kTile + 3 * c + 2 * kTile * (c + 1) +
+                          c * (kTile + 1) + 3 * kTile * (hc + 1)) +
+         sizeof(T) * 2 * hc * c;
+}
 
-// x, dy, dx (m, c) bf16; w1 (hdim, c), w2 (c, hdim) bf16; ln (2, c), b1 fp32.
-// part_a (grid_a, 3c) and part_w (nsplit, 2*hdim*c + hdim) are scratch;
-// out_a (3c) = dscale | dbias | db2, out_w = dW1 | dW2 | db1.
-extern "C" int medseg_fused_mlp_bwd(const void* x, const void* ln,
-                                    const void* w1, const void* b1,
-                                    const void* w2, const void* dy, void* dx,
-                                    void* part_a, void* out_a, void* part_w,
-                                    void* out_w, int m, int c, int hdim,
-                                    int grid_a, int nsplit, int residual,
-                                    float ln_eps, void* stream) {
-  using namespace medseg;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m < 1 || c < 1 || c > kMaxC || hdim < 1 || grid_a < 1 || nsplit < 1 ||
-      ln == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const __nv_bfloat16* w1b = static_cast<const __nv_bfloat16*>(w1);
-  const __nv_bfloat16* w2b = static_cast<const __nv_bfloat16*>(w2);
-  const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
-  const float* lnf = static_cast<const float*>(ln);
-  const float* b1f = static_cast<const float*>(b1);
-
-  const size_t smem_a =
-      sizeof(float) * (2 * kTile + 3 * c + 2 * kTile * (c + 1) +
-                       c * (kTile + 1) + 3 * kTile * (kHC + 1)) +
-      sizeof(__nv_bfloat16) * 2 * kHC * c;
+template <class T, int kHC>
+cudaError_t launch_dx(const T* x, const float* ln, const T* w1,
+                      const float* b1, const T* w2, const T* dy, T* dx,
+                      float* part, int m, int c, int hdim, int grid_a,
+                      int residual, float eps, cudaStream_t st) {
+  const size_t smem = dx_smem_bytes<T>(c, kHC);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_bwd_dx, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_mlp_bwd_dx<<<grid_a, kThreads, smem_a, st>>>(
-      xb, lnf, w1b, b1f, w2b, dyb, static_cast<__nv_bfloat16*>(dx),
-      static_cast<float*>(part_a), (long long)m, c, hdim, residual, ln_eps);
-  err = cudaGetLastError();
+      fused_mlp_bwd_dx<T, kHC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_mlp_bwd_dx<T, kHC><<<grid_a, kThreads, smem, st>>>(
+      x, ln, w1, b1, w2, dy, dx, part, (long long)m, c, hdim, residual, eps);
+  return cudaGetLastError();
+}
+
+template <class T>
+int launch_bwd(const T* xb, const float* lnf, const T* w1b, const float* b1f,
+               const T* w2b, const T* dyb, T* dx, void* part_a, void* out_a,
+               void* part_w, void* out_w, int m, int c, int hdim, int grid_a,
+               int nsplit, int residual, float ln_eps, cudaStream_t st) {
+  cudaError_t err =
+      dx_smem_bytes<T>(c, 32) <= 232448
+          ? launch_dx<T, 32>(xb, lnf, w1b, b1f, w2b, dyb, dx,
+                             static_cast<float*>(part_a), m, c, hdim, grid_a,
+                             residual, ln_eps, st)
+          : launch_dx<T, 16>(xb, lnf, w1b, b1f, w2b, dyb, dx,
+                             static_cast<float*>(part_a), m, c, hdim, grid_a,
+                             residual, ln_eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem_w =
       sizeof(float) * (2 * kTile + 2 * kTile * (c + 1) +
                        3 * kTile * (kHB + 1)) +
-      sizeof(__nv_bfloat16) * 2 * kHB * c;
-  err = cudaFuncSetAttribute(fused_mlp_bwd_dw,
+      sizeof(T) * 2 * kHB * c;
+  err = cudaFuncSetAttribute(fused_mlp_bwd_dw<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_w);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_mlp_bwd_dw<<<dim3((hdim + kHB - 1) / kHB, nsplit), kThreads, smem_w,
-                     st>>>(xb, lnf, w1b, b1f, w2b, dyb,
-                           static_cast<float*>(part_w), (long long)m, c, hdim,
-                           ln_eps);
+  fused_mlp_bwd_dw<T><<<dim3((hdim + kHB - 1) / kHB, nsplit), kThreads,
+                        smem_w, st>>>(xb, lnf, w1b, b1f, w2b, dyb,
+                                      static_cast<float*>(part_w),
+                                      (long long)m, c, hdim, ln_eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -316,4 +321,33 @@ extern "C" int medseg_fused_mlp_bwd(const void* x, const void* ln,
                      static_cast<float*>(out_w), nsplit,
                      2 * (long long)hdim * c + hdim, st);
   return static_cast<int>(err);
+}
+
+}  // namespace
+}  // namespace medseg
+
+// x, dy, dx (m, c), w1 (hdim, c), w2 (c, hdim) of the element type named by
+// dtype; ln (2, c), b1 fp32. part_a (grid_a, 3c) and part_w (nsplit,
+// 2*hdim*c + hdim) are scratch; out_a (3c) = dscale | dbias | db2, out_w =
+// dW1 | dW2 | db1.
+extern "C" int medseg_fused_mlp_bwd(const void* x, const void* ln,
+                                    const void* w1, const void* b1,
+                                    const void* w2, const void* dy, void* dx,
+                                    void* part_a, void* out_a, void* part_w,
+                                    void* out_w, int m, int c, int hdim,
+                                    int grid_a, int nsplit, int residual,
+                                    int dtype, float ln_eps, void* stream) {
+  using namespace medseg;
+  if (m < 1 || c < 1 || c > kMaxC || hdim < 1 || grid_a < 1 || nsplit < 1 ||
+      ln == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    return launch_bwd<T>(
+        static_cast<const T*>(x), static_cast<const float*>(ln),
+        static_cast<const T*>(w1), static_cast<const float*>(b1),
+        static_cast<const T*>(w2), static_cast<const T*>(dy),
+        static_cast<T*>(dx), part_a, out_a, part_w, out_w, m, c, hdim, grid_a,
+        nsplit, residual, ln_eps, static_cast<cudaStream_t>(stream));
+  });
 }

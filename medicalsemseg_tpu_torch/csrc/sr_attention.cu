@@ -9,7 +9,9 @@
 // optional bf16 add of the block's raw input. K and V (B, M, C) come in
 // precomputed (the spatial-reduction conv, its LayerNorm and the kv dense
 // over M tokens stay outside, as in the TPU kernel). The rounding points are
-// the TPU kernel's.
+// the TPU kernel's. The element type T of the tokens, K, V and the weights
+// is bf16, fp16 or fp32 (the JAX kernel takes its input's dtype): "bf16"
+// above stands for T.
 //
 // Design. One block owns a tile of 32 tokens of one batch element
 // (grid = tiles x B). K and V of that element sit in shared memory as bf16
@@ -25,7 +27,9 @@
 // second projection then reads. N is never padded: the last tile masks its
 // tail (the TPU wrapper pads N to a multiple of 256). Shared memory is
 // 32 (2C + 2) fp32 + 32 C bf16 + 2 M (C + 2) bf16 + (8 M + 32 * 33) fp32:
-// 170 KB at C = 384, M = 27.
+// 170 KB at C = 384, M = 27 in bf16. K, V and the weight chunk are staged in
+// T; where 32 columns would not fit (fp32 at C = 384, or M > 66 in bf16) a
+// chunk is kOC = 16 columns.
 //
 // What bounds it on the card: by its counts, bytes at the first stage (C =
 // 48, N = 13,824, batch 16: x, the shortcut and the output are 21 MB each
@@ -44,36 +48,36 @@ namespace medseg {
 namespace {
 
 constexpr int kRows = 32;    // tokens per block (one per lane in the products)
-constexpr int kOC = 32;      // output columns per projection chunk
 constexpr int kMaxHD = 32;   // largest head dim (one lane per channel in . V)
 
+template <class T>
 struct SrParams {
-  const __nv_bfloat16* x;      // (B, N, C) LayerNorm'ed tokens
-  const __nv_bfloat16* k;      // (B, M, C), head-major hd blocks
-  const __nv_bfloat16* v;      // (B, M, C)
-  const __nv_bfloat16* wq;     // (C, C) [out, in]
+  const T* x;                  // (B, N, C) LayerNorm'ed tokens
+  const T* k;                  // (B, M, C), head-major hd blocks
+  const T* v;                  // (B, M, C)
+  const T* wq;                 // (C, C) [out, in]
   const float* bq;             // (C) or nullptr
-  const __nv_bfloat16* wproj;  // (C, C) [out, in]
+  const T* wproj;              // (C, C) [out, in]
   const float* bproj;          // (C)
-  const __nv_bfloat16* res;    // (B, N, C) or nullptr
-  __nv_bfloat16* out;          // (B, N, C)
+  const T* res;                // (B, N, C) or nullptr
+  T* out;                      // (B, N, C)
   int n, m, c, nh;
   float scale;
 };
 
-// dst[r][j0 + j] (or global rows) = round_bf16(src[r] . w[j0 + j] + b) for a
+// dst[r][j0 + j] (or global rows) = round_T(src[r] . w[j0 + j] + b) for a
 // chunk of kOC output columns: stage the weight rows, one dot per thread.
 // ``src`` is the fp32 tile (kRows x (c + 1)); the result lands in ``tile``
 // (kRows x (kOC + 1)) and the caller moves it on.
+template <class T, int kOC>
 __device__ __forceinline__ void project_chunk(const float* src, int c,
-                                              const __nv_bfloat16* w,
-                                              const float* b, int j0,
-                                              __nv_bfloat16* ws, float* tile) {
+                                              const T* w, const float* b,
+                                              int j0, T* ws, float* tile) {
   const int tid = threadIdx.x;
   const int s_stride = c + 1, t_stride = kOC + 1;
   for (int e = tid; e < kOC * c; e += kThreads) {
     const int j = e / c;
-    ws[e] = j0 + j < c ? w[(size_t)j0 * c + e] : __float2bfloat16(0.f);
+    ws[e] = j0 + j < c ? w[(size_t)j0 * c + e] : from_f32<T>(0.f);
   }
   __syncthreads();
   // token index across lanes: conflict-free src rows (odd stride), the
@@ -83,17 +87,19 @@ __device__ __forceinline__ void project_chunk(const float* src, int c,
     float a = 0.f;
     if (j0 + j < c) {
       const float* sr = src + r * s_stride;
-      const __nv_bfloat16* wr = ws + j * c;
+      const T* wr = ws + j * c;
 #pragma unroll 8
-      for (int ch = 0; ch < c; ++ch) a += sr[ch] * __bfloat162float(wr[ch]);
-      a = bf16_round(a + (b != nullptr ? b[j0 + j] : 0.f));
+      for (int ch = 0; ch < c; ++ch) a += sr[ch] * to_f32(wr[ch]);
+      a = round_to<T>(a + (b != nullptr ? b[j0 + j] : 0.f));
     }
     tile[r * t_stride + j] = a;
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads) sr_attention_kernel(SrParams p) {
+template <class T, int kOC>
+__global__ void __launch_bounds__(kThreads)
+    sr_attention_kernel(SrParams<T> p) {
   extern __shared__ float smem[];
   const int n = p.n, m = p.m, c = p.c, nh = p.nh, hd = c / nh;
   const int xs_stride = c + 1, kv_stride = c + 2, t_stride = kOC + 1;
@@ -101,9 +107,9 @@ __global__ void __launch_bounds__(kThreads) sr_attention_kernel(SrParams p) {
   float* qs = xs + kRows * xs_stride;        // kRows x (c + 1)
   float* tile = qs + kRows * xs_stride;      // kRows x (kOC + 1)
   float* prow = tile + kRows * t_stride;     // kWarps x m
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(prow + kWarps * m);  // kOC x c
-  __nv_bfloat16* ks = ws + kOC * c;          // m x (c + 2)
-  __nv_bfloat16* vs = ks + m * kv_stride;    // m x (c + 2)
+  T* ws = reinterpret_cast<T*>(prow + kWarps * m);  // kOC x c
+  T* ks = ws + kOC * c;                      // m x (c + 2)
+  T* vs = ks + m * kv_stride;                // m x (c + 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * kRows;
@@ -112,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) sr_attention_kernel(SrParams p) {
 
   for (int e = tid; e < kRows * c; e += kThreads) {
     const int r = e / c, ch = e - r * c;
-    xs[r * xs_stride + ch] = r < rows ? ld_bf16(p.x + (tok0 + r) * c + ch) : 0.f;
+    xs[r * xs_stride + ch] = r < rows ? ld(p.x + (tok0 + r) * c + ch) : 0.f;
   }
   for (int e = tid; e < m * c; e += kThreads) {
     const int mm = e / c, ch = e - mm * c;
@@ -123,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) sr_attention_kernel(SrParams p) {
 
   // q = bf16(x . Wq^T + bq)
   for (int j0 = 0; j0 < c; j0 += kOC) {
-    project_chunk(xs, c, p.wq, p.bq, j0, ws, tile);
+    project_chunk<T, kOC>(xs, c, p.wq, p.bq, j0, ws, tile);
     for (int e = tid; e < kRows * kOC; e += kThreads) {
       const int r = e / kOC, j = e - r * kOC;
       if (j0 + j < c) qs[r * xs_stride + j0 + j] = tile[r * t_stride + j];
@@ -139,9 +145,9 @@ __global__ void __launch_bounds__(kThreads) sr_attention_kernel(SrParams p) {
     const float* qr = qs + r * xs_stride + h * hd;
     float mx = -INFINITY;
     for (int mm = lane; mm < m; mm += 32) {
-      const __nv_bfloat16* kr = ks + mm * kv_stride + h * hd;
+      const T* kr = ks + mm * kv_stride + h * hd;
       float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += qr[d] * __bfloat162float(kr[d]);
+      for (int d = 0; d < hd; ++d) s += qr[d] * to_f32(kr[d]);
       s *= p.scale;
       pr[mm] = s;
       mx = fmaxf(mx, s);
@@ -154,14 +160,13 @@ __global__ void __launch_bounds__(kThreads) sr_attention_kernel(SrParams p) {
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int mm = lane; mm < m; mm += 32) pr[mm] = bf16_round(pr[mm] / sum);
+    for (int mm = lane; mm < m; mm += 32) pr[mm] = round_to<T>(pr[mm] / sum);
     __syncwarp();
     if (lane < hd) {
-      const __nv_bfloat16* vc = vs + h * hd + lane;
+      const T* vc = vs + h * hd + lane;
       float a = 0.f;
-      for (int mm = 0; mm < m; ++mm)
-        a += pr[mm] * __bfloat162float(vc[mm * kv_stride]);
-      xs[r * xs_stride + h * hd + lane] = bf16_round(a);
+      for (int mm = 0; mm < m; ++mm) a += pr[mm] * to_f32(vc[mm * kv_stride]);
+      xs[r * xs_stride + h * hd + lane] = round_to<T>(a);
     }
     __syncwarp();
   }
@@ -169,61 +174,84 @@ __global__ void __launch_bounds__(kThreads) sr_attention_kernel(SrParams p) {
 
   // out = bf16(attn . Wproj^T + bproj) [+ res]
   for (int j0 = 0; j0 < c; j0 += kOC) {
-    project_chunk(xs, c, p.wproj, p.bproj, j0, ws, tile);
+    project_chunk<T, kOC>(xs, c, p.wproj, p.bproj, j0, ws, tile);
     for (int e = tid; e < rows * kOC; e += kThreads) {
       const int r = e / kOC, j = e - r * kOC;
       if (j0 + j < c) {
         float y = tile[r * t_stride + j];
         const size_t o = (tok0 + r) * c + j0 + j;
-        if (p.res != nullptr) y += ld_bf16(p.res + o);
-        p.out[o] = __float2bfloat16(y);
+        if (p.res != nullptr) y += ld(p.res + o);
+        p.out[o] = from_f32<T>(y);
       }
     }
   }
 }
 
-size_t sr_smem_bytes(int m, int c) {
-  return sizeof(float) * (2 * kRows * (c + 1) + kRows * (kOC + 1) + kWarps * m) +
-         sizeof(__nv_bfloat16) * (kOC * c + 2 * m * (c + 2));
+size_t sr_smem_bytes(int m, int c, int oc, size_t elem) {
+  return sizeof(float) * (2 * kRows * (c + 1) + kRows * (oc + 1) + kWarps * m) +
+         elem * (oc * c + 2 * m * (c + 2));
+}
+
+// Output columns per projection chunk: 32, or 16 where 32 does not fit.
+int sr_chunk(int m, int c, size_t elem) {
+  return sr_smem_bytes(m, c, 32, elem) <= 232448 ? 32 : 16;
+}
+
+size_t elem_size(int dtype) { return dtype == kF32 ? 4 : 2; }
+
+template <class T, int kOC>
+int launch_sr(const SrParams<T>& p, int b, cudaStream_t st) {
+  const size_t smem = sr_smem_bytes(p.m, p.c, kOC, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      sr_attention_kernel<T, kOC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sr_attention_kernel<T, kOC><<<dim3((p.n + kRows - 1) / kRows, b), kThreads,
+                                smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace medseg
 
-// Shared memory of one block in bytes for M reduced tokens of width C (the
-// wrapper raises where it exceeds the card's limit).
-extern "C" long long medseg_sr_attention_smem_bytes(int m, int c) {
-  return (long long)medseg::sr_smem_bytes(m, c);
+// Shared memory of one block in bytes for M reduced tokens of width C and the
+// element type named by dtype (the wrapper raises where it exceeds the card's
+// limit).
+extern "C" long long medseg_sr_attention_smem_bytes(int m, int c, int dtype) {
+  using namespace medseg;
+  const size_t elem = elem_size(dtype);
+  return (long long)sr_smem_bytes(m, c, sr_chunk(m, c, elem), elem);
 }
 
+// x, k, v, wq, wproj, res, out of the element type named by dtype; bq,
+// bproj fp32.
 extern "C" int medseg_sr_attention_fwd(const void* x, const void* k,
                                        const void* v, const void* wq,
                                        const void* bq, const void* wproj,
                                        const void* bproj, const void* res,
                                        void* out, int b, int n, int m, int c,
-                                       int nh, float scale, void* stream) {
+                                       int nh, int dtype, float scale,
+                                       void* stream) {
   using namespace medseg;
   const int hd = nh > 0 ? c / nh : 0;
   if (b < 1 || n < 1 || m < 1 || nh < 1 || hd * nh != c || hd > kMaxHD ||
       b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  SrParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.wq = static_cast<const __nv_bfloat16*>(wq);
-  p.bq = static_cast<const float*>(bq);
-  p.wproj = static_cast<const __nv_bfloat16*>(wproj);
-  p.bproj = static_cast<const float*>(bproj);
-  p.res = static_cast<const __nv_bfloat16*>(res);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.n = n; p.m = m; p.c = c; p.nh = nh; p.scale = scale;
-  const size_t smem = sr_smem_bytes(m, c);
-  cudaError_t err = cudaFuncSetAttribute(
-      sr_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sr_attention_kernel<<<dim3((n + kRows - 1) / kRows, b), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    SrParams<T> p;
+    p.x = static_cast<const T*>(x);
+    p.k = static_cast<const T*>(k);
+    p.v = static_cast<const T*>(v);
+    p.wq = static_cast<const T*>(wq);
+    p.bq = static_cast<const float*>(bq);
+    p.wproj = static_cast<const T*>(wproj);
+    p.bproj = static_cast<const float*>(bproj);
+    p.res = static_cast<const T*>(res);
+    p.out = static_cast<T*>(out);
+    p.n = n; p.m = m; p.c = c; p.nh = nh; p.scale = scale;
+    return sr_chunk(m, c, sizeof(T)) == 32 ? launch_sr<T, 32>(p, b, st)
+                                           : launch_sr<T, 16>(p, b, st);
+  });
 }

@@ -8,7 +8,9 @@
 // position bias + shifted-window mask (-100 where pre-shift region labels
 // differ) -> fp32 softmax -> bf16 -> .V -> bf16 -> output projection
 // (+ bias in fp32, then bf16) -> optional bf16 shortcut add. The rounding
-// points are the TPU kernel's.
+// points are the TPU kernel's. The element type T of the activations and
+// weights is bf16, fp16 or fp32, as the JAX kernel takes its input's dtype:
+// "bf16" above stands for T, and in fp32 the roundings are the identity.
 //
 // Design. Two launches:
 //  1. window_attention_heads: one block per (window, head). It LN-normalises
@@ -63,16 +65,17 @@ constexpr int kMaxHD = 32;   // largest head dim the kernel takes
 constexpr int kRows = 32;    // token rows per projection block
 constexpr int kPK = 16;      // input channels staged per projection chunk
 
+template <class T>
 struct HeadsParams {
-  const __nv_bfloat16* x;     // (T, N, C) windows, raw (LN applied here)
+  const T* x;                 // (T, N, C) windows, raw (LN applied here)
   const float* ln;            // (2, C) scale/bias or nullptr
-  const __nv_bfloat16* wqkv;  // (3C, C) [out, in]
+  const T* wqkv;              // (3C, C) [out, in]
   const float* bqkv;          // (3C) or nullptr
   const float* bias;          // (nh, N, N)
   // K6: (B, N, C) global queries, wqkv is then (2C, C) = [K | V] and bqkv
   // (2C); nullptr for K1
-  const __nv_bfloat16* qg;
-  __nv_bfloat16* attn;        // (T, N, C) attention output, heads concatenated
+  const T* qg;
+  T* attn;                    // (T, N, C) attention output, heads concatenated
   int n, c, hd;
   int nwin;                   // windows per volume (K6: batch element of a window)
   int w0, w1, w2, s0, s1, s2;
@@ -81,8 +84,9 @@ struct HeadsParams {
   float eps, scale;
 };
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    window_attention_heads(HeadsParams p) {
+    window_attention_heads(HeadsParams<T> p) {
   extern __shared__ float smem[];
   const int win = blockIdx.x, h = blockIdx.y;
   const int n = p.n, c = p.c, hd = p.hd, q3 = 3 * hd;
@@ -94,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
   float* qkv = wsm + kKC * q3;               // n x (3hd + 1)
   float* prow = qkv + n * qkv_stride;        // kWarps x n
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const __nv_bfloat16* xw = p.x + (size_t)win * n * c;
+  const T* xw = p.x + (size_t)win * n * c;
   // columns [j0, 3hd) of the [q | k | v] tile are projected from the window:
   // all three groups for K1, k and v for K6
   const int j0 = p.qg != nullptr ? hd : 0, np = q3 - j0;
@@ -119,16 +123,16 @@ __global__ void __launch_bounds__(kThreads)
       const int t = e / kKC, kk = e - t * kKC, ch = c0 + kk;
       float v = 0.f;
       if (ch < c) {
-        v = ld_bf16(xw + (size_t)t * c + ch);
+        v = ld(xw + (size_t)t * c + ch);
         if (p.ln != nullptr)
-          v = bf16_round((v - mu[t]) * (rs[t] * p.ln[ch]) + p.ln[c + ch]);
+          v = round_to<T>((v - mu[t]) * (rs[t] * p.ln[ch]) + p.ln[c + ch]);
       }
       xs[t * xs_stride + kk] = v;
     }
     for (int e = tid; e < np * kKC; e += kThreads) {
       const int j = e / kKC, kk = e - j * kKC, ch = c0 + kk;
       const int col = (j / hd) * c + h * hd + j % hd;
-      wsm[kk * q3 + j] = ch < c ? ld_bf16(p.wqkv + (size_t)col * c + ch) : 0.f;
+      wsm[kk * q3 + j] = ch < c ? ld(p.wqkv + (size_t)col * c + ch) : 0.f;
     }
     __syncthreads();
     // token index fastest across lanes: xs reads are conflict-free (odd
@@ -147,14 +151,14 @@ __global__ void __launch_bounds__(kThreads)
     const int j = e / n, t = e - j * n;
     const int col = (j / hd) * c + h * hd + j % hd;
     const float b = p.bqkv != nullptr ? p.bqkv[col] : 0.f;
-    qkv[t * qkv_stride + j0 + j] = bf16_round(qkv[t * qkv_stride + j0 + j] + b);
+    qkv[t * qkv_stride + j0 + j] = round_to<T>(qkv[t * qkv_stride + j0 + j] + b);
   }
   if (p.qg != nullptr) {
     // the batch element's query grid, scaled in fp32, then rounded
-    const __nv_bfloat16* qb = p.qg + ((size_t)(win / p.nwin) * n) * c + h * hd;
+    const T* qb = p.qg + ((size_t)(win / p.nwin) * n) * c + h * hd;
     for (int e = tid; e < n * hd; e += kThreads) {
       const int t = e / hd, d = e - t * hd;
-      qkv[t * qkv_stride + d] = bf16_round(ld_bf16(qb + (size_t)t * c + d) * p.scale);
+      qkv[t * qkv_stride + d] = round_to<T>(ld(qb + (size_t)t * c + d) * p.scale);
     }
   }
   __syncthreads();
@@ -201,7 +205,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int d = 0; d < kMaxHD; ++d) acc[d] = 0.f;
     for (int m = lane; m < n; m += 32) {
-      const float pm = bf16_round(pr[m] / sum);
+      const float pm = round_to<T>(pr[m] / sum);
 #pragma unroll
       for (int d = 0; d < kMaxHD; ++d)
         if (d < hd) acc[d] += pm * V[m * qkv_stride + d];
@@ -215,17 +219,18 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (lane < hd)
-      p.attn[((size_t)win * n + t) * c + h * hd + lane] = __float2bfloat16(mine);
+      p.attn[((size_t)win * n + t) * c + h * hd + lane] = from_f32<T>(mine);
   }
 }
 
 // out = bf16(attn . Wproj^T + bproj) [+ x], over tiles of kRows token rows.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    window_attention_proj(const __nv_bfloat16* __restrict__ attn,
-                          const __nv_bfloat16* __restrict__ wproj,
+    window_attention_proj(const T* __restrict__ attn,
+                          const T* __restrict__ wproj,
                           const float* __restrict__ bproj,
-                          const __nv_bfloat16* __restrict__ x,
-                          __nv_bfloat16* __restrict__ out, long long m_total,
+                          const T* __restrict__ x,
+                          T* __restrict__ out, long long m_total,
                           int c, int residual) {
   extern __shared__ float smem[];
   const int acc_stride = kRows + 1, as_stride = kPK + 1;
@@ -242,11 +247,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kRows * kPK; e += kThreads) {
       const int r = e / kPK, kk = e - r * kPK, ch = c0 + kk;
       as[r * as_stride + kk] =
-          (r < rows && ch < c) ? ld_bf16(attn + (r0 + r) * c + ch) : 0.f;
+          (r < rows && ch < c) ? ld(attn + (r0 + r) * c + ch) : 0.f;
     }
     for (int e = tid; e < kPK * c; e += kThreads) {
       const int o = e / kPK, kk = e - o * kPK, ch = c0 + kk;
-      wsm[kk * c + o] = ch < c ? ld_bf16(wproj + (size_t)o * c + ch) : 0.f;
+      wsm[kk * c + o] = ch < c ? ld(wproj + (size_t)o * c + ch) : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < c * kRows; e += kThreads) {
@@ -261,9 +266,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int e = tid; e < rows * c; e += kThreads) {
     const int r = e / c, j = e - r * c;
-    float y = bf16_round(acc[j * acc_stride + r] + bproj[j]);
-    if (residual) y += ld_bf16(x + (r0 + r) * c + j);
-    out[(r0 + r) * c + j] = __float2bfloat16(y);
+    float y = round_to<T>(acc[j * acc_stride + r] + bproj[j]);
+    if (residual) y += ld(x + (r0 + r) * c + j);
+    out[(r0 + r) * c + j] = from_f32<T>(y);
   }
 }
 
@@ -274,92 +279,98 @@ namespace medseg {
 namespace {
 
 // The two launches of K1 and K6: heads, then projection (+ shortcut).
-int launch_attention(HeadsParams p, const void* wproj, const void* bproj,
+template <class T>
+int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
                      void* out, int t, int nh, int residual,
                      cudaStream_t st) {
   const int n = p.n, c = p.c, hd = p.hd;
   const size_t heads_smem = sizeof(float) *
       (2 * n + n * (kKC + 1) + kKC * 3 * hd + n * (3 * hd + 1) + kWarps * n);
   cudaError_t err = cudaFuncSetAttribute(
-      window_attention_heads, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      window_attention_heads<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)heads_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_attention_heads<<<dim3(t, nh), kThreads, heads_smem, st>>>(p);
+  window_attention_heads<T><<<dim3(t, nh), kThreads, heads_smem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
   const size_t proj_smem =
       sizeof(float) * (c * (kRows + 1) + kRows * (kPK + 1) + kPK * c);
-  err = cudaFuncSetAttribute(window_attention_proj,
+  err = cudaFuncSetAttribute(window_attention_proj<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)proj_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = (unsigned)((m_total + kRows - 1) / kRows);
-  window_attention_proj<<<blocks, kThreads, proj_smem, st>>>(
-      p.attn, static_cast<const __nv_bfloat16*>(wproj),
-      static_cast<const float*>(bproj), p.x,
-      static_cast<__nv_bfloat16*>(out), m_total, c, residual);
+  window_attention_proj<T><<<blocks, kThreads, proj_smem, st>>>(
+      p.attn, static_cast<const T*>(wproj), static_cast<const float*>(bproj),
+      p.x, static_cast<T*>(out), m_total, c, residual);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace medseg
 
+// x, wqkv, wproj, attn, out of the element type named by dtype (kBf16,
+// kF16, kF32); ln, bqkv, bproj, bias fp32.
 extern "C" int medseg_window_attention_fwd(
     const void* x, const void* ln, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* bias, void* attn,
     void* out, int t, int n, int c, int nh, int w0, int w1, int w2, int s0,
     int s1, int s2, int nwd, int nwh, int nww, int shifted, int residual,
-    float ln_eps, float scale, void* stream) {
+    int dtype, float ln_eps, float scale, void* stream) {
   using namespace medseg;
   const int hd = c / nh;
   if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-
-  HeadsParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.ln = static_cast<const float*>(ln);
-  p.wqkv = static_cast<const __nv_bfloat16*>(wqkv);
-  p.bqkv = static_cast<const float*>(bqkv);
-  p.bias = static_cast<const float*>(bias);
-  p.qg = nullptr;
-  p.attn = static_cast<__nv_bfloat16*>(attn);
-  p.n = n; p.c = c; p.hd = hd; p.nwin = nwd * nwh * nww;
-  p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
-  p.nwd = nwd; p.nwh = nwh; p.nww = nww;
-  p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
-  return launch_attention(p, wproj, bproj, out, t, nh, residual,
-                          static_cast<cudaStream_t>(stream));
+  return with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    HeadsParams<T> p;
+    p.x = static_cast<const T*>(x);
+    p.ln = static_cast<const float*>(ln);
+    p.wqkv = static_cast<const T*>(wqkv);
+    p.bqkv = static_cast<const float*>(bqkv);
+    p.bias = static_cast<const float*>(bias);
+    p.qg = nullptr;
+    p.attn = static_cast<T*>(attn);
+    p.n = n; p.c = c; p.hd = hd; p.nwin = nwd * nwh * nww;
+    p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
+    p.nwd = nwd; p.nwh = nwh; p.nww = nww;
+    p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
+    return launch_attention(p, wproj, bproj, out, t, nh, residual,
+                            static_cast<cudaStream_t>(stream));
+  });
 }
 
 // K6. x (T, N, C) windows in batch-major order, T = B * nwin; q (B, N, C);
-// wkv (2C, C) [out, in]; bkv (2C) or nullptr.
+// wkv (2C, C) [out, in]; bkv (2C) or nullptr; dtype as for K1.
 extern "C" int medseg_global_window_attention_fwd(
     const void* x, const void* ln, const void* q, const void* wkv,
     const void* bkv, const void* wproj, const void* bproj, const void* bias,
     void* attn, void* out, int t, int n, int c, int nh, int nwin,
-    int residual, float ln_eps, float scale, void* stream) {
+    int residual, int dtype, float ln_eps, float scale, void* stream) {
   using namespace medseg;
   const int hd = c / nh;
   if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 || nwin < 1 ||
       t % nwin != 0 || q == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-
-  HeadsParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.ln = static_cast<const float*>(ln);
-  p.wqkv = static_cast<const __nv_bfloat16*>(wkv);
-  p.bqkv = static_cast<const float*>(bkv);
-  p.bias = static_cast<const float*>(bias);
-  p.qg = static_cast<const __nv_bfloat16*>(q);
-  p.attn = static_cast<__nv_bfloat16*>(attn);
-  p.n = n; p.c = c; p.hd = hd; p.nwin = nwin;
-  p.w0 = p.w1 = p.w2 = 1; p.s0 = p.s1 = p.s2 = 0;
-  p.nwd = p.nwh = p.nww = 1;
-  p.shifted = 0; p.eps = ln_eps; p.scale = scale;
-  return launch_attention(p, wproj, bproj, out, t, nh, residual,
-                          static_cast<cudaStream_t>(stream));
+  return with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    HeadsParams<T> p;
+    p.x = static_cast<const T*>(x);
+    p.ln = static_cast<const float*>(ln);
+    p.wqkv = static_cast<const T*>(wkv);
+    p.bqkv = static_cast<const float*>(bkv);
+    p.bias = static_cast<const float*>(bias);
+    p.qg = static_cast<const T*>(q);
+    p.attn = static_cast<T*>(attn);
+    p.n = n; p.c = c; p.hd = hd; p.nwin = nwin;
+    p.w0 = p.w1 = p.w2 = 1; p.s0 = p.s1 = p.s2 = 0;
+    p.nwd = p.nwh = p.nww = 1;
+    p.shifted = 0; p.eps = ln_eps; p.scale = scale;
+    return launch_attention(p, wproj, bproj, out, t, nh, residual,
+                            static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" const char* medseg_cuda_error_string(int err) {

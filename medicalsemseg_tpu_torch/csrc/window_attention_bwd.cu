@@ -12,7 +12,10 @@
 //   dbias += ds, dq = bf16(ds * scale) k, dk = bf16(ds * scale)^T q,
 //   dqkv = bf16(dq | dk | dv), dWqkv = dqkv^T . xn, dbqkv = sum dqkv,
 //   dbproj = sum dy, dx = LN backward of dqkv . Wqkv [+ dy], dLN.
-// No (N, N) matrix and no LayerNorm output reaches device memory.
+// No (N, N) matrix and no LayerNorm output reaches device memory. The element
+// type T of the activations, weights, o and dqkv is bf16, fp16 or fp32 (the
+// JAX kernel takes its input's dtype): "bf16" above stands for T. Shared
+// memory holds fp32 whatever T is.
 //
 // Design. The TPU kernels walk the window tiles in order on one core, with
 // all weight gradients and the (nh, N, N) bias gradient in scratch memory
@@ -57,17 +60,18 @@ constexpr int kJB = 16;     // weight-gradient rows owned by a dw block
 constexpr int kMaxC = 512;  // widest C the dw launch holds in registers
 constexpr int kMaxE = kJB * kMaxC / kThreads;
 
+template <class T>
 struct BwdHeadsParams {
-  const __nv_bfloat16* x;      // (T, N, C) raw windows
+  const T* x;                  // (T, N, C) raw windows
   const float* ln;             // (2, C) or nullptr
-  const __nv_bfloat16* wqkv;   // (3C, C)
+  const T* wqkv;               // (3C, C)
   const float* bqkv;           // (3C) or nullptr
-  const __nv_bfloat16* wproj;  // (C, C)
+  const T* wproj;              // (C, C)
   const float* bias;           // (nh, N, N)
   const float* bias_t;         // (nh, N, N), each head transposed
-  const __nv_bfloat16* dy;     // (T, N, C)
-  __nv_bfloat16* attn;         // (T, N, C) o, heads concatenated
-  __nv_bfloat16* dqkv;         // (T, N, 3C)
+  const T* dy;                 // (T, N, C)
+  T* attn;                     // (T, N, C) o, heads concatenated
+  T* dqkv;                     // (T, N, 3C)
   float* dbias_part;           // (chunks, nh, N, N)
   int t, n, c, hd, wins_per_chunk;
   int w0, w1, w2, s0, s1, s2;
@@ -78,12 +82,12 @@ struct BwdHeadsParams {
 
 // dst[t][j] = sum_ch src'[t][ch] * w[base(j) + ch * kstride] for the n rows
 // of one window and ncols columns; src' is src, LayerNorm-ed and rounded to
-// bf16 when ln is given. Staged through xs / wsm in chunks of kKC channels.
+// T when ln is given. Staged through xs / wsm in chunks of kKC channels.
 // Ends with a __syncthreads().
-template <class BaseFn>
-__device__ void project_cols(const __nv_bfloat16* src, int n, int c,
+template <class T, class BaseFn>
+__device__ void project_cols(const T* src, int n, int c,
                              const float* ln, const float* mu, const float* rs,
-                             const __nv_bfloat16* w, BaseFn base, int kstride,
+                             const T* w, BaseFn base, int kstride,
                              int ncols, float* xs, float* wsm, float* dst,
                              int dstride) {
   const int tid = threadIdx.x, xs_stride = kKC + 1;
@@ -94,16 +98,16 @@ __device__ void project_cols(const __nv_bfloat16* src, int n, int c,
       const int t = e / kKC, kk = e - t * kKC, ch = c0 + kk;
       float v = 0.f;
       if (ch < c) {
-        v = ld_bf16(src + (size_t)t * c + ch);
+        v = ld(src + (size_t)t * c + ch);
         if (ln != nullptr)
-          v = bf16_round((v - mu[t]) * rs[t] * ln[ch] + ln[c + ch]);
+          v = round_to<T>((v - mu[t]) * rs[t] * ln[ch] + ln[c + ch]);
       }
       xs[t * xs_stride + kk] = v;
     }
     for (int e = tid; e < ncols * kKC; e += kThreads) {
       const int j = e / kKC, kk = e - j * kKC, ch = c0 + kk;
       wsm[kk * ncols + j] =
-          ch < c ? ld_bf16(w + base(j) + (size_t)ch * kstride) : 0.f;
+          ch < c ? ld(w + base(j) + (size_t)ch * kstride) : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < n * ncols; e += kThreads) {
@@ -118,9 +122,9 @@ __device__ void project_cols(const __nv_bfloat16* src, int n, int c,
   __syncthreads();
 }
 
-template <int HD>
+template <class T, int HD>
 __global__ void __launch_bounds__(kThreads)
-    window_attention_bwd_heads(BwdHeadsParams p) {
+    window_attention_bwd_heads(BwdHeadsParams<T> p) {
   extern __shared__ float smem[];
   const int chunk = blockIdx.x, h = blockIdx.y;
   const int n = p.n, c = p.c, hd = p.hd, q3 = 3 * hd;
@@ -149,8 +153,8 @@ __global__ void __launch_bounds__(kThreads)
   const int w_end = min(p.t, w_begin + p.wins_per_chunk);
 
   for (int win = w_begin; win < w_end; ++win) {
-    const __nv_bfloat16* xw = p.x + (size_t)win * n * c;
-    const __nv_bfloat16* dyw = p.dy + (size_t)win * n * c;
+    const T* xw = p.x + (size_t)win * n * c;
+    const T* dyw = p.dy + (size_t)win * n * c;
     __syncthreads();  // the previous window's readers are done
     if (p.ln != nullptr) {
       for (int t = warp; t < n; t += kWarps) {
@@ -171,15 +175,15 @@ __global__ void __launch_bounds__(kThreads)
       const int j = e / n, t = e - j * n;
       const int col = (j / hd) * c + h * hd + j % hd;
       const float b = p.bqkv != nullptr ? p.bqkv[col] : 0.f;
-      qkv[t * qs + j] = bf16_round(qkv[t * qs + j] + b);
+      qkv[t * qs + j] = round_to<T>(qkv[t * qs + j] + b);
     }
     // dout[t][d] = bf16(sum_o dy[t][o] * Wproj[o][h * hd + d])
     project_cols(
-        dyw, n, c, nullptr, nullptr, nullptr, p.wproj,
+        dyw, n, c, static_cast<const float*>(nullptr), nullptr, nullptr, p.wproj,
         [=](int j) { return (size_t)(h * hd + j); }, c, hd, xs, wsm, dos, dstr);
     for (int e = tid; e < n * hd; e += kThreads) {
       const int j = e / n, t = e - j * n;
-      dos[t * dstr + j] = bf16_round(dos[t * dstr + j]);
+      dos[t * dstr + j] = round_to<T>(dos[t * dstr + j]);
     }
     __syncthreads();
 
@@ -227,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
       float dl = 0.f;
       for (int m = lane; m < n; m += 32) {
         const float p32 = pr[m] / sum;
-        const float pb = bf16_round(p32);
+        const float pb = round_to<T>(p32);
         float dp = 0.f;
 #pragma unroll
         for (int d = 0; d < HD; ++d) {
@@ -249,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
         const float ds = pr[m] * (dpr[m] - dl);
         float* pp = part + (size_t)t * n + m;
         *pp = first ? ds : *pp + ds;
-        const float dsl = bf16_round(ds * p.scale);
+        const float dsl = round_to<T>(ds * p.scale);
 #pragma unroll
         for (int d = 0; d < HD; ++d)
           if (d < hd) dqacc[d] += dsl * K[m * qs + d];
@@ -268,8 +272,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       if (lane < hd) {
         const size_t row = (size_t)win * n + t;
-        p.attn[row * c + h * hd + lane] = __float2bfloat16(mo);
-        p.dqkv[row * 3 * c + h * hd + lane] = __float2bfloat16(mq);
+        p.attn[row * c + h * hd + lane] = from_f32<T>(mo);
+        p.dqkv[row * 3 * c + h * hd + lane] = from_f32<T>(mq);
       }
       if (lane == 0) {
         rmax[t] = mx;
@@ -308,8 +312,8 @@ __global__ void __launch_bounds__(kThreads)
                                      lh, lw) != lab_m)
           s += -100.f;
         const float p32 = expf(s - rmax[t]) / rsum[t];
-        const float pb = bf16_round(p32);
-        const float dsl = bf16_round(p32 * (dp - delta[t]) * p.scale);
+        const float pb = round_to<T>(p32);
+        const float dsl = round_to<T>(p32 * (dp - delta[t]) * p.scale);
 #pragma unroll
         for (int d = 0; d < HD; ++d) {
           if (d < hd) {
@@ -332,8 +336,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       if (lane < hd) {
         const size_t row = ((size_t)win * n + m) * 3 * c;
-        p.dqkv[row + c + h * hd + lane] = __float2bfloat16(mk);
-        p.dqkv[row + 2 * c + h * hd + lane] = __float2bfloat16(mv);
+        p.dqkv[row + c + h * hd + lane] = from_f32<T>(mk);
+        p.dqkv[row + 2 * c + h * hd + lane] = from_f32<T>(mv);
       }
     }
   }
@@ -341,13 +345,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // dx = LN backward of (dqkv . Wqkv) [+ dy] over tiles of kTile rows (strided
 // over the grid); part (grid, 2c) takes the block's dLN sums.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    window_attention_bwd_dx(const __nv_bfloat16* __restrict__ x,
+    window_attention_bwd_dx(const T* __restrict__ x,
                             const float* __restrict__ ln,
-                            const __nv_bfloat16* __restrict__ wqkv,
-                            const __nv_bfloat16* __restrict__ dqkv,
-                            const __nv_bfloat16* __restrict__ dy,
-                            __nv_bfloat16* __restrict__ dx,
+                            const T* __restrict__ wqkv,
+                            const T* __restrict__ dqkv,
+                            const T* __restrict__ dy,
+                            T* __restrict__ dx,
                             float* __restrict__ part, long long m_total, int c,
                             int residual, float eps) {
   extern __shared__ float smem[];
@@ -383,12 +388,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = tid; e < kTile * kPK; e += kThreads) {
         const int r = e / kPK, kk = e - r * kPK;
         as[r * as_stride + kk] = (r < rows && j0 + kk < c3)
-                                     ? ld_bf16(dqkv + (r0 + r) * c3 + j0 + kk)
+                                     ? ld(dqkv + (r0 + r) * c3 + j0 + kk)
                                      : 0.f;
       }
       for (int e = tid; e < kPK * c; e += kThreads) {
         const int kk = e / c;
-        wsm[e] = j0 + kk < c3 ? ld_bf16(wqkv + (size_t)j0 * c + e) : 0.f;
+        wsm[e] = j0 + kk < c3 ? ld(wqkv + (size_t)j0 * c + e) : 0.f;
       }
       __syncthreads();
       for (int e = tid; e < c * kTile; e += kThreads) {
@@ -411,12 +416,13 @@ __global__ void __launch_bounds__(kThreads)
 // grid (4c / kJB row groups, shares). Rows [0, 3c) are dWqkv = dqkv^T . xn
 // with dbqkv, rows [3c, 4c) dWproj = dy^T . o with dbproj. Partials per
 // share: (4c x c) weights | (4c) biases.
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    window_attention_bwd_dw(const __nv_bfloat16* __restrict__ x,
+    window_attention_bwd_dw(const T* __restrict__ x,
                             const float* __restrict__ ln,
-                            const __nv_bfloat16* __restrict__ attn,
-                            const __nv_bfloat16* __restrict__ dqkv,
-                            const __nv_bfloat16* __restrict__ dy,
+                            const T* __restrict__ attn,
+                            const T* __restrict__ dqkv,
+                            const T* __restrict__ dy,
                             float* __restrict__ part, long long m_total, int c,
                             float eps) {
   extern __shared__ float smem[];
@@ -428,9 +434,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j0 = blockIdx.x * kJB, c3 = 3 * c, ne = kJB * c;
   const bool qkv_side = j0 < c3;
-  const __nv_bfloat16* left = qkv_side ? dqkv + j0 : dy + (j0 - c3);
+  const T* left = qkv_side ? dqkv + j0 : dy + (j0 - c3);
   const int left_stride = qkv_side ? c3 : c;
-  const __nv_bfloat16* right = qkv_side ? x : attn;
+  const T* right = qkv_side ? x : attn;
   const float* lnr = qkv_side ? ln : nullptr;
   const long long ntiles = (m_total + kTile - 1) / kTile;
 
@@ -458,16 +464,16 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / c, ch = e - r * c;
       float v = 0.f;
       if (r < rows) {
-        v = ld_bf16(right + (r0 + r) * c + ch);
+        v = ld(right + (r0 + r) * c + ch);
         if (lnr != nullptr)
-          v = bf16_round((v - mu[r]) * rs[r] * lnr[ch] + lnr[c + ch]);
+          v = round_to<T>((v - mu[r]) * rs[r] * lnr[ch] + lnr[c + ch]);
       }
       xs[r * stride + ch] = v;
     }
     for (int e = tid; e < kTile * kJB; e += kThreads) {
       const int r = e / kJB, j = e - r * kJB;
       ls[r * lstride + j] =
-          r < rows ? ld_bf16(left + (r0 + r) * left_stride + j) : 0.f;
+          r < rows ? ld(left + (r0 + r) * left_stride + j) : 0.f;
     }
     __syncthreads();
     outer_accumulate<kMaxE>(ls, lstride, xs, stride, c, ne, acc);
@@ -487,92 +493,55 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < kJB) p[4 * (size_t)c * c + j0 + tid] = accb;
 }
 
-template <int HD>
-cudaError_t launch_heads(const BwdHeadsParams& p, int nchunk, int nh,
+template <class T, int HD>
+cudaError_t launch_heads(const BwdHeadsParams<T>& p, int nchunk, int nh,
                          cudaStream_t st) {
   const int n = p.n, q3 = 3 * p.hd;
   const size_t smem = sizeof(float) * (5 * n + n * (kKC + 1) + kKC * q3 +
                                        n * (q3 + 1) + n * (p.hd + 1) +
                                        2 * kWarps * n);
   cudaError_t err = cudaFuncSetAttribute(
-      window_attention_bwd_heads<HD>,
+      window_attention_bwd_heads<T, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  window_attention_bwd_heads<HD><<<dim3(nchunk, nh), kThreads, smem, st>>>(p);
+  window_attention_bwd_heads<T, HD><<<dim3(nchunk, nh), kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace medseg
-
-// Pointers as in BwdHeadsParams; dx (T, N, C) bf16. Scratch: dbias_part
-// (nchunk, nh, N, N), part_ln (grid_dx, 2c), part_w (nsplit, 4c*c + 4c).
-// Results: dbias (nh, N, N), out_ln (2c) = dscale | dbias_ln, out_w =
-// dWqkv (3c x c) | dWproj (c x c) | dbqkv (3c) | dbproj (c). c must be a
-// multiple of 16.
-extern "C" int medseg_window_attention_bwd(
-    const void* x, const void* ln, const void* wqkv, const void* bqkv,
-    const void* wproj, const void* bias, const void* bias_t, const void* dy,
-    void* attn, void* dqkv, void* dx, void* dbias_part, void* dbias,
-    void* part_ln, void* out_ln, void* part_w, void* out_w, int t, int n,
-    int c, int nh, int w0, int w1, int w2, int s0, int s1, int s2, int nwd,
-    int nwh, int nww, int shifted, int residual, int nchunk, int grid_dx,
-    int nsplit, float ln_eps, float scale, void* stream) {
-  using namespace medseg;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hd = c / nh;
-  if (hd * nh != c || hd > 32 || hd < 1 || n < 1 || t < 1 || c % kJB != 0 ||
-      c > kMaxC || nchunk < 1 || grid_dx < 1 || nsplit < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-
-  BwdHeadsParams p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.ln = static_cast<const float*>(ln);
-  p.wqkv = static_cast<const __nv_bfloat16*>(wqkv);
-  p.bqkv = static_cast<const float*>(bqkv);
-  p.wproj = static_cast<const __nv_bfloat16*>(wproj);
-  p.bias = static_cast<const float*>(bias);
-  p.bias_t = static_cast<const float*>(bias_t);
-  p.dy = static_cast<const __nv_bfloat16*>(dy);
-  p.attn = static_cast<__nv_bfloat16*>(attn);
-  p.dqkv = static_cast<__nv_bfloat16*>(dqkv);
-  p.dbias_part = static_cast<float*>(dbias_part);
-  p.t = t; p.n = n; p.c = c; p.hd = hd;
-  p.wins_per_chunk = (t + nchunk - 1) / nchunk;
-  p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
-  p.nwd = nwd; p.nwh = nwh; p.nww = nww;
-  p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
-  // every chunk must hold a window, or its slab of partials stays unwritten
-  if ((long long)(nchunk - 1) * p.wins_per_chunk >= t)
-    return static_cast<int>(cudaErrorInvalidValue);
-
-  cudaError_t err = hd <= 16 ? launch_heads<16>(p, nchunk, nh, st)
-                             : launch_heads<32>(p, nchunk, nh, st);
+template <class T>
+int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
+               void* part_ln, void* out_ln, void* part_w, void* out_w, int nh,
+               int residual, int nchunk, int grid_dx, int nsplit,
+               float ln_eps, cudaStream_t st) {
+  const int t = p.t, n = p.n, c = p.c;
+  cudaError_t err = p.hd <= 16 ? launch_heads<T, 16>(p, nchunk, nh, st)
+                               : launch_heads<T, 32>(p, nchunk, nh, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
   const size_t smem_dx =
       sizeof(float) * (2 * kTile + 2 * c + c * (kTile + 1) +
                        kTile * (kPK + 1) + kPK * c);
-  err = cudaFuncSetAttribute(window_attention_bwd_dx,
+  err = cudaFuncSetAttribute(window_attention_bwd_dx<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dx);
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_attention_bwd_dx<<<grid_dx, kThreads, smem_dx, st>>>(
-      p.x, p.ln, p.wqkv, p.dqkv, p.dy, static_cast<__nv_bfloat16*>(dx),
+  window_attention_bwd_dx<T><<<grid_dx, kThreads, smem_dx, st>>>(
+      p.x, p.ln, p.wqkv, p.dqkv, p.dy, static_cast<T*>(dx),
       static_cast<float*>(part_ln), m_total, c, residual, ln_eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem_dw =
       sizeof(float) * (2 * kTile + kTile * (c + 1) + kTile * (kJB + 1));
-  err = cudaFuncSetAttribute(window_attention_bwd_dw,
+  err = cudaFuncSetAttribute(window_attention_bwd_dw<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dw);
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_attention_bwd_dw<<<dim3(4 * c / kJB, nsplit), kThreads, smem_dw, st>>>(
-      p.x, p.ln, p.attn, p.dqkv, p.dy, static_cast<float*>(part_w), m_total, c,
-      ln_eps);
+  window_attention_bwd_dw<T><<<dim3(4 * c / kJB, nsplit), kThreads, smem_dw,
+                               st>>>(p.x, p.ln, p.attn, p.dqkv, p.dy,
+                                     static_cast<float*>(part_w), m_total, c,
+                                     ln_eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -589,4 +558,56 @@ extern "C" int medseg_window_attention_bwd(
                      static_cast<float*>(out_w), nsplit,
                      4 * (long long)c * c + 4 * c, st);
   return static_cast<int>(err);
+}
+
+}  // namespace
+}  // namespace medseg
+
+// Pointers as in BwdHeadsParams; dx (T, N, C) and the activations, weights,
+// attn and dqkv of the element type named by dtype. Scratch: dbias_part
+// (nchunk, nh, N, N), part_ln (grid_dx, 2c), part_w (nsplit, 4c*c + 4c).
+// Results (fp32): dbias (nh, N, N), out_ln (2c) = dscale | dbias_ln, out_w =
+// dWqkv (3c x c) | dWproj (c x c) | dbqkv (3c) | dbproj (c). c must be a
+// multiple of 16.
+extern "C" int medseg_window_attention_bwd(
+    const void* x, const void* ln, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* bias, const void* bias_t, const void* dy,
+    void* attn, void* dqkv, void* dx, void* dbias_part, void* dbias,
+    void* part_ln, void* out_ln, void* part_w, void* out_w, int t, int n,
+    int c, int nh, int w0, int w1, int w2, int s0, int s1, int s2, int nwd,
+    int nwh, int nww, int shifted, int residual, int nchunk, int grid_dx,
+    int nsplit, int dtype, float ln_eps, float scale, void* stream) {
+  using namespace medseg;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int hd = c / nh;
+  if (hd * nh != c || hd > 32 || hd < 1 || n < 1 || t < 1 || c % kJB != 0 ||
+      c > kMaxC || nchunk < 1 || grid_dx < 1 || nsplit < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // every chunk must hold a window, or its slab of partials stays unwritten
+  const int wins_per_chunk = (t + nchunk - 1) / nchunk;
+  if ((long long)(nchunk - 1) * wins_per_chunk >= t)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  return with_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    BwdHeadsParams<T> p;
+    p.x = static_cast<const T*>(x);
+    p.ln = static_cast<const float*>(ln);
+    p.wqkv = static_cast<const T*>(wqkv);
+    p.bqkv = static_cast<const float*>(bqkv);
+    p.wproj = static_cast<const T*>(wproj);
+    p.bias = static_cast<const float*>(bias);
+    p.bias_t = static_cast<const float*>(bias_t);
+    p.dy = static_cast<const T*>(dy);
+    p.attn = static_cast<T*>(attn);
+    p.dqkv = static_cast<T*>(dqkv);
+    p.dbias_part = static_cast<float*>(dbias_part);
+    p.t = t; p.n = n; p.c = c; p.hd = hd;
+    p.wins_per_chunk = wins_per_chunk;
+    p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
+    p.nwd = nwd; p.nwh = nwh; p.nww = nww;
+    p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
+    return launch_bwd(p, ln, dx, dbias, part_ln, out_ln, part_w, out_w, nh,
+                      residual, nchunk, grid_dx, nsplit, ln_eps, st);
+  });
 }

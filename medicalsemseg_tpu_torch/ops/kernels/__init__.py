@@ -96,20 +96,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     lib.medseg_window_attention_fwd.argtypes = (
-        [p] * 9 + [i] * 15 + [f, f, p])
+        [p] * 9 + [i] * 16 + [f, f, p])
     lib.medseg_window_attention_fwd.restype = i
     lib.medseg_global_window_attention_fwd.argtypes = (
-        [p] * 10 + [i] * 6 + [f, f, p])
+        [p] * 10 + [i] * 7 + [f, f, p])
     lib.medseg_global_window_attention_fwd.restype = i
-    lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 5 + [f, p]
+    lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 6 + [f, p]
     lib.medseg_sr_attention_fwd.restype = i
-    lib.medseg_sr_attention_smem_bytes.argtypes = [i, i]
+    lib.medseg_sr_attention_smem_bytes.argtypes = [i, i, i]
     lib.medseg_sr_attention_smem_bytes.restype = ll
-    lib.medseg_fused_mlp_fwd.argtypes = [p] * 7 + [i] * 5 + [f, p]
+    lib.medseg_fused_mlp_fwd.argtypes = [p] * 7 + [i] * 6 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i
-    lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 18 + [f, f, p]
+    lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 19 + [f, f, p]
     lib.medseg_window_attention_bwd.restype = i
-    lib.medseg_fused_mlp_bwd.argtypes = [p] * 11 + [i] * 6 + [f, p]
+    lib.medseg_fused_mlp_bwd.argtypes = [p] * 11 + [i] * 7 + [f, p]
     lib.medseg_fused_mlp_bwd.restype = i
     lib.medseg_dw27.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.medseg_dw27.restype = i
@@ -162,6 +162,19 @@ def resident_blocks(device) -> int:
 def ptr(t) -> Optional[ctypes.c_void_p]:
     """Device pointer of a tensor, or NULL for None."""
     return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def dtype_code(name, dtype) -> int:
+    """The dtype argument of the kernels that take their activations' dtype
+    (K1-K4, K6, K7: kBf16, kF16, kF32 in csrc/common.cuh); raises for any
+    other dtype."""
+    import torch
+
+    codes = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+    if dtype not in codes:
+        raise ValueError(f"{name} is {dtype}, the kernel takes bfloat16, "
+                         "float16 or float32")
+    return codes[dtype]
 
 
 def check_tensor(name, t, device, dtype, shape=None) -> None:

@@ -13,7 +13,8 @@ in fp32. The CUDA source is ``csrc/dw27.cu``; its header says what bounds it
 on the card and how the design answers that. It reads ``x`` from its own
 layout (no shifted or channel-padded copies), so any batch runs in one call.
 bf16 inputs with channel counts that are multiples of 8 run on tensor cores
-(``mma.sync``), everything else on CUDA cores; both add in fp32.
+(``wgmma``: a block owns the nine taps of one kd), everything else (fp16,
+fp32, other channel counts) on CUDA cores; both add in fp32.
 
 A CPU tensor goes through :func:`dw27_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -29,9 +30,14 @@ from medicalsemseg_tpu_torch.ops import kernels
 # kernel launches through dw27()
 launches = 0
 
-# channels per block tile and voxels per spatial tile (kCT, kWT in csrc/dw27.cu)
+# channels per block tile, voxels per spatial tile and dy rows per run of
+# the tensor-core kernel (kCT, kWT, kHRun in csrc/dw27.cu)
 TILE_CHANNELS = 48
 TILE_VOXELS = 96
+RUN_ROWS = 24
+# csrc/dw27.cu medseg_dw27's routes
+_ROUTES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
+_ROUTE_TENSOR_CORES = 2
 
 
 def dw27_applicable(shape, cin: int) -> bool:
@@ -58,9 +64,27 @@ def dw27_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, 3, c, co)
 
 
+def launch_shares(shape, co: int, route: int, device) -> int:
+    """Blocks that split the voxels of one part of the accumulator (grid y
+    of csrc/dw27.cu medseg_dw27) for x of ``shape`` (B, D, H, W, C)."""
+    b, d, h, w, c = shape
+    ctiles = -(-c // TILE_CHANNELS) * -(-co // TILE_CHANNELS)
+    wtiles = -(-w // TILE_VOXELS)
+    if route == _ROUTE_TENSOR_CORES:
+        # one block of a kd and channel tile per SM (its __launch_bounds__),
+        # each share walking runs of RUN_ROWS dy rows
+        out_tiles, work = 3 * ctiles, b * d * -(-h // RUN_ROWS) * wtiles
+        resident = kernels.resident_blocks(device) // 4
+    else:
+        # four blocks of a (kd, kh) and channel tile per SM, one W-row a tile
+        out_tiles, work = 9 * ctiles, b * d * h * wtiles
+        resident = kernels.resident_blocks(device)
+    return max(1, min(work, resident // out_tiles))
+
+
 def dw27(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dW of the 3^3 conv for ``x`` (B, D, H, W, C) and the output gradient
-    ``dy`` (B, D, H, W, Co), both contiguous and both bf16 or both fp32
+    ``dy`` (B, D, H, W, Co), both contiguous and both bf16, fp16 or fp32
     -> (3, 3, 3, C, Co) fp32."""
     if x.dim() != 5 or dy.dim() != 5 or dy.shape[:4] != x.shape[:4]:
         raise ValueError(f"dw27: x {tuple(x.shape)} and dy {tuple(dy.shape)} "
@@ -72,8 +96,9 @@ def dw27(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
     b, d, h, w, c = x.shape
     co = dy.shape[-1]
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"dw27: x is {x.dtype}, expected bfloat16 or float32")
+    if x.dtype not in _ROUTES:
+        raise ValueError(f"dw27: x is {x.dtype}, expected bfloat16, float16 "
+                         "or float32")
     if not dw27_applicable((d, h, w), c):
         raise ValueError(f"dw27: {c} input channels, the kernel takes >= 16")
     kernels.check_tensor("x", x, x.device, x.dtype)
@@ -81,16 +106,11 @@ def dw27(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
     # the tensor-core kernel reads rows in 16-byte chunks of 8 bf16 values
     use_mma = x.dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0
-    route = 2 if use_mma else int(x.dtype == torch.bfloat16)
+    route = _ROUTE_TENSOR_CORES if use_mma else _ROUTES[x.dtype]
 
     global launches
     lib = kernels.load()
-    out_tiles = 9 * -(-c // TILE_CHANNELS) * -(-co // TILE_CHANNELS)
-    voxel_tiles = b * d * h * -(-w // TILE_VOXELS)
-    # blocks that fit an SM at once: 4 of the CUDA-core kernel, 3 of the
-    # larger tensor-core one (their __launch_bounds__ in csrc/dw27.cu)
-    resident = kernels.resident_blocks(x.device) * (3 if use_mma else 4) // 4
-    shares = max(1, min(voxel_tiles, resident // out_tiles))
+    shares = launch_shares(x.shape, co, route, x.device)
     part = torch.empty((shares, 27 * c * co), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)

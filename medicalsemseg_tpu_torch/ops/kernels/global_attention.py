@@ -72,8 +72,9 @@ def global_window_attention(
     windows (T, N, C); window g belongs to batch element g // (T // B).
 
     ``wkv`` (2C, C: K rows, then V rows, head-major) and ``wproj`` (C, C) are
-    [out, in] weights in the activation dtype; ``bkv`` (2C,) or None,
-    ``bproj`` (C,), ``ln`` (2, C) scale and bias rows and the gathered
+    [out, in] weights, cast to the activation dtype here as the JAX kernel
+    casts them (``wins`` and ``q_global`` bf16, fp16 or fp32); ``bkv`` (2C,)
+    or None, ``bproj`` (C,), ``ln`` (2, C) scale and bias rows and the gathered
     relative-position ``bias`` (nh, N, N) are fp32. With ``ln`` the windows
     are raw and the kernel applies the block's LayerNorm to them (never to
     the queries); with ``residual`` it adds the raw windows."""
@@ -93,11 +94,13 @@ def global_window_attention(
     if hd * nh != c or hd > MAX_HEAD_DIM:
         raise ValueError(f"C={c} with {nh} heads: head dim must divide C and "
                          f"be <= {MAX_HEAD_DIM}")
-    dev, bf, f32 = wins.device, torch.bfloat16, torch.float32
-    kernels.check_tensor("wins", wins, dev, bf)
-    kernels.check_tensor("q_global", q_global, dev, bf, (b, n, c))
-    kernels.check_tensor("wkv", wkv, dev, bf, (2 * c, c))
-    kernels.check_tensor("wproj", wproj, dev, bf, (c, c))
+    dev, dt, f32 = wins.device, wins.dtype, torch.float32
+    code = kernels.dtype_code("wins", dt)
+    wkv, wproj = wkv.to(dt), wproj.to(dt)
+    kernels.check_tensor("wins", wins, dev, dt)
+    kernels.check_tensor("q_global", q_global, dev, dt, (b, n, c))
+    kernels.check_tensor("wkv", wkv, dev, dt, (2 * c, c))
+    kernels.check_tensor("wproj", wproj, dev, dt, (c, c))
     kernels.check_tensor("bproj", bproj, dev, f32, (c,))
     kernels.check_tensor("bias", bias, dev, f32, (nh, n, n))
     if bkv is not None:
@@ -113,8 +116,8 @@ def global_window_attention(
         kernels.ptr(wins), kernels.ptr(ln), kernels.ptr(q_global),
         kernels.ptr(wkv), kernels.ptr(bkv), kernels.ptr(wproj),
         kernels.ptr(bproj), kernels.ptr(bias), kernels.ptr(attn),
-        kernels.ptr(out), t, n, c, nh, t // b, int(residual), float(ln_eps),
-        float(hd ** -0.5), kernels.stream_handle(dev))
+        kernels.ptr(out), t, n, c, nh, t // b, int(residual), code,
+        float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "global_window_attention")
     launches += 1
     return out

@@ -58,8 +58,9 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               residual: bool = False) -> torch.Tensor:
     """Tokens (M, C) -> (M, Co).
 
-    ``w1`` (H, C) and ``w2`` (Co, H) are [out, in] weights in the activation
-    dtype; ``b1``, ``b2`` and ``ln`` (2, C: scale row, bias row) are fp32.
+    ``x`` is bf16, fp16 or fp32; ``w1`` (H, C) and ``w2`` (Co, H) are [out,
+    in] weights, cast to the activation dtype here as the JAX kernel casts
+    them; ``b1``, ``b2`` and ``ln`` (2, C: scale row, bias row) are fp32.
     With ``ln`` the tokens are raw and the kernel applies the LayerNorm;
     with ``residual`` (Co == C) it adds the raw tokens."""
     if x.device.type == "cpu":
@@ -73,22 +74,24 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"residual needs Co == C, got {co} != {c}")
     if max(c, co) > MAX_WIDTH:
         raise ValueError(f"width {max(c, co)} > {MAX_WIDTH}")
-    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    kernels.check_tensor("x", x, dev, bf)
-    kernels.check_tensor("w1", w1, dev, bf, (hdim, c))
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    code = kernels.dtype_code("x", dt)
+    w1, w2 = w1.to(dt), w2.to(dt)
+    kernels.check_tensor("x", x, dev, dt)
+    kernels.check_tensor("w1", w1, dev, dt, (hdim, c))
     kernels.check_tensor("b1", b1, dev, f32, (hdim,))
-    kernels.check_tensor("w2", w2, dev, bf, (co, hdim))
+    kernels.check_tensor("w2", w2, dev, dt, (co, hdim))
     kernels.check_tensor("b2", b2, dev, f32, (co,))
     if ln is not None:
         kernels.check_tensor("ln", ln, dev, f32, (2, c))
 
     global launches
     lib = kernels.load()
-    out = torch.empty((m, co), dtype=bf, device=dev)
+    out = torch.empty((m, co), dtype=dt, device=dev)
     err = lib.medseg_fused_mlp_fwd(
         kernels.ptr(x), kernels.ptr(ln), kernels.ptr(w1), kernels.ptr(b1),
         kernels.ptr(w2), kernels.ptr(b2), kernels.ptr(out), m, c, hdim, co,
-        int(residual), float(ln_eps), kernels.stream_handle(dev))
+        int(residual), code, float(ln_eps), kernels.stream_handle(dev))
     kernels.check(lib, err, "fused_mlp")
     launches += 1
     return out
@@ -159,12 +162,14 @@ def fused_mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     hdim = w1.shape[0]
     if c > MLP_BWD_MAX_WIDTH:
         raise ValueError(f"width {c} > {MLP_BWD_MAX_WIDTH}")
-    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    kernels.check_tensor("x", x, dev, bf)
-    kernels.check_tensor("dy", dy, dev, bf, (m, c))
-    kernels.check_tensor("w1", w1, dev, bf, (hdim, c))
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    code = kernels.dtype_code("x", dt)
+    w1, w2 = w1.to(dt), w2.to(dt)
+    kernels.check_tensor("x", x, dev, dt)
+    kernels.check_tensor("dy", dy, dev, dt, (m, c))
+    kernels.check_tensor("w1", w1, dev, dt, (hdim, c))
     kernels.check_tensor("b1", b1, dev, f32, (hdim,))
-    kernels.check_tensor("w2", w2, dev, bf, (c, hdim))
+    kernels.check_tensor("w2", w2, dev, dt, (c, hdim))
     kernels.check_tensor("ln", ln, dev, f32, (2, c))
 
     global bwd_launches
@@ -183,7 +188,7 @@ def fused_mlp_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         kernels.ptr(x), kernels.ptr(ln), kernels.ptr(w1), kernels.ptr(b1),
         kernels.ptr(w2), kernels.ptr(dy), kernels.ptr(dx),
         kernels.ptr(part_a), kernels.ptr(out_a), kernels.ptr(part_w),
-        kernels.ptr(out_w), m, c, hdim, grid_a, nsplit, int(residual),
+        kernels.ptr(out_w), m, c, hdim, grid_a, nsplit, int(residual), code,
         float(ln_eps), kernels.stream_handle(dev))
     kernels.check(lib, err, "fused_mlp_bwd")
     bwd_launches += 1

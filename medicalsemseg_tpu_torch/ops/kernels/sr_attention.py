@@ -67,13 +67,14 @@ def sr_attention(
     halves of the kv dense output, head-major) -> proj(softmax(q k^T /
     sqrt(hd)) v) [+ residual], (B, N, C).
 
-    ``wq`` and ``wproj`` (C, C) are [out, in] weights in the activation
-    dtype; ``bq`` (C,) or None and ``bproj`` (C,) are fp32; ``residual`` is
-    the block's raw input (B, N, C), added in the activation dtype. The
-    kernel takes any N (the last tile of 32 tokens is masked), head dims up
-    to 32, and any M whose K and V fit a block's shared memory beside the
-    token tile: M <= 66 at C = 384, more at narrower widths (27 on every
-    stage of the default model)."""
+    ``x``, ``k`` and ``v`` are bf16, fp16 or fp32; ``wq`` and ``wproj`` (C,
+    C) are [out, in] weights, cast to the activation dtype here as the JAX
+    kernel casts them; ``bq`` (C,) or None and ``bproj`` (C,) are fp32;
+    ``residual`` is the block's raw input (B, N, C), added in the activation
+    dtype. The kernel takes any N (the last tile of 32 tokens is masked),
+    head dims up to 32, and any M whose K and V fit a block's shared memory
+    beside the token tile: M <= 75 at C = 384 in bf16, 34 in fp32, more at
+    narrower widths (27 on every stage of the default model)."""
     if x.device.type == "cpu":
         return sr_attention_plain(x, k, v, wq, bq, wproj, bproj, num_heads,
                                   residual)
@@ -86,21 +87,23 @@ def sr_attention(
     if hd * num_heads != c or hd > MAX_HEAD_DIM:
         raise ValueError(f"C={c} with {num_heads} heads: head dim must divide "
                          f"C and be <= {MAX_HEAD_DIM}")
-    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    kernels.check_tensor("x", x, dev, bf)
-    kernels.check_tensor("k", k, dev, bf, (b, m, c))
-    kernels.check_tensor("v", v, dev, bf, (b, m, c))
-    kernels.check_tensor("wq", wq, dev, bf, (c, c))
-    kernels.check_tensor("wproj", wproj, dev, bf, (c, c))
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    code = kernels.dtype_code("x", dt)
+    wq, wproj = wq.to(dt), wproj.to(dt)
+    kernels.check_tensor("x", x, dev, dt)
+    kernels.check_tensor("k", k, dev, dt, (b, m, c))
+    kernels.check_tensor("v", v, dev, dt, (b, m, c))
+    kernels.check_tensor("wq", wq, dev, dt, (c, c))
+    kernels.check_tensor("wproj", wproj, dev, dt, (c, c))
     kernels.check_tensor("bproj", bproj, dev, f32, (c,))
     if bq is not None:
         kernels.check_tensor("bq", bq, dev, f32, (c,))
     if residual is not None:
-        kernels.check_tensor("residual", residual, dev, bf, (b, n, c))
+        kernels.check_tensor("residual", residual, dev, dt, (b, n, c))
 
     global launches
     lib = kernels.load()
-    smem = lib.medseg_sr_attention_smem_bytes(m, c)
+    smem = lib.medseg_sr_attention_smem_bytes(m, c, code)
     if smem > kernels.MAX_SMEM_BYTES:
         raise ValueError(f"M={m} reduced tokens at C={c} need {smem} bytes of "
                          f"shared memory, over {kernels.MAX_SMEM_BYTES}")
@@ -108,7 +111,7 @@ def sr_attention(
     err = lib.medseg_sr_attention_fwd(
         kernels.ptr(x), kernels.ptr(k), kernels.ptr(v), kernels.ptr(wq),
         kernels.ptr(bq), kernels.ptr(wproj), kernels.ptr(bproj),
-        kernels.ptr(residual), kernels.ptr(out), b, n, m, c, num_heads,
+        kernels.ptr(residual), kernels.ptr(out), b, n, m, c, num_heads, code,
         float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "sr_attention")
     launches += 1

@@ -104,10 +104,12 @@ def window_attention(
 ) -> torch.Tensor:
     """Windows (T, N, C) -> attention output windows (T, N, C).
 
-    ``wqkv`` (3C, C) and ``wproj`` (C, C) are [out, in] weights in the
-    activation dtype; ``bqkv`` (3C,), ``bproj`` (C,), ``ln`` (2, C) scale and
-    bias rows, and the gathered relative-position ``bias`` (nh, N, N) are
-    fp32. ``grid_dims`` is the window grid (nwd, nwh, nww) of one volume, so
+    ``wins`` is bf16, fp16 or fp32, and the kernel rounds to that dtype where
+    the JAX kernel does. ``wqkv`` (3C, C) and ``wproj`` (C, C) are [out, in]
+    weights, cast to the activation dtype here as the JAX kernel casts
+    them; ``bqkv`` (3C,), ``bproj`` (C,), ``ln`` (2, C) scale and bias rows,
+    and the gathered relative-position ``bias`` (nh, N, N) are fp32.
+    ``grid_dims`` is the window grid (nwd, nwh, nww) of one volume, so
     T = B * nwd * nwh * nww. With ``ln`` the windows are raw and the kernel
     applies the block's LayerNorm; with ``residual`` it adds the raw windows.
     """
@@ -128,10 +130,12 @@ def window_attention(
     if hd * nh != c or hd > MAX_HEAD_DIM:
         raise ValueError(f"C={c} with {nh} heads: head dim must divide C and "
                          f"be <= {MAX_HEAD_DIM}")
-    dev, bf, f32 = wins.device, torch.bfloat16, torch.float32
-    kernels.check_tensor("wins", wins, dev, bf)
-    kernels.check_tensor("wqkv", wqkv, dev, bf, (3 * c, c))
-    kernels.check_tensor("wproj", wproj, dev, bf, (c, c))
+    dev, dt, f32 = wins.device, wins.dtype, torch.float32
+    code = kernels.dtype_code("wins", dt)
+    wqkv, wproj = wqkv.to(dt), wproj.to(dt)
+    kernels.check_tensor("wins", wins, dev, dt)
+    kernels.check_tensor("wqkv", wqkv, dev, dt, (3 * c, c))
+    kernels.check_tensor("wproj", wproj, dev, dt, (c, c))
     kernels.check_tensor("bproj", bproj, dev, f32, (c,))
     kernels.check_tensor("bias", bias, dev, f32, (nh, n, n))
     if bqkv is not None:
@@ -149,7 +153,7 @@ def window_attention(
         kernels.ptr(bqkv), kernels.ptr(wproj), kernels.ptr(bproj),
         kernels.ptr(bias), kernels.ptr(attn), kernels.ptr(out),
         t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
-        float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
+        code, float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention")
     launches += 1
     return out
@@ -249,11 +253,13 @@ def window_attention_bwd(
     if c % 16 != 0 or c > ATTN_BWD_MAX_WIDTH:
         raise ValueError(f"C={c}: the backward kernel takes multiples of 16 "
                          f"up to {ATTN_BWD_MAX_WIDTH}")
-    dev, bf, f32 = wins.device, torch.bfloat16, torch.float32
-    kernels.check_tensor("wins", wins, dev, bf)
-    kernels.check_tensor("dy", dy, dev, bf, (t, n, c))
-    kernels.check_tensor("wqkv", wqkv, dev, bf, (3 * c, c))
-    kernels.check_tensor("wproj", wproj, dev, bf, (c, c))
+    dev, dt, f32 = wins.device, wins.dtype, torch.float32
+    code = kernels.dtype_code("wins", dt)
+    wqkv, wproj = wqkv.to(dt), wproj.to(dt)
+    kernels.check_tensor("wins", wins, dev, dt)
+    kernels.check_tensor("dy", dy, dev, dt, (t, n, c))
+    kernels.check_tensor("wqkv", wqkv, dev, dt, (3 * c, c))
+    kernels.check_tensor("wproj", wproj, dev, dt, (c, c))
     kernels.check_tensor("bias", bias, dev, f32, (nh, n, n))
     if bqkv is not None:
         kernels.check_tensor("bqkv", bqkv, dev, f32, (3 * c,))
@@ -272,7 +278,7 @@ def window_attention_bwd(
     nw = 4 * c * c + 4 * c
     bias_t = bias.transpose(1, 2).contiguous()
     attn = torch.empty_like(wins)
-    dqkv = torch.empty((t, n, 3 * c), dtype=bf, device=dev)
+    dqkv = torch.empty((t, n, 3 * c), dtype=dt, device=dev)
     dx = torch.empty_like(wins)
     dbias_part = torch.empty((nchunk, nh, n, n), dtype=f32, device=dev)
     dbias = torch.empty((nh, n, n), dtype=f32, device=dev)
@@ -289,7 +295,7 @@ def window_attention_bwd(
         kernels.ptr(dbias), kernels.ptr(part_ln), kernels.ptr(out_ln),
         kernels.ptr(part_w), kernels.ptr(out_w),
         t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
-        nchunk, grid_dx, nsplit, float(ln_eps), float(hd ** -0.5),
+        nchunk, grid_dx, nsplit, code, float(ln_eps), float(hd ** -0.5),
         kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention_bwd")
     bwd_launches += 1

@@ -47,9 +47,12 @@ MIN_CHANNELS = 16
 MAX_CHANNELS = 128
 
 # input channels per mma step and output channels per block (kCoB) in
-# csrc/conv_tile.cuh: the wrapper pads the weights to multiples
+# csrc/conv_tile.cuh: pad_kernel_weights pads K10's weights to multiples
 IN_CHANNEL_STEP = 16
 BLOCK_OUT_CHANNELS = 48
+# K9 stages 48 input channels at a time (kCK) and owns 48 output channels a
+# block: kernel_weights_f23 pads both to multiples
+CHUNK_CHANNELS = 48
 
 # test hook: CPU suites set it so that the gates built on this kernel
 # (ops.convgrad.wino23_eligible, models.decoders.decoder_fuse_enabled) pass
@@ -103,6 +106,21 @@ def pad_kernel_weights(w: torch.Tensor) -> torch.Tensor:
     out = w.new_zeros((p, cop, cp))
     out[:, :co, :c] = w
     return out
+
+
+def kernel_weights_f23(u: torch.Tensor) -> torch.Tensor:
+    """(64, Co, C) Winograd-domain weights -> K9's order, zero padded: (Co
+    tiles, C chunks, 64 points, 3 k steps, 2 halves of 8 input channels, 48
+    output channels, 8), so that the (a, b) pair of one chunk and Co tile,
+    its 4 c points, is one contiguous 18 KB slab laid out as the K-major
+    core matrices wgmma reads (csrc/winograd3d.cu)."""
+    p, co, c = u.shape
+    k = CHUNK_CHANNELS
+    cop, cp = -(-co // k) * k, -(-c // k) * k
+    out = u.new_zeros((p, cop, cp))
+    out[:, :co, :c] = u
+    out = out.reshape(p, cop // k, k, cp // k, k // 16, 2, 8)
+    return out.permute(1, 3, 0, 4, 5, 2, 6).contiguous()
 
 
 def _combine4(p):
@@ -206,7 +224,7 @@ def winograd_conv3d_f23(x: torch.Tensor, w: torch.Tensor, epilogue=None,
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, expected {x.device}")
 
-    u = pad_kernel_weights(_transform_weights(w).to(torch.bfloat16))
+    u = kernel_weights_f23(_transform_weights(w).to(torch.bfloat16))
     ep = None
     if epilogue is not None:
         ep = torch.stack([scale, shift], dim=1).float().contiguous()
@@ -218,7 +236,8 @@ def winograd_conv3d_f23(x: torch.Tensor, w: torch.Tensor, epilogue=None,
     lib = kernels.load()
     err = lib.medseg_winograd_f23(
         kernels.ptr(x), kernels.ptr(u), kernels.ptr(ep), kernels.ptr(y),
-        b, d, h, wd, c, co, u.shape[2], u.shape[1], int(lrelu),
+        b, d, h, wd, c, co, u.shape[1] * CHUNK_CHANNELS,
+        u.shape[0] * CHUNK_CHANNELS, int(lrelu),
         float(neg_slope), kernels.stream_handle(x.device))
     kernels.check(lib, err, "winograd_conv3d_f23")
     launches += 1

@@ -28,6 +28,15 @@ pytestmark = pytest.mark.cuda
 # a few bf16 ulps (2^-8 relative) of O(1) outputs
 TOL = 3e-2
 
+# K1-K4, K6 and K7 in each compute dtype the JAX package runs them in:
+# (elementwise tolerance, gradient error norm, largest gradient error, the
+# last two relative to the reference's norm and largest element). In fp16
+# a flipped rounding is an ulp of 2^-10 relative; in fp32 there are no
+# roundings to flip, only sums taken in another order.
+DTYPES = ("bfloat16", "float16", "float32")
+DTYPE_TOL = {"bfloat16": (TOL, 1e-2, 5e-2), "float16": (4e-3, 2e-3, 1e-2),
+             "float32": (1e-4, 1e-5, 1e-4)}
+
 
 @pytest.fixture
 def gen():
@@ -36,12 +45,14 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _close(got, want):
+def _close(got, want, tol=TOL):
+    assert got.dtype == want.dtype
     g, w = got.float(), want.float()
     assert torch.isfinite(g).all()
-    assert ((g - w).abs() <= TOL + TOL * w.abs()).all(), (g - w).abs().max()
+    assert ((g - w).abs() <= tol + tol * w.abs()).all(), (g - w).abs().max()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dims,ws,c,nh,shift,ln_res,qkv_bias", [
     ((4, 4, 6), 2, 8, 2, 1, True, True),
     ((6, 6, 9), 3, 12, 2, 1, True, False),
@@ -49,8 +60,8 @@ def _close(got, want):
     ((12, 6, 6), 6, 48, 3, 3, True, True),
 ])
 def test_window_attention_kernel(gen, dims, ws, c, nh, shift, ln_res,
-                                 qkv_bias):
-    dev, bf = "cuda", torch.bfloat16
+                                 qkv_bias, dtype):
+    dev, bf = "cuda", getattr(torch, dtype)
     n = ws ** 3
     x = torch.randn(2, *dims, c, generator=gen, device=dev).to(bf)
     wins = tw.window_partition(x, ws).contiguous()
@@ -69,13 +80,15 @@ def test_window_attention_kernel(gen, dims, ws, c, nh, shift, ln_res,
     got = kwa.window_attention(wins, **args, **kw)
     torch.cuda.synchronize()
     assert kwa.launches == before + 1
-    _close(got, kwa.window_attention_plain(wins, **args, **kw))
+    _close(got, kwa.window_attention_plain(wins, **args, **kw),
+           DTYPE_TOL[dtype][0])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,c,ln_res", [(37, 12, True), (300, 48, False),
-                                        (1000, 96, True)])
-def test_mlp_kernel(gen, m, c, ln_res):
-    dev, bf = "cuda", torch.bfloat16
+                                        (1000, 96, True), (70, 512, True)])
+def test_mlp_kernel(gen, m, c, ln_res, dtype):
+    dev, bf = "cuda", getattr(torch, dtype)
     x = torch.randn(m, c, generator=gen, device=dev).to(bf)
     args = dict(
         w1=(torch.randn(4 * c, c, generator=gen, device=dev) * c ** -0.5).to(bf),
@@ -88,13 +101,14 @@ def test_mlp_kernel(gen, m, c, ln_res):
     kw = dict(ln=ln if ln_res else None, residual=ln_res)
     got = kmlp.fused_mlp(x, **args, **kw)
     torch.cuda.synchronize()
-    _close(got, kmlp.fused_mlp_plain(x, **args, **kw))
+    _close(got, kmlp.fused_mlp_plain(x, **args, **kw), DTYPE_TOL[dtype][0])
 
 
-def _grads_close(names, got, want):
+def _grads_close(names, got, want, dtype="bfloat16"):
     """Backward outputs: weight gradients sum over all tokens, so elements
     near zero carry an error that is small only against the tensor's scale
     (``chip_smoke.py`` states the same rule)."""
+    _, norm_tol, max_tol = DTYPE_TOL[dtype]
     for name, g, w in zip(names, got, want):
         if w is None:
             assert g is None, name
@@ -102,10 +116,11 @@ def _grads_close(names, got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
         gf, wf = g.float(), w.float()
         assert torch.isfinite(gf).all(), name
-        assert (gf - wf).norm() <= 1e-2 * wf.norm(), name
-        assert (gf - wf).abs().max() <= 5e-2 * wf.abs().max(), name
+        assert (gf - wf).norm() <= norm_tol * wf.norm(), name
+        assert (gf - wf).abs().max() <= max_tol * wf.abs().max(), name
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dims,ws,c,nh,shift,ln,res,qkv_bias", [
     ((4, 4, 6), 2, 16, 2, 1, True, True, True),
     ((6, 6, 9), 3, 48, 3, 1, True, False, False),
@@ -113,8 +128,8 @@ def _grads_close(names, got, want):
     ((12, 6, 6), 6, 48, 3, 3, True, False, True),
 ])
 def test_window_attention_backward_kernel(gen, dims, ws, c, nh, shift, ln, res,
-                                          qkv_bias):
-    dev, bf = "cuda", torch.bfloat16
+                                          qkv_bias, dtype):
+    dev, bf = "cuda", getattr(torch, dtype)
     n = ws ** 3
     x = torch.randn(3, *dims, c, generator=gen, device=dev).to(bf)
     wins = tw.window_partition(x, ws).contiguous()
@@ -134,17 +149,19 @@ def test_window_attention_backward_kernel(gen, dims, ws, c, nh, shift, ln, res,
     torch.cuda.synchronize()
     assert kwa.bwd_launches == before + 1
     _grads_close(("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias", "dln"),
-                 got, kwa.window_attention_bwd_plain(wins, **args, **kw))
+                 got, kwa.window_attention_bwd_plain(wins, **args, **kw),
+                 dtype)
     # partial sums are added in a fixed order: a second run is bit-equal
     again = kwa.window_attention_bwd(wins, **args, **kw)
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,c,res", [(37, 16, True), (300, 48, False),
-                                     (1000, 96, True)])
-def test_mlp_backward_kernel(gen, m, c, res):
-    dev, bf = "cuda", torch.bfloat16
+                                     (1000, 96, True), (70, 384, True)])
+def test_mlp_backward_kernel(gen, m, c, res, dtype):
+    dev, bf = "cuda", getattr(torch, dtype)
     x = torch.randn(m, c, generator=gen, device=dev).to(bf)
     dy = torch.randn(m, c, generator=gen, device=dev).to(bf)
     args = dict(
@@ -160,7 +177,7 @@ def test_mlp_backward_kernel(gen, m, c, res):
     torch.cuda.synchronize()
     assert kmlp.bwd_launches == before + 1
     _grads_close(("dx", "dln", "dw1", "db1", "dw2", "db2"), got,
-                 kmlp.fused_mlp_bwd_plain(x, **args))
+                 kmlp.fused_mlp_bwd_plain(x, **args), dtype)
     again = kmlp.fused_mlp_bwd(x, **args)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
@@ -212,8 +229,9 @@ def _sums_close(got, want):
 
 
 # bf16 takes the tensor cores where C and Co are multiples of 8 and the CUDA
-# cores elsewhere (20 -> 50 below); fp32 always the CUDA cores
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+# cores elsewhere (20 -> 50 below); fp16 and fp32 always the CUDA cores
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("shape,c,co", [
     ((1, 1, 1, 1), 16, 16),      # borders only: every tap but the centre is 0
     ((2, 2, 2, 2), 16, 8),
@@ -244,6 +262,21 @@ def test_dw27_kernel(gen, shape, c, co, dtype):
         off[1, 1, 1] = 0
         assert off.abs().max() == 0
     # partial sums are added in a fixed order: a second run is bit-equal
+    assert torch.equal(got, k5.dw27(x, dy))
+
+
+@pytest.mark.parametrize("batch", [1, 4, 8])
+def test_dw27_kernel_at_the_decoder_shape(gen, batch):
+    """K5 at the full-resolution 96 -> 48 conv of the decoder, 96^3 crops,
+    against its plain version: the two input-channel tiles and every run of
+    rows a share walks."""
+    x = torch.randn(batch, 96, 96, 96, 96, generator=gen,
+                    device="cuda").bfloat16()
+    dy = torch.randn(batch, 96, 96, 96, 48, generator=gen,
+                     device="cuda").bfloat16()
+    got = k5.dw27(x, dy)
+    torch.cuda.synchronize()
+    _sums_close(got, k5.dw27_plain(x, dy))
     assert torch.equal(got, k5.dw27(x, dy))
 
 
@@ -335,8 +368,10 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
     x = torch.zeros(1, 2, 2, 2, 16, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="float32"):
         k5.dw27(x, x.float())                           # dtypes differ
-    with pytest.raises(ValueError, match="bfloat16 or float32"):
-        k5.dw27(x.half(), x.half())
+    got = k5.dw27(x.half(), x.half())                    # fp16: CUDA cores
+    assert got.shape == (3, 3, 3, 16, 16) and got.abs().max() == 0
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        k5.dw27(x.double(), x.double())
     with pytest.raises(ValueError, match="contiguous"):
         k5.dw27(x.transpose(1, 2), x.transpose(1, 2))
     logits = torch.zeros(1, 8, 33, device="cuda")
@@ -355,10 +390,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
-    x = torch.randn(4, 8, device="cuda")  # fp32, not bf16
-    with pytest.raises(ValueError, match="bfloat16"):
-        kmlp.fused_mlp(x, x.new_zeros(16, 8), x.new_zeros(16),
-                       x.new_zeros(8, 16), x.new_zeros(8))
+    x = torch.randn(4, 8, device="cuda")  # fp32 runs, float64 has no kernel
+    args = (x.new_zeros(16, 8), x.new_zeros(16), x.new_zeros(8, 16),
+            x.new_zeros(8))
+    assert kmlp.fused_mlp(x, *args).dtype == torch.float32
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        kmlp.fused_mlp(x.double(), *args)
     wins = torch.zeros(2, 8, 4, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         kwa.window_attention(
@@ -374,6 +411,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
             window=(2, 2, 2), shift=(0, 0, 0))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("batch,dims,ws,c,nh,ln_res,kv_bias", [
     (1, (4, 4, 6), 2, 8, 2, True, True),
     (2, (6, 6, 9), 3, 12, 3, True, False),    # two query grids, 12 windows each
@@ -381,8 +419,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     (2, (12, 6, 6), 6, 48, 3, True, True),
 ])
 def test_global_window_attention_kernel(gen, batch, dims, ws, c, nh, ln_res,
-                                        kv_bias):
-    dev, bf = "cuda", torch.bfloat16
+                                        kv_bias, dtype):
+    dev, bf = "cuda", getattr(torch, dtype)
     n = ws ** 3
     x = torch.randn(batch, *dims, c, generator=gen, device=dev).to(bf)
     wins = tw.window_partition(x, ws).contiguous()
@@ -401,17 +439,20 @@ def test_global_window_attention_kernel(gen, batch, dims, ws, c, nh, ln_res,
     got = kga.global_window_attention(wins, **args, **kw)
     torch.cuda.synchronize()
     assert kga.launches == before + 1
-    _close(got, kga.global_window_attention_plain(wins, **args, **kw))
+    _close(got, kga.global_window_attention_plain(wins, **args, **kw),
+           DTYPE_TOL[dtype][0])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,n,m,c,nh,bq,res", [
     (2, 27, 27, 16, 4, True, True),      # one ragged tile
     (3, 100, 8, 24, 2, False, False),    # three whole tiles and a tail
     (1, 1, 1, 8, 2, True, True),         # one token, one key
     (2, 513, 64, 96, 3, True, True),     # head dim 32, M over a warp
-])
-def test_sr_attention_kernel(gen, b, n, m, c, nh, bq, res):
-    dev, bf = "cuda", torch.bfloat16
+    (2, 40, 27, 384, 24, True, True),    # the widest stage: fp32 takes the
+])                                       # smaller projection chunk
+def test_sr_attention_kernel(gen, b, n, m, c, nh, bq, res, dtype):
+    dev, bf = "cuda", getattr(torch, dtype)
 
     def act(rows):
         return torch.randn(b, rows, c, generator=gen, device=dev).to(bf)
@@ -428,14 +469,15 @@ def test_sr_attention_kernel(gen, b, n, m, c, nh, bq, res):
     got = ksr.sr_attention(x, **args)
     torch.cuda.synchronize()
     assert ksr.launches == before + 1
-    _close(got, ksr.sr_attention_plain(x, **args))
+    _close(got, ksr.sr_attention_plain(x, **args), DTYPE_TOL[dtype][0])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,c", [(37, 48), (300, 96), (70, 192), (33, 384)])
-def test_mlp_kernel_at_hidden_3c(gen, m, c):
+def test_mlp_kernel_at_hidden_3c(gen, m, c, dtype):
     """GC-ViT's MLP: hidden 3C = 144, 288, 576, 1152; 144 is four and a half
     of the kernel's chunks of 32 hidden units."""
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", getattr(torch, dtype)
     h = 3 * c
     x = torch.randn(m, c, generator=gen, device=dev).to(bf)
     args = dict(
@@ -447,7 +489,13 @@ def test_mlp_kernel_at_hidden_3c(gen, m, c):
                       0.1 * torch.randn(c, generator=gen, device=dev)])
     got = kmlp.fused_mlp(x, **args, ln=ln, residual=True)
     torch.cuda.synchronize()
-    _close(got, kmlp.fused_mlp_plain(x, **args, ln=ln, residual=True))
+    _close(got, kmlp.fused_mlp_plain(x, **args, ln=ln, residual=True),
+           DTYPE_TOL[dtype][0])
+
+
+# the most reduced tokens whose K and V fit a block beside the token tile at
+# C = 384 (csrc/sr_attention.cu: projection chunks of 16 columns there)
+SR_MAX_M_BF16, SR_MAX_M_F32 = 75, 34
 
 
 def test_zoo_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -466,8 +514,12 @@ def test_zoo_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="wkv"):      # a (3C, C) qkv weight
         kga.global_window_attention(wins, **dict(
             good, wkv=torch.zeros(3 * c, c, device=dev, dtype=bf)))
+    f32 = {k: v.float() if v is not None and v.dtype == bf else v
+           for k, v in good.items()}
+    out = kga.global_window_attention(wins.float(), **f32)
+    assert out.dtype == torch.float32
     with pytest.raises(ValueError, match="wins is"):
-        kga.global_window_attention(wins.float(), **good)
+        kga.global_window_attention(wins.double(), **good)
 
     x = torch.zeros(1, 40, 384, device=dev, dtype=bf)
     w = torch.zeros(384, 384, device=dev, dtype=bf)
@@ -476,9 +528,15 @@ def test_zoo_wrappers_reject_what_the_kernels_do_not_take(gen):
     def kv(m):
         return torch.zeros(1, m, 384, device=dev, dtype=bf)
 
-    ksr.sr_attention(x, kv(66), kv(66), w, None, w, bp, 24)
-    with pytest.raises(ValueError, match="shared memory"):
-        ksr.sr_attention(x, kv(67), kv(67), w, None, w, bp, 24)
+    # the widest M whose K and V fit beside the token tile at C = 384: in
+    # bf16 with projection chunks of 16 columns, in fp32 likewise
+    for dt, m_max in ((bf, SR_MAX_M_BF16), (torch.float32, SR_MAX_M_F32)):
+        xd = x.to(dt)
+        ksr.sr_attention(xd, kv(m_max).to(dt), kv(m_max).to(dt), w, None, w,
+                         bp, 24)
+        with pytest.raises(ValueError, match="shared memory"):
+            ksr.sr_attention(xd, kv(m_max + 1).to(dt), kv(m_max + 1).to(dt),
+                             w, None, w, bp, 24)
     with pytest.raises(ValueError, match="head dim"):
         ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 6)
     with pytest.raises(ValueError, match="residual"):
@@ -499,6 +557,10 @@ CONV_SHAPES = [
     ((2, 12, 12, 12), 96, 96),   # two input chunks, two output-channel blocks
     ((1, 6, 6, 6), 192, 96),     # four input chunks
     ((1, 8, 16, 32), 48, 112),   # three output-channel blocks, the last ragged
+    # the shapes where K9 met the library's conv worst: 96 output channels
+    ((1, 5, 7, 9), 96, 96),      # odd D, H, W with two input chunks
+    ((2, 9, 11, 13), 48, 96),    # a training step's dx form, odd sizes
+    ((1, 24, 24, 24), 96, 96),   # a predictor call's deepest fused conv
 ]
 
 
