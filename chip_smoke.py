@@ -26,7 +26,12 @@ Phases, in order; any failure exits non-zero:
                  forward and dx) at the full-resolution shapes, each beside
                  the library's conv (`--kernels conv` runs these two alone);
                  and K1-K4, K6, K7 in fp32 at their four stages beside an
-                 fp32 bound (`--kernels fp32`);
+                 fp32 bound (`--kernels fp32`). The heads launches of K1, K3
+                 and K6 have a tensor-core and a CUDA-core route: both are
+                 held against plain, and the CUDA-core route and
+                 scaled_dot_product_attention on the same q, k, v (a
+                 reference point, not the kernel's function) are timed
+                 beside the route the dtype picks;
   4. model     - the full-width flagship on one 96^3 window in bf16 with the
                  kernels, against the same weights in fp32 on the CPU (plain);
   5. zoo       - GCViTUNETR, SegFormer3D and SwinSegFormer at full width: one
@@ -75,8 +80,12 @@ Phases, in order; any failure exits non-zero:
 `--phases profile` (not run by default) prints torch.profiler tables of one
 training step at batch 8, one micro-step at batch 4, one predictor call of
 each zoo model and one of the flagship without and with the fused decoder;
-`--phases k9_parts` and `--phases k5_parts` time K9 and K5 built with one part
-or another compiled out. Then one JSON line with the kernels' numbers, and
+`--phases k9_parts`, `--phases k5_parts` and `--phases attn_parts` time K9, K5
+and the tensor-core heads launches of K1 and K3 built with one part or another
+compiled out. The phases model, zoo, train, train_b4 and fp32
+print the heads launches by route and require the tensor cores on the bf16
+and fp16 paths, the CUDA cores on the fp32 ones; the kernels line carries the
+sums (`launches_by_route`). Then one JSON line with the kernels' numbers, and
 last the line
 {"ok": true, "device": {...}}. Imports torch and the port, never jax.
 """
@@ -96,7 +105,7 @@ PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32")
-EXTRA_PHASES = ("profile", "k9_parts", "k5_parts")
+EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -297,19 +306,107 @@ TRAIN_BATCH = 8      # crops per training step
 
 
 def _timed(report, kind, label, batch, grid, c, nh, fn, plain_fn, iters,
-           elem=2, peak=None):
+           elem=2, peak=None, extra=None):
     """Time kernel and plain version (CUDA events) and put the stage's
-    numbers, with the FLOP and byte counts behind its bound, into report."""
+    numbers, with the FLOP and byte counts behind its bound, into report;
+    ``extra`` names further calls on the same tensors to time beside them
+    (``<name>_ms``)."""
     t = batch * (grid // WS) ** 3
     ms = _time_ms(fn, iters)
     pms = _time_ms(plain_fn, iters)
     flops, nbytes, bound, by = _bound_ms(kind, t, WS ** 3, c, nh, elem, peak)
-    report["per_stage"].append({
-        "C": c, "batch": batch, "path": label, "ms": ms, "plain_ms": pms,
-        "flops": flops, "bytes": nbytes, "bound_ms": bound, "bound_by": by})
+    stage = {"C": c, "batch": batch, "path": label, "ms": ms, "plain_ms": pms,
+             "flops": flops, "bytes": nbytes, "bound_ms": bound,
+             "bound_by": by}
+    more = _extra_times(stage, extra, iters)
+    report["per_stage"].append(stage)
     print(f"  {report['tag']} {label} grid {grid}^3 x{batch}, C={c}: kernel "
-          f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bound:.4f} ms by {by} "
-          f"({flops:.3e} FLOP, {nbytes:.3e} B)", flush=True)
+          f"{ms:.3f} ms, plain {pms:.3f} ms{more}, bound {bound:.4f} ms by "
+          f"{by} ({flops:.3e} FLOP, {nbytes:.3e} B)", flush=True)
+
+
+def _extra_times(stage, extra, iters):
+    """Time each call of ``extra`` into ``stage[<name>_ms]``; the text for
+    the stage's line."""
+    more = ""
+    for name, fn in (extra or {}).items():
+        stage[f"{name}_ms"] = _time_ms(fn, iters)
+        more += f", {name} {stage[f'{name}_ms']:.3f} ms"
+    return more
+
+
+# The heads launches of K1, K3 and K6 take the tensor cores in bf16 and fp16
+# at head dim 16 (every stage of the flagship and the zoo) and the CUDA cores
+# in fp32 (ops/kernels/window_attention.py, attention_route). The kernels
+# phase holds and times both routes on the same tensors; the model phases
+# require the route their dtype picks.
+ROUTE_TOTALS = {name: {"tensor_core": 0, "cuda_core": 0} for name in (
+    "window_attention", "window_attention_bwd", "global_window_attention")}
+
+
+def _sdpa_reference(wins, a, kw, grad=False):
+    """``scaled_dot_product_attention`` on the q, k, v of these windows (T,
+    nh, N, 16) with the same additive fp32 bias (unshifted), and with it in
+    the activations' dtype: a reference point for the heads launch alone
+    (it leaves out the LayerNorm and both projections, so it is not the
+    kernel's function and no path calls it). With ``grad``, its forward and
+    backward for q, k, v. Returns {name: fn}."""
+    import torch
+    import torch.nn.functional as F
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    _require(all(s == 0 for s in kw["shift"]), "sdpa reference: unshifted only")
+    dt = wins.dtype
+    nh = a["bias"].shape[0]
+    xn = (kernels.layer_norm(wins.float(), kw["ln"], 1e-5).to(dt)
+          if kw["ln"] is not None else wins)
+    with torch.no_grad():
+        q, k, v = (u.to(dt).contiguous()
+                   for u in kwa._qkv_heads(xn, a["wqkv"], a["bqkv"], nh))
+    masks = {"sdpa": a["bias"][None], "sdpa_lowbias": a["bias"][None].to(dt)}
+    if not grad:
+        return {name: (lambda m=m: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=m)) for name, m in masks.items()}
+    with torch.inference_mode(False):  # tensors autograd may save
+        q, k, v = (u.clone().requires_grad_(True) for u in (q, k, v))
+        do = torch.randn_like(q)
+        masks = {name: m.clone() for name, m in masks.items()}
+
+    def fwd_bwd(m):
+        with torch.inference_mode(False), torch.enable_grad():
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+            return torch.autograd.grad(out, (q, k, v), do)
+
+    return {name: (lambda m=m: fwd_bwd(m)) for name, m in masks.items()}
+
+
+def _read_routes():
+    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    return {"window_attention": dict(kwa.route_launches),
+            "window_attention_bwd": dict(kwa.bwd_route_launches),
+            "global_window_attention": dict(kga.route_launches)}
+
+
+def _check_routes(phase, route, need=True):
+    """The heads launches since the last ``_reset_launches`` all took
+    ``route`` (and, with ``need``, there was at least one): print them and
+    add them to ROUTE_TOTALS for the kernels line."""
+    routes = _read_routes()
+    other = "cuda_core" if route == "tensor_core" else "tensor_core"
+    print(f"{phase}: heads launches by route "
+          f"{ {k: v for k, v in routes.items() if any(v.values())} }",
+          flush=True)
+    for name, by in routes.items():
+        _require(by[other] == 0, f"{phase}: {name} took the {other} route "
+                 f"{by[other]} times (want {route})")
+        for r, n in by.items():
+            ROUTE_TOTALS[name][r] += n
+    _require(not need or sum(by[route] for by in routes.values()) > 0,
+             f"{phase}: no heads launch took the {route} route")
 
 
 def _kernel_reports():
@@ -390,15 +487,20 @@ def _swin_kernels(rep):
                                           (PREDICT_BATCH, 0, True, True)):
                 wins, a, kw = _attn_case(gen, batch, grid, c, nh, shift, ln,
                                          res)
-                got = kwa.window_attention(wins, **a, **kw)
                 want = kwa.window_attention_plain(wins, **a, **kw)
-                torch.cuda.synchronize()
-                _compare(f"K1 grid {grid}^3 x{batch}, C={c}, nh={nh}, shift "
-                         f"{shift}, ln {ln}, res {res}", got, want, k1)
+                for route in kwa.ROUTES:
+                    got = kwa.window_attention(wins, **a, **kw, route=route)
+                    torch.cuda.synchronize()
+                    _compare(f"K1 {route} grid {grid}^3 x{batch}, C={c}, "
+                             f"nh={nh}, shift {shift}, ln {ln}, res {res}",
+                             got, want, k1)
                 del got, want
             _timed(k1, "window_attention", "predict", PREDICT_BATCH, grid, c,
                    nh, lambda: kwa.window_attention(wins, **a, **kw),
-                   lambda: kwa.window_attention_plain(wins, **a, **kw), 10)
+                   lambda: kwa.window_attention_plain(wins, **a, **kw), 10,
+                   extra={"cuda_core": lambda: kwa.window_attention(
+                              wins, **a, **kw, route="cuda_core"),
+                          **_sdpa_reference(wins, a, kw)})
             del wins, a, kw
             # forward and backward on the same windows; the training step's
             # own forms come last and are the ones timed
@@ -419,18 +521,26 @@ def _swin_kernels(rep):
                 dy = torch.randn(wins.shape, generator=gen,
                                  device="cuda").to(wins.dtype)
                 b = {k: v for k, v in a.items() if k != "bproj"}
-                got = kwa.window_attention_bwd(wins, dy=dy, **b, **kw)
                 want = kwa.window_attention_bwd_plain(wins, dy=dy, **b, **kw)
-                torch.cuda.synchronize()
-                _compare_grads("K3 " + case, K3_NAMES, got, want, k3)
+                for route in kwa.ROUTES:
+                    got = kwa.window_attention_bwd(wins, dy=dy, **b, **kw,
+                                                   route=route)
+                    torch.cuda.synchronize()
+                    _compare_grads(f"K3 {route} " + case, K3_NAMES, got, want,
+                                   k3)
                 del got, want
             _timed(k1, "window_attention", "train", TRAIN_BATCH, grid, c, nh,
                    lambda: kwa.window_attention(wins, **a, **kw),
-                   lambda: kwa.window_attention_plain(wins, **a, **kw), 10)
+                   lambda: kwa.window_attention_plain(wins, **a, **kw), 10,
+                   extra={"cuda_core": lambda: kwa.window_attention(
+                       wins, **a, **kw, route="cuda_core")})
             _timed(k3, "window_attention_bwd", "train", TRAIN_BATCH, grid, c,
                    nh, lambda: kwa.window_attention_bwd(wins, dy=dy, **b, **kw),
                    lambda: kwa.window_attention_bwd_plain(wins, dy=dy, **b,
-                                                          **kw), 5)
+                                                          **kw), 5,
+                   extra={"cuda_core": lambda: kwa.window_attention_bwd(
+                              wins, dy=dy, **b, **kw, route="cuda_core"),
+                          **_sdpa_reference(wins, a, kw, grad=True)})
             del wins, a, b, kw, dy
             torch.cuda.empty_cache()
 
@@ -556,13 +666,15 @@ def _sr_case(gen, batch, n, c, nh, res, bq, dtype=None):
 
 
 def _stage_report(report, label, c, batch, ms, pms, flops, nbytes,
-                  peak=None):
+                  peak=None, extra=None):
     bound, by = _bound(flops, nbytes, peak or PEAK_BF16_FLOPS)
-    report["per_stage"].append({
-        "C": c, "batch": batch, "path": label, "ms": ms, "plain_ms": pms,
-        "flops": flops, "bytes": nbytes, "bound_ms": bound, "bound_by": by})
+    stage = {"C": c, "batch": batch, "path": label, "ms": ms, "plain_ms": pms,
+             "flops": flops, "bytes": nbytes, "bound_ms": bound,
+             "bound_by": by}
+    more = _extra_times(stage, extra, 10)
+    report["per_stage"].append(stage)
     print(f"  {report['tag']} {label} x{batch}, C={c}: kernel {ms:.3f} ms, "
-          f"plain {pms:.3f} ms, bound {bound:.4f} ms by {by} "
+          f"plain {pms:.3f} ms{more}, bound {bound:.4f} ms by {by} "
           f"({flops:.3e} FLOP, {nbytes:.3e} B)", flush=True)
 
 
@@ -602,13 +714,15 @@ def _zoo_kernels(rep):
                                            (PREDICT_BATCH, True, False)):
                 wins, a, kw = _global_case(gen, batch, grid, c, nh, absorbed,
                                            quirk)
-                got = kga.global_window_attention(wins, **a, **kw)
                 want = kga.global_window_attention_plain(wins, **a, **kw)
-                torch.cuda.synchronize()
-                _compare(f"K6 grid {grid}^3 x{batch}, C={c}, nh={nh}, "
-                         f"ln+res+bkv {absorbed}, "
-                         f"{'quirk' if quirk else 'standard'} bias", got, want,
-                         k6)
+                for route in ("tensor_core", "cuda_core"):
+                    got = kga.global_window_attention(wins, **a, **kw,
+                                                      route=route)
+                    torch.cuda.synchronize()
+                    _compare(f"K6 {route} grid {grid}^3 x{batch}, C={c}, "
+                             f"nh={nh}, ln+res+bkv {absorbed}, "
+                             f"{'quirk' if quirk else 'standard'} bias", got,
+                             want, k6)
                 del got, want
             t = wins.shape[0]
             m = t * n
@@ -622,7 +736,9 @@ def _zoo_kernels(rep):
                 6 * m * c * c + 4 * t * n * n * c,
                 # windows in and out, queries, weights, biases, LN, bias
                 2 * m * c * 2 + PREDICT_BATCH * n * c * 2 + 3 * c * c * 2
-                + 5 * c * 4 + nh * n * n * 4)
+                + 5 * c * 4 + nh * n * n * 4,
+                extra={"cuda_core": lambda: kga.global_window_attention(
+                    wins, **a, **kw, route="cuda_core")})
             del wins, a, kw
             torch.cuda.empty_cache()
 
@@ -1192,8 +1308,10 @@ def phase_model():
         cpu_s = time.perf_counter() - t0
         gpu = model.to("cuda")
         x_gpu = tuple(t.to("cuda") for t in x_in)
+        _reset_launches()
         got = gpu(x_gpu)
         torch.cuda.synchronize()
+        _check_routes("model", "tensor_core")
         _require(got.shape == (1, 96, 96, 96, 14) and got.dtype == torch.float32,
                  f"model: logits {tuple(got.shape)} {got.dtype}")
         _require(bool(torch.isfinite(got).all()), "model: non-finite logits")
@@ -1328,6 +1446,8 @@ def phase_zoo():
             out = gpu(xb)
             torch.cuda.synchronize()
             launches = _read_launches()
+            _check_routes(f"zoo {name}", "tensor_core",
+                          need=name != "SegFormer3D")
             peak = torch.cuda.max_memory_allocated()
             _require(out.shape == (PREDICT_BATCH, 96, 96, 96, 14)
                      and bool(torch.isfinite(out).all()),
@@ -1484,6 +1604,10 @@ def _reset_launches():
     k5.launches = k8.launches = k8.bwd_launches = 0
     kga.launches = ksr.launches = 0
     k9.launches = k10.launches = 0
+    for by in (kwa.route_launches, kwa.bwd_route_launches,
+               kga.route_launches):
+        for route in by:
+            by[route] = 0
 
 
 def _read_launches():
@@ -1685,6 +1809,7 @@ def phase_train():
         _require(all(bool(torch.isfinite(v).all()) for v in m.values()),
                  f"train: non-finite metrics at step {len(losses) - 1}")
     launches = _read_launches()
+    _check_routes("train", "tensor_core")
     peak = torch.cuda.max_memory_allocated()
     print(f"train: batch {TRAIN_BATCH} x 96^3, bf16, {TRAIN_STEPS} steps: "
           f"loss {' '.join(f'{v:.4f}' for v in losses)}; grad_norm "
@@ -1832,6 +1957,7 @@ def phase_train_b4():
                      f"train_b4: non-finite metrics at micro-step "
                      f"{len(losses) - 1}")
         launches = _read_launches()
+        _check_routes("train_b4", "tensor_core")
         peak = torch.cuda.max_memory_allocated()
     per_update = [sum(losses[i:i + 2]) / 2 for i in range(0, n, 2)]
     print(f"train_b4: batch {TRAIN_B4_BATCH} x 96^3, bf16, grad_accum_steps "
@@ -1987,6 +2113,92 @@ def phase_k9_parts():
                      "from the library's conv")
         print(f"k9_parts: 16x96^3, 48->48, kernel alone, {label}: "
               f"{ms:.3f} ms", flush=True)
+
+
+# MEDSEG_ATTN_SKIP bits (csrc/mma_tile.cuh): 1 LayerNorm statistics and
+# staging loads, 2 the softmax's elementwise work, 4 the launches after the
+# heads launch, 8 K3's bias partials, 16 K3's dv and dk products
+ATTN_PARTS = (("whole", 0), ("heads launch alone", 4),
+              ("heads alone, without statistics and staging loads", 5),
+              ("heads alone, without the softmax's elementwise work", 6),
+              ("heads alone, without the bias partials (K3)", 12),
+              ("heads alone, without dv and dk (K3)", 20),
+              ("heads alone, products and barriers only", 31))
+
+
+def phase_attn_parts():
+    """K1 (one predictor call's windows) and K3 (one training step's) on the
+    tensor cores at the first two stages, built with parts compiled out
+    (MEDSEG_ATTN_SKIP in csrc/mma_tile.cuh): what each part costs, where no
+    kernel profiler runs. The variants' results are wrong by design; the
+    whole build is compared with the library's."""
+    import ctypes
+    import types
+
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "attn_parts")
+    os.makedirs(out_dir, exist_ok=True)
+    srcs = [os.path.join(kernels.CSRC_DIR, f) for f in
+            ("window_attention.cu", "window_attention_bwd.cu", "reduce.cu")]
+    jobs = []
+    for _, mask in ATTN_PARTS:
+        so = os.path.join(out_dir, f"attn_skip_{mask}.so")
+        jobs.append((so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+             f"-DMEDSEG_ATTN_SKIP={mask}", "-o", so, *srcs],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+
+    class _Known:
+        """The variant library, with argtypes rows set only for the entry
+        points it has."""
+
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name, types.SimpleNamespace())
+
+    main = kernels.load()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for grid, c, nh in STAGES[:2]:
+        wins, a, kw = _attn_case(gen, PREDICT_BATCH, grid, c, nh, 0, True,
+                                 True)
+        cases.append((f"K1 x{PREDICT_BATCH} C={c}", lambda w=wins, a=a, kw=kw:
+                      kwa.window_attention(w, **a, **kw)))
+        wins, a, kw = _attn_case(gen, TRAIN_BATCH, grid, c, nh, 0, True,
+                                 False)
+        dy = torch.randn(wins.shape, generator=gen,
+                         device="cuda").to(wins.dtype)
+        b = {k: v for k, v in a.items() if k != "bproj"}
+        cases.append((f"K3 x{TRAIN_BATCH} C={c}", lambda w=wins, b=b, kw=kw,
+                      dy=dy: kwa.window_attention_bwd(w, dy=dy, **b, **kw)))
+    want = [fn() for _, fn in cases]
+    try:
+        for (label, mask), (so, proc) in zip(ATTN_PARTS, jobs):
+            out, err = proc.communicate()
+            _require(proc.returncode == 0,
+                     f"attn_parts: nvcc failed:\n{out}\n{err}")
+            lib = ctypes.CDLL(so)
+            kernels._declare(_Known(lib))
+            kernels._lib = lib
+            for (name, fn), ref in zip(cases, want):
+                if mask == 0:
+                    got = fn()
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    _require(all(g is None or torch.equal(g, r)
+                                 for g, r in zip(got, ref)),
+                             f"attn_parts: {name}: the whole build differs "
+                             "from the library's")
+                print(f"attn_parts: {name}, {label}: "
+                      f"{_time_ms(fn, 5):.3f} ms", flush=True)
+    finally:
+        kernels._lib = main
 
 
 K5_PARTS = (("whole", 0), ("without the products", 1),
@@ -2712,6 +2924,7 @@ def phase_fp32():
                 want.update({"window_attention": 8 * calls,
                              "fused_mlp": 8 * calls})
                 add(delta)
+                _check_routes("fp32 cli", "cuda_core")
             _require(calls > 0, "fp32 cli: no predictor call")
             _require_launches(f"fp32 cli ({calls} predictor calls"
                               f"{', plain' if plain else ''})", delta, want)
@@ -2747,6 +2960,7 @@ def phase_fp32():
                 "--metric_readback_freq", "1"]))
         wall = time.perf_counter() - t0
         delta = _read_launches()
+        _check_routes("fp32 train_cli", "cuda_core")
         add(delta)
         with open(os.path.join(out, "log.txt")) as f:
             row = [json.loads(line) for line in f][-1]
@@ -2773,6 +2987,7 @@ def phase_fp32():
         got = model(xb)
         torch.cuda.synchronize()
         n1 = _read_launches()["window_attention"]
+        _check_routes("fp32 model", "cuda_core")
         with _plain_kernels():
             want = model(xb)
         rel = float((got - want).norm() / want.norm())
@@ -2794,6 +3009,7 @@ def phase_fp32():
         got16 = half(xb)
         torch.cuda.synchronize()
         n16 = _read_launches()
+        _check_routes("fp16 model", "tensor_core")
         rel16 = float((got16.float() - want).norm() / want.norm())
         print(f"fp32: one predictor call with --compute_dtype float16 "
               f"({FP16_WINDOWS} windows) vs fp32 plain: rel norm err "
@@ -2817,6 +3033,7 @@ def phase_fp32():
         _reset_launches()
         got_loss, got = _grads_of(model, loss_fn, batch)
         delta = _read_launches()
+        _check_routes("fp32 gradients", "cuda_core")
         with _plain_kernels():
             want_loss, want = _grads_of(model, loss_fn, batch)
     _require_launches("fp32 gradients (one step)", delta, {
@@ -2892,6 +3109,11 @@ def main(argv=None) -> int:
             phase_k9_parts()
         if "k5_parts" in phases:
             phase_k5_parts()
+        if "attn_parts" in phases:
+            phase_attn_parts()
+        for k in kernels:
+            if k["name"] in ROUTE_TOTALS:
+                k["launches_by_route"] = ROUTE_TOTALS[k["name"]]
         if set(PHASES) <= set(phases) and set(KERNEL_GROUPS) <= set(groups):
             for k in kernels:
                 _require(k["launches"] > 0, f"{k['name']} was launched no "

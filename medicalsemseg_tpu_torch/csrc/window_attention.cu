@@ -13,26 +13,44 @@
 // "bf16" above stands for T, and in fp32 the roundings are the identity.
 //
 // Design. Two launches:
-//  1. window_attention_heads: one block per (window, head). It LN-normalises
-//     its window's tokens chunk by chunk, projects only its head's q/k/v
-//     (N x 3hd, kept in shared memory), and runs scores, bias, mask, softmax
-//     and .V one query row per warp. The (N, N) score matrix never leaves
-//     the SM: a warp holds one row of it at a time. It writes its head's
-//     slice of the (T, N, C) bf16 attention output.
+//  1. the heads launch: one block per (window, head). It LN-normalises its
+//     window's tokens, projects only its head's q/k/v, and runs scores,
+//     bias, mask, softmax and .V. The (N, N) score matrix never leaves the
+//     SM. It writes its head's slice of the (T, N, C) attention output.
 //  2. window_attention_proj: the output projection + bias + shortcut over
 //     tiles of 32 token rows.
-//  Splitting by head keeps the shared-memory footprint at ~85 KB for every
-//  flagship stage (head dim 16): a whole window's LN'd tile at C = 384 is
-//  166 KB alone, so tile and attention output of a window do not fit one
-//  block together.
+// The heads launch has two routes, picked by the wrapper from the dtype and
+// the shape alone (ops/kernels/window_attention.py, attention_route):
+//  * tensor cores (window_attention_heads_tc; bf16 and fp16, head dim 16,
+//    N <= 224): 4 warps, each owning up to four strips of 16 query rows of
+//    the window padded to 224 = 14 x 16 tokens (mma_tile.cuh). The LN'd window
+//    is staged in T in chunks of 64 channels (a whole window at C = 384 is
+//    166 KB) and projected with mma.sync m16n8k16 into q, k and v
+//    ([token][d] tiles in shared memory; q's comes back through ldmatrix as
+//    the A fragment of the scores); bias in fp32, then T. Head dim 16 is one k-step: a strip's
+//    16 x 224 scores are 28 mma into registers, where scale, the fp32 bias
+//    (read from L2), the -100 mask and the exact two-step softmax (quad
+//    shuffles for the row max and sum) run; p / sum is rounded to T and the
+//    score registers are the A operand of p . v (14 k-steps x 2 n-tiles).
+//    No online softmax: the JAX kernel rounds the normalised p before the
+//    product, and a whole row fits the registers. ~74 KB of shared memory
+//    and <= 168 registers a thread: three blocks an SM, so one block's
+//    staging runs under the others' softmax. LayerNorm statistics take a
+//    row a thread and the staging four 16-byte loads in flight a thread:
+//    with a warp a row, the block waited a load's latency per row.
+//  * CUDA cores (window_attention_heads; fp32, any other head dim): the
+//    block projects in chunks of 32 channels with fp32 FMAs from shared
+//    memory and walks the scores one query row per warp. TF32 would cost
+//    the fp32 forms their agreement with the fp32 plain path.
 //
-// What bounds it on the card: the products run on CUDA cores in fp32 with
-// both operands read from shared memory, so the kernel is bound by
-// shared-memory bandwidth and FMA issue, not by device memory: the window
-// tile is read once per head (an L2 hit after the first) and the bias table
-// (nh x N x N fp32) is shared by all windows and stays in L2. Moving the
-// three products onto the tensor cores (mma.sync / wgmma with head dim 16
-// as the k-step) is the next step and is left to a later change.
+// What bounds it on the card: the tensor-core route does 2 x 216 x 216 x 16
+// x 2 FLOP of attention and 216 x 48 x C x 2 of projection per (window,
+// head) at the tensor-core rate, so its floor is the elementwise work of
+// the softmax (an exp and an fp32 bias load per score; the bias table,
+// nh x N x N fp32, 186 KB a head, is read from L2 by every block): at C = 48
+// the heads launch took 4.2 ms, 0.95 with that work compiled out
+// (chip_smoke.py --phases attn_parts, PERF.md).
+// The CUDA-core route is bound by shared-memory bandwidth and FMA issue.
 //
 // K6 replaces fused_global_window_attention (_global_kernel) of the same
 // file. Per window: optional fp32 LayerNorm -> KV projection (C -> 2C: the
@@ -47,15 +65,18 @@
 // filled from q_global, and the scale folded into q. The TPU kernel's tile
 // of windows per grid step and its rule that a tile must not straddle batch
 // elements have no counterpart: a block is one (window, head).
-// What bounds K6: as K1, shared-memory bandwidth and FMA issue. By its
-// counts it is bound by bytes at C = 48 (batch 16: 170 MB of windows in, 170
-// MB out against 36 GFLOP) and by operations from C = 96 on; q_global
+// K6 takes the same two routes: on the tensor cores the q fragment of a
+// strip is loaded from q_global, scaled in fp32 and rounded, and only the
+// k and v column groups are projected. What bounds K6: as K1. By its counts
+// it is bound by bytes at C = 48 (batch 16: 170 MB of windows in, 170 MB
+// out against 36 GFLOP) and by operations from C = 96 on; q_global
 // (B x N x C) and the bias stay in L2.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace medseg {
 namespace {
@@ -223,6 +244,134 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tensor-core heads block: 4 warps, each owning up to 4 of the 14 query
+// strips, three blocks an SM (168 registers a thread: the 112 of a score
+// strip, the o accumulators and the addressing).
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcStrips = 4;             // query strips a warp owns, at most
+constexpr int kTcChunk = 64;             // channels a projection chunk
+constexpr int kTcXS = mmatile::xs_stride<kTcChunk>();
+
+// The tensor-core heads launch (bf16 / fp16, head dim 16, N <= 224): the
+// same function as window_attention_heads, on mma.sync (see the header).
+template <class T>
+__global__ void __launch_bounds__(kTcThreads, 3)
+    window_attention_heads_tc(HeadsParams<T> p) {
+  using namespace mmatile;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  float* mu = reinterpret_cast<float*>(smem_tc);  // kMaxNP
+  float* rs = mu + kMaxNP;                         // kMaxNP
+  int* lab = reinterpret_cast<int*>(rs + kMaxNP);  // kMaxNP: mask labels
+  T* qs = reinterpret_cast<T*>(lab + kMaxNP);      // kMaxNP x kHS each:
+  T* ks = qs + kMaxNP * kHS;                       // q, k, v
+  T* vs = ks + kMaxNP * kHS;
+  T* xs = vs + kMaxNP * kHS;                       // kMaxNP x kTcXS
+  T* ws = xs + kMaxNP * kTcXS;                     // 3 kHD x kTcXS
+  const int win = blockIdx.x, h = blockIdx.y;
+  const int n = p.n, c = p.c, np = (n + 15) & ~15, nt = np / 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const T* xw = p.x + (size_t)win * n * c;
+  // column groups [p0, 3) of [q | k | v] are projected: K6 takes q from
+  // q_global, and its weight is [K | V]
+  const int p0 = p.qg != nullptr ? 1 : 0;
+  const float* ln = p.ln;
+
+  if (ln != nullptr && !(MEDSEG_ATTN_SKIP & 1))
+    window_stats(xw, n, c, p.eps, mu, rs);
+  // the shifted-window mask: only a window last along some axis has tokens
+  // of two regions
+  const int wk = win % p.nww, wj = (win / p.nww) % p.nwh,
+            wi = (win / (p.nww * p.nwh)) % p.nwd;
+  const bool last_d = wi == p.nwd - 1, last_h = wj == p.nwh - 1,
+             last_w = wk == p.nww - 1;
+  const bool masked = p.shifted && (last_d || last_h || last_w);
+  if (masked) {
+    for (int r = tid; r < n; r += kTcThreads)
+      lab[r] = token_label(r, p.w1, p.w2, p.w0, p.s0, p.s1, p.s2, last_d,
+                           last_h, last_w);
+  }
+
+  float acc[kTcStrips][6][4];
+#pragma unroll
+  for (int si = 0; si < kTcStrips; ++si)
+#pragma unroll
+    for (int j = 0; j < 6; ++j) zero(acc[si][j]);
+  for (int c0 = 0; c0 < c; c0 += kTcChunk) {
+    const int kc = min(kTcChunk, c - c0);
+    __syncthreads();  // statistics written, the previous chunk's readers done
+    if (!(MEDSEG_ATTN_SKIP & 1))
+      stage_rows<kTcChunk>(xw, n, np, c, c0, kc, xs,
+                           [&](float v, int r, int ch) {
+        return ln != nullptr ? (v - mu[r]) * (rs[r] * ln[ch]) + ln[c + ch]
+                             : v;
+      });
+    stage_weight_rows<kTcChunk>(p.wqkv, c, c0, kc, 3 * kHD, ws, [&](int j) {
+      const int grp = j / kHD;
+      return grp < p0 ? -1 : (grp - p0) * c + h * kHD + j % kHD;
+    });
+    __syncthreads();
+#pragma unroll
+    for (int si = 0; si < kTcStrips; ++si) {
+      const int s = warp + si * kTcWarps;
+      if (16 * s < np)
+        project_strip<kTcChunk, T, 6>(acc[si], xs, ws, s, kc, p0);
+    }
+  }
+
+  // + bias in fp32, then T, into the [token][d] tiles of q, k and v
+#pragma unroll
+  for (int si = 0; si < kTcStrips; ++si) {
+    const int s = warp + si * kTcWarps;
+    if (16 * s >= np) continue;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (j < 2 * p0) continue;
+      const int d = (j & 1) * 8 + 2 * t4, col = (j / 2 - p0) * c + h * kHD + d;
+      const float b0 = p.bqkv != nullptr ? p.bqkv[col] : 0.f;
+      const float b1 = p.bqkv != nullptr ? p.bqkv[col + 1] : 0.f;
+      acc[si][j][0] += b0;
+      acc[si][j][1] += b1;
+      acc[si][j][2] += b0;
+      acc[si][j][3] += b1;
+    }
+    if (p.qg != nullptr) {
+      // the batch element's query grid, scaled in fp32, then rounded
+      const T* qb = p.qg + ((size_t)(win / p.nwin) * n) * c + h * kHD + 2 * t4;
+      const int r0 = 16 * s + g, r1 = r0 + 8;
+      auto q = [&](int r, int d) {
+        return r < n ? ld(qb + (size_t)r * c + d) * p.scale : 0.f;
+      };
+      const float lo[4] = {q(r0, 0), q(r0, 1), q(r1, 0), q(r1, 1)};
+      const float hi[4] = {q(r0, 8), q(r0, 9), q(r1, 8), q(r1, 9)};
+      store_head_tile<T>(qs, s, lo, hi);
+    } else {
+      store_head_tile<T>(qs, s, acc[si][0], acc[si][1]);
+    }
+    store_head_tile<T>(ks, s, acc[si][2], acc[si][3]);
+    store_head_tile<T>(vs, s, acc[si][4], acc[si][5]);
+  }
+  __syncthreads();
+
+  const float* bias_h = p.bias + (size_t)h * n * n;
+  const float scale = p.qg != nullptr ? 1.f : p.scale;  // K6: already in q
+  T* out = p.attn + (size_t)win * n * c;
+#pragma unroll 1
+  for (int s = warp; 16 * s < np; s += kTcWarps) {
+    uint32_t qa[4];
+    ldsm_x4(qa, qs + (16 * s + (lane & 15)) * kHS + (lane >> 4) * 8);
+    float sc[kNT][4];
+    softmax_strip<T>(sc, qa, ks, s, nt, bias_h, masked ? lab : nullptr, n,
+                     scale);
+    float o[2][4];
+    times_head_tile<T>(o, vs, nt, [&](int i, uint32_t(&a)[4]) {
+      c_to_a<T>(a, sc[2 * i], sc[2 * i + 1]);
+    });
+    write_rows<T>(out, c, h * kHD, s, n, o[0], o[1]);
+  }
+}
+
 // out = bf16(attn . Wproj^T + bproj) [+ x], over tiles of kRows token rows.
 template <class T>
 __global__ void __launch_bounds__(kThreads)
@@ -280,19 +429,47 @@ namespace {
 
 // The two launches of K1 and K6: heads, then projection (+ shortcut).
 template <class T>
-int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
-                     void* out, int t, int nh, int residual,
-                     cudaStream_t st) {
-  const int n = p.n, c = p.c, hd = p.hd;
+cudaError_t launch_heads_tc(const HeadsParams<T>& p, int t, int nh,
+                            cudaStream_t st) {
+  using namespace mmatile;
+  if constexpr (sizeof(T) == 2) {
+    const size_t smem = 3 * sizeof(float) * kMaxNP +
+                        sizeof(T) * (3 * kMaxNP * kHS + kMaxNP * kTcXS +
+                                     3 * kHD * kTcXS);
+    cudaError_t err = cudaFuncSetAttribute(
+        window_attention_heads_tc<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    window_attention_heads_tc<T><<<dim3(t, nh), kTcThreads, smem, st>>>(p);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // fp32 keeps the CUDA cores
+  }
+}
+
+template <class T>
+cudaError_t launch_heads_cuda_core(const HeadsParams<T>& p, int t, int nh,
+                                   cudaStream_t st) {
+  const int n = p.n, hd = p.hd;
   const size_t heads_smem = sizeof(float) *
       (2 * n + n * (kKC + 1) + kKC * 3 * hd + n * (3 * hd + 1) + kWarps * n);
   cudaError_t err = cudaFuncSetAttribute(
       window_attention_heads<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)heads_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   window_attention_heads<T><<<dim3(t, nh), kThreads, heads_smem, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return cudaGetLastError();
+}
+
+template <class T>
+int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
+                     void* out, int t, int nh, int residual, int route,
+                     cudaStream_t st) {
+  const int n = p.n, c = p.c;
+  cudaError_t err = route == kRouteTensorCore
+                        ? launch_heads_tc(p, t, nh, st)
+                        : launch_heads_cuda_core(p, t, nh, st);
+  if (err != cudaSuccess || (MEDSEG_ATTN_SKIP & 4)) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
   const size_t proj_smem =
@@ -312,16 +489,18 @@ int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
 }  // namespace medseg
 
 // x, wqkv, wproj, attn, out of the element type named by dtype (kBf16,
-// kF16, kF32); ln, bqkv, bproj, bias fp32.
+// kF16, kF32); ln, bqkv, bproj, bias fp32. route: kRouteTensorCore (bf16 or
+// fp16, head dim 16, n <= 224) or kRouteCudaCore (any dtype and head dim).
 extern "C" int medseg_window_attention_fwd(
     const void* x, const void* ln, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* bias, void* attn,
     void* out, int t, int n, int c, int nh, int w0, int w1, int w2, int s0,
     int s1, int s2, int nwd, int nwh, int nww, int shifted, int residual,
-    int dtype, float ln_eps, float scale, void* stream) {
+    int route, int dtype, float ln_eps, float scale, void* stream) {
   using namespace medseg;
   const int hd = c / nh;
-  if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1)
+  if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 ||
+      !route_takes(route, dtype, n, c, hd))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
@@ -337,7 +516,7 @@ extern "C" int medseg_window_attention_fwd(
     p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
     p.nwd = nwd; p.nwh = nwh; p.nww = nww;
     p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
-    return launch_attention(p, wproj, bproj, out, t, nh, residual,
+    return launch_attention(p, wproj, bproj, out, t, nh, residual, route,
                             static_cast<cudaStream_t>(stream));
   });
 }
@@ -348,11 +527,12 @@ extern "C" int medseg_global_window_attention_fwd(
     const void* x, const void* ln, const void* q, const void* wkv,
     const void* bkv, const void* wproj, const void* bproj, const void* bias,
     void* attn, void* out, int t, int n, int c, int nh, int nwin,
-    int residual, int dtype, float ln_eps, float scale, void* stream) {
+    int residual, int route, int dtype, float ln_eps, float scale,
+    void* stream) {
   using namespace medseg;
   const int hd = c / nh;
   if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 || nwin < 1 ||
-      t % nwin != 0 || q == nullptr)
+      t % nwin != 0 || q == nullptr || !route_takes(route, dtype, n, c, hd))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
@@ -368,7 +548,7 @@ extern "C" int medseg_global_window_attention_fwd(
     p.w0 = p.w1 = p.w2 = 1; p.s0 = p.s1 = p.s2 = 0;
     p.nwd = p.nwh = p.nww = 1;
     p.shifted = 0; p.eps = ln_eps; p.scale = scale;
-    return launch_attention(p, wproj, bproj, out, t, nh, residual,
+    return launch_attention(p, wproj, bproj, out, t, nh, residual, route,
                             static_cast<cudaStream_t>(stream));
   });
 }

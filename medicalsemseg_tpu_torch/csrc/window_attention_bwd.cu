@@ -20,15 +20,12 @@
 // Design. The TPU kernels walk the window tiles in order on one core, with
 // all weight gradients and the (nh, N, N) bias gradient in scratch memory
 // from the first tile to the last. Here blocks run side by side:
-//  1. window_attention_bwd_heads: a block owns one head and a run of
-//     windows. Per window it projects its head's q, k, v and dout into shared
-//     memory, then makes two passes over the (N, N) scores, one query row per
-//     warp (softmax statistics, o, dq, ds) and one key row per warp (p and ds
-//     recomputed from the saved row statistics; dk, dv), so that every sum is
-//     taken by one warp and no atomics are needed. ds is added into the
+//  1. the heads launch: a block owns one head and a run of windows. Per
+//     window it projects its head's q, k, v and dout, runs the attention
+//     backward of that head and writes o and dqkv in T. ds is added into the
 //     block's own (N, N) slab of bias-gradient partials in device memory
-//     (plain read-modify-write: nobody else touches the slab). It writes o
-//     and dqkv in bf16.
+//     (nobody else touches the slab: a plain read-modify-write on the CUDA
+//     cores, reductions in L2 on the tensor cores).
 //  2. window_attention_bwd_dx: tiles of 32 token rows: dxn = dqkv . Wqkv,
 //     LN backward, + dy; per-block partial sums for dLN.
 //  3. window_attention_bwd_dw: a block owns 16 rows of (dWqkv | dWproj) in
@@ -36,20 +33,53 @@
 //     partials per share.
 //  4. sum_partials adds the slabs of 1-3 in a fixed order: results do not
 //     change from run to run.
-// One head per block keeps shared memory at ~110 KB for any C (head dim 16),
-// so the same kernel serves the widest stage, for which the TPU needed the
-// head-split variant.
+// The heads launch has two routes, picked by the wrapper from the dtype and
+// the shape alone, as K1's:
+//  * tensor cores (window_attention_bwd_heads_tc; bf16 and fp16, head dim
+//    16, N <= 224): blocks of 7 warps, one an SM, over the window padded to
+//    224 tokens (mma_tile.cuh). q, k, v and dout = T(dy . Wproj) are
+//    projected with mma.sync m16n8k16 from chunks of 64 staged channels
+//    into [token][d] tiles; q and dout come back through ldmatrix as the A
+//    fragments of S = q k^T and dP = dout v^T (head dim 16 is one k-step).
+//    The 14 query strips of 16 rows go in two phases of 7, a strip a warp:
+//    the warp holds its strip's 16 x 224 p32 in registers and recomputes dP
+//    one n-tile pair at a time (one mma each) for delta = sum dp p32 and
+//    then for ds = p32 (dp - delta). T(p32) and T(ds * scale) go to two
+//    half-window tiles in shared memory; o = T(T(p) v) and dq =
+//    T(ds * scale) k take their A from the warp's own rows, and after a
+//    block barrier each warp adds the phase's share of dv = T(p)^T dout and
+//    dk = T(ds * scale)^T q for its two key strips (A through
+//    ldmatrix.trans) to fp32 accumulators that are rounded once after the
+//    second phase. One pass over the scores; no transposed bias. ~150 KB of
+//    shared memory. LayerNorm statistics take a row a thread and the
+//    staging four 16-byte loads in flight a thread; only a window last
+//    along some axis builds the mask; ds goes to the block's slab of bias
+//    partials as 8-byte reductions in L2 that no thread waits for (the slab
+//    starts at zero; each entry is added to by one thread, in program
+//    order, so the order of the sums is fixed).
+//  * CUDA cores (window_attention_bwd_heads; fp32, any other head dim): one
+//    query row per warp (softmax statistics, o, dq, ds), then one key row
+//    per warp (p and ds recomputed from the saved row statistics and the
+//    transposed bias; dk, dv), so that every sum is taken by one warp.
+// One head per block keeps shared memory bounded for any C, so the same
+// kernel serves the widest stage, for which the TPU needed the head-split
+// variant.
 //
-// What bounds it on the card: the products run on CUDA cores in fp32 from
-// shared memory: FMA throughput and shared-memory bandwidth. The scores are
-// computed twice (8 N^2 hd multiply-adds per head against 6). The bias
-// partials cost one 8-byte read-modify-write per score in L2 / device
-// memory. Tensor cores are left to a later change.
+// What bounds it on the card: the tensor-core route's products are a small
+// share of its time at the tensor-core rate (1.15 of 9.6 ms for the heads
+// launch at C = 48, batch 8, when everything else is compiled out); the
+// elementwise softmax backward per score (exp, the fp32 bias load) and the
+// bias partials in L2 bound it, with one block of 7 warps an SM to hide
+// their latency (chip_smoke.py --phases attn_parts, PERF.md). The CUDA-core
+// route computes the scores twice on FMA units from shared memory (8 N^2 hd
+// multiply-adds per head against 6) and is bound by FMA issue and
+// shared-memory bandwidth. The dx and dw launches run on CUDA cores.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace medseg {
 namespace {
@@ -343,6 +373,278 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tensor-core heads block: 7 warps. A window's 14 query strips go in
+// two phases of 7 (a warp takes strip w, then w + 7), so the staged tiles of
+// T(p) and T(ds * scale) hold half a window each; a warp owns key strips w
+// and w + 7 of dv and dk, accumulated in fp32 over both phases. One block an
+// SM (its shared memory): a thread may take up to 255 registers. (Blocks of
+// 4 warps, two an SM with phases of 4 strips, spilled at 255 registers and
+// were 14 % slower: PERF.md.)
+constexpr int kTcWarps = 7;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcStrips = (mmatile::kMaxStrips + kTcWarps - 1) / kTcWarps;
+constexpr int kPhaseRows = 16 * kTcWarps;  // query rows of a phase
+constexpr int kTcChunk = 64;               // channels a projection chunk
+constexpr int kTcXS = mmatile::xs_stride<kTcChunk>();
+
+// The tensor-core heads launch (bf16 / fp16, head dim 16, N <= 224): the
+// same function as window_attention_bwd_heads, on mma.sync (see the header).
+template <class T>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    window_attention_bwd_heads_tc(BwdHeadsParams<T> p) {
+  using namespace mmatile;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  float* mu = reinterpret_cast<float*>(smem_tc);  // kMaxNP
+  float* rs = mu + kMaxNP;                         // kMaxNP
+  int* lab = reinterpret_cast<int*>(rs + kMaxNP);  // kMaxNP: mask labels
+  T* qs = reinterpret_cast<T*>(lab + kMaxNP);      // kMaxNP x kHS each:
+  T* ks = qs + kMaxNP * kHS;                       // q, k, v, dout
+  T* vs = ks + kMaxNP * kHS;
+  T* dos = vs + kMaxNP * kHS;
+  T* pt = dos + kMaxNP * kHS;                      // kPhaseRows x kPS: T(p)
+  T* pd = pt + kPhaseRows * kPS;                   // kPhaseRows x kPS:
+                                                   // T(ds * scale)
+  // the projection's staging shares pt's and pd's space
+  T* xs = pt;                                      // kMaxNP x kTcXS
+  T* dys = xs + kMaxNP * kTcXS;                    // kMaxNP x kTcXS
+  T* wq = dys + kMaxNP * kTcXS;                    // 3 kHD x kTcXS
+  T* wp = wq + 3 * kHD * kTcXS;                    // kTcChunk x kHS
+  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int n = p.n, c = p.c, np = (n + 15) & ~15, nt = np / 8;
+  const int nstrips = np / 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* ln = p.ln;
+  const float* bias_h = p.bias + (size_t)h * n * n;
+  float* part = p.dbias_part + ((size_t)chunk * gridDim.y + h) * n * n;
+  const int w_begin = chunk * p.wins_per_chunk;
+  const int w_end = min(p.t, w_begin + p.wins_per_chunk);
+  // the warp's strip of phase i (and its i-th key strip)
+  auto strip = [&](int i) { return warp + i * kTcWarps; };
+  auto mine = [&](int i) { return strip(i) < nstrips; };
+
+  for (int win = w_begin; win < w_end; ++win) {
+    const T* xw = p.x + (size_t)win * n * c;
+    const T* dyw = p.dy + (size_t)win * n * c;
+    __syncthreads();  // the previous window's readers are done
+    if (ln != nullptr && !(MEDSEG_ATTN_SKIP & 1))
+      window_stats(xw, n, c, p.eps, mu, rs);
+    // the shifted-window mask: only a window last along some axis has
+    // tokens of two regions
+    const int wk = win % p.nww, wj = (win / p.nww) % p.nwh,
+              wi = (win / (p.nww * p.nwh)) % p.nwd;
+    const bool last_d = wi == p.nwd - 1, last_h = wj == p.nwh - 1,
+               last_w = wk == p.nww - 1;
+    const bool masked = p.shifted && (last_d || last_h || last_w);
+    if (masked) {
+      for (int r = tid; r < n; r += kTcThreads)
+        lab[r] = token_label(r, p.w1, p.w2, p.w0, p.s0, p.s1, p.s2, last_d,
+                             last_h, last_w);
+    }
+
+    // q | k | v and dout of the warp's strips
+    float acc[kTcStrips][6][4], dacc[kTcStrips][2][4];
+#pragma unroll
+    for (int i = 0; i < kTcStrips; ++i) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) zero(acc[i][j]);
+      zero(dacc[i][0]);
+      zero(dacc[i][1]);
+    }
+    for (int c0 = 0; c0 < c; c0 += kTcChunk) {
+      const int kc = min(kTcChunk, c - c0);
+      __syncthreads();  // statistics written, the previous chunk's readers done
+      if (!(MEDSEG_ATTN_SKIP & 1)) {
+        stage_rows<kTcChunk>(xw, n, np, c, c0, kc, xs,
+                             [&](float v, int r, int ch) {
+          return ln != nullptr ? (v - mu[r]) * rs[r] * ln[ch] + ln[c + ch]
+                               : v;
+        });
+        stage_rows<kTcChunk>(dyw, n, np, c, c0, kc, dys,
+                             [](float v, int, int) { return v; });
+      }
+      stage_weight_rows<kTcChunk>(p.wqkv, c, c0, kc, 3 * kHD, wq, [&](int j) {
+        return (j / kHD) * c + h * kHD + j % kHD;
+      });
+      // wp[o][d] = Wproj[c0 + o][h * hd + d]: B of dout = dy . Wproj[:, head]
+      for (int e = tid; e < kc * 2; e += kTcThreads) {
+        const int o = e >> 1, v8 = (e & 1) * 8;
+        *reinterpret_cast<uint4*>(wp + o * kHS + v8) =
+            *reinterpret_cast<const uint4*>(p.wproj + (size_t)(c0 + o) * c +
+                                            h * kHD + v8);
+      }
+      __syncthreads();
+      const T* b_row = wp + ((lane & 7) + ((lane >> 3) & 1) * 8) * kHS +
+                       (lane >> 4) * 8;
+#pragma unroll
+      for (int i = 0; i < kTcStrips; ++i) {
+        if (!mine(i)) continue;
+        project_strip<kTcChunk, T, 6>(acc[i], xs, wq, strip(i), kc, 0);
+        const T* a_row = dys + (16 * strip(i) + (lane & 15)) * kTcXS +
+                         (lane >> 4) * 8;
+        for (int k16 = 0; k16 < kc / 16; ++k16) {
+          uint32_t a[4], b[4];
+          ldsm_x4(a, a_row + 16 * k16);
+          ldsm_x4_t(b, b_row + 16 * k16 * kHS);
+          mma<T>(dacc[i][0], a, b[0], b[1]);
+          mma<T>(dacc[i][1], a, b[2], b[3]);
+        }
+      }
+    }
+    // + bias in fp32, then T, into the [token][d] tiles
+#pragma unroll
+    for (int i = 0; i < kTcStrips; ++i) {
+      if (!mine(i)) continue;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const int col = (j / 2) * c + h * kHD + (j & 1) * 8 + 2 * t4;
+        const float b0 = p.bqkv != nullptr ? p.bqkv[col] : 0.f;
+        const float b1 = p.bqkv != nullptr ? p.bqkv[col + 1] : 0.f;
+        acc[i][j][0] += b0;
+        acc[i][j][1] += b1;
+        acc[i][j][2] += b0;
+        acc[i][j][3] += b1;
+      }
+      store_head_tile<T>(qs, strip(i), acc[i][0], acc[i][1]);
+      store_head_tile<T>(ks, strip(i), acc[i][2], acc[i][3]);
+      store_head_tile<T>(vs, strip(i), acc[i][4], acc[i][5]);
+      store_head_tile<T>(dos, strip(i), dacc[i][0], dacc[i][1]);
+    }
+
+    const size_t row0 = (size_t)win * n;
+    // dP = dout v^T one n-tile pair at a time (B: v as [key][d])
+    const T* v_row = vs + ((lane & 7) + ((lane >> 4) << 3)) * kHS +
+                     ((lane >> 3) & 1) * 8;
+    // A of dv and dk: the staged tiles read transposed (rows: the phase's
+    // queries, columns: keys)
+    const int at_off = ((lane & 7) + ((lane >> 4) & 1) * 8) * kPS +
+                       ((lane >> 3) & 1) * 8;
+    // the warp's rows of the staged tiles
+    const int l0 = (16 * warp + g) * kPS + 2 * t4, l1 = l0 + 8 * kPS;
+    const int own = (16 * warp + (lane & 15)) * kPS + (lane >> 4) * 8;
+    float dv[kTcStrips][2][4], dk[kTcStrips][2][4];  // [key strip i][n-tile]
+#pragma unroll
+    for (int i = 0; i < kTcStrips; ++i) {
+      zero(dv[i][0]);
+      zero(dv[i][1]);
+      zero(dk[i][0]);
+      zero(dk[i][1]);
+    }
+
+#pragma unroll 1
+    for (int ph = 0; ph * kTcWarps < nstrips; ++ph) {
+      // the tiles are written and the staging read (phase 0), the previous
+      // phase's T(p) and T(ds) tiles are read (later phases)
+      __syncthreads();
+      if (mine(ph)) {
+        const int s = strip(ph);
+        const int a_off = (16 * s + (lane & 15)) * kHS + (lane >> 4) * 8;
+        uint32_t qa[4], da[4];
+        ldsm_x4(qa, qs + a_off);
+        ldsm_x4(da, dos + a_off);
+        float sc[kNT][4];
+        softmax_strip<T>(sc, qa, ks, s, nt, bias_h, masked ? lab : nullptr,
+                         n, p.scale);
+        auto dp_pair = [&](int q, float (&d)[2][4]) {
+          uint32_t b[4];
+          ldsm_x4(b, v_row + 16 * q * kHS);
+          zero(d[0]);
+          zero(d[1]);
+          mma<T>(d[0], da, b[0], b[1]);
+          mma<T>(d[1], da, b[2], b[3]);
+        };
+        float dl0 = 0.f, dl1 = 0.f;
+#pragma unroll
+        for (int q = 0; q < kNT / 2; ++q) {
+          if (2 * q < nt) {
+            float d[2][4];
+            dp_pair(q, d);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              dl0 += d[u][0] * sc[2 * q + u][0] + d[u][1] * sc[2 * q + u][1];
+              dl1 += d[u][2] * sc[2 * q + u][2] + d[u][3] * sc[2 * q + u][3];
+            }
+          }
+        }
+        dl0 += __shfl_xor_sync(0xffffffffu, dl0, 1);
+        dl0 += __shfl_xor_sync(0xffffffffu, dl0, 2);
+        dl1 += __shfl_xor_sync(0xffffffffu, dl1, 1);
+        dl1 += __shfl_xor_sync(0xffffffffu, dl1, 2);
+        // ds = p32 (dp - delta): T(p) and T(ds * scale) to the tiles, ds to
+        // the bias partials
+        const int r0 = 16 * s + g, r1 = r0 + 8;
+#pragma unroll
+        for (int q = 0; q < kNT / 2; ++q) {
+          if (2 * q < nt) {
+            float d[2][4];
+            dp_pair(q, d);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int j = 2 * q + u, col = 8 * j + 2 * t4;
+              const float* pr = sc[j];
+              const float ds0 = pr[0] * (d[u][0] - dl0);
+              const float ds1 = pr[1] * (d[u][1] - dl0);
+              const float ds2 = pr[2] * (d[u][2] - dl1);
+              const float ds3 = pr[3] * (d[u][3] - dl1);
+              *reinterpret_cast<uint32_t*>(pt + l0 + 8 * j) =
+                  pack<T>(pr[0], pr[1]);
+              *reinterpret_cast<uint32_t*>(pt + l1 + 8 * j) =
+                  pack<T>(pr[2], pr[3]);
+              *reinterpret_cast<uint32_t*>(pd + l0 + 8 * j) =
+                  pack<T>(ds0 * p.scale, ds1 * p.scale);
+              *reinterpret_cast<uint32_t*>(pd + l1 + 8 * j) =
+                  pack<T>(ds2 * p.scale, ds3 * p.scale);
+              if (!(MEDSEG_ATTN_SKIP & 8)) {
+                add_pair(part, r0, col, n, ds0, ds1);
+                add_pair(part, r1, col, n, ds2, ds3);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        // o = T(T(p) v) and dq = T(ds * scale) k, A from the warp's own
+        // rows of the tiles
+        float o[2][4];
+        times_head_tile<T>(o, vs, nt, [&](int i, uint32_t(&a)[4]) {
+          ldsm_x4(a, pt + own + 16 * i);
+        });
+        write_rows<T>(p.attn + row0 * c, c, h * kHD, s, n, o[0], o[1]);
+        times_head_tile<T>(o, ks, nt, [&](int i, uint32_t(&a)[4]) {
+          ldsm_x4(a, pd + own + 16 * i);
+        });
+        write_rows<T>(p.dqkv + row0 * 3 * c, 3 * c, h * kHD, s, n, o[0],
+                      o[1]);
+      }
+      __syncthreads();  // the phase's T(p) and T(ds) rows are in the tiles
+
+      // dv += T(p)^T dout, dk += T(ds * scale)^T q over the phase's queries
+      const int ksteps = min(kTcWarps, nstrips - ph * kTcWarps);
+      const int qrow = ph * kPhaseRows;
+#pragma unroll
+      for (int i = 0; i < kTcStrips; ++i) {
+        if (!mine(i) || (MEDSEG_ATTN_SKIP & 16)) continue;
+        const int key = strip(i);
+        accum_head_tile<T>(dv[i], dos + qrow * kHS, ksteps,
+                           [&](int k, uint32_t(&a)[4]) {
+                             ldsm_x4_t(a, pt + at_off + 16 * k * kPS + 16 * key);
+                           });
+        accum_head_tile<T>(dk[i], qs + qrow * kHS, ksteps,
+                           [&](int k, uint32_t(&a)[4]) {
+                             ldsm_x4_t(a, pd + at_off + 16 * k * kPS + 16 * key);
+                           });
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTcStrips; ++i) {
+      if (!mine(i)) continue;
+      write_rows<T>(p.dqkv + row0 * 3 * c, 3 * c, c + h * kHD, strip(i), n,
+                    dk[i][0], dk[i][1]);
+      write_rows<T>(p.dqkv + row0 * 3 * c, 3 * c, 2 * c + h * kHD, strip(i),
+                    n, dv[i][0], dv[i][1]);
+    }
+  }
+}
+
 // dx = LN backward of (dqkv . Wqkv) [+ dy] over tiles of kTile rows (strided
 // over the grid); part (grid, 2c) takes the block's dLN sums.
 template <class T>
@@ -509,14 +811,38 @@ cudaError_t launch_heads(const BwdHeadsParams<T>& p, int nchunk, int nh,
 }
 
 template <class T>
+cudaError_t launch_heads_tc(const BwdHeadsParams<T>& p, int nchunk, int nh,
+                            cudaStream_t st) {
+  using namespace mmatile;
+  if constexpr (sizeof(T) == 2) {
+    const size_t smem = 3 * sizeof(float) * kMaxNP +
+                        sizeof(T) * (4 * kMaxNP * kHS + 2 * kPhaseRows * kPS);
+    static_assert(2 * kMaxNP * kTcXS + 3 * kHD * kTcXS + kTcChunk * kHS <=
+                      2 * kPhaseRows * kPS,
+                  "the projection's staging must fit the T(p), T(ds) tiles");
+    cudaError_t err = cudaFuncSetAttribute(
+        window_attention_bwd_heads_tc<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    window_attention_bwd_heads_tc<T>
+        <<<dim3(nchunk, nh), kTcThreads, smem, st>>>(p);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // fp32 keeps the CUDA cores
+  }
+}
+
+template <class T>
 int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
                void* part_ln, void* out_ln, void* part_w, void* out_w, int nh,
-               int residual, int nchunk, int grid_dx, int nsplit,
+               int residual, int nchunk, int grid_dx, int nsplit, int route,
                float ln_eps, cudaStream_t st) {
   const int t = p.t, n = p.n, c = p.c;
-  cudaError_t err = p.hd <= 16 ? launch_heads<T, 16>(p, nchunk, nh, st)
-                               : launch_heads<T, 32>(p, nchunk, nh, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = route == kRouteTensorCore
+                        ? launch_heads_tc(p, nchunk, nh, st)
+                    : p.hd <= 16 ? launch_heads<T, 16>(p, nchunk, nh, st)
+                                 : launch_heads<T, 32>(p, nchunk, nh, st);
+  if (err != cudaSuccess || (MEDSEG_ATTN_SKIP & 4)) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
   const size_t smem_dx =
@@ -565,10 +891,12 @@ int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
 
 // Pointers as in BwdHeadsParams; dx (T, N, C) and the activations, weights,
 // attn and dqkv of the element type named by dtype. Scratch: dbias_part
-// (nchunk, nh, N, N), part_ln (grid_dx, 2c), part_w (nsplit, 4c*c + 4c).
+// (nchunk, nh, N, N; zero-filled by the caller for kRouteTensorCore), part_ln
+// (grid_dx, 2c), part_w (nsplit, 4c*c + 4c).
 // Results (fp32): dbias (nh, N, N), out_ln (2c) = dscale | dbias_ln, out_w =
 // dWqkv (3c x c) | dWproj (c x c) | dbqkv (3c) | dbproj (c). c must be a
-// multiple of 16.
+// multiple of 16. route: kRouteTensorCore (bf16 or fp16, head dim 16,
+// n <= 224; bias_t unused, may be NULL) or kRouteCudaCore.
 extern "C" int medseg_window_attention_bwd(
     const void* x, const void* ln, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bias, const void* bias_t, const void* dy,
@@ -576,12 +904,15 @@ extern "C" int medseg_window_attention_bwd(
     void* part_ln, void* out_ln, void* part_w, void* out_w, int t, int n,
     int c, int nh, int w0, int w1, int w2, int s0, int s1, int s2, int nwd,
     int nwh, int nww, int shifted, int residual, int nchunk, int grid_dx,
-    int nsplit, int dtype, float ln_eps, float scale, void* stream) {
+    int nsplit, int route, int dtype, float ln_eps, float scale,
+    void* stream) {
   using namespace medseg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hd = c / nh;
   if (hd * nh != c || hd > 32 || hd < 1 || n < 1 || t < 1 || c % kJB != 0 ||
-      c > kMaxC || nchunk < 1 || grid_dx < 1 || nsplit < 1)
+      c > kMaxC || nchunk < 1 || grid_dx < 1 || nsplit < 1 ||
+      !route_takes(route, dtype, n, c, hd) ||
+      (route == kRouteCudaCore && bias_t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // every chunk must hold a window, or its slab of partials stays unwritten
   const int wins_per_chunk = (t + nchunk - 1) / nchunk;
@@ -608,6 +939,6 @@ extern "C" int medseg_window_attention_bwd(
     p.nwd = nwd; p.nwh = nwh; p.nww = nww;
     p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
     return launch_bwd(p, ln, dx, dbias, part_ln, out_ln, part_w, out_w, nh,
-                      residual, nchunk, grid_dx, nsplit, ln_eps, st);
+                      residual, nchunk, grid_dx, nsplit, route, ln_eps, st);
   });
 }

@@ -96,10 +96,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     lib.medseg_window_attention_fwd.argtypes = (
-        [p] * 9 + [i] * 16 + [f, f, p])
+        [p] * 9 + [i] * 17 + [f, f, p])
     lib.medseg_window_attention_fwd.restype = i
     lib.medseg_global_window_attention_fwd.argtypes = (
-        [p] * 10 + [i] * 7 + [f, f, p])
+        [p] * 10 + [i] * 8 + [f, f, p])
     lib.medseg_global_window_attention_fwd.restype = i
     lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 6 + [f, p]
     lib.medseg_sr_attention_fwd.restype = i
@@ -107,7 +107,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_sr_attention_smem_bytes.restype = ll
     lib.medseg_fused_mlp_fwd.argtypes = [p] * 7 + [i] * 6 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i
-    lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 19 + [f, f, p]
+    lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 20 + [f, f, p]
     lib.medseg_window_attention_bwd.restype = i
     lib.medseg_fused_mlp_bwd.argtypes = [p] * 11 + [i] * 7 + [f, p]
     lib.medseg_fused_mlp_bwd.restype = i

@@ -11,6 +11,14 @@ kernel covers. The CUDA sources are ``csrc/window_attention.cu`` and
 ``csrc/window_attention_bwd.cu``; their headers say what bounds them on the
 card and how the designs answer that.
 
+The heads launches of K1, K3 and K6 have two routes, picked by
+:func:`attention_route` from the dtype and the shape alone: the tensor cores
+(``mma.sync``; bf16 and fp16 at head dim 16 with at most 224 tokens a
+window: every model path of the flagship, GCViTUNETR and SwinSegFormer at
+their shipped widths) and the CUDA cores (fp32, whose agreement with the
+fp32 plain path TF32 would cost, and any other head dim). A failed launch
+raises; nothing falls back to the other route.
+
 :func:`window_attention` takes windows that were already partitioned (and,
 for a shifted block, cyclically rolled by -shift) in batch-major window
 order, and returns the attention output windows;
@@ -40,6 +48,36 @@ bwd_launches = 0
 
 MAX_HEAD_DIM = 32
 ATTN_BWD_MAX_WIDTH = 512
+
+# the routes of the heads launches, with their codes in the C entry points
+# (kRouteCudaCore, kRouteTensorCore in csrc/mma_tile.cuh)
+ROUTES = {"cuda_core": 0, "tensor_core": 1}
+TC_HEAD_DIM = 16
+TC_MAX_TOKENS = 224
+# the same launches as above, by route
+route_launches = dict.fromkeys(ROUTES, 0)
+bwd_route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def attention_route(dtype, n: int, head_dim: int) -> str:
+    """The route of a heads launch: ``"tensor_core"`` for bf16 and fp16 at
+    head dim 16 with at most 224 tokens a window, else ``"cuda_core"``."""
+    if (dtype in (torch.bfloat16, torch.float16) and head_dim == TC_HEAD_DIM
+            and n <= TC_MAX_TOKENS):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def pick_route(route: Optional[str], dtype, n: int, head_dim: int) -> str:
+    """``route`` if given (it must be one the kernel takes for this dtype and
+    shape), else :func:`attention_route`."""
+    auto = attention_route(dtype, n, head_dim)
+    if route is None:
+        return auto
+    if route not in ROUTES or (route == "tensor_core" and auto != route):
+        raise ValueError(f"route {route!r} does not take {dtype} with head "
+                         f"dim {head_dim} and {n} tokens a window")
+    return route
 
 
 def _qkv_heads(xn, wqkv, bqkv, nh):
@@ -100,7 +138,7 @@ def window_attention(
     wproj: torch.Tensor, bproj: torch.Tensor, bias: torch.Tensor, *,
     grid_dims: Tuple3, window: Tuple3, shift: Tuple3,
     ln: Optional[torch.Tensor] = None, ln_eps: float = 1e-5,
-    residual: bool = False,
+    residual: bool = False, route: Optional[str] = None,
 ) -> torch.Tensor:
     """Windows (T, N, C) -> attention output windows (T, N, C).
 
@@ -112,6 +150,7 @@ def window_attention(
     ``grid_dims`` is the window grid (nwd, nwh, nww) of one volume, so
     T = B * nwd * nwh * nww. With ``ln`` the windows are raw and the kernel
     applies the block's LayerNorm; with ``residual`` it adds the raw windows.
+    ``route`` names the heads launch's route (default: :func:`attention_route`).
     """
     kw = dict(grid_dims=tuple(grid_dims), window=tuple(window),
               shift=tuple(shift), ln=ln, ln_eps=ln_eps, residual=residual)
@@ -119,9 +158,11 @@ def window_attention(
         return window_attention_plain(wins, wqkv, bqkv, wproj, bproj, bias, **kw)
     if wins.device.type != "cuda":
         raise ValueError(f"window_attention: no kernel for {wins.device}")
+    return _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, route=route, **kw)
 
+
+def _check_geometry(wins, nh, grid_dims, window):
     t, n, c = wins.shape
-    nh = bias.shape[0]
     hd = c // nh
     nwin = grid_dims[0] * grid_dims[1] * grid_dims[2]
     if n != window[0] * window[1] * window[2] or t % nwin != 0:
@@ -130,8 +171,17 @@ def window_attention(
     if hd * nh != c or hd > MAX_HEAD_DIM:
         raise ValueError(f"C={c} with {nh} heads: head dim must divide C and "
                          f"be <= {MAX_HEAD_DIM}")
+    return t, n, c, hd
+
+
+def _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, *, grid_dims, window,
+                shift, ln, ln_eps, residual, route):
+    """K1 on ``wins``' device: the checks, the launch and its counts."""
+    nh = bias.shape[0]
+    t, n, c, hd = _check_geometry(wins, nh, grid_dims, window)
     dev, dt, f32 = wins.device, wins.dtype, torch.float32
     code = kernels.dtype_code("wins", dt)
+    route = pick_route(route, dt, n, hd)
     wqkv, wproj = wqkv.to(dt), wproj.to(dt)
     kernels.check_tensor("wins", wins, dev, dt)
     kernels.check_tensor("wqkv", wqkv, dev, dt, (3 * c, c))
@@ -153,9 +203,11 @@ def window_attention(
         kernels.ptr(bqkv), kernels.ptr(wproj), kernels.ptr(bproj),
         kernels.ptr(bias), kernels.ptr(attn), kernels.ptr(out),
         t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
-        code, float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
+        ROUTES[route], code, float(ln_eps), float(hd ** -0.5),
+        kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention")
     launches += 1
+    route_launches[route] += 1
     return out
 
 
@@ -227,11 +279,12 @@ def window_attention_bwd(
     wproj: torch.Tensor, bias: torch.Tensor, dy: torch.Tensor, *,
     grid_dims: Tuple3, window: Tuple3, shift: Tuple3,
     ln: Optional[torch.Tensor] = None, ln_eps: float = 1e-5,
-    residual: bool = False,
+    residual: bool = False, route: Optional[str] = None,
 ):
     """Gradients of :func:`window_attention` for the output gradient ``dy``
     (T, N, C); arguments and results as in
-    :func:`window_attention_bwd_plain`."""
+    :func:`window_attention_bwd_plain`, ``route`` as in
+    :func:`window_attention`."""
     kw = dict(grid_dims=tuple(grid_dims), window=tuple(window),
               shift=tuple(shift), ln=ln, ln_eps=ln_eps, residual=residual)
     if wins.device.type == "cpu":
@@ -239,22 +292,20 @@ def window_attention_bwd(
                                           **kw)
     if wins.device.type != "cuda":
         raise ValueError(f"window_attention_bwd: no kernel for {wins.device}")
+    return _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, route=route, **kw)
 
-    t, n, c = wins.shape
+
+def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
+                shift, ln, ln_eps, residual, route):
+    """K3 on ``wins``' device: the checks, the launch and its counts."""
     nh = bias.shape[0]
-    hd = c // nh
-    nwin = grid_dims[0] * grid_dims[1] * grid_dims[2]
-    if n != window[0] * window[1] * window[2] or t % nwin != 0:
-        raise ValueError(f"windows {tuple(wins.shape)} do not match window "
-                         f"{window} / grid {grid_dims}")
-    if hd * nh != c or hd > MAX_HEAD_DIM:
-        raise ValueError(f"C={c} with {nh} heads: head dim must divide C and "
-                         f"be <= {MAX_HEAD_DIM}")
+    t, n, c, hd = _check_geometry(wins, nh, grid_dims, window)
     if c % 16 != 0 or c > ATTN_BWD_MAX_WIDTH:
         raise ValueError(f"C={c}: the backward kernel takes multiples of 16 "
                          f"up to {ATTN_BWD_MAX_WIDTH}")
     dev, dt, f32 = wins.device, wins.dtype, torch.float32
     code = kernels.dtype_code("wins", dt)
+    route = pick_route(route, dt, n, hd)
     wqkv, wproj = wqkv.to(dt), wproj.to(dt)
     kernels.check_tensor("wins", wins, dev, dt)
     kernels.check_tensor("dy", dy, dev, dt, (t, n, c))
@@ -276,11 +327,15 @@ def window_attention_bwd(
     grid_dx = min(tiles, blocks)
     nsplit = max(1, min(tiles, blocks // (4 * c // 16)))
     nw = 4 * c * c + 4 * c
-    bias_t = bias.transpose(1, 2).contiguous()
+    # the CUDA-core route's key-row pass reads the bias transposed
+    bias_t = (bias.transpose(1, 2).contiguous() if route == "cuda_core"
+              else None)
     attn = torch.empty_like(wins)
     dqkv = torch.empty((t, n, 3 * c), dtype=dt, device=dev)
     dx = torch.empty_like(wins)
-    dbias_part = torch.empty((nchunk, nh, n, n), dtype=f32, device=dev)
+    # the tensor-core route adds every window's ds into its slab in L2
+    dbias_part = (torch.zeros if route == "tensor_core" else torch.empty)(
+        (nchunk, nh, n, n), dtype=f32, device=dev)
     dbias = torch.empty((nh, n, n), dtype=f32, device=dev)
     part_ln = torch.empty((grid_dx, 2 * c), dtype=f32, device=dev)
     out_ln = torch.empty((2, c), dtype=f32, device=dev)
@@ -295,10 +350,11 @@ def window_attention_bwd(
         kernels.ptr(dbias), kernels.ptr(part_ln), kernels.ptr(out_ln),
         kernels.ptr(part_w), kernels.ptr(out_w),
         t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
-        nchunk, grid_dx, nsplit, code, float(ln_eps), float(hd ** -0.5),
-        kernels.stream_handle(dev))
+        nchunk, grid_dx, nsplit, ROUTES[route], code, float(ln_eps),
+        float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention_bwd")
     bwd_launches += 1
+    bwd_route_launches[route] += 1
     cc = c * c
     return (dx, out_w[:3 * cc].view(3 * c, c), out_w[4 * cc:4 * cc + 3 * c],
             out_w[3 * cc:4 * cc].view(c, c), out_w[4 * cc + 3 * c:], dbias,

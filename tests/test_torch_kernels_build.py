@@ -21,7 +21,8 @@ def test_library_key_covers_every_source(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
     paths = {kernels.library_path()}
     names = ("common.cuh", "mlp.cu", "window_attention.cu", "conv_tile.cuh",
-             "winograd3d.cu", "conv3d.cu", "hopper.cuh", "dw27.cu")
+             "winograd3d.cu", "conv3d.cu", "hopper.cuh", "dw27.cu",
+             "mma_tile.cuh")
     for name in names:
         with open(csrc / name, "a") as f:
             f.write("\n// edited\n")

@@ -6,6 +6,8 @@ generator; the same tree is loaded into the port through
 ``utils.params.state_dict_from_jax``. Both run in fp32.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,14 @@ from medicalsemseg_tpu_torch.utils.params import state_dict_from_jax
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+
+# Under pytest-xdist every worker process imports this module at collection.
+# torch's CPU kernels start one intra-op thread per core in every worker, and
+# the workers then thrash one another (a CLI test of ~15 s alone took 343 s
+# with six workers on eight cores): share the cores out instead.
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 # fp32 on both sides through ~40 layers; sums run in other orders (XLA vs
 # oneDNN convs and torch matmuls) and InstanceNorm rescales small absolute
