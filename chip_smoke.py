@@ -27,11 +27,14 @@ Phases, in order; any failure exits non-zero:
                  the library's conv (`--kernels conv` runs these two alone);
                  and K1-K4, K6, K7 in fp32 at their four stages beside an
                  fp32 bound (`--kernels fp32`). The heads launches of K1, K3
-                 and K6 have a tensor-core and a CUDA-core route: both are
-                 held against plain, and the CUDA-core route and
-                 scaled_dot_product_attention on the same q, k, v (a
-                 reference point, not the kernel's function) are timed
-                 beside the route the dtype picks;
+                 and K6, and K2 and K4, have a tensor-core and a CUDA-core
+                 route: both are held against plain, and the CUDA-core route
+                 is timed beside the route the dtype picks, with a reference
+                 point that is not the kernel's function:
+                 scaled_dot_product_attention on the same q, k, v for K1 and
+                 K3, the composition layer_norm -> linear -> gelu -> linear
+                 (+ x) in the compute dtype (forward, and forward and
+                 backward by autograd) for K2 and K4;
   4. model     - the full-width flagship on one 96^3 window in bf16 with the
                  kernels, against the same weights in fp32 on the CPU (plain);
   5. zoo       - GCViTUNETR, SegFormer3D and SwinSegFormer at full width: one
@@ -80,12 +83,13 @@ Phases, in order; any failure exits non-zero:
 `--phases profile` (not run by default) prints torch.profiler tables of one
 training step at batch 8, one micro-step at batch 4, one predictor call of
 each zoo model and one of the flagship without and with the fused decoder;
-`--phases k9_parts`, `--phases k5_parts` and `--phases attn_parts` time K9, K5
-and the tensor-core heads launches of K1 and K3 built with one part or another
-compiled out. The phases model, zoo, train, train_b4 and fp32
-print the heads launches by route and require the tensor cores on the bf16
-and fp16 paths, the CUDA cores on the fp32 ones; the kernels line carries the
-sums (`launches_by_route`). Then one JSON line with the kernels' numbers, and
+`--phases k9_parts`, `--phases k5_parts`, `--phases attn_parts` and `--phases
+mlp_parts` time K9, K5, the tensor-core heads launches of K1 and K3, and the
+tensor-core K2 and K4, built with one part or another compiled out. The
+phases model, zoo, cli, train, train_b4, train_cli and fp32 print the
+launches of K1, K3, K6, K2 and K4 by route and require the tensor cores on
+the bf16 and fp16 paths, the CUDA cores on the fp32 ones; the kernels line
+carries the sums (`launches_by_route`). Then one JSON line with the kernels' numbers, and
 last the line
 {"ok": true, "device": {...}}. Imports torch and the port, never jax.
 """
@@ -105,7 +109,7 @@ PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32")
-EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts")
+EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -337,11 +341,14 @@ def _extra_times(stage, extra, iters):
 
 # The heads launches of K1, K3 and K6 take the tensor cores in bf16 and fp16
 # at head dim 16 (every stage of the flagship and the zoo) and the CUDA cores
-# in fp32 (ops/kernels/window_attention.py, attention_route). The kernels
-# phase holds and times both routes on the same tensors; the model phases
-# require the route their dtype picks.
+# in fp32 (ops/kernels/window_attention.py, attention_route); K2 and K4 take
+# them in bf16 and fp16 with widths in multiples of 16
+# (ops/kernels/mlp.py, mlp_route, mlp_bwd_route). The kernels phase holds and
+# times both routes on the same tensors; the model phases require the route
+# their dtype picks.
 ROUTE_TOTALS = {name: {"tensor_core": 0, "cuda_core": 0} for name in (
-    "window_attention", "window_attention_bwd", "global_window_attention")}
+    "window_attention", "window_attention_bwd", "global_window_attention",
+    "fused_mlp", "fused_mlp_bwd")}
 
 
 def _sdpa_reference(wins, a, kw, grad=False):
@@ -382,22 +389,63 @@ def _sdpa_reference(wins, a, kw, grad=False):
     return {name: (lambda m=m: fwd_bwd(m)) for name, m in masks.items()}
 
 
+def _mlp_reference(x, a, kw, grad=False):
+    """layer_norm -> F.linear -> F.gelu -> F.linear [-> + x] on these tokens
+    in their dtype (cuBLAS and PyTorch's own kernels): a reference point for
+    K2 and, with ``grad``, its forward and backward by autograd for K4. It
+    is the same function with other rounding points (h is stored in T, the
+    LayerNorm is PyTorch's two-pass one), no single call computes it, and no
+    path of the port calls it. Returns {"reference": fn}."""
+    import torch
+    import torch.nn.functional as F
+
+    dt, c = x.dtype, x.shape[1]
+    ln = kw["ln"]
+    with torch.inference_mode(False):  # tensors autograd may save
+        p = {"x": x.clone(), "w1": a["w1"].clone(), "w2": a["w2"].clone(),
+             "b1": a["b1"].to(dt), "b2": a["b2"].to(dt)}
+        if ln is not None:
+            p["g"], p["b"] = ln[0].to(dt), ln[1].to(dt)
+        if grad:
+            p = {k: v.requires_grad_(True) for k, v in p.items()}
+            dy = torch.randn_like(p["x"])
+
+    def fwd():
+        xn = (F.layer_norm(p["x"], (c,), p["g"], p["b"], 1e-5)
+              if ln is not None else p["x"])
+        y = F.linear(F.gelu(F.linear(xn, p["w1"], p["b1"])), p["w2"], p["b2"])
+        return y + p["x"] if kw["residual"] else y
+
+    if not grad:
+        return {"reference": fwd}
+
+    def fwd_bwd():
+        with torch.inference_mode(False), torch.enable_grad():
+            return torch.autograd.grad(fwd(), tuple(p.values()), dy)
+
+    return {"reference": fwd_bwd}
+
+
 def _read_routes():
     from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
+    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
     from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
 
     return {"window_attention": dict(kwa.route_launches),
             "window_attention_bwd": dict(kwa.bwd_route_launches),
-            "global_window_attention": dict(kga.route_launches)}
+            "global_window_attention": dict(kga.route_launches),
+            "fused_mlp": dict(kmlp.route_launches),
+            "fused_mlp_bwd": dict(kmlp.bwd_route_launches)}
 
 
 def _check_routes(phase, route, need=True):
-    """The heads launches since the last ``_reset_launches`` all took
-    ``route`` (and, with ``need``, there was at least one): print them and
-    add them to ROUTE_TOTALS for the kernels line."""
+    """The launches of the kernels with two routes since the last
+    ``_reset_launches`` all took ``route`` (and, with ``need``, there was at
+    least one): print them and add them to ROUTE_TOTALS for the kernels
+    line."""
     routes = _read_routes()
     other = "cuda_core" if route == "tensor_core" else "tensor_core"
-    print(f"{phase}: heads launches by route "
+    print(f"{phase}: launches by route "
           f"{ {k: v for k, v in routes.items() if any(v.values())} }",
           flush=True)
     for name, by in routes.items():
@@ -406,7 +454,7 @@ def _check_routes(phase, route, need=True):
         for r, n in by.items():
             ROUTE_TOTALS[name][r] += n
     _require(not need or sum(by[route] for by in routes.values()) > 0,
-             f"{phase}: no heads launch took the {route} route")
+             f"{phase}: no launch took the {route} route")
 
 
 def _kernel_reports():
@@ -544,18 +592,22 @@ def _swin_kernels(rep):
             del wins, a, b, kw, dy
             torch.cuda.empty_cache()
 
-            # ---- MLP
+            # ---- MLP, both routes
             for batch, ln_res in ((2, False), (PREDICT_BATCH, True)):
                 x, a, kw = _mlp_case(gen, batch, grid, c, ln_res, ln_res)
-                got = kmlp.fused_mlp(x, **a, **kw)
                 want = kmlp.fused_mlp_plain(x, **a, **kw)
-                torch.cuda.synchronize()
-                _compare(f"K2 grid {grid}^3 x{batch}, C={c}, ln+res {ln_res}",
-                         got, want, k2)
+                for route in kmlp.ROUTES:
+                    got = kmlp.fused_mlp(x, **a, **kw, route=route)
+                    torch.cuda.synchronize()
+                    _compare(f"K2 {route} grid {grid}^3 x{batch}, C={c}, "
+                             f"ln+res {ln_res}", got, want, k2)
                 del got, want
             _timed(k2, "fused_mlp", "predict", PREDICT_BATCH, grid, c, nh,
                    lambda: kmlp.fused_mlp(x, **a, **kw),
-                   lambda: kmlp.fused_mlp_plain(x, **a, **kw), 10)
+                   lambda: kmlp.fused_mlp_plain(x, **a, **kw), 10,
+                   extra={"cuda_core": lambda: kmlp.fused_mlp(
+                              x, **a, **kw, route="cuda_core"),
+                          **_mlp_reference(x, a, kw)})
             del x, a, kw
             # the training step's form (LN in the kernel, shortcut outside)
             # comes last and is the one timed
@@ -566,25 +618,40 @@ def _swin_kernels(rep):
                     x = x[:-5].contiguous()  # a ragged last tile
                 case = f"grid {grid}^3 x{batch}, C={c}, ln True, res {res}"
                 if batch == TRAIN_BATCH and not res:
-                    got = kmlp.fused_mlp(x, **a, **kw)
                     want = kmlp.fused_mlp_plain(x, **a, **kw)
-                    torch.cuda.synchronize()
-                    _compare("K2 " + case, got, want, k2)
+                    for route in kmlp.ROUTES:
+                        got = kmlp.fused_mlp(x, **a, **kw, route=route)
+                        torch.cuda.synchronize()
+                        _compare(f"K2 {route} " + case, got, want, k2)
                 dy = torch.randn(x.shape, generator=gen,
                                  device="cuda").to(x.dtype)
                 b = dict(w1=a["w1"], b1=a["b1"], w2=a["w2"], ln=kw["ln"],
                          dy=dy, residual=res)
-                got = kmlp.fused_mlp_bwd(x, **b)
                 want = kmlp.fused_mlp_bwd_plain(x, **b)
-                torch.cuda.synchronize()
-                _compare_grads("K4 " + case, K4_NAMES, got, want, k4)
+                for route in kmlp.ROUTES:
+                    got = kmlp.fused_mlp_bwd(x, **b, route=route)
+                    torch.cuda.synchronize()
+                    _compare_grads(f"K4 {route} " + case, K4_NAMES, got, want,
+                                   k4)
+                    if route == "tensor_core":  # partials in a fixed order
+                        again = kmlp.fused_mlp_bwd(x, **b, route=route)
+                        _require(all(torch.equal(u, v)
+                                     for u, v in zip(got, again)),
+                                 f"K4 {route} {case}: a rerun differs")
+                        del again
                 del got, want
             _timed(k2, "fused_mlp", "train", TRAIN_BATCH, grid, c, nh,
                    lambda: kmlp.fused_mlp(x, **a, **kw),
-                   lambda: kmlp.fused_mlp_plain(x, **a, **kw), 10)
+                   lambda: kmlp.fused_mlp_plain(x, **a, **kw), 10,
+                   extra={"cuda_core": lambda: kmlp.fused_mlp(
+                              x, **a, **kw, route="cuda_core"),
+                          **_mlp_reference(x, a, kw)})
             _timed(k4, "fused_mlp_bwd", "train", TRAIN_BATCH, grid, c, nh,
                    lambda: kmlp.fused_mlp_bwd(x, **b),
-                   lambda: kmlp.fused_mlp_bwd_plain(x, **b), 5)
+                   lambda: kmlp.fused_mlp_bwd_plain(x, **b), 5,
+                   extra={"cuda_core": lambda: kmlp.fused_mlp_bwd(
+                              x, **b, route="cuda_core"),
+                          **_mlp_reference(x, a, kw, grad=True)})
             del x, a, b, kw, dy
             torch.cuda.empty_cache()
     # one launch at each of the four stages: the forward kernels at the
@@ -744,11 +811,13 @@ def _zoo_kernels(rep):
 
             x, a, kw = _mlp_case(gen, PREDICT_BATCH, grid, c, True, True,
                                  GCVIT_MLP_RATIO)
-            got = kmlp.fused_mlp(x, **a, **kw)
             want = kmlp.fused_mlp_plain(x, **a, **kw)
-            torch.cuda.synchronize()
-            _compare(f"K2 grid {grid}^3 x{PREDICT_BATCH}, C={c}, hidden "
-                     f"{GCVIT_MLP_RATIO * c}, ln+res True", got, want, k2)
+            for route in kmlp.ROUTES:
+                got = kmlp.fused_mlp(x, **a, **kw, route=route)
+                torch.cuda.synchronize()
+                _compare(f"K2 {route} grid {grid}^3 x{PREDICT_BATCH}, C={c}, "
+                         f"hidden {GCVIT_MLP_RATIO * c}, ln+res True", got,
+                         want, k2)
             del got, want
             m = x.shape[0]
             _stage_report(
@@ -757,7 +826,10 @@ def _zoo_kernels(rep):
                 _time_ms(lambda: kmlp.fused_mlp_plain(x, **a, **kw), 10),
                 4 * GCVIT_MLP_RATIO * m * c * c,
                 2 * m * c * 2 + 2 * GCVIT_MLP_RATIO * c * c * 2
-                + (GCVIT_MLP_RATIO + 1) * c * 4 + 2 * c * 4)
+                + (GCVIT_MLP_RATIO + 1) * c * 4 + 2 * c * 4,
+                extra={"cuda_core": lambda: kmlp.fused_mlp(
+                           x, **a, **kw, route="cuda_core"),
+                       **_mlp_reference(x, a, kw)})
             del x, a, kw
             torch.cuda.empty_cache()
 
@@ -1539,6 +1611,8 @@ def phase_cli():
             records = run_test.main(cfg)
             wall = time.perf_counter() - t0
             delta = _read_launches()
+            _check_routes(f"cli {label}", "tensor_core",
+                          need=label != "SegFormer3D")
             for k, v in delta.items():
                 total[k] = total.get(k, 0) + v
             peak = torch.cuda.max_memory_allocated()
@@ -1605,7 +1679,8 @@ def _reset_launches():
     kga.launches = ksr.launches = 0
     k9.launches = k10.launches = 0
     for by in (kwa.route_launches, kwa.bwd_route_launches,
-               kga.route_launches):
+               kga.route_launches, kmlp.route_launches,
+               kmlp.bwd_route_launches):
         for route in by:
             by[route] = 0
 
@@ -2201,6 +2276,96 @@ def phase_attn_parts():
         kernels._lib = main
 
 
+# MEDSEG_MLP_SKIP bits (csrc/mlp_tile.cuh): 1 LayerNorm statistics and
+# token-tile staging loads, 2 the GELU / GELU' elementwise work, 4 the weight
+# staging, 8 K4's dW flushes and partials, 16 K4's dhb store, 32 K4's dx
+# launch. K2 has the first three parts only.
+MLP_PARTS = (("whole", 0),
+             ("without statistics and token staging", 1),
+             ("without the GELU / GELU' elementwise work", 2),
+             ("without the weight staging", 4),
+             ("without the dW flushes and partials (K4)", 8),
+             ("without the dhb store (K4)", 16),
+             ("weight-gradient launch alone (K4)", 32),
+             ("weight-gradient launch alone, without GELU' (K4)", 34),
+             ("products, output stores and barriers only", 7),
+             ("... and without the flushes and the dhb store (K4)", 31))
+
+
+def phase_mlp_parts():
+    """The tensor-core K2 (one predictor call's tokens) and K4 (one training
+    step's) at the four stages, built with parts compiled out
+    (MEDSEG_MLP_SKIP in csrc/mlp_tile.cuh), as phase_attn_parts does for the
+    attention kernels. The variants' results are wrong by design; the whole
+    build is compared with the library's."""
+    import ctypes
+    import types
+
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "mlp_parts")
+    os.makedirs(out_dir, exist_ok=True)
+    srcs = [os.path.join(kernels.CSRC_DIR, f) for f in
+            ("mlp.cu", "mlp_bwd.cu", "reduce.cu")]
+    jobs = []
+    for _, mask in MLP_PARTS:
+        so = os.path.join(out_dir, f"mlp_skip_{mask}.so")
+        jobs.append((so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+             f"-DMEDSEG_MLP_SKIP={mask}", "-o", so, *srcs],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+
+    class _Known:
+        """The variant library, with argtypes rows set only for the entry
+        points it has."""
+
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name, types.SimpleNamespace())
+
+    main = kernels.load()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = []
+    for grid, c, _ in STAGES:
+        x, a, kw = _mlp_case(gen, PREDICT_BATCH, grid, c, True, True)
+        cases.append((f"K2 x{PREDICT_BATCH} C={c}", 7,
+                      lambda x=x, a=a, kw=kw: kmlp.fused_mlp(x, **a, **kw)))
+        x, a, kw = _mlp_case(gen, TRAIN_BATCH, grid, c, True, False)
+        b = dict(w1=a["w1"], b1=a["b1"], w2=a["w2"], ln=kw["ln"],
+                 dy=torch.randn(x.shape, generator=gen,
+                                device="cuda").to(x.dtype))
+        cases.append((f"K4 x{TRAIN_BATCH} C={c}", 63,
+                       lambda x=x, b=b: kmlp.fused_mlp_bwd(x, **b)))
+    want = [fn() for _, _, fn in cases]
+    try:
+        for (label, mask), (so, proc) in zip(MLP_PARTS, jobs):
+            out, err = proc.communicate()
+            _require(proc.returncode == 0,
+                     f"mlp_parts: nvcc failed:\n{out}\n{err}")
+            lib = ctypes.CDLL(so)
+            kernels._declare(_Known(lib))
+            kernels._lib = lib
+            for (name, bits, fn), ref in zip(cases, want):
+                if mask & ~bits:
+                    continue
+                if mask == 0:
+                    got = fn()
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    _require(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                             f"mlp_parts: {name}: the whole build differs "
+                             "from the library's")
+                print(f"mlp_parts: {name}, {label}: "
+                      f"{_time_ms(fn, 5):.3f} ms", flush=True)
+    finally:
+        kernels._lib = main
+
+
 K5_PARTS = (("whole", 0), ("without the products", 1),
             ("without the row copies", 2), ("without the flushes", 4),
             ("products only", 6), ("barriers and walk only", 7))
@@ -2284,7 +2449,7 @@ def _profiled(title, fn):
     total = sum(r[0] for r in rows)
     print(f"profile: {title}: {total:.1f} ms of device kernel time in "
           f"{len(rows)} kernels", flush=True)
-    for ms, count, key in rows[:40]:
+    for ms, count, key in rows[:60]:
         print(f"  {ms:9.2f} ms {100 * ms / total:5.1f} %  x{count:<4d} "
               f"{key[:110]}", flush=True)
 
@@ -2392,6 +2557,7 @@ def phase_train_cli():
         result = run_training.main(get_args(argv + ["--epochs", "2"]))
         wall = time.perf_counter() - t0
         launches = _read_launches()
+        _check_routes("train_cli", "tensor_core")
         rows = log()
         _require([r["epoch"] for r in rows] == [0, 1],
                  f"train_cli: log.txt epochs {[r['epoch'] for r in rows]}")
@@ -3111,6 +3277,8 @@ def main(argv=None) -> int:
             phase_k5_parts()
         if "attn_parts" in phases:
             phase_attn_parts()
+        if "mlp_parts" in phases:
+            phase_mlp_parts()
         for k in kernels:
             if k["name"] in ROUTE_TOTALS:
                 k["launches_by_route"] = ROUTE_TOTALS[k["name"]]

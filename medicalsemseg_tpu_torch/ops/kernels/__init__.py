@@ -34,6 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 TILE_ROWS = 32
 # dynamic shared memory a block may ask for on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
+# the routes of the kernels that have two (K1, K3, K6 heads launches; K2,
+# K4), with their codes in the C entry points (kRouteCudaCore,
+# kRouteTensorCore in csrc/mma_tile.cuh)
+ROUTES = {"cuda_core": 0, "tensor_core": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -105,11 +109,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_sr_attention_fwd.restype = i
     lib.medseg_sr_attention_smem_bytes.argtypes = [i, i, i]
     lib.medseg_sr_attention_smem_bytes.restype = ll
-    lib.medseg_fused_mlp_fwd.argtypes = [p] * 7 + [i] * 6 + [f, p]
+    lib.medseg_fused_mlp_fwd.argtypes = [p] * 8 + [i] * 9 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i
     lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 20 + [f, f, p]
     lib.medseg_window_attention_bwd.restype = i
-    lib.medseg_fused_mlp_bwd.argtypes = [p] * 11 + [i] * 7 + [f, p]
+    lib.medseg_fused_mlp_bwd.argtypes = [p] * 12 + [i] * 9 + [f, p]
     lib.medseg_fused_mlp_bwd.restype = i
     lib.medseg_dw27.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.medseg_dw27.restype = i
@@ -151,12 +155,27 @@ def stream_handle(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def pick_route(route: Optional[str], auto: str, what: str) -> str:
+    """``route`` if given, else ``auto``, the route the kernel's picker
+    gives this dtype and shape (``what``); the tensor cores can be asked
+    for only where the picker gives them."""
+    if route is None:
+        return auto
+    if route not in ROUTES or (route == "tensor_core" and auto != route):
+        raise ValueError(f"route {route!r} does not take {what}")
+    return route
+
+
+def sm_count(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def resident_blocks(device) -> int:
     """Blocks that a launch with per-block partial sums spreads its tiles
     over: four per SM, enough to fill the card while the partials stay few."""
-    import torch
-
-    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    return 4 * sm_count(device)
 
 
 def ptr(t) -> Optional[ctypes.c_void_p]:

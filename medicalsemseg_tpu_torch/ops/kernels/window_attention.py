@@ -50,8 +50,7 @@ MAX_HEAD_DIM = 32
 ATTN_BWD_MAX_WIDTH = 512
 
 # the routes of the heads launches, with their codes in the C entry points
-# (kRouteCudaCore, kRouteTensorCore in csrc/mma_tile.cuh)
-ROUTES = {"cuda_core": 0, "tensor_core": 1}
+ROUTES = kernels.ROUTES
 TC_HEAD_DIM = 16
 TC_MAX_TOKENS = 224
 # the same launches as above, by route
@@ -71,13 +70,9 @@ def attention_route(dtype, n: int, head_dim: int) -> str:
 def pick_route(route: Optional[str], dtype, n: int, head_dim: int) -> str:
     """``route`` if given (it must be one the kernel takes for this dtype and
     shape), else :func:`attention_route`."""
-    auto = attention_route(dtype, n, head_dim)
-    if route is None:
-        return auto
-    if route not in ROUTES or (route == "tensor_core" and auto != route):
-        raise ValueError(f"route {route!r} does not take {dtype} with head "
-                         f"dim {head_dim} and {n} tokens a window")
-    return route
+    return kernels.pick_route(route, attention_route(dtype, n, head_dim),
+                              f"{dtype} with head dim {head_dim} and {n} "
+                              "tokens a window")
 
 
 def _qkv_heads(xn, wqkv, bqkv, nh):

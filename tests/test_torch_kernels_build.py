@@ -22,7 +22,7 @@ def test_library_key_covers_every_source(tmp_path, monkeypatch):
     paths = {kernels.library_path()}
     names = ("common.cuh", "mlp.cu", "window_attention.cu", "conv_tile.cuh",
              "winograd3d.cu", "conv3d.cu", "hopper.cuh", "dw27.cu",
-             "mma_tile.cuh")
+             "mma_tile.cuh", "mlp_tile.cuh")
     for name in names:
         with open(csrc / name, "a") as f:
             f.write("\n// edited\n")
