@@ -27,14 +27,20 @@ Phases, in order; any failure exits non-zero:
                  the library's conv (`--kernels conv` runs these two alone);
                  and K1-K4, K6, K7 in fp32 at their four stages beside an
                  fp32 bound (`--kernels fp32`). The heads launches of K1, K3
-                 and K6, and K2 and K4, have a tensor-core and a CUDA-core
-                 route: both are held against plain, and the CUDA-core route
-                 is timed beside the route the dtype picks, with a reference
+                 and K6, their GEMM launches (K1's and K6's projection, K3's
+                 dx and dw), and K2 and K4, have a tensor-core and a
+                 CUDA-core route: both are held against plain (K3's and K4's
+                 tensor-core reruns bit-equal), and the CUDA-core route is
+                 timed beside the route the dtype picks, with a reference
                  point that is not the kernel's function:
                  scaled_dot_product_attention on the same q, k, v for K1 and
                  K3, the composition layer_norm -> linear -> gelu -> linear
                  (+ x) in the compute dtype (forward, and forward and
-                 backward by autograd) for K2 and K4;
+                 backward by autograd) for K2 and K4; each launch of K1, K3
+                 and K6 is also timed alone on both routes (torch.profiler)
+                 beside its own bound and, for the GEMM launches, F.linear
+                 (projection) or torch.matmul (dx: dqkv @ Wqkv; dw: the two
+                 weight products on a precomputed xn);
   4. model     - the full-width flagship on one 96^3 window in bf16 with the
                  kernels, against the same weights in fp32 on the CPU (plain);
   5. zoo       - GCViTUNETR, SegFormer3D and SwinSegFormer at full width: one
@@ -84,12 +90,14 @@ Phases, in order; any failure exits non-zero:
 training step at batch 8, one micro-step at batch 4, one predictor call of
 each zoo model and one of the flagship without and with the fused decoder;
 `--phases k9_parts`, `--phases k5_parts`, `--phases attn_parts` and `--phases
-mlp_parts` time K9, K5, the tensor-core heads launches of K1 and K3, and the
+mlp_parts` time K9, K5, the tensor-core launches of K1 and K3, and the
 tensor-core K2 and K4, built with one part or another compiled out. The
 phases model, zoo, cli, train, train_b4, train_cli and fp32 print the
 launches of K1, K3, K6, K2 and K4 by route and require the tensor cores on
-the bf16 and fp16 paths, the CUDA cores on the fp32 ones; the kernels line
-carries the sums (`launches_by_route`). Then one JSON line with the kernels' numbers, and
+the bf16 and fp16 paths, the CUDA cores on the fp32 ones, for the heads
+and the GEMM launches alike; the kernels line carries the sums
+(`launches_by_route`, `launches_by_gemm_route`). Then one JSON line with the
+kernels' numbers, and
 last the line
 {"ok": true, "device": {...}}. Imports torch and the port, never jax.
 """
@@ -348,7 +356,151 @@ def _extra_times(stage, extra, iters):
 # their dtype picks.
 ROUTE_TOTALS = {name: {"tensor_core": 0, "cuda_core": 0} for name in (
     "window_attention", "window_attention_bwd", "global_window_attention",
-    "fused_mlp", "fused_mlp_bwd")}
+    "fused_mlp", "fused_mlp_bwd", "window_attention_gemm",
+    "window_attention_bwd_gemm", "global_window_attention_gemm")}
+# the GEMM launches of K1, K3 and K6 (K1's and K6's projection, K3's dx and
+# dw) have routes of their own (window_attention.gemm_route): the kernels
+# line carries them as launches_by_gemm_route
+GEMM_ROUTES = {"window_attention": "window_attention_gemm",
+               "window_attention_bwd": "window_attention_bwd_gemm",
+               "global_window_attention": "global_window_attention_gemm"}
+
+# The launches of K1, K3 and K6 by kernel name: a kernel counts under the
+# first label whose pattern its name holds (K6's launches carry K1's names).
+ATTN_LAUNCHES = (("proj", "window_attention_proj"),
+                 ("dx", "window_attention_bwd_dx"),
+                 ("dw", "window_attention_bwd_dw"), ("heads", "heads"))
+
+
+def _launch_times(fn, iters):
+    """Device ms that one call of ``fn`` spends in each of its launches
+    (ATTN_LAUNCHES), from torch.profiler over ``iters`` warm calls (CPU and
+    CUDA activities, as _profiled: with the CUDA activity alone, a session
+    after such a one saw no kernel). Raises where it sees no launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+        if us <= 0 or e.device_type.name != "CUDA":
+            continue
+        for label, pattern in ATTN_LAUNCHES:
+            if pattern in e.key:
+                out[label] = out.get(label, 0.0) + us / 1e3 / iters
+                break
+    _require(out, "the profiler saw no attention launch")
+    return out
+
+
+def _launch_work(kind, t, n, c, nh, ln=True, res=True, elem=2):
+    """(FLOPs, bytes) of one launch of K1 or K3 on T windows of N tokens, as
+    _work counts a whole call: every product once, every input read once,
+    every output written once."""
+    m = t * n
+    act = m * c * elem
+    lnb = 2 * c * 4 if ln else 0
+    if kind == "heads":        # K1: qkv; q k^T and p v per head
+        return (6 * m * c * c + 4 * t * n * n * c,
+                2 * act + 3 * c * c * elem + 3 * c * 4 + lnb + nh * n * n * 4)
+    if kind == "proj":         # attn (+ x) in, out
+        return (2 * m * c * c,
+                (3 if res else 2) * act + c * c * elem + c * 4)
+    if kind == "bwd_heads":    # qkv, dout; s, o, dp, dv, dq, dk per head
+        return (8 * m * c * c + 12 * t * n * n * c,
+                6 * act + 4 * c * c * elem + 3 * c * 4 + lnb
+                + 2 * nh * n * n * 4)
+    if kind == "dx":           # dqkv (+ x, + dy) in, dx out, dLN
+        return (6 * m * c * c,
+                (4 + bool(ln) + bool(res)) * act + 3 * c * c * elem + 2 * lnb)
+    if kind == "dw":           # dqkv, x, dy, o in; fp32 dW and db out
+        return 8 * m * c * c, 6 * act + lnb + 4 * c * c * 4 + 4 * c * 4
+    raise ValueError(kind)
+
+
+def _launch_report(stage, tag, label, times, work, library):
+    """Per-launch times of both routes beside each launch's bound and its
+    library reference into ``stage["launches"]``, and a line."""
+    stage["launches"] = {}
+    for name, (flops, nbytes) in work.items():
+        bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+        row = {route: times[route].get(name, 0.0) for route in times}
+        row.update(flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by)
+        if name in library:
+            row["library_ms"] = _time_ms(library[name], 10)
+        stage["launches"][name] = row
+        lib = (f", library {row['library_ms']:.3f}" if name in library
+               else "")
+        print(f"  {tag} {label} C={stage['C']} {name} launch: tensor_core "
+              f"{row['tensor_core']:.3f} ms, cuda_core {row['cuda_core']:.3f} "
+              f"ms{lib}, bound {bound:.4f} ms by {by}", flush=True)
+
+
+def _k1_launches(report, label, wins, a, kw, call=None):
+    """K1 (or, with ``call``, K6) on these windows: the heads and projection
+    launches timed separately on both routes, the projection beside
+    F.linear on the same (M, C) attention output and weights."""
+    import torch.nn.functional as F
+
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    call = call or (lambda **r: kwa.window_attention(wins, **a, **kw, **r))
+    t, n, c = wins.shape
+    nh = a["bias"].shape[0]
+    times = {route: _launch_times(lambda r=route: call(route=r, gemm_route=r),
+                                  5) for route in kwa.ROUTES}
+    attn = wins.reshape(t * n, c).clone()
+    wp, bp = a["wproj"], a["bproj"].to(wins.dtype)
+    work = {name: _launch_work(name, t, n, c, nh, kw["ln"] is not None,
+                               kw["residual"]) for name in ("heads", "proj")}
+    if "q_global" in a:  # K6 projects k and v only and reads the queries
+        flops, nbytes = work["heads"]
+        work["heads"] = (flops - 2 * t * n * c * c,
+                         nbytes - c * c * 2 + a["q_global"].numel() * 2)
+    _launch_report(report["per_stage"][-1], report["tag"], label, times, work,
+                   {"proj": lambda: F.linear(attn, wp, bp)})
+
+
+def _k3_launches(report, wins, b, kw, dy):
+    """K3 on these windows: the heads, dx and dw launches timed separately
+    on both routes, dx beside dqkv @ Wqkv and dw beside the two weight
+    products dqkv^T @ xn and dy^T @ o on a precomputed xn (torch.matmul,
+    cuBLAS)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    t, n, c = wins.shape
+    nh = b["bias"].shape[0]
+    times = {route: _launch_times(
+        lambda r=route: kwa.window_attention_bwd(wins, dy=dy, **b, **kw,
+                                                 route=r, gemm_route=r), 3)
+        for route in kwa.ROUTES}
+    m, dt = t * n, wins.dtype
+    x2, dy2 = wins.reshape(m, c), dy.reshape(m, c)
+    xn = (kernels.layer_norm(x2.float(), kw["ln"], 1e-5).to(dt)
+          if kw["ln"] is not None else x2)
+    dqkv = torch.randn(m, 3 * c, device="cuda").to(dt)
+    o = torch.randn(m, c, device="cuda").to(dt)
+    wq = b["wqkv"]
+    work = {"heads": _launch_work("bwd_heads", t, n, c, nh,
+                                  kw["ln"] is not None, kw["residual"]),
+            **{name: _launch_work(name, t, n, c, nh, kw["ln"] is not None,
+                                  kw["residual"]) for name in ("dx", "dw")}}
+    _launch_report(report["per_stage"][-1], report["tag"], "train", times,
+                   work, {"dx": lambda: torch.matmul(dqkv, wq),
+                          "dw": lambda: (torch.matmul(dqkv.t(), xn),
+                                         torch.matmul(dy2.t(), o))})
 
 
 def _sdpa_reference(wins, a, kw, grad=False):
@@ -435,7 +587,10 @@ def _read_routes():
             "window_attention_bwd": dict(kwa.bwd_route_launches),
             "global_window_attention": dict(kga.route_launches),
             "fused_mlp": dict(kmlp.route_launches),
-            "fused_mlp_bwd": dict(kmlp.bwd_route_launches)}
+            "fused_mlp_bwd": dict(kmlp.bwd_route_launches),
+            "window_attention_gemm": dict(kwa.gemm_route_launches),
+            "window_attention_bwd_gemm": dict(kwa.bwd_gemm_route_launches),
+            "global_window_attention_gemm": dict(kga.gemm_route_launches)}
 
 
 def _check_routes(phase, route, need=True):
@@ -536,8 +691,9 @@ def _swin_kernels(rep):
                 wins, a, kw = _attn_case(gen, batch, grid, c, nh, shift, ln,
                                          res)
                 want = kwa.window_attention_plain(wins, **a, **kw)
-                for route in kwa.ROUTES:
-                    got = kwa.window_attention(wins, **a, **kw, route=route)
+                for route in kwa.ROUTES:  # heads and projection launches
+                    got = kwa.window_attention(wins, **a, **kw, route=route,
+                                               gemm_route=route)
                     torch.cuda.synchronize()
                     _compare(f"K1 {route} grid {grid}^3 x{batch}, C={c}, "
                              f"nh={nh}, shift {shift}, ln {ln}, res {res}",
@@ -547,8 +703,10 @@ def _swin_kernels(rep):
                    nh, lambda: kwa.window_attention(wins, **a, **kw),
                    lambda: kwa.window_attention_plain(wins, **a, **kw), 10,
                    extra={"cuda_core": lambda: kwa.window_attention(
-                              wins, **a, **kw, route="cuda_core"),
+                              wins, **a, **kw, route="cuda_core",
+                              gemm_route="cuda_core"),
                           **_sdpa_reference(wins, a, kw)})
+            _k1_launches(k1, "predict", wins, a, kw)
             del wins, a, kw
             # forward and backward on the same windows; the training step's
             # own forms come last and are the ones timed
@@ -570,25 +728,37 @@ def _swin_kernels(rep):
                                  device="cuda").to(wins.dtype)
                 b = {k: v for k, v in a.items() if k != "bproj"}
                 want = kwa.window_attention_bwd_plain(wins, dy=dy, **b, **kw)
-                for route in kwa.ROUTES:
+                for route in kwa.ROUTES:  # heads, dx and dw launches
                     got = kwa.window_attention_bwd(wins, dy=dy, **b, **kw,
-                                                   route=route)
+                                                   route=route,
+                                                   gemm_route=route)
                     torch.cuda.synchronize()
                     _compare_grads(f"K3 {route} " + case, K3_NAMES, got, want,
                                    k3)
+                    if route == "tensor_core":  # partials in a fixed order
+                        again = kwa.window_attention_bwd(wins, dy=dy, **b,
+                                                         **kw)
+                        _require(all((u is None and v is None)
+                                     or torch.equal(u, v)
+                                     for u, v in zip(got, again)),
+                                 f"K3 {route} {case}: a rerun differs")
+                        del again
                 del got, want
             _timed(k1, "window_attention", "train", TRAIN_BATCH, grid, c, nh,
                    lambda: kwa.window_attention(wins, **a, **kw),
                    lambda: kwa.window_attention_plain(wins, **a, **kw), 10,
                    extra={"cuda_core": lambda: kwa.window_attention(
-                       wins, **a, **kw, route="cuda_core")})
+                       wins, **a, **kw, route="cuda_core",
+                       gemm_route="cuda_core")})
             _timed(k3, "window_attention_bwd", "train", TRAIN_BATCH, grid, c,
                    nh, lambda: kwa.window_attention_bwd(wins, dy=dy, **b, **kw),
                    lambda: kwa.window_attention_bwd_plain(wins, dy=dy, **b,
                                                           **kw), 5,
                    extra={"cuda_core": lambda: kwa.window_attention_bwd(
-                              wins, dy=dy, **b, **kw, route="cuda_core"),
+                              wins, dy=dy, **b, **kw, route="cuda_core",
+                              gemm_route="cuda_core"),
                           **_sdpa_reference(wins, a, kw, grad=True)})
+            _k3_launches(k3, wins, b, kw, dy)
             del wins, a, b, kw, dy
             torch.cuda.empty_cache()
 
@@ -784,7 +954,8 @@ def _zoo_kernels(rep):
                 want = kga.global_window_attention_plain(wins, **a, **kw)
                 for route in ("tensor_core", "cuda_core"):
                     got = kga.global_window_attention(wins, **a, **kw,
-                                                      route=route)
+                                                      route=route,
+                                                      gemm_route=route)
                     torch.cuda.synchronize()
                     _compare(f"K6 {route} grid {grid}^3 x{batch}, C={c}, "
                              f"nh={nh}, ln+res+bkv {absorbed}, "
@@ -805,7 +976,11 @@ def _zoo_kernels(rep):
                 2 * m * c * 2 + PREDICT_BATCH * n * c * 2 + 3 * c * c * 2
                 + 5 * c * 4 + nh * n * n * 4,
                 extra={"cuda_core": lambda: kga.global_window_attention(
-                    wins, **a, **kw, route="cuda_core")})
+                    wins, **a, **kw, route="cuda_core",
+                    gemm_route="cuda_core")})
+            _k1_launches(k6, "predict", wins, a, kw,
+                         call=lambda **r: kga.global_window_attention(
+                             wins, **a, **kw, **r))
             del wins, a, kw
             torch.cuda.empty_cache()
 
@@ -1680,7 +1855,8 @@ def _reset_launches():
     k9.launches = k10.launches = 0
     for by in (kwa.route_launches, kwa.bwd_route_launches,
                kga.route_launches, kmlp.route_launches,
-               kmlp.bwd_route_launches):
+               kmlp.bwd_route_launches, kwa.gemm_route_launches,
+               kwa.bwd_gemm_route_launches, kga.gemm_route_launches):
         for route in by:
             by[route] = 0
 
@@ -2192,21 +2368,34 @@ def phase_k9_parts():
 
 # MEDSEG_ATTN_SKIP bits (csrc/mma_tile.cuh): 1 LayerNorm statistics and
 # staging loads, 2 the softmax's elementwise work, 4 the launches after the
-# heads launch, 8 K3's bias partials, 16 K3's dv and dk products
+# heads launch, 8 K3's bias partials, 16 K3's dv and dk products; in the
+# tensor-core GEMM launches (K1's projection, K3's dx and dw): 32 staging
+# loads, 64 the LayerNorm, 128 dw's flushes, 256 the epilogues, 512 the dw
+# launch; 1024 the heads launch, so that the GEMM launches (and K3's sums
+# of partials) are timed alone
 ATTN_PARTS = (("whole", 0), ("heads launch alone", 4),
               ("heads alone, without statistics and staging loads", 5),
               ("heads alone, without the softmax's elementwise work", 6),
               ("heads alone, without the bias partials (K3)", 12),
               ("heads alone, without dv and dk (K3)", 20),
-              ("heads alone, products and barriers only", 31))
+              ("heads alone, products and barriers only", 31),
+              ("GEMM launches alone", 1024),
+              ("GEMM alone, without their staging loads", 1056),
+              ("GEMM alone, without the LayerNorm", 1088),
+              ("GEMM alone, dw without its flushes (K3)", 1152),
+              ("GEMM alone, without their epilogues", 1280),
+              ("GEMM alone, dx without dw (K3)", 1536),
+              ("GEMM alone, products and barriers only", 1504))
 
 
 def phase_attn_parts():
     """K1 (one predictor call's windows) and K3 (one training step's) on the
     tensor cores at the first two stages, built with parts compiled out
     (MEDSEG_ATTN_SKIP in csrc/mma_tile.cuh): what each part costs, where no
-    kernel profiler runs. The variants' results are wrong by design; the
-    whole build is compared with the library's."""
+    kernel profiler runs (CUDA events: torch.profiler, which times each
+    launch in the kernels phase, lost launches of the variant libraries).
+    The variants' results are wrong by design; the whole build is compared
+    with the library's."""
     import ctypes
     import types
 
@@ -3282,6 +3471,9 @@ def main(argv=None) -> int:
         for k in kernels:
             if k["name"] in ROUTE_TOTALS:
                 k["launches_by_route"] = ROUTE_TOTALS[k["name"]]
+            if k["name"] in GEMM_ROUTES:
+                k["launches_by_gemm_route"] = ROUTE_TOTALS[
+                    GEMM_ROUTES[k["name"]]]
         if set(PHASES) <= set(phases) and set(KERNEL_GROUPS) <= set(groups):
             for k in kernels:
                 _require(k["launches"] > 0, f"{k['name']} was launched no "

@@ -1,6 +1,9 @@
 // Tiles of the tensor-core token-MLP kernels (K2 forward in mlp.cu, K4
 // backward in mlp_bwd.cu) for bf16 and fp16 with C, Co and the hidden width
 // H multiples of 16: mma.sync m16n8k16 with fp32 accumulation (mma_tile.cuh).
+// The window-attention GEMM launches (K1's and K6's projection, K3's dx and
+// dw in window_attention*.cu) take the same 64-token tiles, copies and
+// column parts.
 //
 // A block of four warps takes token tiles of 64 rows, one 16-row strip a
 // warp, and walks H in chunks of 64 hidden units. Token tiles are staged in
@@ -215,6 +218,45 @@ inline bool mlp_bwd_route_takes(int route, int dtype, int c, int hdim) {
   if (route == kRouteCudaCore) return true;
   return route == kRouteTensorCore && (dtype == kBf16 || dtype == kF16) &&
          hdim % 16 == 0 && mlp_dx_parts(c) > 0;
+}
+
+// Columns of the attention GEMM launches' tiles on the tensor cores: C
+// itself up to 96, else the widest multiple of 16 up to 96 dividing C. It is
+// the projection's column tile and k chunk, and the channel slice of K3's
+// dw launch.
+inline int gemm_width(int c) {
+  if (c <= 96) return c;
+  for (int w = 96; w >= 16; w -= 16)
+    if (c % w == 0) return w;
+  return 0;
+}
+
+// Whether an attention GEMM launch (K1's and K6's projection, K3's dx and
+// dw) of this dtype and width can take the route: the tensor cores take
+// bf16 and fp16 with C in column parts as K4's dx launch (mlp_dx_parts:
+// every multiple of 16 up to 96, of 32 up to 192, of 64 up to 384); the
+// CUDA cores take every dtype and width.
+inline bool gemm_route_takes(int route, int dtype, int c) {
+  if (route == kRouteCudaCore) return true;
+  return route == kRouteTensorCore && (dtype == kBf16 || dtype == kF16) &&
+         mlp_dx_parts(c) > 0;
+}
+
+// The blocks of a launch that walks its tiles in a strided loop: `want`,
+// cut to the number of blocks of `kernel` that are resident on the card at
+// once (so that no second, partial wave runs), and at least 1.
+template <class K>
+cudaError_t resident_grid(K kernel, int threads, size_t smem, int want,
+                          int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  *grid = max(1, min(want, per_sm * sms));
+  return err;
 }
 
 }  // namespace mlptile

@@ -31,15 +31,24 @@
 // library; the results of a variant are wrong by design): 1 the LayerNorm
 // statistics and the staging loads, 2 the softmax's elementwise work (bias,
 // mask, exp, sums), 4 the launches after the heads launch (K1's projection,
-// K3's dx and dw), 8 K3's bias partials, 16 K3's dv and dk products.
+// K3's dx and dw), 8 K3's bias partials, 16 K3's dv and dk products; in the
+// tensor-core GEMM launches (K1's projection, K3's dx and dw): 32 the
+// staging loads of the token tiles and weight chunks, 64 the LayerNorm
+// (dx: statistics and the backward's arithmetic; dw: applying it in
+// place), 128 dw's flushes into the slab, 256 the epilogues (the
+// projection's bias, shortcut and stores; dx's LayerNorm backward, stores
+// and dLN sums), 512 the dw launch (dx alone), 1024 the heads launch (the
+// GEMM launches alone, on whatever attn and dqkv hold). A variant starts
+// from zeroed shared memory.
 #ifndef MEDSEG_ATTN_SKIP
 #define MEDSEG_ATTN_SKIP 0
 #endif
 
 namespace medseg {
 
-// The routes of the attention heads launches (K1, K3, K6): the route
-// argument of their C entry points, picked by the wrappers from the dtype
+// The routes of the attention launches (K1, K3, K6; the heads launches and,
+// as a second argument, the GEMM launches) and of K2, K4: the route
+// arguments of their C entry points, picked by the wrappers from the dtype
 // and the shape alone.
 constexpr int kRouteCudaCore = 0, kRouteTensorCore = 1;
 

@@ -17,10 +17,15 @@
 //     window's tokens, projects only its head's q/k/v, and runs scores,
 //     bias, mask, softmax and .V. The (N, N) score matrix never leaves the
 //     SM. It writes its head's slice of the (T, N, C) attention output.
-//  2. window_attention_proj: the output projection + bias + shortcut over
-//     tiles of 32 token rows.
-// The heads launch has two routes, picked by the wrapper from the dtype and
-// the shape alone (ops/kernels/window_attention.py, attention_route):
+//  2. the projection launch: the output projection + bias + shortcut, a
+//     GEMM over token tiles.
+// Each launch has two routes, picked by the wrapper from the dtype and the
+// shape alone: the projection launch's by gemm_route (tensor cores,
+// window_attention_proj_tc, for bf16 and fp16 with C in column parts of at
+// most 96; CUDA cores, window_attention_proj, for fp32 and other widths:
+// fp32 products from shared memory over 32-row tiles, 16 channels staged at
+// a time), the heads launch's by attention_route
+// (ops/kernels/window_attention.py):
 //  * tensor cores (window_attention_heads_tc; bf16 and fp16, head dim 16,
 //    N <= 224): 4 warps, each owning up to four strips of 16 query rows of
 //    the window padded to 224 = 14 x 16 tokens (mma_tile.cuh). The LN'd window
@@ -51,6 +56,10 @@
 // the heads launch took 4.2 ms, 0.95 with that work compiled out
 // (chip_smoke.py --phases attn_parts, PERF.md).
 // The CUDA-core route is bound by shared-memory bandwidth and FMA issue.
+// The projection launch is bound by bytes at every stage (C = 48, batch 16:
+// attn and the shortcut in, the output out, 510 MB, against 8 GFLOP); its
+// tensor-core form streams 64-token tiles with every copy in flight and
+// keeps the products (10x under the bytes' time) off the critical path.
 //
 // K6 replaces fused_global_window_attention (_global_kernel) of the same
 // file. Per window: optional fp32 LayerNorm -> KV projection (C -> 2C: the
@@ -76,7 +85,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma_tile.cuh"
+#include "mlp_tile.cuh"
 
 namespace medseg {
 namespace {
@@ -421,6 +430,121 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tensor-core projection launch (bf16 / fp16, C in column parts:
+// mlptile::gemm_route_takes): out = T(attn . Wproj^T + bproj) [+ x], the
+// same function as window_attention_proj. Grid (64-token tiles, C / w
+// column tiles), w = gemm_width(C) (48 at C = 48, 96 from C = 96 on), four
+// warps, a 16-row strip a warp. The tile's attn rows and the column tile's
+// Wproj rows are copied by cp.async in k chunks of w channels (two slots
+// when C > w: the next chunk is in flight during the current one's
+// products; one chunk, all of Wproj's rows a block needs, at C <= 96) and
+// multiplied with mma.sync from ldmatrix fragments. The epilogue adds the
+// fp32 bias in registers, rounds to T into the warp's own rows of the attn
+// slot, and writes each row out in 16-byte pieces, adding the shortcut read
+// likewise in 16-byte pieces in fp32 and rounding again.
+template <class T, int kMaxW>
+__global__ void __launch_bounds__(mlptile::kMlpThreads, 4)
+    window_attention_proj_tc(const T* __restrict__ attn,
+                             const T* __restrict__ wproj,
+                             const float* __restrict__ bproj,
+                             const T* __restrict__ x, T* __restrict__ out,
+                             long long m_total, int c, int w, int residual) {
+  using namespace mmatile;
+  using namespace mlptile;
+  extern __shared__ __align__(16) unsigned char smem_proj[];
+  T* slots = reinterpret_cast<T*>(smem_proj);
+  const int sd = w + 8;                   // row stride of a chunk
+  const int slot = (kMlpRows + w) * sd;   // [attn rows | Wproj rows]
+  const int nch = c / w;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long r0 = (long long)blockIdx.x * kMlpRows;
+  const int rows = (int)min((long long)kMlpRows, m_total - r0);
+  const int col0 = blockIdx.y * w;
+  if (MEDSEG_ATTN_SKIP & 32) {  // what a skipped load leaves is zero
+    zero_smem(slots, sizeof(T) * (nch > 1 ? 2 : 1) * slot);
+    __syncthreads();
+  }
+  auto stage = [&](int k, int s) {
+    if (MEDSEG_ATTN_SKIP & 32) return;
+    T* as = slots + s * slot;
+    copy_rows_async(attn + r0 * c + k * w, c, rows, w, as, sd);
+    copy_rows_async(wproj + (size_t)col0 * c + k * w, c, w, w,
+                    as + kMlpRows * sd, sd);
+  };
+  stage(0, 0);
+  cp_async_commit();
+  float acc[kMaxW / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMaxW / 8; ++j) zero(acc[j]);
+  const int a_off = (16 * warp + (lane & 15)) * sd + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * sd +
+                    ((lane >> 3) & 1) * 8;
+  for (int k = 0; k < nch; ++k) {
+    if (k + 1 < nch) {
+      stage(k + 1, (k + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* as = slots + (k & 1) * slot;
+    const T* ws = as + kMlpRows * sd;
+    if (16 * warp < rows) {  // rows past the end are stale: never written
+      for (int ks = 0; ks < w / 16; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, as + a_off + 16 * ks);
+#pragma unroll
+        for (int q = 0; q < kMaxW / 16; ++q) {
+          if (16 * q < w) {
+            uint32_t b[4];
+            ldsm_x4(b, ws + b_off + 16 * q * sd + 16 * ks);
+            mma<T>(acc[2 * q], a, b[0], b[1]);
+            mma<T>(acc[2 * q + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the slot's readers are done before it is refilled
+  }
+  if ((MEDSEG_ATTN_SKIP & 256) || 16 * warp >= rows) return;
+
+  // T(acc + bias) into the warp's own 16 rows of the last attn chunk
+  T* ost = slots + ((nch - 1) & 1) * slot + 16 * warp * sd;
+#pragma unroll
+  for (int j = 0; j < kMaxW / 8; ++j) {
+    if (8 * j < w) {
+      const int col = 8 * j + 2 * t4;
+      const float2 bb = *reinterpret_cast<const float2*>(bproj + col0 + col);
+      *reinterpret_cast<uint32_t*>(ost + g * sd + col) =
+          pack<T>(acc[j][0] + bb.x, acc[j][1] + bb.y);
+      *reinterpret_cast<uint32_t*>(ost + (g + 8) * sd + col) =
+          pack<T>(acc[j][2] + bb.x, acc[j][3] + bb.y);
+    }
+  }
+  __syncwarp();
+  const int vecs = w / 8, live = min(16, rows - 16 * warp);
+  for (int e = lane; e < live * vecs; e += 32) {
+    const int r = e / vecs, v8 = (e - r * vecs) * 8;
+    const long long at = (r0 + 16 * warp + r) * c + col0 + v8;
+    uint4 y = *reinterpret_cast<const uint4*>(ost + r * sd + v8);
+    if (residual) {
+      const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x + at));
+      const T* yi = reinterpret_cast<const T*>(&y);
+      const T* xi = reinterpret_cast<const T*>(&xv);
+      uint4 sum;
+      uint32_t* so = reinterpret_cast<uint32_t*>(&sum);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        so[i] = pack<T>(to_f32(yi[2 * i]) + to_f32(xi[2 * i]),
+                        to_f32(yi[2 * i + 1]) + to_f32(xi[2 * i + 1]));
+      y = sum;
+    }
+    *reinterpret_cast<uint4*>(out + at) = y;
+  }
+}
+
 }  // namespace
 }  // namespace medseg
 
@@ -462,16 +586,44 @@ cudaError_t launch_heads_cuda_core(const HeadsParams<T>& p, int t, int nh,
 }
 
 template <class T>
+cudaError_t launch_proj_tc(const T* attn, const T* wproj, const float* bproj,
+                           const T* x, T* out, long long m_total, int c,
+                           int residual, cudaStream_t st) {
+  using namespace mlptile;
+  if constexpr (sizeof(T) == 2) {
+    const int w = gemm_width(c), nch = c / w;
+    const size_t smem =
+        sizeof(T) * (nch > 1 ? 2 : 1) * (kMlpRows + w) * (w + 8);
+    auto kernel = w <= 48 ? window_attention_proj_tc<T, 48>
+                          : window_attention_proj_tc<T, 96>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((m_total + kMlpRows - 1) / kMlpRows), c / w);
+    kernel<<<grid, kMlpThreads, smem, st>>>(attn, wproj, bproj, x, out,
+                                            m_total, c, w, residual);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // fp32 keeps the CUDA cores
+  }
+}
+
+template <class T>
 int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
                      void* out, int t, int nh, int residual, int route,
-                     cudaStream_t st) {
+                     int gemm_route, cudaStream_t st) {
   const int n = p.n, c = p.c;
-  cudaError_t err = route == kRouteTensorCore
+  cudaError_t err = (MEDSEG_ATTN_SKIP & 1024) ? cudaSuccess
+                    : route == kRouteTensorCore
                         ? launch_heads_tc(p, t, nh, st)
                         : launch_heads_cuda_core(p, t, nh, st);
   if (err != cudaSuccess || (MEDSEG_ATTN_SKIP & 4)) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
+  if (gemm_route == kRouteTensorCore)
+    return static_cast<int>(launch_proj_tc(
+        p.attn, static_cast<const T*>(wproj), static_cast<const float*>(bproj),
+        p.x, static_cast<T*>(out), m_total, c, residual, st));
   const size_t proj_smem =
       sizeof(float) * (c * (kRows + 1) + kRows * (kPK + 1) + kPK * c);
   err = cudaFuncSetAttribute(window_attention_proj<T>,
@@ -489,18 +641,23 @@ int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
 }  // namespace medseg
 
 // x, wqkv, wproj, attn, out of the element type named by dtype (kBf16,
-// kF16, kF32); ln, bqkv, bproj, bias fp32. route: kRouteTensorCore (bf16 or
-// fp16, head dim 16, n <= 224) or kRouteCudaCore (any dtype and head dim).
+// kF16, kF32); ln, bqkv, bproj, bias fp32. route, of the heads launch:
+// kRouteTensorCore (bf16 or fp16, head dim 16, n <= 224) or kRouteCudaCore
+// (any dtype and head dim); gemm_route, of the projection launch:
+// kRouteTensorCore (bf16 or fp16, C as mlptile::gemm_route_takes says; x and
+// wproj on 16-byte boundaries) or kRouteCudaCore.
 extern "C" int medseg_window_attention_fwd(
     const void* x, const void* ln, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* bias, void* attn,
     void* out, int t, int n, int c, int nh, int w0, int w1, int w2, int s0,
     int s1, int s2, int nwd, int nwh, int nww, int shifted, int residual,
-    int route, int dtype, float ln_eps, float scale, void* stream) {
+    int gemm_route, int route, int dtype, float ln_eps, float scale,
+    void* stream) {
   using namespace medseg;
   const int hd = c / nh;
   if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 ||
-      !route_takes(route, dtype, n, c, hd))
+      !route_takes(route, dtype, n, c, hd) ||
+      !mlptile::gemm_route_takes(gemm_route, dtype, c))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
@@ -517,22 +674,23 @@ extern "C" int medseg_window_attention_fwd(
     p.nwd = nwd; p.nwh = nwh; p.nww = nww;
     p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
     return launch_attention(p, wproj, bproj, out, t, nh, residual, route,
-                            static_cast<cudaStream_t>(stream));
+                            gemm_route, static_cast<cudaStream_t>(stream));
   });
 }
 
 // K6. x (T, N, C) windows in batch-major order, T = B * nwin; q (B, N, C);
-// wkv (2C, C) [out, in]; bkv (2C) or nullptr; dtype as for K1.
+// wkv (2C, C) [out, in]; bkv (2C) or nullptr; dtype and routes as for K1.
 extern "C" int medseg_global_window_attention_fwd(
     const void* x, const void* ln, const void* q, const void* wkv,
     const void* bkv, const void* wproj, const void* bproj, const void* bias,
     void* attn, void* out, int t, int n, int c, int nh, int nwin,
-    int residual, int route, int dtype, float ln_eps, float scale,
-    void* stream) {
+    int residual, int gemm_route, int route, int dtype, float ln_eps,
+    float scale, void* stream) {
   using namespace medseg;
   const int hd = c / nh;
   if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 || nwin < 1 ||
-      t % nwin != 0 || q == nullptr || !route_takes(route, dtype, n, c, hd))
+      t % nwin != 0 || q == nullptr || !route_takes(route, dtype, n, c, hd) ||
+      !mlptile::gemm_route_takes(gemm_route, dtype, c))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
@@ -549,7 +707,7 @@ extern "C" int medseg_global_window_attention_fwd(
     p.nwd = p.nwh = p.nww = 1;
     p.shifted = 0; p.eps = ln_eps; p.scale = scale;
     return launch_attention(p, wproj, bproj, out, t, nh, residual, route,
-                            static_cast<cudaStream_t>(stream));
+                            gemm_route, static_cast<cudaStream_t>(stream));
   });
 }
 

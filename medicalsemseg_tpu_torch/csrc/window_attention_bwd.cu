@@ -26,13 +26,34 @@
 //     block's own (N, N) slab of bias-gradient partials in device memory
 //     (nobody else touches the slab: a plain read-modify-write on the CUDA
 //     cores, reductions in L2 on the tensor cores).
-//  2. window_attention_bwd_dx: tiles of 32 token rows: dxn = dqkv . Wqkv,
-//     LN backward, + dy; per-block partial sums for dLN.
-//  3. window_attention_bwd_dw: a block owns 16 rows of (dWqkv | dWproj) in
-//     registers and walks a strided share of the token tiles; one slab of
-//     partials per share.
+//  2. the dx launch: dxn = dqkv . Wqkv over token tiles, LN backward, + dy;
+//     per-block partial sums for dLN.
+//  3. the dw launch: a block owns rows of (dWqkv | dWproj) in registers and
+//     walks a strided share of the token tiles; one slab of partials per
+//     share.
 //  4. sum_partials adds the slabs of 1-3 in a fixed order: results do not
 //     change from run to run.
+// The dx and dw launches have two routes, picked by the wrapper from the
+// dtype and the width alone (gemm_route):
+//  * tensor cores (bf16 and fp16, C in column parts of at most 96;
+//    mma.sync m16n8k16, the tiles and copies of mlp_tile.cuh):
+//    window_attention_bwd_dx_tc walks 64 / parts token rows a tile with
+//    dqkv and Wqkv streamed by cp.async in k chunks of 64, the LayerNorm
+//    backward on its accumulators (row sums across the column parts
+//    through shared memory), and hands each row's (mu, rstd) to
+//    window_attention_bwd_dw_tc. That block owns 192 dW rows at C = 48 (all
+//    of [dWqkv | dWproj]: 72 fp32 a thread) or 128 rows x a slice of <= 96
+//    channels above, copies each 64-token tile once (the dqkv / dy columns
+//    of its rows, the x / o slices; the LayerNorm applied in place), runs
+//    the products with the tokens as the k dimension (A through
+//    ldmatrix.trans) and the bias sums as the same A times ones, and adds
+//    its fragments into fp32 every 32 tiles (mma.sync adds by truncation).
+//    Both launches take the blocks resident on the card at once.
+//  * CUDA cores (fp32, other widths): window_attention_bwd_dx over 32-row
+//    tiles with dqkv staged 16 columns at a time as fp32;
+//    window_attention_bwd_dw with 16 dW rows a block and fp32 outer
+//    products from shared memory, each tile staged and normalised again by
+//    every one of the 4C / 16 blocks of a share.
 // The heads launch has two routes, picked by the wrapper from the dtype and
 // the shape alone, as K1's:
 //  * tensor cores (window_attention_bwd_heads_tc; bf16 and fp16, head dim
@@ -73,13 +94,16 @@
 // their latency (chip_smoke.py --phases attn_parts, PERF.md). The CUDA-core
 // route computes the scores twice on FMA units from shared memory (8 N^2 hd
 // multiply-adds per head against 6) and is bound by FMA issue and
-// shared-memory bandwidth. The dx and dw launches run on CUDA cores.
+// shared-memory bandwidth. The dx and dw launches are bound by bytes on the
+// tensor cores (C = 48, batch 8: each reads or writes 6 M C values, 510 MB,
+// against 10 and 14 GFLOP); their CUDA-core form by FMA throughput from shared
+// memory.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma_tile.cuh"
+#include "mlp_tile.cuh"
 
 namespace medseg {
 namespace {
@@ -795,6 +819,456 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < kJB) p[4 * (size_t)c * c + j0 + tid] = accb;
 }
 
+// ---- tensor-core dx and dw launches
+
+template <class T>
+struct GemmBwdParams {
+  const T* x;            // (M, C) raw tokens
+  const float* ln;       // (2, C) or nullptr
+  const T* wqkv;         // (3C, C)
+  const T* dqkv;         // (M, 3C)
+  const T* dy;           // (M, C)
+  const T* attn;         // (M, C) o
+  T* dx;                 // (M, C)
+  float* part_ln;        // (dx blocks, 2C): dscale | dbias_ln
+  float* part_w;         // (shares, 4C * C + 4C), as out_w
+  float2* stats;         // (M): the dx launch's (mu, rstd) for the dw launch
+  long long m;
+  int c, residual, parts, cs;
+  float eps;
+};
+
+// grid: blocks strided over the token tiles (kMlpRows / parts rows each),
+// as fused_mlp_bwd_dx_tc (mlp_bwd.cu): dxn = dqkv . Wqkv with A the dqkv
+// rows of the tile and B the rows of Wqkv ([k][channel], ldmatrix.trans),
+// both copied by cp.async in chunks of 64 of the 3C k rows into two slots;
+// at C <= 96 a warp owns a 16-row strip and all C columns, at C = 192, 384
+// the warps split the columns into parts and add the LayerNorm's row sums
+// through shared memory. Then the LayerNorm backward on the accumulators, dx
+// [+ dy], the block's dLN sums, and each row's (mu, rstd) to p.stats for
+// the dw launch.
+template <class T, int kMaxP>
+__global__ void __launch_bounds__(mlptile::kMlpThreads, 3)
+    window_attention_bwd_dx_tc(GemmBwdParams<T> p, int nslots) {
+  using namespace mmatile;
+  using namespace mlptile;
+  extern __shared__ __align__(16) unsigned char smem_dx[];
+  const int c = p.c, c3 = 3 * c, xsd = c + 8, parts = p.parts;
+  const int strips = kMlpWarps / parts, rows_t = 16 * strips, cp = c / parts;
+  constexpr int dsd = kChunk + 8;  // stride of a dqkv chunk [token][k]
+  float* mu = reinterpret_cast<float*>(smem_dx);  // kMlpRows
+  float* rs = mu + kMlpRows;                      // kMlpRows
+  float* red = rs + kMlpRows;                     // kMlpWarps x 16 x 2
+  float* accs = red + kMlpWarps * 32;             // strips x 2c
+  T* wbuf = reinterpret_cast<T*>(accs + strips * 2 * c);
+  const int slot = kChunk * xsd + rows_t * dsd;   // [Wqkv rows | dqkv chunk]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int sw = warp % strips, q = warp / strips, col0 = q * cp;
+  const long long ntiles = (p.m + rows_t - 1) / rows_t;
+  const int nch = (c3 + kChunk - 1) / kChunk;
+  const float* ls = (MEDSEG_ATTN_SKIP & 64) ? nullptr : p.ln;
+
+  if (MEDSEG_ATTN_SKIP & 96)  // what a skipped load leaves is zero
+    zero_smem(smem_dx, (char*)(wbuf + nslots * slot) - (char*)smem_dx);
+  __syncthreads();
+  for (int e = threadIdx.x; e < strips * 2 * c; e += kMlpThreads) accs[e] = 0.f;
+  auto stage_chunk = [&](int k, long long r0, int rows, int s) {
+    if (MEDSEG_ATTN_SKIP & 32) return;
+    T* ws = wbuf + s * slot;
+    const int j0 = k * kChunk, units = min(kChunk, c3 - j0);
+    copy_rows_async(p.wqkv + (size_t)j0 * c, c, units, c, ws, xsd);
+    copy_rows_async(p.dqkv + r0 * c3 + j0, c3, rows, units, ws + kChunk * xsd,
+                    dsd);
+  };
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long r0 = tile * rows_t;
+    const int rows = (int)min((long long)rows_t, p.m - r0);
+    __syncthreads();  // the previous tile's readers of the slots, mu, red
+    stage_chunk(0, r0, rows, 0);
+    cp_async_commit();
+    if (ls != nullptr) window_stats(p.x + r0 * c, rows, c, p.eps, mu, rs);
+    float acc[kMaxP / 8][4];
+#pragma unroll
+    for (int j = 0; j < kMaxP / 8; ++j) zero(acc[j]);
+    for (int k = 0; k < nch; ++k) {
+      if (nslots > 1 && k + 1 < nch) {
+        stage_chunk(k + 1, r0, rows, (k + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (k == 0 && ls != nullptr && p.stats != nullptr)
+        for (int r = threadIdx.x; r < rows; r += kMlpThreads)
+          p.stats[r0 + r] = make_float2(mu[r], rs[r]);
+      const T* ws = wbuf + (nslots > 1 ? (k & 1) : 0) * slot;
+      const T* dqs = ws + kChunk * xsd;
+      const int np = min(kChunk, c3 - k * kChunk) / 16;
+      const T* a_row = dqs + (16 * sw + (lane & 15)) * dsd + (lane >> 4) * 8;
+      const T* b_row = ws + ((lane & 7) + ((lane >> 3) & 1) * 8) * xsd + col0 +
+                       (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < np) {
+          uint32_t a[4];
+          ldsm_x4(a, a_row + 16 * kk);
+#pragma unroll
+          for (int o0 = 0; o0 < kMaxP / 16; o0 += 3) {  // three pairs in flight
+            uint32_t b[3][4];
+#pragma unroll
+            for (int u = 0; u < 3; ++u)
+              if (o0 + u < kMaxP / 16 && 16 * (o0 + u) < cp)
+                ldsm_x4_t(b[u], b_row + 16 * kk * xsd + 16 * (o0 + u));
+#pragma unroll
+            for (int u = 0; u < 3; ++u) {
+              if (o0 + u < kMaxP / 16 && 16 * (o0 + u) < cp) {
+                mma<T>(acc[2 * (o0 + u)], a, b[u][0], b[u][1]);
+                mma<T>(acc[2 * (o0 + u) + 1], a, b[u][2], b[u][3]);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // the slot's readers are done
+      if (nslots == 1 && k + 1 < nch) {
+        stage_chunk(k + 1, r0, rows, 0);
+        cp_async_commit();
+      }
+    }
+    if (MEDSEG_ATTN_SKIP & 256) continue;
+
+    // LayerNorm backward: the row sums of dxh = dxn * scale and dxh * xhat
+    // over the warp's columns, then across the parts through shared memory
+    const int lr[2] = {16 * sw + g, 16 * sw + g + 8};
+    float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+    if (ls != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kMaxP / 8; ++j) {
+        if (8 * j < cp) {
+          const int ch = col0 + 8 * j + 2 * t4;
+          const float2 sc = *reinterpret_cast<const float2*>(ls + ch);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            if (lr[hf] < rows) {
+              const T* xr = p.x + (r0 + lr[hf]) * c + ch;
+              const float xh0 = (to_f32(xr[0]) - mu[lr[hf]]) * rs[lr[hf]];
+              const float xh1 = (to_f32(xr[1]) - mu[lr[hf]]) * rs[lr[hf]];
+              const float d0 = acc[j][2 * hf] * sc.x,
+                          d1 = acc[j][2 * hf + 1] * sc.y;
+              m1[hf] += d0 + d1;
+              m2[hf] += d0 * xh0 + d1 * xh1;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        m1[hf] += __shfl_xor_sync(0xffffffffu, m1[hf], 1);
+        m1[hf] += __shfl_xor_sync(0xffffffffu, m1[hf], 2);
+        m2[hf] += __shfl_xor_sync(0xffffffffu, m2[hf], 1);
+        m2[hf] += __shfl_xor_sync(0xffffffffu, m2[hf], 2);
+        if (t4 == 0) {
+          red[warp * 32 + 2 * (g + 8 * hf)] = m1[hf];
+          red[warp * 32 + 2 * (g + 8 * hf) + 1] = m2[hf];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float a = 0.f, b = 0.f;
+        for (int qq = 0; qq < parts; ++qq) {  // in order: reruns bit-equal
+          a += red[(sw + qq * strips) * 32 + 2 * (g + 8 * hf)];
+          b += red[(sw + qq * strips) * 32 + 2 * (g + 8 * hf) + 1];
+        }
+        m1[hf] = a / c;
+        m2[hf] = b / c;
+      }
+    }
+    float* acc_s = accs + sw * 2 * c;
+#pragma unroll
+    for (int j = 0; j < kMaxP / 8; ++j) {
+      if (8 * j < cp) {
+        const int ch = col0 + 8 * j + 2 * t4;
+        const float2 sc = ls != nullptr
+                              ? *reinterpret_cast<const float2*>(ls + ch)
+                              : make_float2(1.f, 1.f);
+        // column sums over the thread's two rows: dxn * xhat, dxn
+        float su[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (lr[hf] < rows) {
+            const long long row = r0 + lr[hf];
+            const float n0 = acc[j][2 * hf], n1 = acc[j][2 * hf + 1];
+            float o0 = n0, o1 = n1;
+            if (ls != nullptr) {
+              const T* xr = p.x + row * c + ch;
+              const float r = rs[lr[hf]], mm = mu[lr[hf]];
+              const float xh0 = (to_f32(xr[0]) - mm) * r;
+              const float xh1 = (to_f32(xr[1]) - mm) * r;
+              o0 = (n0 * sc.x - m1[hf] - xh0 * m2[hf]) * r;
+              o1 = (n1 * sc.y - m1[hf] - xh1 * m2[hf]) * r;
+              su[0] += n0 * xh0;
+              su[1] += n1 * xh1;
+              su[2] += n0;
+              su[3] += n1;
+            }
+            if (p.residual) {
+              const T* dr = p.dy + row * c + ch;
+              o0 += to_f32(dr[0]);
+              o1 += to_f32(dr[1]);
+            }
+            *reinterpret_cast<uint32_t*>(p.dx + row * c + ch) = pack<T>(o0, o1);
+          }
+        }
+        if (ls != nullptr) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            su[i] += __shfl_xor_sync(0xffffffffu, su[i], 4);
+            su[i] += __shfl_xor_sync(0xffffffffu, su[i], 8);
+            su[i] += __shfl_xor_sync(0xffffffffu, su[i], 16);
+          }
+          if (g == 0) {  // one lane a column pair, in tile order
+            acc_s[ch] += su[0];
+            acc_s[ch + 1] += su[1];
+            acc_s[c + ch] += su[2];
+            acc_s[c + ch + 1] += su[3];
+          }
+        }
+      }
+    }
+  }
+  if (p.ln == nullptr) return;  // no dLN: part_ln is not read
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * c; e += kMlpThreads) {
+    float a = 0.f;
+    for (int s = 0; s < strips; ++s) a += accs[s * 2 * c + e];
+    p.part_ln[(size_t)blockIdx.x * 2 * c + e] = a;
+  }
+}
+
+// token tiles between two flushes of the dw launch: 2048 tokens, 128
+// k-steps of its products
+constexpr int kFlushTiles = 32;
+
+// grid (row groups x channel slices, token shares). The 4C rows of
+// [dWqkv | dWproj] (each 16-row m-tile on one side of 3C) are cut into
+// groups of kRB = 64 kMT rows, a warp owning kMT m-tiles, and the C columns
+// into slices of cs; a block owns a group x slice in mma fragments and walks
+// its share of the 64-token tiles. Per tile it copies by cp.async the
+// columns of dqkv (rows < 3C) and dy (rows >= 3C) that its rows take ([token]
+// [row] tile: A = its transpose through ldmatrix.trans, the tokens the k
+// dimension) and the slice of x (with the LayerNorm applied in place from
+// the dx launch's statistics) and of o (B, [token][channel] through
+// ldmatrix.trans). The bias gradients are the same A times a B of ones. The
+// fragments are added, rounding to nearest, into the share's fp32 slab
+// every kFlushTiles tiles (mma.sync adds by truncation); slice 0 adds the
+// bias sums. The wrapper's sum_partials adds the slabs in a fixed order.
+template <class T, int kMaxS, int kMT>
+__global__ void __launch_bounds__(mlptile::kMlpThreads, kMT == 3 ? 3 : 2)
+    window_attention_bwd_dw_tc(GemmBwdParams<T> p) {
+  using namespace mmatile;
+  using namespace mlptile;
+  constexpr int kRB = 16 * kMT * kMlpWarps;  // dW rows a block owns
+  constexpr int kLS = kRB + 8, kXS = kMaxS + 8;
+  extern __shared__ __align__(16) unsigned char smem_dw[];
+  float* mu = reinterpret_cast<float*>(smem_dw);  // kMlpRows
+  float* rs = mu + kMlpRows;                      // kMlpRows
+  T* left = reinterpret_cast<T*>(rs + kMlpRows);  // kMlpRows x kLS
+  T* xs = left + kMlpRows * kLS;                  // kMlpRows x kXS: T(LN(x))
+  T* os = xs + kMlpRows * kXS;                    // kMlpRows x kXS: o
+  const int c = p.c, c3 = 3 * c, c4 = 4 * c, cs = p.cs;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ngroups = (c4 + kRB - 1) / kRB;
+  const int grp = blockIdx.x % ngroups, sl = blockIdx.x / ngroups;
+  const int rlo = grp * kRB, rhi = min(rlo + kRB, c4), c0 = sl * cs;
+  const bool has_x = rlo < c3, has_o = rhi > c3;
+  const int wr0 = rlo + 16 * kMT * warp;  // the warp's first dW row
+  bool live[kMT], side[kMT];              // side: a dWproj m-tile
+  bool warp_x = false, warp_o = false;
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi) {
+    live[mi] = wr0 + 16 * mi < rhi;
+    side[mi] = wr0 + 16 * mi >= c3;
+    warp_x |= live[mi] && !side[mi];
+    warp_o |= live[mi] && side[mi];
+  }
+  const long long ntiles = (p.m + kMlpRows - 1) / kMlpRows;
+  float* slab = p.part_w + (size_t)blockIdx.y * (4 * (size_t)c * c + c4);
+  const float* ln = (MEDSEG_ATTN_SKIP & 64) ? nullptr : p.ln;
+  if (MEDSEG_ATTN_SKIP & 32) {  // what a skipped load leaves is zero
+    zero_smem(smem_dw, sizeof(float) * 2 * kMlpRows +
+                           sizeof(T) * kMlpRows * (kLS + 2 * kXS));
+    __syncthreads();
+  }
+
+  float acc[kMT][kMaxS / 8][4], db[kMT][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi) {
+    zero(db[mi]);
+#pragma unroll
+    for (int j = 0; j < kMaxS / 8; ++j) zero(acc[mi][j]);
+  }
+  bool flushed = false;
+  // add the fragments (rounding to nearest) into the slab, an n-tile at a
+  // time with its loads in flight together, then zero them; the first flush
+  // stores
+  auto flush = [&]() {
+    if (MEDSEG_ATTN_SKIP & 128) return;
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+      if (!live[mi]) continue;
+      const int row0 = wr0 + 16 * mi + g, row1 = row0 + 8;
+#pragma unroll
+      for (int j = 0; j < kMaxS / 8; ++j) {
+        if (8 * j < cs) {
+          const int ch = c0 + 8 * j + 2 * t4;
+          float2* at0 = reinterpret_cast<float2*>(slab + (size_t)row0 * c + ch);
+          float2* at1 = reinterpret_cast<float2*>(slab + (size_t)row1 * c + ch);
+          const float2 o0 = flushed ? *at0 : make_float2(0.f, 0.f);
+          const float2 o1 = flushed ? *at1 : make_float2(0.f, 0.f);
+          *at0 = make_float2(o0.x + acc[mi][j][0], o0.y + acc[mi][j][1]);
+          *at1 = make_float2(o1.x + acc[mi][j][2], o1.y + acc[mi][j][3]);
+          zero(acc[mi][j]);
+        }
+      }
+      if (sl == 0 && t4 == 0) {  // column 0 of the sums against ones
+        float* b = slab + 4 * (size_t)c * c;
+        b[row0] = (flushed ? b[row0] : 0.f) + db[mi][0];
+        b[row1] = (flushed ? b[row1] : 0.f) + db[mi][2];
+      }
+      zero(db[mi]);
+    }
+    flushed = true;
+  };
+
+  const uint32_t ones = pack<T>(1.f, 1.f);
+  // A: the tile's [token][row] columns read transposed; B: [token][channel]
+  // read transposed (as K4's dW products)
+  const int a_off = ((lane & 7) + ((lane >> 4) & 1) * 8) * kLS +
+                    ((lane >> 3) & 1) * 8 + (wr0 - rlo);
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kXS +
+                    (lane >> 4) * 8;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  int pending = 0;
+  for (long long tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
+    const long long r0 = tile * kMlpRows;
+    const int rows = (int)min((long long)kMlpRows, p.m - r0);
+    __syncthreads();  // the previous tile's readers are done
+    if (!(MEDSEG_ATTN_SKIP & 32)) {
+      if (has_x) {
+        copy_rows_async(p.dqkv + r0 * c3 + rlo, c3, rows, min(rhi, c3) - rlo,
+                        left, kLS);
+        copy_rows_async(p.x + r0 * c + c0, c, rows, cs, xs, kXS);
+      }
+      if (has_o) {
+        const int o_lo = max(rlo, c3);
+        copy_rows_async(p.dy + r0 * c + (o_lo - c3), c, rows, rhi - o_lo,
+                        left + (o_lo - rlo), kLS);
+        copy_rows_async(p.attn + r0 * c + c0, c, rows, cs, os, kXS);
+      }
+      cp_async_commit();
+      // rows past the end add nothing: zero
+      for (int e = threadIdx.x; e < (kMlpRows - rows) * (kLS / 8);
+           e += kMlpThreads)
+        reinterpret_cast<uint4*>(left + rows * kLS)[e] = zero4;
+      for (int e = threadIdx.x; e < (kMlpRows - rows) * (kXS / 8);
+           e += kMlpThreads) {
+        reinterpret_cast<uint4*>(xs + rows * kXS)[e] = zero4;
+        reinterpret_cast<uint4*>(os + rows * kXS)[e] = zero4;
+      }
+      if (has_x && ln != nullptr)
+        for (int r = threadIdx.x; r < rows; r += kMlpThreads) {
+          const float2 st = p.stats[r0 + r];
+          mu[r] = st.x;
+          rs[r] = st.y;
+        }
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (has_x && ln != nullptr) {  // xs = T(LN(x)) in place
+      const int vecs = cs / 8;
+      for (int e = threadIdx.x; e < rows * vecs; e += kMlpThreads) {
+        const int r = e / vecs, v8 = (e - r * vecs) * 8;
+        uint4* at = reinterpret_cast<uint4*>(xs + r * kXS + v8);
+        const uint4 in = *at;
+        const T* iv = reinterpret_cast<const T*>(&in);
+        uint4 o;
+        uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
+        const float m = mu[r], rr = rs[r];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ch = c0 + v8 + 2 * i;
+          ov[i] = pack<T>(
+              (to_f32(iv[2 * i]) - m) * rr * ln[ch] + ln[c + ch],
+              (to_f32(iv[2 * i + 1]) - m) * rr * ln[ch + 1] + ln[c + ch + 1]);
+        }
+        *at = o;
+      }
+      __syncthreads();
+    }
+    for (int ks = 0; ks < kMlpRows / 16; ++ks) {
+      if (16 * ks >= rows) break;
+      uint32_t a[kMT][4];
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi) {
+        if (live[mi]) {
+          ldsm_x4_t(a[mi], left + a_off + 16 * ks * kLS + 16 * mi);
+          if (sl == 0) mma<T>(db[mi], a[mi], ones, ones);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kMaxS / 16; ++q) {
+        if (16 * q < cs) {
+          uint32_t bx[4] = {0u, 0u, 0u, 0u}, bo[4] = {0u, 0u, 0u, 0u};
+          if (warp_x) ldsm_x4_t(bx, xs + b_off + 16 * ks * kXS + 16 * q);
+          if (warp_o) ldsm_x4_t(bo, os + b_off + 16 * ks * kXS + 16 * q);
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi) {
+            if (live[mi]) {
+              const uint32_t b0 = side[mi] ? bo[0] : bx[0];
+              const uint32_t b1 = side[mi] ? bo[1] : bx[1];
+              const uint32_t b2 = side[mi] ? bo[2] : bx[2];
+              const uint32_t b3 = side[mi] ? bo[3] : bx[3];
+              mma<T>(acc[mi][2 * q], a[mi], b0, b1);
+              mma<T>(acc[mi][2 * q + 1], a[mi], b2, b3);
+            }
+          }
+        }
+      }
+    }
+    if (++pending == kFlushTiles) {
+      flush();
+      pending = 0;
+    }
+  }
+  flush();  // the rest; a block with no tile stores zeros
+}
+
+// The sums of the three kinds of partials, each in a fixed order: dbias
+// over nchunk slabs, dLN over the dx launch's blocks (with ln), the weight
+// gradients over the dw launch's shares.
+int sum_all(const float* dbias_part, void* dbias, const void* part_ln,
+            void* out_ln, const void* part_w, void* out_w, bool ln, int nchunk,
+            int dx_blocks, int nshare, long long bias_len, int c,
+            cudaStream_t st) {
+  cudaError_t err = sum_partials(dbias_part, static_cast<float*>(dbias),
+                                 nchunk, bias_len, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ln) {
+    err = sum_partials(static_cast<const float*>(part_ln),
+                       static_cast<float*>(out_ln), dx_blocks,
+                       2 * (long long)c, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = sum_partials(static_cast<const float*>(part_w),
+                     static_cast<float*>(out_w), nshare,
+                     4 * (long long)c * c + 4 * c, st);
+  return static_cast<int>(err);
+}
+
 template <class T, int HD>
 cudaError_t launch_heads(const BwdHeadsParams<T>& p, int nchunk, int nh,
                          cudaStream_t st) {
@@ -832,19 +1306,93 @@ cudaError_t launch_heads_tc(const BwdHeadsParams<T>& p, int nchunk, int nh,
   }
 }
 
+// The tensor-core dx and dw launches: dx over at most grid_dx blocks (the
+// rows of part_ln), dw over at most nsplit token shares (the slabs of
+// part_w), each cut to the blocks resident on the card at once; the blocks
+// and shares launched come back in *dx_blocks and *nshare.
+template <class T>
+cudaError_t launch_gemm_tc(const GemmBwdParams<T>& p, int grid_dx, int nsplit,
+                           int* dx_blocks, int* nshare, cudaStream_t st) {
+  using namespace mlptile;
+  if constexpr (sizeof(T) == 2) {
+    const int c = p.c, strips = kMlpWarps / p.parts, xsd = c + 8;
+    const size_t base = sizeof(float) * (2 * kMlpRows + kMlpWarps * 32 +
+                                         strips * 2 * c);
+    const size_t slot =
+        sizeof(T) * (kChunk * xsd + 16 * strips * (kChunk + 8));
+    const int cands[2] = {2, 1};
+    auto dx_kernel = c / p.parts <= 48 ? window_attention_bwd_dx_tc<T, 48>
+                                       : window_attention_bwd_dx_tc<T, 96>;
+    int nslots = 0;
+    size_t smem = 0;
+    cudaError_t err =
+        pick_slots(dx_kernel, base, slot, cands, 2, &nslots, &smem);
+    if (err != cudaSuccess) return err;
+    if (nslots == 0) return cudaErrorInvalidValue;
+    err = resident_grid(dx_kernel, kMlpThreads, smem, grid_dx, dx_blocks);
+    if (err != cudaSuccess) return err;
+    dx_kernel<<<*dx_blocks, kMlpThreads, smem, st>>>(p, nslots);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || (MEDSEG_ATTN_SKIP & 512)) return err;
+
+    const bool narrow = c <= 48;
+    const int rb = narrow ? 3 * 16 * kMlpWarps : 2 * 16 * kMlpWarps;
+    const int groups = (4 * c + rb - 1) / rb * (c / p.cs);
+    const size_t smem_dw =
+        sizeof(float) * 2 * kMlpRows +
+        sizeof(T) * kMlpRows * (rb + 8 + 2 * ((narrow ? 48 : 96) + 8));
+    auto dw_kernel = narrow ? window_attention_bwd_dw_tc<T, 48, 3>
+                            : window_attention_bwd_dw_tc<T, 96, 2>;
+    err = cudaFuncSetAttribute(
+        dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dw);
+    if (err != cudaSuccess) return err;
+    int total = 0;
+    err = resident_grid(dw_kernel, kMlpThreads, smem_dw, nsplit * groups,
+                        &total);
+    if (err != cudaSuccess) return err;
+    *nshare = max(1, min(nsplit, total / groups));
+    dw_kernel<<<dim3(groups, *nshare), kMlpThreads, smem_dw, st>>>(p);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // fp32 keeps the CUDA cores
+  }
+}
+
 template <class T>
 int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
-               void* part_ln, void* out_ln, void* part_w, void* out_w, int nh,
-               int residual, int nchunk, int grid_dx, int nsplit, int route,
-               float ln_eps, cudaStream_t st) {
+               void* part_ln, void* out_ln, void* part_w, void* out_w,
+               void* ln_stats, int nh, int residual, int nchunk, int grid_dx,
+               int nsplit, int route, int gemm_route, float ln_eps,
+               cudaStream_t st) {
   const int t = p.t, n = p.n, c = p.c;
-  cudaError_t err = route == kRouteTensorCore
+  cudaError_t err = (MEDSEG_ATTN_SKIP & 1024) ? cudaSuccess
+                    : route == kRouteTensorCore
                         ? launch_heads_tc(p, nchunk, nh, st)
                     : p.hd <= 16 ? launch_heads<T, 16>(p, nchunk, nh, st)
                                  : launch_heads<T, 32>(p, nchunk, nh, st);
   if (err != cudaSuccess || (MEDSEG_ATTN_SKIP & 4)) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
+  if (gemm_route == kRouteTensorCore) {
+    GemmBwdParams<T> g;
+    g.x = p.x;
+    g.ln = static_cast<const float*>(ln);
+    g.wqkv = p.wqkv;
+    g.dqkv = p.dqkv;
+    g.dy = p.dy;
+    g.attn = p.attn;
+    g.dx = static_cast<T*>(dx);
+    g.part_ln = static_cast<float*>(part_ln);
+    g.part_w = static_cast<float*>(part_w);
+    g.stats = static_cast<float2*>(ln_stats);
+    g.m = m_total;
+    g.c = c; g.residual = residual; g.parts = mlptile::mlp_dx_parts(c);
+    g.cs = mlptile::gemm_width(c); g.eps = ln_eps;
+    err = launch_gemm_tc(g, grid_dx, nsplit, &grid_dx, &nsplit, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return sum_all(p.dbias_part, dbias, part_ln, out_ln, part_w, out_w,
+                   ln != nullptr, nchunk, grid_dx, nsplit, nh * n * n, c, st);
+  }
   const size_t smem_dx =
       sizeof(float) * (2 * kTile + 2 * c + c * (kTile + 1) +
                        kTile * (kPK + 1) + kPK * c);
@@ -870,20 +1418,8 @@ int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
                                      ln_eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = sum_partials(p.dbias_part, static_cast<float*>(dbias), nchunk,
-                     (long long)nh * n * n, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (ln != nullptr) {
-    err = sum_partials(static_cast<const float*>(part_ln),
-                       static_cast<float*>(out_ln), grid_dx, 2 * (long long)c,
-                       st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  err = sum_partials(static_cast<const float*>(part_w),
-                     static_cast<float*>(out_w), nsplit,
-                     4 * (long long)c * c + 4 * c, st);
-  return static_cast<int>(err);
+  return sum_all(p.dbias_part, dbias, part_ln, out_ln, part_w, out_w,
+                 ln != nullptr, nchunk, grid_dx, nsplit, nh * n * n, c, st);
 }
 
 }  // namespace
@@ -892,27 +1428,34 @@ int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
 // Pointers as in BwdHeadsParams; dx (T, N, C) and the activations, weights,
 // attn and dqkv of the element type named by dtype. Scratch: dbias_part
 // (nchunk, nh, N, N; zero-filled by the caller for kRouteTensorCore), part_ln
-// (grid_dx, 2c), part_w (nsplit, 4c*c + 4c).
+// (grid_dx, 2c), part_w (nsplit, 4c*c + 4c), ln_stats (T * N float2; with ln
+// on the tensor-core GEMM route, else unused and may be NULL).
 // Results (fp32): dbias (nh, N, N), out_ln (2c) = dscale | dbias_ln, out_w =
 // dWqkv (3c x c) | dWproj (c x c) | dbqkv (3c) | dbproj (c). c must be a
-// multiple of 16. route: kRouteTensorCore (bf16 or fp16, head dim 16,
-// n <= 224; bias_t unused, may be NULL) or kRouteCudaCore.
+// multiple of 16. route, of the heads launch: kRouteTensorCore (bf16 or fp16,
+// head dim 16, n <= 224; bias_t unused, may be NULL) or kRouteCudaCore.
+// gemm_route, of the dx and dw launches: kRouteTensorCore (bf16 or fp16, c
+// as mlptile::gemm_route_takes says; x, wqkv, dy on 16-byte boundaries;
+// grid_dx and nsplit are then the most blocks and token shares the two
+// launches may take) or kRouteCudaCore (grid_dx blocks, nsplit shares).
 extern "C" int medseg_window_attention_bwd(
     const void* x, const void* ln, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bias, const void* bias_t, const void* dy,
     void* attn, void* dqkv, void* dx, void* dbias_part, void* dbias,
-    void* part_ln, void* out_ln, void* part_w, void* out_w, int t, int n,
-    int c, int nh, int w0, int w1, int w2, int s0, int s1, int s2, int nwd,
-    int nwh, int nww, int shifted, int residual, int nchunk, int grid_dx,
-    int nsplit, int route, int dtype, float ln_eps, float scale,
-    void* stream) {
+    void* part_ln, void* out_ln, void* part_w, void* out_w, void* ln_stats,
+    int t, int n, int c, int nh, int w0, int w1, int w2, int s0, int s1,
+    int s2, int nwd, int nwh, int nww, int shifted, int residual, int nchunk,
+    int grid_dx, int nsplit, int gemm_route, int route, int dtype,
+    float ln_eps, float scale, void* stream) {
   using namespace medseg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hd = c / nh;
   if (hd * nh != c || hd > 32 || hd < 1 || n < 1 || t < 1 || c % kJB != 0 ||
       c > kMaxC || nchunk < 1 || grid_dx < 1 || nsplit < 1 ||
       !route_takes(route, dtype, n, c, hd) ||
-      (route == kRouteCudaCore && bias_t == nullptr))
+      (route == kRouteCudaCore && bias_t == nullptr) ||
+      !mlptile::gemm_route_takes(gemm_route, dtype, c) ||
+      (gemm_route == kRouteTensorCore && ln != nullptr && ln_stats == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // every chunk must hold a window, or its slab of partials stays unwritten
   const int wins_per_chunk = (t + nchunk - 1) / nchunk;
@@ -938,7 +1481,8 @@ extern "C" int medseg_window_attention_bwd(
     p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
     p.nwd = nwd; p.nwh = nwh; p.nww = nww;
     p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
-    return launch_bwd(p, ln, dx, dbias, part_ln, out_ln, part_w, out_w, nh,
-                      residual, nchunk, grid_dx, nsplit, route, ln_eps, st);
+    return launch_bwd(p, ln, dx, dbias, part_ln, out_ln, part_w, out_w,
+                      ln_stats, nh, residual, nchunk, grid_dx, nsplit, route,
+                      gemm_route, ln_eps, st);
   });
 }

@@ -34,9 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 TILE_ROWS = 32
 # dynamic shared memory a block may ask for on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
-# the routes of the kernels that have two (K1, K3, K6 heads launches; K2,
-# K4), with their codes in the C entry points (kRouteCudaCore,
-# kRouteTensorCore in csrc/mma_tile.cuh)
+# the routes of the kernels that have two (K1, K3, K6 heads launches and
+# GEMM launches; K2, K4), with their codes in the C entry points
+# (kRouteCudaCore, kRouteTensorCore in csrc/mma_tile.cuh)
 ROUTES = {"cuda_core": 0, "tensor_core": 1}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -100,10 +100,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     lib.medseg_window_attention_fwd.argtypes = (
-        [p] * 9 + [i] * 17 + [f, f, p])
+        [p] * 9 + [i] * 18 + [f, f, p])
     lib.medseg_window_attention_fwd.restype = i
     lib.medseg_global_window_attention_fwd.argtypes = (
-        [p] * 10 + [i] * 8 + [f, f, p])
+        [p] * 10 + [i] * 9 + [f, f, p])
     lib.medseg_global_window_attention_fwd.restype = i
     lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 6 + [f, p]
     lib.medseg_sr_attention_fwd.restype = i
@@ -111,7 +111,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_sr_attention_smem_bytes.restype = ll
     lib.medseg_fused_mlp_fwd.argtypes = [p] * 8 + [i] * 9 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i
-    lib.medseg_window_attention_bwd.argtypes = [p] * 17 + [i] * 20 + [f, f, p]
+    lib.medseg_window_attention_bwd.argtypes = [p] * 18 + [i] * 21 + [f, f, p]
     lib.medseg_window_attention_bwd.restype = i
     lib.medseg_fused_mlp_bwd.argtypes = [p] * 12 + [i] * 9 + [f, p]
     lib.medseg_fused_mlp_bwd.restype = i
@@ -207,6 +207,21 @@ def check_tensor(name, t, device, dtype, shape=None) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def tensor_core_dtype(dtype) -> bool:
+    """Whether the tensor-core routes take this dtype: bf16 and fp16."""
+    import torch
+
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+def check_aligned(**tensors) -> None:
+    """The tensor-core kernels copy rows in 16-byte pieces: raise unless
+    every tensor starts on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
 def layer_norm(xf, ln, eps: float):

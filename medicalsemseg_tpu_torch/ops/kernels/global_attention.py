@@ -24,13 +24,15 @@ import torch
 
 from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels.window_attention import (
-    MAX_HEAD_DIM, ROUTES, pick_route)
+    MAX_HEAD_DIM, ROUTES, pick_gemm_route, pick_route)
 
 # kernel launches through global_window_attention() (one per call; the call
-# is two CUDA launches: heads, then projection), in all and by the route of
-# the heads launch (window_attention.attention_route, as K1's)
+# is two CUDA launches: heads, then projection), in all, by the route of the
+# heads launch and by the route of the projection launch (K1's pickers,
+# window_attention.attention_route and gemm_route)
 launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
+gemm_route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def global_window_attention_plain(
@@ -70,6 +72,7 @@ def global_window_attention(
     bkv: Optional[torch.Tensor], wproj: torch.Tensor, bproj: torch.Tensor,
     bias: torch.Tensor, *, ln: Optional[torch.Tensor] = None,
     ln_eps: float = 1e-5, residual: bool = False, route: Optional[str] = None,
+    gemm_route: Optional[str] = None,
 ) -> torch.Tensor:
     """Windows (T, N, C) and global queries (B, N, C) -> attention output
     windows (T, N, C); window g belongs to batch element g // (T // B).
@@ -80,8 +83,9 @@ def global_window_attention(
     or None, ``bproj`` (C,), ``ln`` (2, C) scale and bias rows and the gathered
     relative-position ``bias`` (nh, N, N) are fp32. With ``ln`` the windows
     are raw and the kernel applies the block's LayerNorm to them (never to
-    the queries); with ``residual`` it adds the raw windows. ``route`` names
-    the heads launch's route, as for K1."""
+    the queries); with ``residual`` it adds the raw windows. ``route`` and
+    ``gemm_route`` name the heads and projection launches' routes, as for
+    K1."""
     kw = dict(ln=ln, ln_eps=ln_eps, residual=residual)
     if wins.device.type == "cpu":
         return global_window_attention_plain(wins, q_global, wkv, bkv, wproj,
@@ -89,11 +93,11 @@ def global_window_attention(
     if wins.device.type != "cuda":
         raise ValueError(f"global_window_attention: no kernel for {wins.device}")
     return _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, route=route,
-                   **kw)
+                   gemm_route=gemm_route, **kw)
 
 
 def _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, *, ln, ln_eps,
-            residual, route):
+            residual, route, gemm_route=None):
     """K6 on ``wins``' device: the checks, the launch and its counts."""
     t, n, c = wins.shape
     nh = bias.shape[0]
@@ -107,6 +111,7 @@ def _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, *, ln, ln_eps,
     dev, dt, f32 = wins.device, wins.dtype, torch.float32
     code = kernels.dtype_code("wins", dt)
     route = pick_route(route, dt, n, hd)
+    gemm = pick_gemm_route(gemm_route, dt, c)
     wkv, wproj = wkv.to(dt), wproj.to(dt)
     kernels.check_tensor("wins", wins, dev, dt)
     kernels.check_tensor("q_global", q_global, dev, dt, (b, n, c))
@@ -119,6 +124,9 @@ def _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, *, ln, ln_eps,
     if ln is not None:
         kernels.check_tensor("ln", ln, dev, f32, (2, c))
 
+    if gemm == "tensor_core":
+        kernels.check_aligned(wins=wins, wproj=wproj)
+
     global launches
     lib = kernels.load()
     attn = torch.empty_like(wins)
@@ -127,9 +135,11 @@ def _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, *, ln, ln_eps,
         kernels.ptr(wins), kernels.ptr(ln), kernels.ptr(q_global),
         kernels.ptr(wkv), kernels.ptr(bkv), kernels.ptr(wproj),
         kernels.ptr(bproj), kernels.ptr(bias), kernels.ptr(attn),
-        kernels.ptr(out), t, n, c, nh, t // b, int(residual), ROUTES[route],
-        code, float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
+        kernels.ptr(out), t, n, c, nh, t // b, int(residual), ROUTES[gemm],
+        ROUTES[route], code, float(ln_eps), float(hd ** -0.5),
+        kernels.stream_handle(dev))
     kernels.check(lib, err, "global_window_attention")
     launches += 1
     route_launches[route] += 1
+    gemm_route_launches[gemm] += 1
     return out

@@ -77,15 +77,11 @@ def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return y
 
 
-def _tc_dtype(dtype) -> bool:
-    return dtype in (torch.bfloat16, torch.float16)
-
-
 def mlp_route(dtype, c: int, co: int, hdim: int) -> str:
     """The route of a K2 launch: ``"tensor_core"`` for bf16 and fp16 with C,
     Co and H multiples of 16 and C, Co <= 768, else ``"cuda_core"``."""
-    if (_tc_dtype(dtype) and c % 16 == 0 and co % 16 == 0 and hdim % 16 == 0
-            and max(c, co) <= TC_MAX_WIDTH):
+    if (kernels.tensor_core_dtype(dtype) and c % 16 == 0 and co % 16 == 0
+            and hdim % 16 == 0 and max(c, co) <= TC_MAX_WIDTH):
         return "tensor_core"
     return "cuda_core"
 
@@ -104,17 +100,9 @@ def mlp_bwd_route(dtype, c: int, hdim: int) -> str:
     """The route of a K4 launch: ``"tensor_core"`` for bf16 and fp16 with H
     a multiple of 16 and C in :func:`dx_parts` (every multiple of 16 up to
     96, of 32 up to 192, of 64 up to 384), else ``"cuda_core"``."""
-    if _tc_dtype(dtype) and hdim % 16 == 0 and dx_parts(c):
+    if kernels.tensor_core_dtype(dtype) and hdim % 16 == 0 and dx_parts(c):
         return "tensor_core"
     return "cuda_core"
-
-
-def _check_aligned(**tensors) -> None:
-    """The tensor-core kernels copy rows in 16-byte pieces: raise unless
-    every tensor starts on a 16-byte boundary."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
 def _ceil(a: int, b: int) -> int:
@@ -213,7 +201,7 @@ def _launch_fwd(x, w1, b1, w2, b2, ln, ln_eps, residual, route):
     out = torch.empty((m, co), dtype=dt, device=dev)
     cot, hsplit, part = 0, 0, None
     if route == "tensor_core":
-        _check_aligned(x=x, w1=w1, w2=w2)
+        kernels.check_aligned(x=x, w1=w1, w2=w2)
         cot, hsplit = fwd_plan(m, co, hdim, kernels.sm_count(dev))
         if hsplit > 1:
             part = torch.empty((hsplit, m, co), dtype=f32, device=dev)
@@ -317,7 +305,7 @@ def _launch_bwd(x, w1, b1, w2, ln, dy, ln_eps, residual, route):
     lib = kernels.load()
     dhb, sl = None, 0
     if route == "tensor_core":
-        _check_aligned(x=x, dy=dy, w1=w1, w2=w2)
+        kernels.check_aligned(x=x, dy=dy, w1=w1, w2=w2)
         sl, nsplit, grid_a, mp = bwd_plan(m, c, hdim, kernels.sm_count(dev))
         dhb = torch.empty((hdim, mp), dtype=dt, device=dev)
     else:

@@ -16,8 +16,12 @@ The heads launches of K1, K3 and K6 have two routes, picked by
 (``mma.sync``; bf16 and fp16 at head dim 16 with at most 224 tokens a
 window: every model path of the flagship, GCViTUNETR and SwinSegFormer at
 their shipped widths) and the CUDA cores (fp32, whose agreement with the
-fp32 plain path TF32 would cost, and any other head dim). A failed launch
-raises; nothing falls back to the other route.
+fp32 plain path TF32 would cost, and any other head dim). The GEMM launches
+(K1's and K6's projection, K3's dx and dw) have two routes of their own,
+picked by :func:`gemm_route` from the dtype and the width alone: the tensor
+cores for bf16 and fp16 with C in column parts of at most 96 (every shipped
+width) and the CUDA cores otherwise. A failed launch raises; nothing falls
+back to the other route.
 
 :func:`window_attention` takes windows that were already partitioned (and,
 for a shifted block, cyclically rolled by -shift) in batch-major window
@@ -35,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from medicalsemseg_tpu_torch.ops import kernels
+from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
 from medicalsemseg_tpu_torch.ops.window import _shift_mask_np, gather_rel_bias
 
 Tuple3 = Tuple[int, int, int]
@@ -53,9 +58,15 @@ ATTN_BWD_MAX_WIDTH = 512
 ROUTES = kernels.ROUTES
 TC_HEAD_DIM = 16
 TC_MAX_TOKENS = 224
-# the same launches as above, by route
+# the same launches as above, by the route of the heads launch and by the
+# route of the GEMM launches (K1's projection; K3's dx and dw)
 route_launches = dict.fromkeys(ROUTES, 0)
 bwd_route_launches = dict.fromkeys(ROUTES, 0)
+gemm_route_launches = dict.fromkeys(ROUTES, 0)
+bwd_gemm_route_launches = dict.fromkeys(ROUTES, 0)
+# dW rows a block of K3's tensor-core dw launch owns: four warps of three
+# 16-row m-tiles at C <= 48 (all of [dWqkv | dWproj]), of two above
+DW_ROWS_NARROW, DW_ROWS = 192, 128
 
 
 def attention_route(dtype, n: int, head_dim: int) -> str:
@@ -73,6 +84,46 @@ def pick_route(route: Optional[str], dtype, n: int, head_dim: int) -> str:
     return kernels.pick_route(route, attention_route(dtype, n, head_dim),
                               f"{dtype} with head dim {head_dim} and {n} "
                               "tokens a window")
+
+
+def gemm_width(c: int) -> int:
+    """Columns of the tensor-core GEMM launches' tiles: C up to 96, else the
+    widest multiple of 16 up to 96 dividing C (csrc/mlp_tile.cuh,
+    gemm_width): the projection's column tile and k chunk, and the channel
+    slice of K3's dw launch."""
+    if c <= 96:
+        return c
+    return next(w for w in range(96, 0, -16) if c % w == 0)
+
+
+def gemm_route(dtype, c: int) -> str:
+    """The route of the GEMM launches (K1's and K6's projection, K3's dx and
+    dw): ``"tensor_core"`` for bf16 and fp16 with C in the column parts of
+    K4's dx launch (:func:`..mlp.dx_parts`: every multiple of 16 up to 96, of
+    32 up to 192, of 64 up to 384), else ``"cuda_core"``."""
+    if kernels.tensor_core_dtype(dtype) and kmlp.dx_parts(c):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def pick_gemm_route(route: Optional[str], dtype, c: int) -> str:
+    """``route`` if given (it must be one the GEMM launches take for this
+    dtype and width), else :func:`gemm_route`."""
+    return kernels.pick_route(route, gemm_route(dtype, c),
+                              f"{dtype} with C={c} (GEMM launches)")
+
+
+def bwd_gemm_plan(m: int, c: int, blocks: int):
+    """(dx blocks, token shares) of K3's tensor-core dx and dw launches, the
+    most each may take of ``blocks`` (kernels.resident_blocks: four an SM;
+    the C entry point cuts both to the blocks resident on the card at once):
+    the dx launch over tiles of 64 / dx_parts(C) rows, the dw launch with
+    (row groups x channel slices) blocks a share over 64-token tiles."""
+    grid_dx = min(-(-m // (kmlp.TC_TILE_ROWS // kmlp.dx_parts(c))), blocks)
+    rows = DW_ROWS_NARROW if c <= 48 else DW_ROWS
+    groups = -(-4 * c // rows) * (c // gemm_width(c))
+    tiles = -(-m // kmlp.TC_TILE_ROWS)
+    return grid_dx, max(1, min(tiles, blocks // groups))
 
 
 def _qkv_heads(xn, wqkv, bqkv, nh):
@@ -134,6 +185,7 @@ def window_attention(
     grid_dims: Tuple3, window: Tuple3, shift: Tuple3,
     ln: Optional[torch.Tensor] = None, ln_eps: float = 1e-5,
     residual: bool = False, route: Optional[str] = None,
+    gemm_route: Optional[str] = None,
 ) -> torch.Tensor:
     """Windows (T, N, C) -> attention output windows (T, N, C).
 
@@ -145,7 +197,8 @@ def window_attention(
     ``grid_dims`` is the window grid (nwd, nwh, nww) of one volume, so
     T = B * nwd * nwh * nww. With ``ln`` the windows are raw and the kernel
     applies the block's LayerNorm; with ``residual`` it adds the raw windows.
-    ``route`` names the heads launch's route (default: :func:`attention_route`).
+    ``route`` names the heads launch's route (default: :func:`attention_route`),
+    ``gemm_route`` the projection launch's (default: :func:`gemm_route`).
     """
     kw = dict(grid_dims=tuple(grid_dims), window=tuple(window),
               shift=tuple(shift), ln=ln, ln_eps=ln_eps, residual=residual)
@@ -153,7 +206,8 @@ def window_attention(
         return window_attention_plain(wins, wqkv, bqkv, wproj, bproj, bias, **kw)
     if wins.device.type != "cuda":
         raise ValueError(f"window_attention: no kernel for {wins.device}")
-    return _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, route=route, **kw)
+    return _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, route=route,
+                       gemm_route=gemm_route, **kw)
 
 
 def _check_geometry(wins, nh, grid_dims, window):
@@ -170,13 +224,14 @@ def _check_geometry(wins, nh, grid_dims, window):
 
 
 def _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, *, grid_dims, window,
-                shift, ln, ln_eps, residual, route):
+                shift, ln, ln_eps, residual, route, gemm_route=None):
     """K1 on ``wins``' device: the checks, the launch and its counts."""
     nh = bias.shape[0]
     t, n, c, hd = _check_geometry(wins, nh, grid_dims, window)
     dev, dt, f32 = wins.device, wins.dtype, torch.float32
     code = kernels.dtype_code("wins", dt)
     route = pick_route(route, dt, n, hd)
+    gemm = pick_gemm_route(gemm_route, dt, c)
     wqkv, wproj = wqkv.to(dt), wproj.to(dt)
     kernels.check_tensor("wins", wins, dev, dt)
     kernels.check_tensor("wqkv", wqkv, dev, dt, (3 * c, c))
@@ -188,6 +243,9 @@ def _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, *, grid_dims, window,
     if ln is not None:
         kernels.check_tensor("ln", ln, dev, f32, (2, c))
 
+    if gemm == "tensor_core":
+        kernels.check_aligned(wins=wins, wproj=wproj)
+
     global launches
     lib = kernels.load()
     attn = torch.empty_like(wins)
@@ -198,11 +256,12 @@ def _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, *, grid_dims, window,
         kernels.ptr(bqkv), kernels.ptr(wproj), kernels.ptr(bproj),
         kernels.ptr(bias), kernels.ptr(attn), kernels.ptr(out),
         t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
-        ROUTES[route], code, float(ln_eps), float(hd ** -0.5),
+        ROUTES[gemm], ROUTES[route], code, float(ln_eps), float(hd ** -0.5),
         kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention")
     launches += 1
     route_launches[route] += 1
+    gemm_route_launches[gemm] += 1
     return out
 
 
@@ -275,11 +334,12 @@ def window_attention_bwd(
     grid_dims: Tuple3, window: Tuple3, shift: Tuple3,
     ln: Optional[torch.Tensor] = None, ln_eps: float = 1e-5,
     residual: bool = False, route: Optional[str] = None,
+    gemm_route: Optional[str] = None,
 ):
     """Gradients of :func:`window_attention` for the output gradient ``dy``
     (T, N, C); arguments and results as in
-    :func:`window_attention_bwd_plain`, ``route`` as in
-    :func:`window_attention`."""
+    :func:`window_attention_bwd_plain`, ``route`` (the heads launch's) and
+    ``gemm_route`` (the dx and dw launches') as in :func:`window_attention`."""
     kw = dict(grid_dims=tuple(grid_dims), window=tuple(window),
               shift=tuple(shift), ln=ln, ln_eps=ln_eps, residual=residual)
     if wins.device.type == "cpu":
@@ -287,12 +347,14 @@ def window_attention_bwd(
                                           **kw)
     if wins.device.type != "cuda":
         raise ValueError(f"window_attention_bwd: no kernel for {wins.device}")
-    return _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, route=route, **kw)
+    return _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, route=route,
+                       gemm_route=gemm_route, **kw)
 
 
 def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
-                shift, ln, ln_eps, residual, route):
-    """K3 on ``wins``' device: the checks, the launch and its counts."""
+                shift, ln, ln_eps, residual, route, gemm_route=None):
+    """K3 on ``wins``' device: the checks, the plan, the launch and its
+    counts."""
     nh = bias.shape[0]
     t, n, c, hd = _check_geometry(wins, nh, grid_dims, window)
     if c % 16 != 0 or c > ATTN_BWD_MAX_WIDTH:
@@ -301,6 +363,7 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
     dev, dt, f32 = wins.device, wins.dtype, torch.float32
     code = kernels.dtype_code("wins", dt)
     route = pick_route(route, dt, n, hd)
+    gemm = pick_gemm_route(gemm_route, dt, c)
     wqkv, wproj = wqkv.to(dt), wproj.to(dt)
     kernels.check_tensor("wins", wins, dev, dt)
     kernels.check_tensor("dy", dy, dev, dt, (t, n, c))
@@ -318,9 +381,16 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
     # one block per (run of windows, head); every run holds a window
     wins_per_chunk = -(-t // max(1, blocks // nh))
     nchunk = -(-t // wins_per_chunk)
-    tiles = -(-(t * n) // kernels.TILE_ROWS)
-    grid_dx = min(tiles, blocks)
-    nsplit = max(1, min(tiles, blocks // (4 * c // 16)))
+    stats = None
+    if gemm == "tensor_core":
+        kernels.check_aligned(wins=wins, wqkv=wqkv, dy=dy)
+        grid_dx, nsplit = bwd_gemm_plan(t * n, c, blocks)
+        if ln is not None:  # the dx launch's LayerNorm statistics, for dw's
+            stats = torch.empty((t * n, 2), dtype=f32, device=dev)
+    else:
+        tiles = -(-(t * n) // kernels.TILE_ROWS)
+        grid_dx = min(tiles, blocks)
+        nsplit = max(1, min(tiles, blocks // (4 * c // 16)))
     nw = 4 * c * c + 4 * c
     # the CUDA-core route's key-row pass reads the bias transposed
     bias_t = (bias.transpose(1, 2).contiguous() if route == "cuda_core"
@@ -343,13 +413,14 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
         kernels.ptr(bias_t), kernels.ptr(dy), kernels.ptr(attn),
         kernels.ptr(dqkv), kernels.ptr(dx), kernels.ptr(dbias_part),
         kernels.ptr(dbias), kernels.ptr(part_ln), kernels.ptr(out_ln),
-        kernels.ptr(part_w), kernels.ptr(out_w),
+        kernels.ptr(part_w), kernels.ptr(out_w), kernels.ptr(stats),
         t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
-        nchunk, grid_dx, nsplit, ROUTES[route], code, float(ln_eps),
-        float(hd ** -0.5), kernels.stream_handle(dev))
+        nchunk, grid_dx, nsplit, ROUTES[gemm], ROUTES[route], code,
+        float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention_bwd")
     bwd_launches += 1
     bwd_route_launches[route] += 1
+    bwd_gemm_route_launches[gemm] += 1
     cc = c * c
     return (dx, out_w[:3 * cc].view(3 * c, c), out_w[4 * cc:4 * cc + 3 * c],
             out_w[3 * cc:4 * cc].view(c, c), out_w[4 * cc + 3 * c:], dbias,

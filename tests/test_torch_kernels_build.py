@@ -115,3 +115,32 @@ def test_argtypes_rows_match_the_c_signatures():
         assert list(lib.functions[name].argtypes) == want, name
     conv = lib.functions["medseg_winograd_f23"].argtypes
     assert (conv.count(ctypes.c_void_p), conv.count(ctypes.c_int)) == (5, 9)
+
+
+@pytest.mark.parametrize("name", ["medseg_window_attention_fwd",
+                                  "medseg_window_attention_bwd",
+                                  "medseg_global_window_attention_fwd"])
+def test_attention_entry_points_take_both_routes(name):
+    """The three attention entry points take the GEMM launches' route as a C
+    int right before the heads launch's, and K3's the pointer of the
+    LayerNorm statistics its tensor-core dx launch hands the dw launch
+    right after out_w: the argtypes rows against the parameter names."""
+    import ctypes
+
+    lib = _FakeLibrary()
+    kernels._declare(lib)
+    src = ""
+    for path in glob.glob(os.path.join(kernels.CSRC_DIR, "*.cu")):
+        with open(path) as f:
+            src += f.read()
+    args = re.search(r'extern "C" [\w *]+?\b' + name + r"\(([^)]*)\)",
+                     src).group(1).split(",")
+    names = [a.split()[-1].lstrip("*") for a in args]
+    row = lib.functions[name].argtypes
+    assert len(row) == len(names)
+    i = names.index("gemm_route")
+    assert names[i + 1] == "route"
+    assert row[i] == row[i + 1] == ctypes.c_int
+    if name == "medseg_window_attention_bwd":
+        j = names.index("ln_stats")
+        assert names[j - 1] == "out_w" and row[j] == ctypes.c_void_p
