@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero:
                  at the full-resolution decoder shapes for batch 1 to 8 and a
                  ragged shape, beside cuDNN's weight gradient; K8 (fused
                  DiceCE, forward sums and dlogits) at batch 4 and 8 of 96^3 x
-                 14 classes and a voxel count that is no multiple of its tile;
+                 14 classes and a voxel count that is no multiple of its
+                 tile, there also with labels outside [0, C);
                  K9 (Winograd F(2^3, 3^3) conv) at the shapes of one
                  predictor call and of one training step, bare and with the
                  scale / shift / LeakyReLU epilogue, and K10 (im2col conv,
@@ -40,7 +41,10 @@ Phases, in order; any failure exits non-zero:
                  and K6 is also timed alone on both routes (torch.profiler)
                  beside its own bound and, for the GEMM launches, F.linear
                  (projection) or torch.matmul (dx: dqkv @ Wqkv; dw: the two
-                 weight products on a precomputed xn);
+                 weight products on a precomputed xn); K7 has the same two
+                 routes (the tensor cores' reruns bit-equal, both timed
+                 also by torch.profiler, beside F.linear -> SDPA -> F.linear
+                 + shortcut in bf16, a reference point);
   4. model     - the full-width flagship on one 96^3 window in bf16 with the
                  kernels, against the same weights in fp32 on the CPU (plain);
   5. zoo       - GCViTUNETR, SegFormer3D and SwinSegFormer at full width: one
@@ -89,11 +93,12 @@ Phases, in order; any failure exits non-zero:
 `--phases profile` (not run by default) prints torch.profiler tables of one
 training step at batch 8, one micro-step at batch 4, one predictor call of
 each zoo model and one of the flagship without and with the fused decoder;
-`--phases k9_parts`, `--phases k5_parts`, `--phases attn_parts` and `--phases
-mlp_parts` time K9, K5, the tensor-core launches of K1 and K3, and the
-tensor-core K2 and K4, built with one part or another compiled out. The
-phases model, zoo, cli, train, train_b4, train_cli and fp32 print the
-launches of K1, K3, K6, K2 and K4 by route and require the tensor cores on
+`--phases k9_parts`, `--phases k5_parts`, `--phases attn_parts`, `--phases
+mlp_parts` and `--phases sr_parts` time K9, K5, the tensor-core launches of
+K1 and K3, the tensor-core K2 and K4, and the tensor-core K7, built with one
+part or another compiled out. The phases model, zoo, cli, train, train_b4,
+train_cli and fp32 print the launches of K1, K3, K6, K2, K4 and K7 by route
+and require the tensor cores on
 the bf16 and fp16 paths, the CUDA cores on the fp32 ones, for the heads
 and the GEMM launches alike; the kernels line carries the sums
 (`launches_by_route`, `launches_by_gemm_route`). Then one JSON line with the
@@ -117,7 +122,8 @@ PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32")
-EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts")
+EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts",
+                "sr_parts")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -147,6 +153,28 @@ def _time_ms(fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _queued_ms(fn, iters):
+    """Device ms of one call of ``fn`` with the host's cost per call out of
+    the way: a sleep kernel holds the stream while all ``iters`` calls are
+    queued behind it, so the events time the calls back to back on the
+    device (where each call costs the host more than the card, _time_ms
+    times the host)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)    # ~2 ms at 1.98 GHz: longer than queuing
     start.record()
     for _ in range(iters):
         fn()
@@ -351,13 +379,15 @@ def _extra_times(stage, extra, iters):
 # at head dim 16 (every stage of the flagship and the zoo) and the CUDA cores
 # in fp32 (ops/kernels/window_attention.py, attention_route); K2 and K4 take
 # them in bf16 and fp16 with widths in multiples of 16
-# (ops/kernels/mlp.py, mlp_route, mlp_bwd_route). The kernels phase holds and
-# times both routes on the same tensors; the model phases require the route
-# their dtype picks.
+# (ops/kernels/mlp.py, mlp_route, mlp_bwd_route), K7 in bf16 and fp16 at
+# head dim 16 with M <= 64 (ops/kernels/sr_attention.py, sr_route). The
+# kernels phase holds and times both routes on the same tensors; the model
+# phases require the route their dtype picks.
 ROUTE_TOTALS = {name: {"tensor_core": 0, "cuda_core": 0} for name in (
     "window_attention", "window_attention_bwd", "global_window_attention",
     "fused_mlp", "fused_mlp_bwd", "window_attention_gemm",
-    "window_attention_bwd_gemm", "global_window_attention_gemm")}
+    "window_attention_bwd_gemm", "global_window_attention_gemm",
+    "sr_attention")}
 # the GEMM launches of K1, K3 and K6 (K1's and K6's projection, K3's dx and
 # dw) have routes of their own (window_attention.gemm_route): the kernels
 # line carries them as launches_by_gemm_route
@@ -372,11 +402,12 @@ ATTN_LAUNCHES = (("proj", "window_attention_proj"),
                  ("dw", "window_attention_bwd_dw"), ("heads", "heads"))
 
 
-def _launch_times(fn, iters):
+def _launch_times(fn, iters, launches=ATTN_LAUNCHES):
     """Device ms that one call of ``fn`` spends in each of its launches
-    (ATTN_LAUNCHES), from torch.profiler over ``iters`` warm calls (CPU and
-    CUDA activities, as _profiled: with the CUDA activity alone, a session
-    after such a one saw no kernel). Raises where it sees no launch."""
+    (``launches``: (label, pattern of the kernel's name)), from
+    torch.profiler over ``iters`` warm calls (CPU and CUDA activities, as
+    _profiled: with the CUDA activity alone, a session after such a one saw
+    no kernel). Raises where it sees no launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -394,11 +425,12 @@ def _launch_times(fn, iters):
             e, "cuda_time_total", 0)
         if us <= 0 or e.device_type.name != "CUDA":
             continue
-        for label, pattern in ATTN_LAUNCHES:
+        for label, pattern in launches:
             if pattern in e.key:
                 out[label] = out.get(label, 0.0) + us / 1e3 / iters
                 break
-    _require(out, "the profiler saw no attention launch")
+    _require(out, "the profiler saw no launch of " +
+             ", ".join(p for _, p in launches))
     return out
 
 
@@ -581,6 +613,7 @@ def _mlp_reference(x, a, kw, grad=False):
 def _read_routes():
     from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
     from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
     from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
 
     return {"window_attention": dict(kwa.route_launches),
@@ -590,7 +623,8 @@ def _read_routes():
             "fused_mlp_bwd": dict(kmlp.bwd_route_launches),
             "window_attention_gemm": dict(kwa.gemm_route_launches),
             "window_attention_bwd_gemm": dict(kwa.bwd_gemm_route_launches),
-            "global_window_attention_gemm": dict(kga.gemm_route_launches)}
+            "global_window_attention_gemm": dict(kga.gemm_route_launches),
+            "sr_attention": dict(ksr.route_launches)}
 
 
 def _check_routes(phase, route, need=True):
@@ -902,6 +936,33 @@ def _sr_case(gen, batch, n, c, nh, res, bq, dtype=None):
     return x, args
 
 
+def _sr_reference(x, a):
+    """K7's products by the library in the compute dtype: F.linear ->
+    scaled_dot_product_attention -> F.linear (+ the shortcut). A reference
+    point, not K7's function (SDPA scales q before the dot and rounds
+    elsewhere), so not its library_ms."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, c = x.shape
+    nh, dt = a["num_heads"], x.dtype
+    bq = None if a["bq"] is None else a["bq"].to(dt)
+    bproj, res = a["bproj"].to(dt), a["residual"]
+
+    def heads(t):
+        return t.reshape(b, -1, nh, c // nh).transpose(1, 2)
+
+    def fn():
+        o = F.scaled_dot_product_attention(heads(F.linear(x, a["wq"], bq)),
+                                           heads(a["k"]), heads(a["v"]))
+        y = F.linear(o.transpose(1, 2).reshape(b, n, c), a["wproj"], bproj)
+        return y if res is None else y + res
+
+    with torch.inference_mode():
+        fn()
+    return fn
+
+
 def _stage_report(report, label, c, batch, ms, pms, flops, nbytes,
                   peak=None, extra=None):
     bound, by = _bound(flops, nbytes, peak or PEAK_BF16_FLOPS)
@@ -1010,16 +1071,29 @@ def _zoo_kernels(rep):
 
         for ntok, c, nh in SR_STAGES:
             # the last stage's 27 tokens are one ragged tile; with the
-            # shortcut and the q bias comes last and is the one timed
+            # shortcut and the q bias comes last and is the one timed; both
+            # routes against plain, and the tensor cores' head-split form
+            # (stages 3 and 4) rerun bit-equal
             for res, bq in ((False, False), (False, True), (True, True)):
                 x, a = _sr_case(gen, PREDICT_BATCH, ntok, c, nh, res, bq)
-                got = ksr.sr_attention(x, **a)
                 want = ksr.sr_attention_plain(x, **a)
-                torch.cuda.synchronize()
-                _compare(f"K7 {PREDICT_BATCH}x{ntok} tokens, M={SR_M}, C={c}, "
-                         f"nh={nh}, residual {res}, bq {bq}", got, want, k7)
+                for route in ksr.ROUTES:
+                    got = ksr.sr_attention(x, **a, route=route)
+                    torch.cuda.synchronize()
+                    _compare(f"K7 {route} {PREDICT_BATCH}x{ntok} tokens, "
+                             f"M={SR_M}, C={c}, nh={nh}, residual {res}, bq "
+                             f"{bq}", got, want, k7)
+                    if route == "tensor_core":
+                        _require(torch.equal(got, ksr.sr_attention(
+                            x, **a, route=route)), f"K7 tensor_core C={c}: "
+                            "a second run is not bit-equal")
                 del got, want
             rows = PREDICT_BATCH * ntok
+            plan = ksr.sr_plan(PREDICT_BATCH, ntok, c, nh, SR_M,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+            print(f"  K7 C={c}: tensor-core plan (rows, groups, slots) "
+                  f"{plan}", flush=True)
             _stage_report(
                 k7, "predict", c, PREDICT_BATCH,
                 _time_ms(lambda: ksr.sr_attention(x, **a), 10),
@@ -1028,7 +1102,21 @@ def _zoo_kernels(rep):
                 4 * rows * c * c + 4 * rows * SR_M * c,
                 # x, shortcut, out; k, v; weights; biases
                 3 * rows * c * 2 + 2 * PREDICT_BATCH * SR_M * c * 2
-                + 2 * c * c * 2 + 2 * c * 4)
+                + 2 * c * c * 2 + 2 * c * 4,
+                extra={"cuda_core": lambda: ksr.sr_attention(
+                           x, **a, route="cuda_core"),
+                       "reference": _sr_reference(x, a)})
+            # the kernels' own device time (the CUDA events above time
+            # back-to-back calls, which the host's cost per call can bound)
+            stage = k7["per_stage"][-1]
+            for route in ksr.ROUTES:
+                stage[f"{route}_device_ms"] = _launch_times(
+                    lambda: ksr.sr_attention(x, **a, route=route), 10,
+                    (("k7", "sr_attention"),))["k7"]
+            print(f"  K7 predict x{PREDICT_BATCH}, C={c}: device time "
+                  f"tensor_core {stage['tensor_core_device_ms']:.4f} ms, "
+                  f"cuda_core {stage['cuda_core_device_ms']:.4f} ms",
+                  flush=True)
             del x, a
             torch.cuda.empty_cache()
     _sum_stages(k6, "predict")
@@ -1470,10 +1558,16 @@ def _dice_ce_kernels(fwd, bwd):
     gen = torch.Generator(device="cuda").manual_seed(8)
     c = N_CLASSES
     with torch.inference_mode():
-        for b, m in ((3, 100003), (8, CROP ** 3), (TRAIN_B4_BATCH, CROP ** 3)):
+        # labels outside [0, C) (-2 .. C + 1) at the ragged shape: no one-hot
+        # row and no CE term, p^2 left out where the label is negative, as
+        # the JAX kernels do (fault F4)
+        for b, m, lo, hi in ((3, 100003, 0, c), (3, 100003, -2, c + 2),
+                             (8, CROP ** 3, 0, c),
+                             (TRAIN_B4_BATCH, CROP ** 3, 0, c)):
             logits = torch.randn(b, m, c, generator=gen, device="cuda") * 2.0
-            labels = torch.randint(0, c, (b, m), generator=gen, device="cuda")
-            name = f"{b}x{m}x{c}"
+            labels = torch.randint(lo, hi, (b, m), generator=gen,
+                                   device="cuda")
+            name = f"{b}x{m}x{c}" + (f" labels {lo}..{hi - 1}" if lo else "")
             got = k8.dice_ce_sums(logits, labels)
             torch.cuda.synchronize()
             want = k8.dice_ce_sums_plain(logits, labels)
@@ -1506,13 +1600,17 @@ def _dice_ce_kernels(fwd, bwd):
                                                       ce),
                      nin + b * m * c * 4 + 2 * b * c * 4, 14 * b * m * c)):
                 ms, pms = _time_ms(fn, 10), _time_ms(plain, 5)
+                dev = _launch_times(fn, 10, (("partials", "sum_partials"),
+                                             ("kernel", "dice_ce")))
                 bound, by = _bound(flops, nbytes, PEAK_FP32_FLOPS)
                 rep["per_stage"].append({
                     "batch": b, "ms": ms, "plain_ms": pms, "flops": flops,
-                    "bytes": nbytes, "bound_ms": bound, "bound_by": by})
-                print(f"  K8 {rep['name']} {name}: kernel {ms:.3f} ms, plain "
-                      f"{pms:.3f} ms, bound {bound:.4f} ms by {by} "
-                      f"({flops:.3e} FLOP, {nbytes:.3e} B)", flush=True)
+                    "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+                    "device_ms": dev})
+                print(f"  K8 {rep['name']} {name}: kernel {ms:.3f} ms "
+                      f"(device: {dev}), plain {pms:.3f} ms, bound "
+                      f"{bound:.4f} ms by {by} ({flops:.3e} FLOP, "
+                      f"{nbytes:.3e} B)", flush=True)
             del logits, labels
             torch.cuda.empty_cache()
     for rep in (fwd, bwd):    # the batch-4 micro-step's call, measured last
@@ -1693,8 +1791,7 @@ def phase_zoo():
             out = gpu(xb)
             torch.cuda.synchronize()
             launches = _read_launches()
-            _check_routes(f"zoo {name}", "tensor_core",
-                          need=name != "SegFormer3D")
+            _check_routes(f"zoo {name}", "tensor_core")
             peak = torch.cuda.max_memory_allocated()
             _require(out.shape == (PREDICT_BATCH, 96, 96, 96, 14)
                      and bool(torch.isfinite(out).all()),
@@ -1786,8 +1883,7 @@ def phase_cli():
             records = run_test.main(cfg)
             wall = time.perf_counter() - t0
             delta = _read_launches()
-            _check_routes(f"cli {label}", "tensor_core",
-                          need=label != "SegFormer3D")
+            _check_routes(f"cli {label}", "tensor_core")
             for k, v in delta.items():
                 total[k] = total.get(k, 0) + v
             peak = torch.cuda.max_memory_allocated()
@@ -1856,7 +1952,8 @@ def _reset_launches():
     for by in (kwa.route_launches, kwa.bwd_route_launches,
                kga.route_launches, kmlp.route_launches,
                kmlp.bwd_route_launches, kwa.gemm_route_launches,
-               kwa.bwd_gemm_route_launches, kga.gemm_route_launches):
+               kwa.bwd_gemm_route_launches, kga.gemm_route_launches,
+               ksr.route_launches):
         for route in by:
             by[route] = 0
 
@@ -2463,6 +2560,92 @@ def phase_attn_parts():
                       f"{_time_ms(fn, 5):.3f} ms", flush=True)
     finally:
         kernels._lib = main
+
+
+# MEDSEG_SR_SKIP bits (csrc/sr_attention.cu): 1 the copies of the token
+# tiles, K and V, 2 the softmax's elementwise work, 4 the output projection's
+# products, 8 the epilogue (stores; with head groups the cluster's sum).
+SR_PARTS = (("whole", 0), ("without the copies", 1),
+            ("without the softmax's elementwise work", 2),
+            ("without the projection's products", 4),
+            ("without the epilogue", 8),
+            ("q, scores and P . V products only", 15))
+
+
+def phase_sr_parts():
+    """The tensor-core K7 at the four SegFormer3D stages of one predictor
+    call, built with parts compiled out (MEDSEG_SR_SKIP in
+    csrc/sr_attention.cu), each timed on the device
+    (_queued_ms: CUDA events over calls queued behind a sleep kernel, so
+    that the host's cost per call does not bound them); then the host's time
+    a call. The variants' results are wrong by design; the whole build is
+    compared with the library's."""
+    import ctypes
+    import types
+
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "sr_parts")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(kernels.CSRC_DIR, "sr_attention.cu")
+    jobs = []
+    for _, mask in SR_PARTS:
+        so = os.path.join(out_dir, f"sr_skip_{mask}.so")
+        jobs.append((so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+             f"-DMEDSEG_SR_SKIP={mask}", "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+
+    class _Known:
+        """The variant library, with argtypes rows set only for the entry
+        points it has."""
+
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name, types.SimpleNamespace())
+
+    main = kernels.load()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = []
+    with torch.inference_mode():
+        for ntok, c, nh in SR_STAGES:
+            x, a = _sr_case(gen, PREDICT_BATCH, ntok, c, nh, True, True)
+            cases.append((f"K7 x{PREDICT_BATCH} C={c}",
+                          lambda x=x, a=a: ksr.sr_attention(x, **a)))
+        want = [fn() for _, fn in cases]
+        try:
+            for (label, mask), (so, proc) in zip(SR_PARTS, jobs):
+                out, err = proc.communicate()
+                _require(proc.returncode == 0,
+                         f"sr_parts: nvcc failed:\n{out}\n{err}")
+                lib = ctypes.CDLL(so)
+                kernels._declare(_Known(lib))
+                kernels._lib = lib
+                for (name, fn), ref in zip(cases, want):
+                    if mask == 0:
+                        _require(torch.equal(fn(), ref),
+                                 f"sr_parts: {name}: the whole build differs "
+                                 "from the library's")
+                    print(f"sr_parts: {name}, {label}: "
+                          f"{_queued_ms(fn, 10):.4f} ms", flush=True)
+        finally:
+            kernels._lib = main
+        # the host's cost of a call: the wrapper's checks and the launch
+        name, fn = cases[-1]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host = (time.perf_counter() - t0) / 200
+        torch.cuda.synchronize()
+        print(f"sr_parts: {name}: {host * 1e3:.4f} ms of host time a call",
+              flush=True)
 
 
 # MEDSEG_MLP_SKIP bits (csrc/mlp_tile.cuh): 1 LayerNorm statistics and
@@ -3468,6 +3651,8 @@ def main(argv=None) -> int:
             phase_attn_parts()
         if "mlp_parts" in phases:
             phase_mlp_parts()
+        if "sr_parts" in phases:
+            phase_sr_parts()
         for k in kernels:
             if k["name"] in ROUTE_TOTALS:
                 k["launches_by_route"] = ROUTE_TOTALS[k["name"]]

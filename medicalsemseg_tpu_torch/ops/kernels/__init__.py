@@ -35,7 +35,7 @@ TILE_ROWS = 32
 # dynamic shared memory a block may ask for on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 # the routes of the kernels that have two (K1, K3, K6 heads launches and
-# GEMM launches; K2, K4), with their codes in the C entry points
+# GEMM launches; K2, K4, K7), with their codes in the C entry points
 # (kRouteCudaCore, kRouteTensorCore in csrc/mma_tile.cuh)
 ROUTES = {"cuda_core": 0, "tensor_core": 1}
 
@@ -105,7 +105,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_global_window_attention_fwd.argtypes = (
         [p] * 10 + [i] * 9 + [f, f, p])
     lib.medseg_global_window_attention_fwd.restype = i
-    lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 6 + [f, p]
+    lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 10 + [f, p]
     lib.medseg_sr_attention_fwd.restype = i
     lib.medseg_sr_attention_smem_bytes.argtypes = [i, i, i]
     lib.medseg_sr_attention_smem_bytes.restype = ll
@@ -149,10 +149,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream_handle(device) -> ctypes.c_void_p:
+def stream_handle(device) -> int:
+    """The current stream of ``device`` as an address (the ``c_void_p``
+    argtypes rows pass a plain int as a pointer)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def pick_route(route: Optional[str], auto: str, what: str) -> str:
@@ -178,9 +180,10 @@ def resident_blocks(device) -> int:
     return 4 * sm_count(device)
 
 
-def ptr(t) -> Optional[ctypes.c_void_p]:
-    """Device pointer of a tensor, or NULL for None."""
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> Optional[int]:
+    """Device pointer of a tensor as an int (a ``c_void_p`` argtypes row
+    passes it as a pointer), or None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def dtype_code(name, dtype) -> int:

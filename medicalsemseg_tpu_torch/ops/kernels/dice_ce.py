@@ -8,7 +8,10 @@ sums and the CE) and the backward call inside ``_fused_for`` (one pass
 recomputes the softmax and writes dlogits). The one-hot target is never
 materialised. The CUDA source is ``csrc/dice_ce.cu``; its header says what
 bounds it on the card and how the design answers that. The voxel count M
-needs no padding: the kernels bounds-check the last tile.
+needs no padding: the kernels bounds-check the last tile. A label outside
+[0, C) has an all-zero one-hot row and no CE term, and a negative one (the
+JAX kernels' padding label) also leaves p^2 out of the sums, as in the JAX
+kernels.
 
 A CPU tensor goes through :func:`dice_ce_sums_plain` /
 :func:`dice_ce_dlogits_plain`; a CUDA tensor launches the kernel or raises.
@@ -17,7 +20,6 @@ A CPU tensor goes through :func:`dice_ce_sums_plain` /
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
 
@@ -31,15 +33,25 @@ MAX_CLASSES = 32
 TILE_VOXELS = 256
 
 
+def _one_hot(labels: torch.Tensor, c: int, dtype) -> torch.Tensor:
+    """(..., C) one-hot of integer labels by comparison with the class
+    index, as the JAX kernels build it: a label outside [0, C) gives a zero
+    row (``F.one_hot`` would raise)."""
+    cls = torch.arange(c, device=labels.device)
+    return (labels.long()[..., None] == cls).to(dtype)
+
+
 def dice_ce_sums_plain(logits: torch.Tensor, labels: torch.Tensor
                        ) -> torch.Tensor:
     """The forward kernel's function in plain PyTorch: logits (B, M, C)
-    fp32, labels (B, M) integer in [0, C) -> (B, 4, C) fp32 with the rows
-    sum p.t, sum p^2, sum t (class voxel counts) and sum -log(p).t."""
+    fp32, labels (B, M) integer -> (B, 4, C) fp32 with the rows sum p.t,
+    sum p^2 over the voxels whose label is >= 0, sum t (class voxel counts)
+    and sum -log(p).t."""
     logp = torch.log_softmax(logits, dim=-1)
     p = torch.softmax(logits, dim=-1)
-    t = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
-    return torch.stack([(p * t).sum(1), (p * p).sum(1), t.sum(1),
+    t = _one_hot(labels, logits.shape[-1], logits.dtype)
+    valid = (labels >= 0).to(logits.dtype)[..., None]
+    return torch.stack([(p * t).sum(1), (p * p * valid).sum(1), t.sum(1),
                         -(logp * t).sum(1)], dim=1)
 
 
@@ -50,7 +62,7 @@ def dice_ce_dlogits_plain(logits: torch.Tensor, labels: torch.Tensor,
     p.(g - sum_c g.p) + ce.(p - t) with g = ca.t + cp.p, for the per-(batch,
     class) coefficients ``ca``, ``cp`` (B, C) and the scalar ``ce``."""
     p = torch.softmax(logits, dim=-1)
-    t = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
+    t = _one_hot(labels, logits.shape[-1], logits.dtype)
     g = ca[:, None, :] * t + cp[:, None, :] * p
     return p * (g - (g * p).sum(-1, keepdim=True)) + ce * (p - t)
 
@@ -75,12 +87,19 @@ def dice_ce_sums(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         return dice_ce_sums_plain(logits, labels)
     if logits.device.type != "cuda":
         raise ValueError(f"dice_ce_sums: no kernel for {logits.device}")
-    _check(logits, labels)
+    return _launch_sums(logits, labels)
 
+
+def _launch_sums(logits, labels):
+    """Check the tensors and launch (any device: the CPU tests drive this
+    path with a stand-in library)."""
+    _check(logits, labels)
     global launches
     b, m, c = logits.shape
     dev = logits.device
     lib = kernels.load()
+    # slabs for at most four blocks an SM; the launch takes no more blocks
+    # than are resident at once
     blocks = max(1, min(-(-m // TILE_VOXELS),
                         kernels.resident_blocks(dev) // b))
     part = torch.empty((blocks, b * 4 * c), dtype=torch.float32, device=dev)
@@ -104,6 +123,11 @@ def dice_ce_dlogits(logits: torch.Tensor, labels: torch.Tensor,
         return dice_ce_dlogits_plain(logits, labels, ca, cp, ce)
     if logits.device.type != "cuda":
         raise ValueError(f"dice_ce_dlogits: no kernel for {logits.device}")
+    return _launch_dlogits(logits, labels, ca, cp, ce)
+
+
+def _launch_dlogits(logits, labels, ca, cp, ce):
+    """Check the tensors and launch (any device, as :func:`_launch_sums`)."""
     _check(logits, labels)
     b, m, c = logits.shape
     dev = logits.device

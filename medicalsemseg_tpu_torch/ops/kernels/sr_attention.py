@@ -8,15 +8,24 @@ proj [-> + shortcut], with K and V (B, M, C) precomputed by the caller.
 Inference only, as on the TPU. The CUDA source is ``csrc/sr_attention.cu``;
 its header says what bounds it on the card and how the design answers that.
 
+Two routes, picked by :func:`sr_route` from the dtype and the shape alone:
+the tensor cores (``mma.sync``; bf16 and fp16 at head dim 16 with at most 64
+reduced keys and C <= 384: every SegFormer3D stage) and the CUDA cores
+(fp32, whose agreement with the fp32 plain path TF32 would cost, other head
+dims, more keys or wider C). :func:`sr_plan` gives the tensor-core launch its
+token tile, its head groups (the blocks of a thread-block cluster that add
+their partial projections) and its token slots. A failed launch raises;
+nothing falls back to the other route.
+
 The TPU wrapper's ``_tile_rows`` / ``fused_sr_attention_fits`` size a tile to
-the TPU's fast memory and have no counterpart: a block is 32 tokens whatever
-the width, and what the kernel takes is stated in :func:`sr_attention`. A CPU
-tensor goes through :func:`sr_attention_plain`; a CUDA tensor launches the
-kernel or raises.
+the TPU's fast memory and have no counterpart: what each route takes is
+stated in :func:`sr_attention`. A CPU tensor goes through
+:func:`sr_attention_plain`; a CUDA tensor launches a kernel or raises.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -24,8 +33,78 @@ import torch
 from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels.window_attention import MAX_HEAD_DIM
 
-# kernel launches through sr_attention()
+# kernel launches through sr_attention(), and the same by route
 launches = 0
+ROUTES = kernels.ROUTES
+route_launches = dict.fromkeys(ROUTES, 0)
+
+# the tensor-core route (csrc/sr_attention.cu): head dim 16, at most 64
+# reduced keys and 24 heads (C <= 384); a block owns a group of at most 6
+# heads, a cluster at most 8 groups; token tiles of at most 64 rows
+TC_HEAD_DIM = 16
+TC_MAX_KEYS = 64
+TC_MAX_HEADS = 24
+TC_MAX_GROUP_HEADS = 6
+TC_MAX_GROUPS = 8
+TC_MAX_ROWS = 64
+
+
+def sr_route(dtype, c: int, num_heads: int, m: int) -> str:
+    """The route of a launch: ``"tensor_core"`` for bf16 and fp16 at head dim
+    16 with 1 <= M <= 64 reduced keys and at most 24 heads, else
+    ``"cuda_core"``."""
+    if (kernels.tensor_core_dtype(dtype) and c == TC_HEAD_DIM * num_heads
+            and num_heads <= TC_MAX_HEADS and 1 <= m <= TC_MAX_KEYS):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def pick_route(route: Optional[str], dtype, c: int, num_heads: int,
+               m: int) -> str:
+    """``route`` if given (it must be one K7 takes for this dtype and
+    shape), else :func:`sr_route`."""
+    return kernels.pick_route(route, sr_route(dtype, c, num_heads, m),
+                              f"{dtype} with C={c}, {num_heads} heads and "
+                              f"M={m} (K7)")
+
+
+def sr_tc_smem_bytes(rows: int, c: int, num_heads: int, groups: int, m: int,
+                     slots: int, residual: bool) -> int:
+    """Dynamic shared memory of a tensor-core block (csrc/sr_attention.cu
+    sr_tc_smem_bytes): ``slots`` token tiles of ``rows`` x (C + 8) (with one
+    group and the shortcut, as many of the shortcut's), the group's Wq rows
+    and Wproj columns, K and V of its heads over M padded to 16s, all in
+    2-byte elements, and with several groups the fp32 partial projection of
+    a tile."""
+    hg = -(-num_heads // groups)
+    xs, ps, mp = c + 8, 16 * hg + 8, 16 * -(-m // 16)
+    tiles = 2 * slots if groups == 1 and residual else slots
+    elems = tiles * rows * xs + 16 * hg * xs + c * ps + 2 * mp * ps
+    return 2 * elems + (4 * rows * xs if groups > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def sr_plan(b: int, n: int, c: int, num_heads: int, m: int, sms: int,
+            residual: bool = True):
+    """(rows, groups, slots) of a tensor-core launch: token tiles of up to 64
+    rows; the fewest head groups that keep a group at <= 6 heads and, with
+    one cluster of ``groups`` blocks per tile, put a block on at least 7/8 of
+    the ``sms`` SMs (stage 4 of SegFormer3D: 16 single-tile batch elements
+    x 8 groups; stage 3: 64 tiles x 2); then the most rows and slots (2: the
+    next tile in flight) whose shared memory fits a block."""
+    rows0 = min(TC_MAX_ROWS, 16 * -(-n // 16))
+    top = min(TC_MAX_GROUPS, num_heads)
+    groups = -(-num_heads // TC_MAX_GROUP_HEADS)
+    while groups < top and b * -(-n // rows0) * groups < sms - sms // 8:
+        groups += 1
+    for g in range(groups, top + 1):
+        for rows in sorted({rows0, min(rows0, 32), 16}, reverse=True):
+            for slots in (2, 1):
+                if (sr_tc_smem_bytes(rows, c, num_heads, g, m, slots,
+                                     residual) <= kernels.MAX_SMEM_BYTES):
+                    return rows, g, slots
+    raise ValueError(f"K7: no tensor-core plan for C={c}, {num_heads} heads, "
+                     f"M={m}")
 
 
 def _heads(a: torch.Tensor, nh: int) -> torch.Tensor:
@@ -62,6 +141,7 @@ def sr_attention(
     x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, wq: torch.Tensor,
     bq: Optional[torch.Tensor], wproj: torch.Tensor, bproj: torch.Tensor,
     num_heads: int, residual: Optional[torch.Tensor] = None,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """LayerNorm'ed tokens x (B, N, C) and precomputed k, v (B, M, C: the two
     halves of the kv dense output, head-major) -> proj(softmax(q k^T /
@@ -71,16 +151,24 @@ def sr_attention(
     C) are [out, in] weights, cast to the activation dtype here as the JAX
     kernel casts them; ``bq`` (C,) or None and ``bproj`` (C,) are fp32;
     ``residual`` is the block's raw input (B, N, C), added in the activation
-    dtype. The kernel takes any N (the last tile of 32 tokens is masked),
-    head dims up to 32, and any M whose K and V fit a block's shared memory
-    beside the token tile: M <= 75 at C = 384 in bf16, 34 in fp32, more at
-    narrower widths (27 on every stage of the default model)."""
+    dtype. Both routes take any N (the last token tile is masked). The
+    tensor-core route takes what :func:`sr_route` gives it (every stage of
+    the default model: M = 27); the CUDA-core route head dims up to 32 and
+    any M whose K and V fit a block's shared memory beside the token tile:
+    M <= 75 at C = 384 in bf16, 34 in fp32, more at narrower widths.
+    ``route`` forces one (``"cuda_core"`` always; ``"tensor_core"`` only
+    where :func:`sr_route` gives it)."""
     if x.device.type == "cpu":
         return sr_attention_plain(x, k, v, wq, bq, wproj, bproj, num_heads,
                                   residual)
     if x.device.type != "cuda":
         raise ValueError(f"sr_attention: no kernel for {x.device}")
+    return _launch(x, k, v, wq, bq, wproj, bproj, num_heads, residual, route)
 
+
+def _launch(x, k, v, wq, bq, wproj, bproj, num_heads, residual, route):
+    """Check the tensors, pick the route and launch (any device: the CPU
+    tests drive this path with a stand-in library)."""
     b, n, c = x.shape
     m = k.shape[1]
     hd = c // num_heads
@@ -89,6 +177,7 @@ def sr_attention(
                          f"C and be <= {MAX_HEAD_DIM}")
     dev, dt, f32 = x.device, x.dtype, torch.float32
     code = kernels.dtype_code("x", dt)
+    route = pick_route(route, dt, c, num_heads, m)
     wq, wproj = wq.to(dt), wproj.to(dt)
     kernels.check_tensor("x", x, dev, dt)
     kernels.check_tensor("k", k, dev, dt, (b, m, c))
@@ -103,16 +192,28 @@ def sr_attention(
 
     global launches
     lib = kernels.load()
-    smem = lib.medseg_sr_attention_smem_bytes(m, c, code)
-    if smem > kernels.MAX_SMEM_BYTES:
-        raise ValueError(f"M={m} reduced tokens at C={c} need {smem} bytes of "
-                         f"shared memory, over {kernels.MAX_SMEM_BYTES}")
+    rows = groups = slots = 0
+    if route == "tensor_core":
+        rows, groups, slots = sr_plan(b, n, c, num_heads, m,
+                                      kernels.sm_count(dev),
+                                      residual is not None)
+        kernels.check_aligned(x=x, k=k, v=v, wq=wq, wproj=wproj,
+                              **({} if residual is None
+                                 else {"residual": residual}))
+    else:
+        smem = lib.medseg_sr_attention_smem_bytes(m, c, code)
+        if smem > kernels.MAX_SMEM_BYTES:
+            raise ValueError(f"M={m} reduced tokens at C={c} need {smem} "
+                             f"bytes of shared memory, over "
+                             f"{kernels.MAX_SMEM_BYTES}")
     out = torch.empty_like(x)
     err = lib.medseg_sr_attention_fwd(
         kernels.ptr(x), kernels.ptr(k), kernels.ptr(v), kernels.ptr(wq),
         kernels.ptr(bq), kernels.ptr(wproj), kernels.ptr(bproj),
-        kernels.ptr(residual), kernels.ptr(out), b, n, m, c, num_heads, code,
-        float(hd ** -0.5), kernels.stream_handle(dev))
+        kernels.ptr(residual), kernels.ptr(out), b, n, m, c, num_heads, rows,
+        groups, slots, ROUTES[route], code, float(hd ** -0.5),
+        kernels.stream_handle(dev))
     kernels.check(lib, err, "sr_attention")
     launches += 1
+    route_launches[route] += 1
     return out

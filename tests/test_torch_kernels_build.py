@@ -144,3 +144,27 @@ def test_attention_entry_points_take_both_routes(name):
     if name == "medseg_window_attention_bwd":
         j = names.index("ln_stats")
         assert names[j - 1] == "out_w" and row[j] == ctypes.c_void_p
+
+
+def test_sr_attention_entry_point_takes_the_plan_and_the_route():
+    """K7's entry point takes the tensor-core plan (rows, groups, slots) and
+    the route as C ints between nh and dtype: the argtypes row against the
+    parameter names."""
+    import ctypes
+
+    lib = _FakeLibrary()
+    kernels._declare(lib)
+    src = ""
+    for path in glob.glob(os.path.join(kernels.CSRC_DIR, "*.cu")):
+        with open(path) as f:
+            src += f.read()
+    args = re.search(
+        r'extern "C" [\w *]+?\bmedseg_sr_attention_fwd\(([^)]*)\)',
+        src).group(1).split(",")
+    names = [a.split()[-1].lstrip("*") for a in args]
+    row = lib.functions["medseg_sr_attention_fwd"].argtypes
+    assert len(row) == len(names)
+    i = names.index("nh")
+    assert names[i:i + 6] == ["nh", "rows", "groups", "slots", "route",
+                              "dtype"]
+    assert row[i:i + 6] == [ctypes.c_int] * 6
