@@ -89,7 +89,26 @@ Phases, in order; any failure exits non-zero:
                  CLI on one volume (labels against the plain versions), two
                  training steps through the training CLI at batch 2, one
                  predictor call's logits and one step's gradients against
-                 the fp32 plain path, and one --compute_dtype float16 call.
+                 the fp32 plain path, and one --compute_dtype float16 call;
+ 14. eval      - the labelled evaluation CLI on two synthetic CT volumes
+                 with 13 seeded organ labels (14 classes), once with host HD95
+                 and once with --device_hd95 (HD95 bit-equal; 8 K1 and 8 K2
+                 launches per predictor call; per-volume seconds), then the
+                 fold majority-vote CLI over three fold directories against
+                 majority_vote_np;
+ 15. f5        - the shapes that no kernel took before (fault F5):
+                 SegFormer3D at --vol_size 160 through the predictor (K7 on
+                 its streaming CUDA-core route in all 8 blocks; logits
+                 against the fp32 plain path; one call of 16 windows timed)
+                 and one flagship training step at --hidden_dim 96, batch 2
+                 (K1-K4 in all 8 blocks, K3 and K4 on the CUDA cores at
+                 stage 4, C = 768; gradients against the fp32 plain path).
+The kernels group `f5` (in the default set) holds the same paths' kernels at
+their shapes against their plain versions, timed: K7's streaming route at
+SegFormer3D's four stages at vol 160 (M = 125) and at stage 4 with
+M = 216 / 512 (batch 16, bf16); K1 and K3 at the four stages of hidden 96
+and K2 and K4 at C = 768 (batch 2, bf16); K2's CUDA-core route at C = 768
+in fp32.
 `--phases profile` (not run by default) prints torch.profiler tables of one
 training step at batch 8, one micro-step at batch 4, one predictor call of
 each zoo model and one of the flagship without and with the fused decoder;
@@ -119,9 +138,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
-          "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32")
+          "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32",
+          "eval", "f5")
 # groups of the kernels phase, for --kernels
-KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32")
+KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5")
 EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts",
                 "sr_parts")
 
@@ -402,36 +422,44 @@ ATTN_LAUNCHES = (("proj", "window_attention_proj"),
                  ("dw", "window_attention_bwd_dw"), ("heads", "heads"))
 
 
+PROFILE_SESSIONS = 3
+
+
 def _launch_times(fn, iters, launches=ATTN_LAUNCHES):
     """Device ms that one call of ``fn`` spends in each of its launches
     (``launches``: (label, pattern of the kernel's name)), from
     torch.profiler over ``iters`` warm calls (CPU and CUDA activities, as
     _profiled: with the CUDA activity alone, a session after such a one saw
-    no kernel). Raises where it sees no launch."""
+    no kernel). A session that records no device activity of these launches
+    is taken again, up to PROFILE_SESSIONS in all (once on the H100, a
+    session among dozens in one process recorded no kernel of a launch that
+    ran); raises where none sees a launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0)
-        if us <= 0 or e.device_type.name != "CUDA":
-            continue
-        for label, pattern in launches:
-            if pattern in e.key:
-                out[label] = out.get(label, 0.0) + us / 1e3 / iters
-                break
-    _require(out, "the profiler saw no launch of " +
-             ", ".join(p for _, p in launches))
-    return out
+    for _ in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None) or getattr(
+                e, "cuda_time_total", 0)
+            if us <= 0 or e.device_type.name != "CUDA":
+                continue
+            for label, pattern in launches:
+                if pattern in e.key:
+                    out[label] = out.get(label, 0.0) + us / 1e3 / iters
+                    break
+        if out:
+            return out
+    raise PhaseError("the profiler saw no launch of " +
+                     ", ".join(p for _, p in launches))
 
 
 def _launch_work(kind, t, n, c, nh, ln=True, res=True, elem=2):
@@ -627,21 +655,30 @@ def _read_routes():
             "sr_attention": dict(ksr.route_launches)}
 
 
+def _add_routes(phase):
+    """The launches by route since the last
+    ``_reset_launches``: print them, add them to ROUTE_TOTALS for the
+    kernels line and return them."""
+    routes = _read_routes()
+    print(f"{phase}: launches by route "
+          f"{ {k: v for k, v in routes.items() if any(v.values())} }",
+          flush=True)
+    for name, by in routes.items():
+        for r, n in by.items():
+            ROUTE_TOTALS[name][r] += n
+    return routes
+
+
 def _check_routes(phase, route, need=True):
     """The launches of the kernels with two routes since the last
     ``_reset_launches`` all took ``route`` (and, with ``need``, there was at
     least one): print them and add them to ROUTE_TOTALS for the kernels
     line."""
-    routes = _read_routes()
+    routes = _add_routes(phase)
     other = "cuda_core" if route == "tensor_core" else "tensor_core"
-    print(f"{phase}: launches by route "
-          f"{ {k: v for k, v in routes.items() if any(v.values())} }",
-          flush=True)
     for name, by in routes.items():
         _require(by[other] == 0, f"{phase}: {name} took the {other} route "
                  f"{by[other]} times (want {route})")
-        for r, n in by.items():
-            ROUTE_TOTALS[name][r] += n
     _require(not need or sum(by[route] for by in routes.values()) > 0,
              f"{phase}: no launch took the {route} route")
 
@@ -694,6 +731,8 @@ def phase_kernels(groups=KERNEL_GROUPS):
         _conv_kernels(rep["winograd_conv3d_f23"], rep["conv3x3x3"])
     if "fp32" in groups:
         _fp32_kernels(rep)
+    if "f5" in groups:
+        _f5_kernels(rep)
     for k in rep.values():
         k["launches"] = 0
         del k["tag"]
@@ -3587,6 +3626,477 @@ def phase_fp32():
     return total
 
 
+# The shapes of fault F5's paths. K7's CUDA-core route streams K and V in
+# key chunks: SegFormer3D at --vol_size 160 has M = 5^3 = 125 reduced tokens
+# at every stage (N = 40^3, 20^3, 10^3, 5^3 tokens at C = 48, 96, 192, 384),
+# and its stage 4 at --vol_size 192 / 256 N = M = 216 / 512; bf16, batch 16.
+# The flagship at --hidden_dim 96 (the f5 phase's training step, batch 2):
+# C = 96, 192, 384, 768 over 3, 6, 12, 24 heads (head dim 32), K3 and K4 on
+# the CUDA cores at C = 768; K2's CUDA-core route at C = 768 in fp32.
+F5_SR_STAGES = tuple((g ** 3, 48 * 2 ** i, 3 * 2 ** i, 125)
+                     for i, g in enumerate((40, 20, 10, 5))) + (
+    (216, 384, 24, 216), (512, 384, 24, 512))
+F5_HIDDEN = 96
+F5_TRAIN_BATCH = 2
+F5_MLP_C = 768
+
+
+def _f5_kernels(rep):
+    """K7's streaming route, K1-K4 at --hidden_dim 96 and K2's widened
+    CUDA-core route at the shapes of fault F5's paths, against their plain
+    versions at KERNEL_ATOL (gradients at the swin group's tolerances), a
+    rerun bit-equal, timed beside their bounds (stage rows with the paths
+    ``vol160`` / ``stream_m{M}``, ``hidden96`` / ``hidden96_train`` and
+    ``fp32_c768``; not part of the kernels' sums over the predictor call's
+    stages)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    k1, k2 = rep["window_attention"], rep["fused_mlp"]
+    k3, k4 = rep["window_attention_bwd"], rep["fused_mlp_bwd"]
+    k7 = rep["sr_attention"]
+    batch = PREDICT_BATCH
+    with torch.inference_mode():
+        for n, c, nh, m in F5_SR_STAGES:
+            _require(ksr.sr_route(torch.bfloat16, c, nh, m) == "cuda_core",
+                     f"K7 N={n}, M={m}: not the CUDA-core route")
+            for res, bq in ((False, False), (True, True)):
+                x, a = _sr_case(gen, batch, n, c, nh, res, bq)
+                a["k"], a["v"] = (torch.randn(batch, m, c, generator=gen,
+                                              device="cuda").to(x.dtype)
+                                  for _ in range(2))
+                want = ksr.sr_attention_plain(x, **a)
+                got = ksr.sr_attention(x, **a)
+                torch.cuda.synchronize()
+                _compare(f"K7 stream {batch}x{n} tokens, M={m}, C={c}, "
+                         f"residual {res}, bq {bq}", got, want, k7)
+                _require(torch.equal(got, ksr.sr_attention(x, **a)),
+                         f"K7 stream N={n}, M={m}: a rerun differs")
+                del got, want
+            rows = batch * n
+            label = "vol160" if m == 125 else f"stream_m{m}"
+            _stage_report(
+                k7, label, c, batch,
+                _time_ms(lambda: ksr.sr_attention(x, **a), 10),
+                _time_ms(lambda: ksr.sr_attention_plain(x, **a), 10),
+                4 * rows * c * c + 4 * rows * m * c,
+                3 * rows * c * 2 + 2 * batch * m * c * 2
+                + 2 * c * c * 2 + 2 * c * 4,
+                extra={"reference": _sr_reference(x, a)})
+            stage = k7["per_stage"][-1]
+            stage["N"], stage["M"] = n, m
+            stage["device_ms"] = _launch_times(
+                lambda: ksr.sr_attention(x, **a), 10,
+                (("k7", "sr_attention"),))["k7"]
+            print(f"  K7 stream N={n}, M={m}: device time "
+                  f"{stage['device_ms']:.4f} ms", flush=True)
+            del x, a
+            torch.cuda.empty_cache()
+
+        # ---- the flagship at --hidden_dim 96: K1 and K3 at head dim 32
+        # (the CUDA-core heads route), K2 and K4 at C = 768, in the
+        # training step's forms (batch 2; LN in the kernels, the shortcut
+        # inside and outside)
+        batch = F5_TRAIN_BATCH
+        for grid, c0, nh in STAGES:
+            c = c0 * F5_HIDDEN // 48
+            for shift, res in ((WS // 2, True), (0, False)):
+                wins, a, kw = _attn_case(gen, batch, grid, c, nh, shift, True,
+                                         res)
+                case = (f"hidden 96 grid {grid}^3 x{batch}, C={c}, nh={nh}, "
+                        f"shift {shift}, res {res}")
+                got = kwa.window_attention(wins, **a, **kw)
+                want = kwa.window_attention_plain(wins, **a, **kw)
+                torch.cuda.synchronize()
+                _compare("K1 " + case, got, want, k1)
+                _require(torch.equal(got, kwa.window_attention(wins, **a,
+                                                               **kw)),
+                         f"K1 {case}: a rerun differs")
+                dy = torch.randn(wins.shape, generator=gen,
+                                 device="cuda").to(wins.dtype)
+                b = {k: v for k, v in a.items() if k != "bproj"}
+                want = kwa.window_attention_bwd_plain(wins, dy=dy, **b, **kw)
+                got = kwa.window_attention_bwd(wins, dy=dy, **b, **kw)
+                torch.cuda.synchronize()
+                _compare_grads("K3 " + case, K3_NAMES, got, want, k3)
+                again = kwa.window_attention_bwd(wins, dy=dy, **b, **kw)
+                _require(all((u is None and v is None) or torch.equal(u, v)
+                             for u, v in zip(got, again)),
+                         f"K3 {case}: a rerun differs")
+                del got, want, again
+            _timed(k1, "window_attention", "hidden96", batch, grid, c, nh,
+                   lambda: kwa.window_attention(wins, **a, **kw),
+                   lambda: kwa.window_attention_plain(wins, **a, **kw), 5)
+            _timed(k3, "window_attention_bwd", "hidden96_train", batch, grid,
+                   c, nh,
+                   lambda: kwa.window_attention_bwd(wins, dy=dy, **b, **kw),
+                   lambda: kwa.window_attention_bwd_plain(wins, dy=dy, **b,
+                                                          **kw), 3)
+            del wins, a, b, kw, dy
+            torch.cuda.empty_cache()
+
+        grid, c = STAGES[-1][0], F5_MLP_C
+        for res in (True, False):
+            x, a, kw = _mlp_case(gen, batch, grid, c, True, res)
+            case = f"hidden 96 grid {grid}^3 x{batch}, C={c}, res {res}"
+            got = kmlp.fused_mlp(x, **a, **kw)
+            want = kmlp.fused_mlp_plain(x, **a, **kw)
+            torch.cuda.synchronize()
+            _compare("K2 " + case, got, want, k2)
+            _require(torch.equal(got, kmlp.fused_mlp(x, **a, **kw)),
+                     f"K2 {case}: a rerun differs")
+            dy = torch.randn(x.shape, generator=gen,
+                             device="cuda").to(x.dtype)
+            b = dict(w1=a["w1"], b1=a["b1"], w2=a["w2"], ln=kw["ln"], dy=dy,
+                     residual=res)
+            _require(kmlp.mlp_bwd_route(x.dtype, c, 4 * c) == "cuda_core",
+                     "K4 C=768: not the CUDA-core route")
+            got = kmlp.fused_mlp_bwd(x, **b)
+            want = kmlp.fused_mlp_bwd_plain(x, **b)
+            torch.cuda.synchronize()
+            _compare_grads("K4 cuda_core " + case, K4_NAMES, got, want, k4)
+            _require(all(torch.equal(u, v) for u, v in
+                         zip(got, kmlp.fused_mlp_bwd(x, **b))),
+                     f"K4 {case}: a rerun differs")
+            del got, want
+        _timed(k2, "fused_mlp", "hidden96", batch, grid, c, STAGES[-1][2],
+               lambda: kmlp.fused_mlp(x, **a, **kw),
+               lambda: kmlp.fused_mlp_plain(x, **a, **kw), 5,
+               extra=_mlp_reference(x, a, kw))
+        _timed(k4, "fused_mlp_bwd", "hidden96_train", batch, grid, c,
+               STAGES[-1][2], lambda: kmlp.fused_mlp_bwd(x, **b),
+               lambda: kmlp.fused_mlp_bwd_plain(x, **b), 3,
+               extra=_mlp_reference(x, a, kw, grad=True))
+        del x, a, b, kw, dy
+        torch.cuda.empty_cache()
+
+        c, batch = F5_MLP_C, PREDICT_BATCH
+        x, a, kw = _mlp_case(gen, batch, WS, c, True, True,
+                             dtype=torch.float32)
+        _require(kmlp.mlp_route(x.dtype, c, c, 4 * c) == "cuda_core",
+                 "K2 fp32 C=768: not the CUDA-core route")
+        want = kmlp.fused_mlp_plain(x, **a, **kw)
+        got = kmlp.fused_mlp(x, **a, **kw)
+        torch.cuda.synchronize()
+        _compare(f"K2 cuda_core fp32 grid {WS}^3 x{batch}, C={c}, hidden 4C, "
+                 "ln+res True", got, want, k2)
+        _require(torch.equal(got, kmlp.fused_mlp(x, **a, **kw)),
+                 "K2 fp32 C=768: a rerun differs")
+        del got, want
+        m = x.shape[0]
+        _stage_report(
+            k2, "fp32_c768", c, batch,
+            _time_ms(lambda: kmlp.fused_mlp(x, **a, **kw), 5),
+            _time_ms(lambda: kmlp.fused_mlp_plain(x, **a, **kw), 5),
+            16 * m * c * c, 2 * m * c * 4 + 8 * c * c * 4 + 5 * c * 4
+            + 2 * c * 4, PEAK_FP32_FLOPS,
+            extra=_mlp_reference(x, a, kw))
+        del x, a, kw
+        torch.cuda.empty_cache()
+
+
+EVAL_SHAPES = ((240, 240, 140), (200, 180, 120))
+EVAL_ORGANS = 13     # label classes 1-13 are seeded blobs (BTCV's organs)
+
+
+def _label_volume(rng, shape):
+    """A label map of seeded ellipsoid blobs, classes 1 .. EVAL_ORGANS, over
+    background: organ-sized surfaces for HD95."""
+    import numpy as np
+
+    grids = np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32)
+                          for s in shape], indexing="ij")
+    lab = np.zeros(shape, np.uint8)
+    for c in range(1, EVAL_ORGANS + 1):
+        center = rng.uniform(-0.5, 0.5, 3)
+        radii = rng.uniform(0.12, 0.3, 3)
+        inside = sum(((g - x0) / r) ** 2
+                     for g, x0, r in zip(grids, center, radii)) < 1
+        lab[inside] = c
+    return lab
+
+
+def phase_eval():
+    """The labelled evaluation CLI on two synthetic CT volumes with 14
+    classes, at full width: once with host HD95 and once with
+    --device_hd95 (HD95 bit-equal), 8 K1 and 8 K2 launches per predictor
+    call; then the fold majority-vote CLI over three fold directories,
+    held against majority_vote_np."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.cli import majority_vote, run_evaluation
+    from medicalsemseg_tpu_torch.config import get_args
+    from medicalsemseg_tpu_torch.data import nifti
+    from medicalsemseg_tpu_torch.infer.ensemble import majority_vote_np
+    from medicalsemseg_tpu_torch.train.metrics import hausdorff95
+
+    rng = np.random.default_rng(3)
+    task = "Task03_SmokeEval"
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("imagesTr", "labelsTr"):
+            os.makedirs(os.path.join(tmp, task, sub))
+        val = []
+        for i, shape in enumerate(EVAL_SHAPES):
+            aff = np.diag([0.8, 0.8, 2.5, 1.0])
+            aff[:3, 3] = (-96.0, 20.0, 31.0)
+            name = f"img{i}.nii.gz"
+            nifti.save(nifti.NiftiImage(_ct_volume(rng, shape), aff),
+                       os.path.join(tmp, task, "imagesTr", name))
+            nifti.save(nifti.NiftiImage(_label_volume(rng, shape), aff),
+                       os.path.join(tmp, task, "labelsTr", name))
+            val.append({"image": f"./imagesTr/{name}",
+                        "label": f"./labelsTr/{name}"})
+        with open(os.path.join(tmp, task, "dataset.json"), "w") as f:
+            json.dump({"training": [], "validation": val}, f)
+
+        results = {}
+        for label, extra in (("host", []), ("device", ["--device_hd95"])):
+            out_dir = os.path.join(tmp, "out_" + label)
+            cfg = get_args(FLAGSHIP_ARGS + extra + [
+                "--data_path", tmp, "--task", task, "--output_dir", out_dir,
+                "--device", "cuda"])
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = run_evaluation.main(cfg)
+            wall = time.perf_counter() - t0
+            delta = _read_launches()
+            _check_routes(f"eval {label}", "tensor_core")
+            for k, v in delta.items():
+                total[k] = total.get(k, 0) + v
+            calls = sum(r["predictor_calls"] for r in res["records"])
+            _require(len(res["records"]) == 2 and calls > 0,
+                     f"eval {label}: {len(res['records'])} volumes, {calls} "
+                     "predictor calls")
+            _require_launches(f"eval {label} ({calls} predictor calls)",
+                              delta, {**dict.fromkeys(delta, 0),
+                                      "window_attention": 8 * calls,
+                                      "fused_mlp": 8 * calls})
+            for r in res["records"]:
+                print(f"eval: {label} HD95 {r['name']} {r['shape']}: "
+                      f"{r['windows']} windows, {r['predictor_calls']} "
+                      f"predictor calls, predict_seconds "
+                      f"{r['predict_seconds']:.3f}, hd95_seconds "
+                      f"{r['hd95_seconds']:.3f}, seconds {r['seconds']:.3f}",
+                      flush=True)
+            print(f"eval: {label} HD95: mDice {res['mDice']:.4f}, mHD95 "
+                  f"{res['mHD95']:.3f}, {wall:.2f} s for 2 volumes",
+                  flush=True)
+            for i, r in enumerate(res["records"]):
+                for sub in ("pred", "img", "gt"):
+                    path = os.path.join(out_dir, "eval_output", "Fold0", sub,
+                                        f"img{i}.nii.gz")
+                    _require(os.path.exists(path), f"eval {label}: no {path}")
+                    _require(nifti.load(path).data.shape == r["shape"],
+                             f"eval {label}: {sub} {i} is not {r['shape']}")
+            results[label] = res, out_dir
+
+        (host, host_dir), (dev, dev_dir) = results["host"], results["device"]
+
+        def saved(out_dir, sub, i):
+            return nifti.load(os.path.join(out_dir, "eval_output", "Fold0",
+                                           sub, f"img{i}.nii.gz")).data
+
+        same_pred = all(np.array_equal(saved(host_dir, "pred", i),
+                                       saved(dev_dir, "pred", i))
+                        for i in range(2))
+        if same_pred:
+            want = host["hd95"]
+        else:   # the two runs' argmax differ: host HD95 of the device run's
+            want = np.stack([hausdorff95(saved(dev_dir, "pred", i),
+                                         saved(dev_dir, "gt", i), 14)
+                             for i in range(2)])
+        print(f"eval: predictions of the two runs equal: {same_pred}; HD95 "
+              f"rows (host) {np.round(want, 3).tolist()}", flush=True)
+        _require(np.array_equal(dev["hd95"], want, equal_nan=True),
+                 "eval: device HD95 is not bit-equal to host HD95")
+        _require(np.isfinite(want[:, :EVAL_ORGANS]).any(),
+                 "eval: no organ has a finite HD95")
+
+        folds = os.path.join(tmp, "folds")
+        preds = sorted(os.listdir(os.path.join(host_dir, "eval_output",
+                                               "Fold0", "pred")))
+        stacks = {}
+        for k in range(3):
+            d = os.path.join(folds, f"Fold{k}", "pred")
+            os.makedirs(d)
+            for name in preds:
+                img = nifti.load(os.path.join(host_dir, "eval_output",
+                                              "Fold0", "pred", name))
+                data = np.array(img.data)
+                if k:   # folds 1 and 2 claim class 3 in nested blocks
+                    data[20:60 + 40 * (k == 2), 30:90, 10:40] = 3
+                nifti.save(nifti.NiftiImage(data, img.affine),
+                           os.path.join(d, name))
+                stacks.setdefault(name, []).append(data.astype(np.int64))
+        t0 = time.perf_counter()
+        majority_vote.main(majority_vote.get_args([
+            "--in_folder", folds, "--n_classes", "14", "--folds", "3"]))
+        vote_s = time.perf_counter() - t0
+        for name in preds:
+            got = nifti.load(os.path.join(folds, "majority_vote", name)).data
+            want_vote = majority_vote_np(np.stack(stacks[name]), 14)
+            _require(got.dtype == np.uint8
+                     and np.array_equal(got, want_vote.astype(np.uint8)),
+                     f"eval: majority vote of {name} disagrees")
+        print(f"eval: majority vote over 3 folds of 2 volumes in "
+              f"{vote_s:.2f} s agrees with majority_vote_np", flush=True)
+        shutil.rmtree(folds)
+    return total
+
+
+F5_SEG_VOL = 160     # SegFormer3D: M = 5^3 = 125 reduced tokens at each stage
+
+
+def phase_f5():
+    """Fault F5's shapes through the entry points a user calls: SegFormer3D
+    at --vol_size 160 through the predictor (K7 on its streaming CUDA-core
+    route in all 8 blocks; logits against the fp32 plain path at the zoo
+    phase's tolerance; one predictor call timed), and one flagship training
+    step at --hidden_dim 96, batch 2 (K1-K4 in all 8 blocks, K3 and K4 on
+    their CUDA-core routes at stage 4, C = 768; gradients against the fp32
+    plain path at the train phase's tolerance)."""
+    import copy
+
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+
+    total = {}
+
+    def add(delta):
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+
+    args = _zoo_args("SegFormer3D")
+    args[args.index("--vol_size") + 1] = str(F5_SEG_VOL)
+    cfg = get_args(args)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = _seeded_model(cfg, gen).to("cuda")
+    ref = copy.deepcopy(model)
+    ref.dtype = torch.float32
+    v = F5_SEG_VOL
+    vol = torch.randn(1, v, v, v, 1, generator=gen).to("cuda")
+    x_in = (vol, torch.full((1, 3), 0.5, device="cuda"),
+            torch.ones(1, 3, device="cuda"))
+    with torch.inference_mode():
+        _reset_launches()
+        got = model(x_in)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        routes = _add_routes("f5 SegFormer3D vol 160")
+        add(launches)
+        _require(routes["sr_attention"]["cuda_core"] == 8
+                 and routes["sr_attention"]["tensor_core"] == 0,
+                 f"f5: SegFormer3D at vol {v}: K7 by route "
+                 f"{routes['sr_attention']} (want 8 on the CUDA cores)")
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with _plain_kernels():
+                want = ref(x_in)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        del ref
+        _require(got.shape == (1, v, v, v, 14)
+                 and bool(torch.isfinite(got).all()),
+                 f"f5: SegFormer3D logits {tuple(got.shape)}")
+        rel = float((got - want).norm() / want.norm())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        print(f"f5: SegFormer3D {v}^3, bf16+kernels vs fp32 plain (card, "
+              f"TF32 off): rel norm err {rel:.3e} (tol {MODEL_REL_TOL}), "
+              f"argmax agreement {agree:.4f}", flush=True)
+        _require(rel <= MODEL_REL_TOL, "f5: SegFormer3D's bf16 logits "
+                 "disagree with the fp32 plain path")
+        del got, want
+        xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_in)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        out = model(xb)
+        torch.cuda.synchronize()
+        add(_read_launches())
+        _check_routes("f5 SegFormer3D predictor call", "cuda_core")
+        peak = torch.cuda.max_memory_allocated()
+        _require(out.shape == (PREDICT_BATCH, v, v, v, 14)
+                 and bool(torch.isfinite(out).all()),
+                 "f5: SegFormer3D predictor call")
+        del out
+
+        def call_ms(plain):
+            if plain:
+                with _plain_kernels():
+                    return _time_ms(lambda: model(xb), 2)
+            return _time_ms(lambda: model(xb), 2)
+
+        ms = [call_ms(plain) for plain in (False, True, True, False)]
+        print(f"f5: SegFormer3D one predictor call ({PREDICT_BATCH} windows "
+              f"of {v}^3): kernels {ms[0]:.1f} ms, plain {ms[1]:.1f}, plain "
+              f"{ms[2]:.1f}, kernels {ms[3]:.1f}; peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    del model, xb, x_in
+    torch.cuda.empty_cache()
+
+    cfg, model, state, train_step = _train_setup(["--hidden_dim", "96"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = _train_batch(gen, F5_TRAIN_BATCH, cfg.output_dim)
+    times = []
+    for step in range(3):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _require(all(bool(torch.isfinite(u).all()) for u in m.values()),
+                 f"f5: non-finite metrics at step {step}")
+        launches = _read_launches()
+        routes = _add_routes(f"f5 hidden 96 step {step}")
+        add(launches)
+    # every block on the kernels (head dim 32: the CUDA-core heads route);
+    # stage 4 (C = 768): K3's GEMM launches and K4 on the CUDA cores
+    _require_launches("f5 hidden 96 (one step)", launches,
+                      dict.fromkeys(SWIN_KERNELS, 8))
+    _require(routes["fused_mlp_bwd"]["cuda_core"] == 2
+             and routes["window_attention_bwd_gemm"]["cuda_core"] == 2,
+             f"f5: stage 4's backward by route {routes['fused_mlp_bwd']}, "
+             f"{routes['window_attention_bwd_gemm']} (want 2 on the CUDA "
+             "cores)")
+    print(f"f5: hidden 96, batch {F5_TRAIN_BATCH} x 96^3, bf16: ms per step "
+          f"{' '.join(f'{t:.0f}' for t in times)} (the first includes "
+          f"cuDNN's choice of algorithms); loss {float(m['loss']):.4f}; "
+          f"launches {launches}", flush=True)
+    del state, m
+    loss_fn = build_loss(cfg)
+
+    def grads_of(net):
+        return _grads_of(net, loss_fn, batch)
+
+    got_loss, got = grads_of(model)
+    want_loss, want, _ = _fp32_plain_grads(model, grads_of)
+    rel = _rel_norm(got, want)
+    print(f"f5: hidden 96 gradients of one step (batch {F5_TRAIN_BATCH}), "
+          f"bf16+kernels vs fp32 plain: loss {got_loss:.5f} vs "
+          f"{want_loss:.5f}, rel norm err {rel:.3e} (tol "
+          f"{TRAIN_GRAD_REL_TOL})", flush=True)
+    _require(rel <= TRAIN_GRAD_REL_TOL, "f5: the hidden-96 gradients "
+             "disagree with the fp32 plain path")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3624,7 +4134,10 @@ def main(argv=None) -> int:
         if "build" in phases:
             phase_build()
         if "kernels" in phases:
+            t0 = time.perf_counter()
             kernels = phase_kernels(groups)
+            print(f"phase kernels: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
         if "model" in phases:
             phase_model()
         # the main paths: each is driven with the counts at 0 and read after
@@ -3635,9 +4148,13 @@ def main(argv=None) -> int:
                             ("fused", phase_fused),
                             ("train_wino", phase_train_wino),
                             ("conv3d", phase_conv3d),
-                            ("fp32", phase_fp32)):
+                            ("fp32", phase_fp32), ("eval", phase_eval),
+                            ("f5", phase_f5)):
             if name in phases:
+                t0 = time.perf_counter()
                 launches = phase()
+                print(f"phase {name}: {time.perf_counter() - t0:.1f} s",
+                      flush=True)
                 for k in kernels:
                     k[f"launches_{name}"] = launches[k["name"]]
                     k["launches"] += launches[k["name"]]

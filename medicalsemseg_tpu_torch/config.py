@@ -185,7 +185,8 @@ class Config:
     ref_quirk_rel_pos: bool = False  # reproduce the reference's colliding
     # GC-ViT/nnFormer rel-pos index strides (GCViTUNETR reads it)
     flat_optimizer: bool = False  # not ported (make_optimizer raises)
-    device_hd95: bool = False  # HD95 on the accelerator; not ported yet
+    device_hd95: bool = False  # run_evaluation: HD95's nearest-neighbour
+    # distances as chunked fp32 products on the card (train/metrics.py)
     fused_loss: bool = False  # DiceCE through the fused kernel K8
     # (ops/kernels/dice_ce.py) where no mask is given
     device: str = "cuda"  # torch device of the entry points; a CUDA device
@@ -370,8 +371,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "fused pass (train/flat_optim.py)")
     _add_bool_flag(g, "fused_loss", False)
     _add_bool_flag(g, "device_hd95", False,
-                   help="compute HD95 surface distances on the accelerator "
-                        "(bit-identical to the host EDT path)")
+                   help="run_evaluation: compute HD95 surface distances "
+                        "on the card as chunked fp32 products with TF32 "
+                        "off (bit-identical to the host EDT path)")
     _add_bool_flag(g, "ref_quirk_rel_pos", False)
     g.add_argument("--val_group_policy", default="bucket",
                    choices=["bucket", "sorted_max"],

@@ -129,10 +129,10 @@ __device__ __forceinline__ float gelu_cdf(float h) {
 // Tiles of the backward kernels: kTile token rows at a time.
 constexpr int kTile = 32;
 
-// acc[i] += sum_r ls[r][j] * xs[r][ch] over the kTile rows of a tile, for
+// acc[i] += sum_r ls[r][j] * xs[r][ch] over the kR rows of a tile, for
 // the entries e = tid + i * kThreads = j * c + ch (e < ne) that this thread
 // owns. Lanes run along ch: the xs reads are conflict-free, ls broadcasts.
-template <int kMaxE>
+template <int kMaxE, int kR = kTile>
 __device__ __forceinline__ void outer_accumulate(const float* ls, int lstride,
                                                  const float* xs, int xstride,
                                                  int c, int ne,
@@ -144,7 +144,7 @@ __device__ __forceinline__ void outer_accumulate(const float* ls, int lstride,
       const int j = e / c, ch = e - j * c;
       float a = 0.f;
 #pragma unroll 8
-      for (int r = 0; r < kTile; ++r)
+      for (int r = 0; r < kR; ++r)
         a += ls[r * lstride + j] * xs[r * xstride + ch];
       acc[i] += a;
     }
@@ -152,18 +152,18 @@ __device__ __forceinline__ void outer_accumulate(const float* ls, int lstride,
 }
 
 // The end of a dx tile, shared by the attention and the MLP backward. dxn
-// (c x (kTile + 1) fp32 in shared memory, dxn[ch * (kTile + 1) + r]) is the
+// (c x (kR + 1) fp32 in shared memory, dxn[ch * (kR + 1) + r]) is the
 // gradient with respect to the LayerNorm's output for rows r0 .. r0 + rows.
 // With ln: dx = LN backward of dxn (xhat and rstd recomputed from x, mu, rs),
 // and accs[0..c) += sum_r dxn * xhat, accs[c..2c) += sum_r dxn. Without:
 // dx = dxn. With residual, + dy. Called by the whole block.
-template <class T>
+template <class T, int kR = kTile>
 __device__ __forceinline__ void ln_backward_tile(
     const T* x, const T* dy, const float* ln, const float* mu, const float* rs,
     const float* dxn, long long r0, int rows, int c, int residual, T* dx,
     float* accs) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ds = kTile + 1;
+  const int ds = kR + 1;
   for (int r = warp; r < rows; r += kWarps) {
     const long long row = (r0 + r) * c;
     float m1 = 0.f, m2 = 0.f;

@@ -36,6 +36,10 @@
 //    agreement with the fp32 plain path. Shared memory is ~150 KB at C = 384
 //    in bf16; the weight chunks are staged in T, so fp32 takes 16 hidden
 //    units per chunk where 32 would not fit a block (C or Co above 384).
+//    Where Co's fp32 accumulators and W2 chunk do not fit beside the token
+//    tile either (C = Co = 768: ViT-B, the flagship's stage 4 at hidden
+//    96), a second grid dimension cuts Co into column tiles, each of which
+//    computes fc1 again (mlp_cc_plan); each output's sum keeps its order.
 //
 // What bounds it on the card: by its counts K2 is bound by bytes at C = 48
 // (one read of x and one write of y per token) and by operations from
@@ -56,7 +60,8 @@ namespace {
 
 constexpr int kRows = 32;  // tokens per block (one per lane in the products)
 
-// kHC hidden units per chunk
+// kHC hidden units per chunk; grid (token tiles, column tiles of cot
+// outputs: Co in one tile where it fits, else each tile computes fc1 again)
 template <class T, int kHC>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_kernel(const T* __restrict__ x,
@@ -66,19 +71,20 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ w2,
                      const float* __restrict__ b2,
                      T* __restrict__ out, long long m, int c,
-                     int hdim, int co, int residual, float eps) {
+                     int hdim, int co, int cot, int residual, float eps) {
   extern __shared__ float smem[];
   const int xs_stride = c + 1, hs_stride = kHC + 1, ys_stride = kRows + 1;
   float* mu = smem;                         // kRows
   float* rs = mu + kRows;                   // kRows
   float* xs = rs + kRows;                   // kRows x (c + 1)
   float* hs = xs + kRows * xs_stride;       // kRows x (kHC + 1)
-  float* ys = hs + kRows * hs_stride;       // co x (kRows + 1)
-  T* w1s = reinterpret_cast<T*>(ys + co * ys_stride);  // kHC x c
-  T* w2s = w1s + kHC * c;                              // co x kHC
+  float* ys = hs + kRows * hs_stride;       // cot x (kRows + 1)
+  T* w1s = reinterpret_cast<T*>(ys + cot * ys_stride);  // kHC x c
+  T* w2s = w1s + kHC * c;                               // cot x kHC
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long r0 = (long long)blockIdx.x * kRows;
   const int rows = (int)min((long long)kRows, m - r0);
+  const int o0 = blockIdx.y * cot, cols = min(cot, co - o0);
 
   if (ln != nullptr) {
     for (int r = warp; r < rows; r += kWarps) {
@@ -90,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  for (int e = tid; e < co * kRows; e += kThreads)
+  for (int e = tid; e < cols * kRows; e += kThreads)
     ys[(e / kRows) * ys_stride + e % kRows] = 0.f;
   __syncthreads();
   for (int e = tid; e < kRows * c; e += kThreads) {
@@ -110,9 +116,10 @@ __global__ void __launch_bounds__(kThreads)
       const int j = e / c, ch = e - j * c;
       w1s[e] = j0 + j < hdim ? w1[(size_t)(j0 + j) * c + ch] : from_f32<T>(0.f);
     }
-    for (int e = tid; e < co * kHC; e += kThreads) {
+    for (int e = tid; e < cols * kHC; e += kThreads) {
       const int o = e / kHC, j = e - o * kHC;
-      w2s[e] = j0 + j < hdim ? w2[(size_t)o * hdim + j0 + j] : from_f32<T>(0.f);
+      w2s[e] = j0 + j < hdim ? w2[(size_t)(o0 + o) * hdim + j0 + j]
+                             : from_f32<T>(0.f);
     }
     __syncthreads();
     // hidden chunk: token index across lanes (conflict-free xs rows with an
@@ -132,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
       hs[r * hs_stride + j] = hv;
     }
     __syncthreads();
-    for (int e = tid; e < co * kRows; e += kThreads) {
+    for (int e = tid; e < cols * kRows; e += kThreads) {
       const int o = e / kRows, r = e - o * kRows;
       const float* hr = hs + r * hs_stride;
       const T* wr = w2s + o * kHC;
@@ -143,36 +150,57 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int e = tid; e < rows * co; e += kThreads) {
-    const int r = e / co, o = e - r * co;
-    float y = round_to<T>(ys[o * ys_stride + r] + b2[o]);
-    if (residual) y += ld(x + (r0 + r) * c + o);
-    out[(r0 + r) * co + o] = from_f32<T>(y);
+  for (int e = tid; e < rows * cols; e += kThreads) {
+    const int r = e / cols, o = e - r * cols;
+    float y = round_to<T>(ys[o * ys_stride + r] + b2[o0 + o]);
+    if (residual) y += ld(x + (r0 + r) * c + o0 + o);
+    out[(r0 + r) * co + o0 + o] = from_f32<T>(y);
   }
 }
 
 template <class T>
-size_t mlp_smem_bytes(int c, int co, int hc) {
+size_t mlp_smem_bytes(int c, int cot, int hc) {
   return sizeof(float) * (2 * kRows + kRows * (c + 1) + kRows * (hc + 1) +
-                          co * (kRows + 1)) +
-         sizeof(T) * (hc * c + co * hc);
+                          cot * (kRows + 1)) +
+         sizeof(T) * (hc * c + cot * hc);
+}
+
+// The CUDA-core plan: the fewest column tiles of cot = ceil(Co / tiles)
+// outputs, and for them 32 hidden units a chunk, else 16, whose shared
+// memory fits a block (one tile up to C = Co = 512; two at 768). False
+// where none fits.
+template <class T>
+bool mlp_cc_plan(int c, int co, int* cot, int* hc) {
+  for (int tiles = 1; tiles <= co; ++tiles) {
+    const int t = (co + tiles - 1) / tiles;
+    for (int h = 32; h >= 16; h /= 2) {
+      if (mlp_smem_bytes<T>(c, t, h) <= (size_t)mlptile::kMaxSmem) {
+        *cot = t;
+        *hc = h;
+        return true;
+      }
+    }
+  }
+  return false;
 }
 
 template <class T, int kHC>
 int launch_mlp(const void* x, const void* ln, const void* w1, const void* b1,
                const void* w2, const void* b2, void* out, int m, int c,
-               int hdim, int co, int residual, float ln_eps, cudaStream_t st) {
-  const size_t smem = mlp_smem_bytes<T>(c, co, kHC);
+               int hdim, int co, int cot, int residual, float ln_eps,
+               cudaStream_t st) {
+  const size_t smem = mlp_smem_bytes<T>(c, cot, kHC);
   cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_kernel<T, kHC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = (unsigned)(((long long)m + kRows - 1) / kRows);
+  const dim3 blocks((unsigned)(((long long)m + kRows - 1) / kRows),
+                    (unsigned)((co + cot - 1) / cot));
   fused_mlp_kernel<T, kHC><<<blocks, kThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(ln),
       static_cast<const T*>(w1), static_cast<const float*>(b1),
       static_cast<const T*>(w2), static_cast<const float*>(b2),
-      static_cast<T*>(out), (long long)m, c, hdim, co, residual, ln_eps);
+      static_cast<T*>(out), (long long)m, c, hdim, co, cot, residual, ln_eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,7 +491,7 @@ int launch_mlp_tc_any(MlpTcParams<T> p, int hsplit, cudaStream_t st) {
 
 // x, w1, w2, out of the element type named by dtype; ln, b1, b2 fp32.
 // route: kRouteTensorCore (bf16 or fp16, C, Co, H multiples of 16, C <= 768)
-// or kRouteCudaCore (any dtype, C and Co up to 512). The tensor-core
+// or kRouteCudaCore (any dtype, C and Co up to 768). The tensor-core
 // route computes column tiles of co_tile outputs (a multiple of 16 dividing
 // Co, <= 192) and splits H hsplit ways, the splits' fp32 partials of y in
 // part (hsplit, m, co); the CUDA-core route reads neither.
@@ -505,10 +533,13 @@ extern "C" int medseg_fused_mlp_fwd(const void* x, const void* ln,
   }
   return with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    if (mlp_smem_bytes<T>(c, co, 32) <= 232448)
+    int cot = 0, hc = 0;
+    if (!mlp_cc_plan<T>(c, co, &cot, &hc))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (hc == 32)
       return launch_mlp<T, 32>(x, ln, w1, b1, w2, b2, out, m, c, hdim, co,
-                               residual, ln_eps, st);
-    return launch_mlp<T, 16>(x, ln, w1, b1, w2, b2, out, m, c, hdim, co,
+                               cot, residual, ln_eps, st);
+    return launch_mlp<T, 16>(x, ln, w1, b1, w2, b2, out, m, c, hdim, co, cot,
                              residual, ln_eps, st);
   });
 }

@@ -47,13 +47,15 @@
 // recomputing h, da and the GELU derivative a third time is the trade
 // ROADMAP R5 names; chip_smoke.py --phases mlp_parts times both sides of it.
 //
-// CUDA cores (fp32 and any other shape):
+// CUDA cores (fp32 and any other shape, C <= 768):
 //  1. fused_mlp_bwd_dx: a block owns token tiles (32 rows, strided over the
-//     grid) and walks the hidden dimension in chunks of 32, as the forward
-//     does: dxn stays in shared memory for the walk, then the LN backward
-//     writes dx. The block's sums for dLN and db2 go to one row of partials.
-//     The weight chunks are staged in T, so fp32 takes 16 hidden units per
-//     chunk where 32 would not fit a block (C = 384).
+//     grid; 16 rows above C = 384, so that the three fp32 tiles of C values
+//     fit a block up to C = 768) and walks the hidden dimension in chunks of
+//     as many units as the tile has rows, as the forward does: dxn stays in
+//     shared memory for the walk, then the LN backward writes dx. The
+//     block's sums for dLN and db2 go to one row of partials. The weight
+//     chunks are staged in T, so fp32 takes half the units per chunk where
+//     a full chunk would not fit a block (C = 384; C = 768).
 //  2. fused_mlp_bwd_dw: a block owns 16 hidden units (the matching 16 rows of
 //     dW1 and 16 columns of dW2, held in registers) and walks a strided share
 //     of the token tiles, recomputing h and da for its units only. Each
@@ -80,14 +82,24 @@ namespace medseg {
 namespace {
 
 constexpr int kHB = 16;     // hidden units owned by a block of the dw launch
-constexpr int kMaxC = 512;  // widest C the dw launch holds in registers
-constexpr int kMaxE = kHB * kMaxC / kThreads;
+// Token rows a tile: kTile (32) up to C = kNarrowC, 16 above, up to kMaxC
+// (stage 4 at --hidden_dim 96), where three 32-row fp32 tiles of C values
+// would not fit a block's shared memory.
+constexpr int kNarrowC = 384;
+constexpr int kMaxC = 768;
+constexpr int kWideRows = 16;
+// dW1 / dW2 entries a thread of the dw launch holds in registers: its share
+// of the block's kHB rows at the widest C of the tile height
+template <int kR>
+struct DwEntries {
+  static constexpr int value = kHB * (kR == kTile ? 512 : kMaxC) / kThreads;
+};
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
 // LN statistics of the tile's rows, then xs = bf16(xhat * g + b) and
-// ds = dy as fp32, both kTile x (c + 1); rows past the end are zero (they
+// ds = dy as fp32, both kR x (c + 1); rows past the end are zero (they
 // then add nothing to any gradient). Ends with a __syncthreads().
-template <class T>
+template <class T, int kR>
 __device__ void load_tile(const T* x, const T* dy,
                           const float* ln, long long r0, int rows, int c,
                           float eps, float* mu, float* rs, float* xs,
@@ -103,7 +115,7 @@ __device__ void load_tile(const T* x, const T* dy,
     }
   }
   __syncthreads();
-  for (int e = tid; e < kTile * c; e += kThreads) {
+  for (int e = tid; e < kR * c; e += kThreads) {
     const int r = e / c, ch = e - r * c;
     float xv = 0.f, dv = 0.f;
     if (r < rows) {
@@ -119,16 +131,16 @@ __device__ void load_tile(const T* x, const T* dy,
 
 // For the tile in xs / ds and the nj hidden units whose weights are staged in
 // w1s (nj x c: W1 rows) and w2t (nj x c: W2 columns): hs = bf16(h * Phi),
-// dhs = dh (fp32), dhbs = bf16(dh), each kTile x (nj + 1). Units at or past
+// dhs = dh (fp32), dhbs = bf16(dh), each kR x (nj + 1). Units at or past
 // hdim give zeros. The caller synchronises.
-template <class T>
+template <class T, int kR>
 __device__ void hidden_chunk(const float* xs, const float* ds,
                              const T* w1s, const T* w2t, const float* b1, int j0,
                              int hdim, int nj, int c, float* hs, float* dhs,
                              float* dhbs) {
   const int stride = c + 1, hstride = nj + 1;
-  for (int e = threadIdx.x; e < nj * kTile; e += kThreads) {
-    const int j = e / kTile, r = e - j * kTile;
+  for (int e = threadIdx.x; e < nj * kR; e += kThreads) {
+    const int j = e / kR, r = e - j * kR;
     float hb = 0.f, dh = 0.f;
     if (j0 + j < hdim) {
       const float* xr = xs + r * stride;
@@ -166,8 +178,8 @@ __device__ void load_units(const T* w1, const T* w2, int j0, int nj, int hdim,
   }
 }
 
-// kHC hidden units per chunk
-template <class T, int kHC>
+// kHC hidden units per chunk, kR token rows a tile
+template <class T, int kHC, int kR>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_bwd_dx(const T* __restrict__ x,
                      const float* __restrict__ ln,
@@ -178,37 +190,38 @@ __global__ void __launch_bounds__(kThreads)
                      T* __restrict__ dx, float* __restrict__ part,
                      long long m, int c, int hdim, int residual, float eps) {
   extern __shared__ float smem[];
-  const int stride = c + 1, hstride = kHC + 1, dstride = kTile + 1;
-  float* mu = smem;                        // kTile
-  float* rs = mu + kTile;                  // kTile
-  float* accs = rs + kTile;                // 3c: dscale | dbias | db2
-  float* xs = accs + 3 * c;                // kTile x (c + 1)
-  float* ds = xs + kTile * stride;         // kTile x (c + 1)
-  float* dxn = ds + kTile * stride;        // c x (kTile + 1)
-  float* hs = dxn + c * dstride;           // kTile x (kHC + 1)
-  float* dhs = hs + kTile * hstride;       // kTile x (kHC + 1)
-  float* dhbs = dhs + kTile * hstride;     // kTile x (kHC + 1)
-  T* w1s = reinterpret_cast<T*>(dhbs + kTile * hstride);
+  const int stride = c + 1, hstride = kHC + 1, dstride = kR + 1;
+  float* mu = smem;                        // kR
+  float* rs = mu + kR;                     // kR
+  float* accs = rs + kR;                   // 3c: dscale | dbias | db2
+  float* xs = accs + 3 * c;                // kR x (c + 1)
+  float* ds = xs + kR * stride;            // kR x (c + 1)
+  float* dxn = ds + kR * stride;           // c x (kR + 1)
+  float* hs = dxn + c * dstride;           // kR x (kHC + 1)
+  float* dhs = hs + kR * hstride;          // kR x (kHC + 1)
+  float* dhbs = dhs + kR * hstride;        // kR x (kHC + 1)
+  T* w1s = reinterpret_cast<T*>(dhbs + kR * hstride);
   T* w2t = w1s + kHC * c;                  // kHC x c each
   const int tid = threadIdx.x;
-  const long long ntiles = (m + kTile - 1) / kTile;
+  const long long ntiles = (m + kR - 1) / kR;
 
   for (int e = tid; e < 3 * c; e += kThreads) accs[e] = 0.f;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long r0 = tile * kTile;
-    const int rows = (int)min((long long)kTile, m - r0);
+    const long long r0 = tile * kR;
+    const int rows = (int)min((long long)kR, m - r0);
     __syncthreads();  // the previous tile's readers are done
-    load_tile(x, dy, ln, r0, rows, c, eps, mu, rs, xs, ds);
+    load_tile<T, kR>(x, dy, ln, r0, rows, c, eps, mu, rs, xs, ds);
     for (int e = tid; e < c * dstride; e += kThreads) dxn[e] = 0.f;
     for (int j0 = 0; j0 < hdim; j0 += kHC) {
       __syncthreads();
       load_units(w1, w2, j0, kHC, hdim, c, w1s, w2t);
       __syncthreads();
-      hidden_chunk(xs, ds, w1s, w2t, b1, j0, hdim, kHC, c, hs, dhs, dhbs);
+      hidden_chunk<T, kR>(xs, ds, w1s, w2t, b1, j0, hdim, kHC, c, hs, dhs,
+                          dhbs);
       __syncthreads();
       // dxn[r][ch] += sum_j dhb[r][j] * W1[j0+j][ch]; r along the lanes
-      for (int e = tid; e < c * kTile; e += kThreads) {
-        const int ch = e / kTile, r = e - ch * kTile;
+      for (int e = tid; e < c * kR; e += kThreads) {
+        const int ch = e / kR, r = e - ch * kR;
         const float* dr = dhbs + r * hstride;
         float a = 0.f;
 #pragma unroll
@@ -218,7 +231,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    ln_backward_tile(x, dy, ln, mu, rs, dxn, r0, rows, c, residual, dx, accs);
+    ln_backward_tile<T, kR>(x, dy, ln, mu, rs, dxn, r0, rows, c, residual, dx,
+                            accs);
     for (int ch = tid; ch < c; ch += kThreads) {
       float a = 0.f;
       for (int r = 0; r < rows; ++r) a += ds[r * stride + ch];
@@ -231,8 +245,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // grid (unit groups, shares). Partials per share: dW1 (hdim x c) | dW2
-// (c x hdim) | db1 (hdim).
-template <class T>
+// (c x hdim) | db1 (hdim). kR token rows a tile.
+template <class T, int kR>
 __global__ void __launch_bounds__(kThreads)
     fused_mlp_bwd_dw(const T* __restrict__ x,
                      const float* __restrict__ ln,
@@ -244,20 +258,21 @@ __global__ void __launch_bounds__(kThreads)
                      float eps) {
   extern __shared__ float smem[];
   const int stride = c + 1, hstride = kHB + 1;
-  float* mu = smem;                     // kTile
-  float* rs = mu + kTile;               // kTile
-  float* xs = rs + kTile;               // kTile x (c + 1)
-  float* ds = xs + kTile * stride;      // kTile x (c + 1)
-  float* hs = ds + kTile * stride;      // kTile x (kHB + 1)
-  float* dhs = hs + kTile * hstride;
-  float* dhbs = dhs + kTile * hstride;
-  T* w1s = reinterpret_cast<T*>(dhbs + kTile * hstride);
+  float* mu = smem;                     // kR
+  float* rs = mu + kR;                  // kR
+  float* xs = rs + kR;                  // kR x (c + 1)
+  float* ds = xs + kR * stride;         // kR x (c + 1)
+  float* hs = ds + kR * stride;         // kR x (kHB + 1)
+  float* dhs = hs + kR * hstride;
+  float* dhbs = dhs + kR * hstride;
+  T* w1s = reinterpret_cast<T*>(dhbs + kR * hstride);
   T* w2t = w1s + kHB * c;               // kHB x c each
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * kHB;
-  const long long ntiles = (m + kTile - 1) / kTile;
+  const long long ntiles = (m + kR - 1) / kR;
   const int ne = kHB * c;
 
+  constexpr int kMaxE = DwEntries<kR>::value;
   float acc1[kMaxE], acc2[kMaxE];
 #pragma unroll
   for (int i = 0; i < kMaxE; ++i) acc1[i] = acc2[i] = 0.f;
@@ -265,17 +280,17 @@ __global__ void __launch_bounds__(kThreads)
 
   load_units(w1, w2, j0, kHB, hdim, c, w1s, w2t);
   for (long long tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
-    const long long r0 = tile * kTile;
-    const int rows = (int)min((long long)kTile, m - r0);
+    const long long r0 = tile * kR;
+    const int rows = (int)min((long long)kR, m - r0);
     __syncthreads();
-    load_tile(x, dy, ln, r0, rows, c, eps, mu, rs, xs, ds);
-    hidden_chunk(xs, ds, w1s, w2t, b1, j0, hdim, kHB, c, hs, dhs, dhbs);
+    load_tile<T, kR>(x, dy, ln, r0, rows, c, eps, mu, rs, xs, ds);
+    hidden_chunk<T, kR>(xs, ds, w1s, w2t, b1, j0, hdim, kHB, c, hs, dhs, dhbs);
     __syncthreads();
-    outer_accumulate<kMaxE>(dhbs, hstride, xs, stride, c, ne, acc1);
-    outer_accumulate<kMaxE>(hs, hstride, ds, stride, c, ne, acc2);
+    outer_accumulate<kMaxE, kR>(dhbs, hstride, xs, stride, c, ne, acc1);
+    outer_accumulate<kMaxE, kR>(hs, hstride, ds, stride, c, ne, acc2);
     if (tid < kHB) {
       float a = 0.f;
-      for (int r = 0; r < kTile; ++r) a += dhs[r * hstride + tid];
+      for (int r = 0; r < kR; ++r) a += dhs[r * hstride + tid];
       accb += a;
     }
   }
@@ -295,25 +310,56 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < kHB && j0 + tid < hdim) p[2 * (size_t)hdim * c + j0 + tid] = accb;
 }
 
-template <class T>
+template <class T, int kR>
 size_t dx_smem_bytes(int c, int hc) {
-  return sizeof(float) * (2 * kTile + 3 * c + 2 * kTile * (c + 1) +
-                          c * (kTile + 1) + 3 * kTile * (hc + 1)) +
+  return sizeof(float) * (2 * kR + 3 * c + 2 * kR * (c + 1) + c * (kR + 1) +
+                          3 * kR * (hc + 1)) +
          sizeof(T) * 2 * hc * c;
 }
 
-template <class T, int kHC>
+template <class T, int kHC, int kR>
 cudaError_t launch_dx(const T* x, const float* ln, const T* w1,
                       const float* b1, const T* w2, const T* dy, T* dx,
                       float* part, int m, int c, int hdim, int grid_a,
                       int residual, float eps, cudaStream_t st) {
-  const size_t smem = dx_smem_bytes<T>(c, kHC);
+  const size_t smem = dx_smem_bytes<T, kR>(c, kHC);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_bwd_dx<T, kHC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_mlp_bwd_dx<T, kHC, kR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_mlp_bwd_dx<T, kHC><<<grid_a, kThreads, smem, st>>>(
+  fused_mlp_bwd_dx<T, kHC, kR><<<grid_a, kThreads, smem, st>>>(
       x, ln, w1, b1, w2, dy, dx, part, (long long)m, c, hdim, residual, eps);
+  return cudaGetLastError();
+}
+
+// Both CUDA-core launches at kR token rows a tile: the dx launch with
+// hidden chunks of kR units where they fit a block, else of kR / 2.
+template <class T, int kR>
+cudaError_t launch_dx_dw(const T* xb, const float* lnf, const T* w1b,
+                         const float* b1f, const T* w2b, const T* dyb, T* dx,
+                         void* part_a, void* part_w, int m, int c, int hdim,
+                         int grid_a, int nsplit, int residual, float ln_eps,
+                         cudaStream_t st) {
+  float* pa = static_cast<float*>(part_a);
+  cudaError_t err =
+      dx_smem_bytes<T, kR>(c, kR) <= (size_t)mlptile::kMaxSmem
+          ? launch_dx<T, kR, kR>(xb, lnf, w1b, b1f, w2b, dyb, dx, pa, m, c,
+                                 hdim, grid_a, residual, ln_eps, st)
+          : launch_dx<T, kR / 2, kR>(xb, lnf, w1b, b1f, w2b, dyb, dx, pa, m,
+                                     c, hdim, grid_a, residual, ln_eps, st);
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_w =
+      sizeof(float) * (2 * kR + 2 * kR * (c + 1) + 3 * kR * (kHB + 1)) +
+      sizeof(T) * 2 * kHB * c;
+  err = cudaFuncSetAttribute(fused_mlp_bwd_dw<T, kR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_w);
+  if (err != cudaSuccess) return err;
+  fused_mlp_bwd_dw<T, kR><<<dim3((hdim + kHB - 1) / kHB, nsplit), kThreads,
+                            smem_w, st>>>(xb, lnf, w1b, b1f, w2b, dyb,
+                                          static_cast<float*>(part_w),
+                                          (long long)m, c, hdim, ln_eps);
   return cudaGetLastError();
 }
 
@@ -323,28 +369,13 @@ int launch_bwd(const T* xb, const float* lnf, const T* w1b, const float* b1f,
                void* part_w, void* out_w, int m, int c, int hdim, int grid_a,
                int nsplit, int residual, float ln_eps, cudaStream_t st) {
   cudaError_t err =
-      dx_smem_bytes<T>(c, 32) <= 232448
-          ? launch_dx<T, 32>(xb, lnf, w1b, b1f, w2b, dyb, dx,
-                             static_cast<float*>(part_a), m, c, hdim, grid_a,
-                             residual, ln_eps, st)
-          : launch_dx<T, 16>(xb, lnf, w1b, b1f, w2b, dyb, dx,
-                             static_cast<float*>(part_a), m, c, hdim, grid_a,
-                             residual, ln_eps, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_w =
-      sizeof(float) * (2 * kTile + 2 * kTile * (c + 1) +
-                       3 * kTile * (kHB + 1)) +
-      sizeof(T) * 2 * kHB * c;
-  err = cudaFuncSetAttribute(fused_mlp_bwd_dw<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_w);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_mlp_bwd_dw<T><<<dim3((hdim + kHB - 1) / kHB, nsplit), kThreads,
-                        smem_w, st>>>(xb, lnf, w1b, b1f, w2b, dyb,
-                                      static_cast<float*>(part_w),
-                                      (long long)m, c, hdim, ln_eps);
-  err = cudaGetLastError();
+      c <= kNarrowC
+          ? launch_dx_dw<T, kTile>(xb, lnf, w1b, b1f, w2b, dyb, dx, part_a,
+                                   part_w, m, c, hdim, grid_a, nsplit,
+                                   residual, ln_eps, st)
+          : launch_dx_dw<T, kWideRows>(xb, lnf, w1b, b1f, w2b, dyb, dx,
+                                       part_a, part_w, m, c, hdim, grid_a,
+                                       nsplit, residual, ln_eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = sum_partials(static_cast<const float*>(part_a),
@@ -823,7 +854,7 @@ int launch_bwd_tc(const MlpBwdTcParams<T>& p, void* out_a, void* out_w,
 // dW1 | dW2 | db1, dW2 (c, hdim) on the CUDA-core route and transposed,
 // (hdim, c), on the tensor-core route. route: kRouteTensorCore (bf16 or fp16; C and H multiples
 // of 16, C <= 384, as mlp_bwd_route_takes says) or kRouteCudaCore (any
-// dtype, C <= 384). The tensor-core route takes grid_a blocks for its dx
+// dtype, C <= 768). The tensor-core route takes grid_a blocks for its dx
 // launch, nsplit token shares and channel slices of `slice` channels (a
 // multiple of 16 dividing C, <= 96) for its weight-gradient launch, and dhb,
 // a scratch of hdim x (M rounded up to 64) elements; the CUDA-core route

@@ -48,20 +48,25 @@
 //   ops/kernels/sr_attention.py sr_plan picks the tile rows, the groups and
 //   the slots; the entry point checks them.
 // * CUDA cores (sr_attention_kernel; fp32, other head dims, M > 64 or
-//   C > 384). One block owns a tile of 32 tokens of one batch element
-//   (grid = tiles x B). K and V of that element sit in shared memory as T
-//   for the whole block; the token tile and its q sit there in fp32. Wq and
-//   Wproj do not fit (295 KB each at C = 384), so both projections walk
-//   their output columns in chunks of 32: a chunk's 32 x C weight rows are
-//   staged, thread (column, token) takes one full dot product, and the chunk
-//   of outputs goes through a 32 x 32 tile so that device memory sees whole
-//   rows. Between the projections a warp takes one (token, head) pair at a
-//   time: lanes run over the keys for the logits and the softmax, then over
-//   the head's channels for . V. The attention output overwrites the token
-//   tile, which the second projection then reads. Shared memory is
-//   32 (2C + 2) fp32 + 32 C T + 2 M (C + 2) T + (8 M + 32 * 33) fp32: 170 KB
-//   at C = 384, M = 27 in bf16; where 32 columns would not fit (fp32 at
-//   C = 384, or M > 66 in bf16) a chunk is kOC = 16 columns.
+//   C > 384). One block owns a tile of 32 (or 16) tokens of one batch
+//   element (grid = tiles x B); the token tile and its q sit in shared
+//   memory in fp32. Wq and Wproj do not fit (295 KB each at C = 384), so
+//   both projections walk their output columns in chunks of 32 (or 16): a
+//   chunk's weight rows are staged, thread (column, token) takes one full
+//   dot product, and the chunk of outputs goes through a small tile so that
+//   device memory sees whole rows. K and V stream through shared memory in
+//   chunks of up to 128 reduced keys (sr_cc_plan picks rows, keys and
+//   columns so that a block fits the card's 227 KB whatever M is). Between the projections a warp takes one
+//   (token, head) pair at a time, lanes over the keys for the logits and
+//   the softmax, then over the head's channels for . V. Where one chunk
+//   holds every key (M = 27 at every stage, up to M = 66 at C = 384 in
+//   bf16) that is one pass. Otherwise a first sweep over the chunks keeps
+//   each pair's running max and sum (online softmax, fp32); a second stages
+//   K and V again, recomputes the logits, forms p = T(exp(s - max) / sum) at
+//   the rounding point of the one-pass form and adds p . V, in key order,
+//   into an fp32 accumulator that overwrites the token tile; it is rounded
+//   to T once all chunks are in. So only the order of the softmax's fp32
+//   sum changes with the chunking; the logits are computed twice.
 // N is never padded on either route: the last tile masks its tail (the TPU
 // wrapper pads N to a multiple of 256).
 //
@@ -98,8 +103,8 @@
 namespace medseg {
 namespace {
 
-constexpr int kRows = 32;    // tokens per block (one per lane in the products)
 constexpr int kMaxHD = 32;   // largest head dim (one lane per channel in . V)
+constexpr int kMaxKeys = 128;  // reduced keys of a K/V chunk
 
 template <class T>
 struct SrParams {
@@ -113,14 +118,15 @@ struct SrParams {
   const T* res;                // (B, N, C) or nullptr
   T* out;                      // (B, N, C)
   int n, m, c, nh;
+  int keys;                    // reduced keys of a K/V chunk
   float scale;
 };
 
 // dst[r][j0 + j] (or global rows) = round_T(src[r] . w[j0 + j] + b) for a
 // chunk of kOC output columns: stage the weight rows, one dot per thread.
-// ``src`` is the fp32 tile (kRows x (c + 1)); the result lands in ``tile``
-// (kRows x (kOC + 1)) and the caller moves it on.
-template <class T, int kOC>
+// ``src`` is the fp32 tile (kR x (c + 1)); the result lands in ``tile``
+// (kR x (kOC + 1)) and the caller moves it on.
+template <class T, int kOC, int kR>
 __device__ __forceinline__ void project_chunk(const float* src, int c,
                                               const T* w, const float* b,
                                               int j0, T* ws, float* tile) {
@@ -133,8 +139,8 @@ __device__ __forceinline__ void project_chunk(const float* src, int c,
   __syncthreads();
   // token index across lanes: conflict-free src rows (odd stride), the
   // weight read is a broadcast
-  for (int e = tid; e < kOC * kRows; e += kThreads) {
-    const int j = e / kRows, r = e - j * kRows;
+  for (int e = tid; e < kOC * kR; e += kThreads) {
+    const int j = e / kR, r = e - j * kR;
     float a = 0.f;
     if (j0 + j < c) {
       const float* sr = src + r * s_stride;
@@ -148,40 +154,76 @@ __device__ __forceinline__ void project_chunk(const float* src, int c,
   __syncthreads();
 }
 
-template <class T, int kOC>
+// Keys [k0, k0 + kk) of batch element b into ks (and, with vs, vs), rows of
+// c + 2 elements.
+template <class T>
+__device__ __forceinline__ void stage_keys(const SrParams<T>& p, int b, int k0,
+                                           int kk, T* ks, T* vs) {
+  const int c = p.c, kv_stride = c + 2;
+  for (int e = threadIdx.x; e < kk * c; e += kThreads) {
+    const int mm = e / c, ch = e - mm * c;
+    const size_t at = ((size_t)b * p.m + k0 + mm) * c + ch;
+    ks[mm * kv_stride + ch] = p.k[at];
+    if (vs != nullptr) vs[mm * kv_stride + ch] = p.v[at];
+  }
+}
+
+// The scaled logits of query row q (hd channels, fp32) against the staged
+// keys of head h, one key a lane, into pr; returns the lane's largest.
+template <class T>
+__device__ __forceinline__ float chunk_logits(const float* qr, const T* ks,
+                                              int kv_stride, int h, int hd,
+                                              int kk, float scale, float* pr) {
+  float mx = -INFINITY;
+  for (int mm = threadIdx.x & 31; mm < kk; mm += 32) {
+    const T* kr = ks + mm * kv_stride + h * hd;
+    float s = 0.f;
+    for (int d = 0; d < hd; ++d) s += qr[d] * to_f32(kr[d]);
+    s *= scale;
+    pr[mm] = s;
+    mx = fmaxf(mx, s);
+  }
+  return mx;
+}
+
+// Grid (token tiles of kR, B). With one K/V chunk (keys >= M) the chunk's
+// logits, softmax and . V run as one pass a (token, head) pair. With more,
+// the first sweep over the chunks keeps each pair's running max and sum in
+// shared memory (online softmax, fp32), and the second stages K and V again,
+// forms p = T(exp(s - max) / sum) (the logits recomputed as in the first)
+// and adds p . V into an fp32 accumulator in the token tile, in key order.
+template <class T, int kOC, int kR>
 __global__ void __launch_bounds__(kThreads)
     sr_attention_kernel(SrParams<T> p) {
   extern __shared__ float smem[];
   const int n = p.n, m = p.m, c = p.c, nh = p.nh, hd = c / nh;
+  const int keys = p.keys, chunks = (m + keys - 1) / keys;
   const int xs_stride = c + 1, kv_stride = c + 2, t_stride = kOC + 1;
-  float* xs = smem;                          // kRows x (c + 1): x, then attn out
-  float* qs = xs + kRows * xs_stride;        // kRows x (c + 1)
-  float* tile = qs + kRows * xs_stride;      // kRows x (kOC + 1)
-  float* prow = tile + kRows * t_stride;     // kWarps x m
-  T* ws = reinterpret_cast<T*>(prow + kWarps * m);  // kOC x c
-  T* ks = ws + kOC * c;                      // m x (c + 2)
-  T* vs = ks + m * kv_stride;                // m x (c + 2)
+  float* xs = smem;                          // kR x (c + 1): x, then attn out
+  float* qs = xs + kR * xs_stride;           // kR x (c + 1)
+  float* tile = qs + kR * xs_stride;         // kR x (kOC + 1)
+  float* prow = tile + kR * t_stride;        // kWarps x keys
+  float* stats = prow + kWarps * keys;       // kR x nh x (max, sum), chunks > 1
+  T* ws = reinterpret_cast<T*>(stats + (chunks > 1 ? 2 * kR * nh : 0));
+  T* ks = ws + kOC * c;                      // keys x (c + 2)
+  T* vs = ks + keys * kv_stride;             // keys x (c + 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n - r0);
+  const int r0 = blockIdx.x * kR;
+  const int rows = min(kR, n - r0);
   const size_t tok0 = (size_t)b * n + r0;
 
-  for (int e = tid; e < kRows * c; e += kThreads) {
+  for (int e = tid; e < kR * c; e += kThreads) {
     const int r = e / c, ch = e - r * c;
     xs[r * xs_stride + ch] = r < rows ? ld(p.x + (tok0 + r) * c + ch) : 0.f;
   }
-  for (int e = tid; e < m * c; e += kThreads) {
-    const int mm = e / c, ch = e - mm * c;
-    ks[mm * kv_stride + ch] = p.k[((size_t)b * m + mm) * c + ch];
-    vs[mm * kv_stride + ch] = p.v[((size_t)b * m + mm) * c + ch];
-  }
+  if (chunks == 1) stage_keys(p, b, 0, m, ks, vs);
   __syncthreads();
 
   // q = bf16(x . Wq^T + bq)
   for (int j0 = 0; j0 < c; j0 += kOC) {
-    project_chunk<T, kOC>(xs, c, p.wq, p.bq, j0, ws, tile);
-    for (int e = tid; e < kRows * kOC; e += kThreads) {
+    project_chunk<T, kOC, kR>(xs, c, p.wq, p.bq, j0, ws, tile);
+    for (int e = tid; e < kR * kOC; e += kThreads) {
       const int r = e / kOC, j = e - r * kOC;
       if (j0 + j < c) qs[r * xs_stride + j0 + j] = tile[r * t_stride + j];
     }
@@ -190,42 +232,96 @@ __global__ void __launch_bounds__(kThreads)
 
   // one (token, head) pair per warp at a time; the attention output
   // overwrites the token tile (x is no longer needed)
-  float* pr = prow + warp * m;
-  for (int pair = warp; pair < rows * nh; pair += kWarps) {
-    const int r = pair / nh, h = pair - r * nh;
-    const float* qr = qs + r * xs_stride + h * hd;
-    float mx = -INFINITY;
-    for (int mm = lane; mm < m; mm += 32) {
-      const T* kr = ks + mm * kv_stride + h * hd;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += qr[d] * to_f32(kr[d]);
-      s *= p.scale;
-      pr[mm] = s;
-      mx = fmaxf(mx, s);
+  float* pr = prow + warp * keys;
+  if (chunks == 1) {
+    for (int pair = warp; pair < rows * nh; pair += kWarps) {
+      const int r = pair / nh, h = pair - r * nh;
+      const float mx = warp_max(chunk_logits(qs + r * xs_stride + h * hd, ks,
+                                             kv_stride, h, hd, m, p.scale,
+                                             pr));
+      float sum = 0.f;
+      for (int mm = lane; mm < m; mm += 32) {
+        const float e = expf(pr[mm] - mx);
+        pr[mm] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int mm = lane; mm < m; mm += 32) pr[mm] = round_to<T>(pr[mm] / sum);
+      __syncwarp();
+      if (lane < hd) {
+        const T* vc = vs + h * hd + lane;
+        float a = 0.f;
+        for (int mm = 0; mm < m; ++mm) a += pr[mm] * to_f32(vc[mm * kv_stride]);
+        xs[r * xs_stride + h * hd + lane] = round_to<T>(a);
+      }
+      __syncwarp();
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int mm = lane; mm < m; mm += 32) {
-      const float e = expf(pr[mm] - mx);
-      pr[mm] = e;
-      sum += e;
+  } else {
+    for (int e = tid; e < rows * nh; e += kThreads) {
+      stats[2 * e] = -INFINITY;
+      stats[2 * e + 1] = 0.f;
     }
-    sum = warp_sum(sum);
-    for (int mm = lane; mm < m; mm += 32) pr[mm] = round_to<T>(pr[mm] / sum);
-    __syncwarp();
-    if (lane < hd) {
-      const T* vc = vs + h * hd + lane;
-      float a = 0.f;
-      for (int mm = 0; mm < m; ++mm) a += pr[mm] * to_f32(vc[mm * kv_stride]);
-      xs[r * xs_stride + h * hd + lane] = round_to<T>(a);
+    for (int e = tid; e < kR * c; e += kThreads)
+      xs[(e / c) * xs_stride + e % c] = 0.f;
+    // sweep 1: the running max and sum of every pair
+    for (int k0 = 0; k0 < m; k0 += keys) {
+      const int kk = min(keys, m - k0);
+      __syncthreads();
+      stage_keys<T>(p, b, k0, kk, ks, nullptr);
+      __syncthreads();
+      for (int pair = warp; pair < rows * nh; pair += kWarps) {
+        const int r = pair / nh, h = pair - r * nh;
+        const float cm = warp_max(chunk_logits(qs + r * xs_stride + h * hd,
+                                               ks, kv_stride, h, hd, kk,
+                                               p.scale, pr));
+        float cs = 0.f;
+        for (int mm = lane; mm < kk; mm += 32) cs += expf(pr[mm] - cm);
+        cs = warp_sum(cs);
+        if (lane == 0) {
+          const float m0 = stats[2 * pair], mn = fmaxf(m0, cm);
+          stats[2 * pair + 1] =
+              stats[2 * pair + 1] * expf(m0 - mn) + cs * expf(cm - mn);
+          stats[2 * pair] = mn;
+        }
+        __syncwarp();
+      }
     }
-    __syncwarp();
+    // sweep 2: p and p . V
+    for (int k0 = 0; k0 < m; k0 += keys) {
+      const int kk = min(keys, m - k0);
+      __syncthreads();
+      stage_keys(p, b, k0, kk, ks, vs);
+      __syncthreads();
+      for (int pair = warp; pair < rows * nh; pair += kWarps) {
+        const int r = pair / nh, h = pair - r * nh;
+        chunk_logits(qs + r * xs_stride + h * hd, ks, kv_stride, h, hd, kk,
+                     p.scale, pr);
+        const float mx = stats[2 * pair], sum = stats[2 * pair + 1];
+        for (int mm = lane; mm < kk; mm += 32)
+          pr[mm] = round_to<T>(expf(pr[mm] - mx) / sum);
+        __syncwarp();
+        if (lane < hd) {
+          const T* vc = vs + h * hd + lane;
+          float* acc = xs + r * xs_stride + h * hd + lane;
+          float a = *acc;
+          for (int mm = 0; mm < kk; ++mm)
+            a += pr[mm] * to_f32(vc[mm * kv_stride]);
+          *acc = a;
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < kR * c; e += kThreads) {
+      float* a = xs + (e / c) * xs_stride + e % c;
+      *a = round_to<T>(*a);
+    }
   }
   __syncthreads();
 
   // out = bf16(attn . Wproj^T + bproj) [+ res]
   for (int j0 = 0; j0 < c; j0 += kOC) {
-    project_chunk<T, kOC>(xs, c, p.wproj, p.bproj, j0, ws, tile);
+    project_chunk<T, kOC, kR>(xs, c, p.wproj, p.bproj, j0, ws, tile);
     for (int e = tid; e < rows * kOC; e += kThreads) {
       const int r = e / kOC, j = e - r * kOC;
       if (j0 + j < c) {
@@ -238,28 +334,67 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t sr_smem_bytes(int m, int c, int oc, size_t elem) {
-  return sizeof(float) * (2 * kRows * (c + 1) + kRows * (oc + 1) + kWarps * m) +
-         elem * (oc * c + 2 * m * (c + 2));
-}
-
-// Output columns per projection chunk: 32, or 16 where 32 does not fit.
-int sr_chunk(int m, int c, size_t elem) {
-  return sr_smem_bytes(m, c, 32, elem) <= 232448 ? 32 : 16;
+// Dynamic shared memory of a CUDA-core block in bytes: the token tile and
+// q (rows x (C + 1) fp32 each), a projection chunk's outputs (rows x
+// (cols + 1) fp32), a logit row a warp, with several K/V chunks the running
+// max and sum of each (token, head) pair (fp32), the chunk's weight rows
+// (cols x C) and K and V (keys x (C + 2) each) in elements of elem bytes.
+size_t sr_smem_bytes(int rows, int keys, int cols, int m, int c, int nh,
+                     size_t elem) {
+  const bool streamed = keys < m;
+  return sizeof(float) * (2 * (size_t)rows * (c + 1) + rows * (cols + 1) +
+                          kWarps * keys + (streamed ? 2 * rows * nh : 0)) +
+         elem * ((size_t)cols * c + 2 * (size_t)keys * (c + 2));
 }
 
 size_t elem_size(int dtype) { return dtype == kF32 ? 4 : 2; }
 
-template <class T, int kOC>
+// The CUDA-core plan: the most token rows (32, 16), then the most reduced
+// keys a K/V chunk (all M up to 128 where they fit: one pass; else 64, 32,
+// 16, 8), then the widest projection chunk (32, 16 columns) whose block fits
+// the card's shared memory. *smem is that block's size; where no plan fits
+// (C above ~900 in fp32) it is the smallest plan's and the result false.
+bool sr_cc_plan(int m, int c, int nh, size_t elem, int* rows, int* keys,
+                int* cols, size_t* smem) {
+  const int top = m < kMaxKeys ? m : kMaxKeys;
+  const int fewer[] = {64, 32, 16, 8};
+  for (int r = 32; r >= 16; r /= 2) {
+    for (int i = -1; i < 4; ++i) {
+      const int k = i < 0 ? top : fewer[i];
+      if (i >= 0 && k >= top) continue;
+      for (int oc = 32; oc >= 16; oc /= 2) {
+        *rows = r;
+        *keys = k;
+        *cols = oc;
+        *smem = sr_smem_bytes(r, k, oc, m, c, nh, elem);
+        if (*smem <= (size_t)mlptile::kMaxSmem) return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <class T, int kOC, int kR>
 int launch_sr(const SrParams<T>& p, int b, cudaStream_t st) {
-  const size_t smem = sr_smem_bytes(p.m, p.c, kOC, sizeof(T));
+  const size_t smem = sr_smem_bytes(kR, p.keys, kOC, p.m, p.c, p.nh,
+                                    sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      sr_attention_kernel<T, kOC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sr_attention_kernel<T, kOC, kR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sr_attention_kernel<T, kOC><<<dim3((p.n + kRows - 1) / kRows, b), kThreads,
-                                smem, st>>>(p);
+  sr_attention_kernel<T, kOC, kR><<<dim3((p.n + kR - 1) / kR, b), kThreads,
+                                    smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_sr_any(const SrParams<T>& p, int b, int rows, int cols,
+                  cudaStream_t st) {
+  if (rows == 32)
+    return cols == 32 ? launch_sr<T, 32, 32>(p, b, st)
+                      : launch_sr<T, 16, 32>(p, b, st);
+  return cols == 32 ? launch_sr<T, 32, 16>(p, b, st)
+                    : launch_sr<T, 16, 16>(p, b, st);
 }
 
 // ---- the tensor-core route ----
@@ -822,20 +957,25 @@ int launch_sr_tc(const SrTcParams<T>& p, cudaStream_t st) {
 }  // namespace
 }  // namespace medseg
 
-// Shared memory of one CUDA-core block in bytes for M reduced tokens of
-// width C and the element type named by dtype (the wrapper raises where it
-// exceeds the card's limit).
-extern "C" long long medseg_sr_attention_smem_bytes(int m, int c, int dtype) {
+// Shared memory of one CUDA-core block in bytes, for M reduced tokens of
+// width C over nh heads and the element type named by dtype: that of the
+// plan sr_cc_plan picks, or where none fits the card, the smallest plan's
+// (over the limit).
+extern "C" long long medseg_sr_attention_smem_bytes(int m, int c, int nh,
+                                                    int dtype) {
   using namespace medseg;
-  const size_t elem = elem_size(dtype);
-  return (long long)sr_smem_bytes(m, c, sr_chunk(m, c, elem), elem);
+  int rows, keys, cols;
+  size_t smem = 0;
+  sr_cc_plan(m, c, nh, elem_size(dtype), &rows, &keys, &cols, &smem);
+  return (long long)smem;
 }
 
 // x, k, v, wq, wproj, res, out of the element type named by dtype; bq,
 // bproj fp32. route: kRouteTensorCore (bf16 or fp16, C = 16 nh <= 384,
 // m <= 64, and rows, groups, slots as ops/kernels/sr_attention.py sr_plan
 // gives them; every pointer on a 16-byte boundary) or kRouteCudaCore (any
-// dtype, head dim <= 32; rows, groups and slots are not read).
+// dtype, head dim <= 32, any M, C where sr_cc_plan fits a block; rows,
+// groups and slots are not read).
 extern "C" int medseg_sr_attention_fwd(const void* x, const void* k,
                                        const void* v, const void* wq,
                                        const void* bq, const void* wproj,
@@ -846,11 +986,16 @@ extern "C" int medseg_sr_attention_fwd(const void* x, const void* k,
                                        void* stream) {
   using namespace medseg;
   const int hd = nh > 0 ? c / nh : 0;
+  int cc_rows = 0, keys = 0, cols = 0;
+  size_t smem = 0;
   if (b < 1 || n < 1 || m < 1 || nh < 1 || hd * nh != c || hd > kMaxHD ||
       b > 65535 ||
       (route == kRouteTensorCore &&
        !sr_tc_takes(dtype, n, m, c, nh, rows, groups, slots,
                     res != nullptr)) ||
+      (route == kRouteCudaCore &&
+       !sr_cc_plan(m, c, nh, elem_size(dtype), &cc_rows, &keys, &cols,
+                   &smem)) ||
       (route != kRouteTensorCore && route != kRouteCudaCore))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -885,8 +1030,7 @@ extern "C" int medseg_sr_attention_fwd(const void* x, const void* k,
     p.bproj = static_cast<const float*>(bproj);
     p.res = static_cast<const T*>(res);
     p.out = static_cast<T*>(out);
-    p.n = n; p.m = m; p.c = c; p.nh = nh; p.scale = scale;
-    return sr_chunk(m, c, sizeof(T)) == 32 ? launch_sr<T, 32>(p, b, st)
-                                           : launch_sr<T, 16>(p, b, st);
+    p.n = n; p.m = m; p.c = c; p.nh = nh; p.keys = keys; p.scale = scale;
+    return launch_sr_any(p, b, cc_rows, cols, st);
   });
 }

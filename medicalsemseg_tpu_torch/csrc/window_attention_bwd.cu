@@ -102,6 +102,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -110,9 +112,11 @@ namespace {
 
 constexpr int kKC = 32;     // input channels staged per projection chunk
 constexpr int kPK = 16;     // dqkv columns staged per dx chunk
-constexpr int kJB = 16;     // weight-gradient rows owned by a dw block
-constexpr int kMaxC = 512;  // widest C the dw launch holds in registers
-constexpr int kMaxE = kJB * kMaxC / kThreads;
+// widest C of the CUDA-core dw launch: its rows of dW sit in registers,
+// kJB * kMaxC / kThreads a thread; C above 512 (stage 4 at --hidden_dim 96)
+// takes the wider instance, so narrower widths keep their register budget
+constexpr int kNarrowC = 512;
+constexpr int kMaxC = 768;
 
 template <class T>
 struct BwdHeadsParams {
@@ -741,8 +745,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // grid (4c / kJB row groups, shares). Rows [0, 3c) are dWqkv = dqkv^T . xn
 // with dbqkv, rows [3c, 4c) dWproj = dy^T . o with dbproj. Partials per
-// share: (4c x c) weights | (4c) biases.
-template <class T>
+// share: (4c x c) weights | (4c) biases. kJB, the rows a block owns, is 16,
+// or 8 where C is an odd multiple of 8 (C = 24), so that no block straddles
+// the border of the two products at row 3C. kWide: C up to kMaxC, else up to
+// kNarrowC.
+template <class T, int kJB, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     window_attention_bwd_dw(const T* __restrict__ x,
                             const float* __restrict__ ln,
@@ -766,6 +773,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* lnr = qkv_side ? ln : nullptr;
   const long long ntiles = (m_total + kTile - 1) / kTile;
 
+  constexpr int kMaxE = kJB * (kWide ? kMaxC : kNarrowC) / kThreads;
   float acc[kMaxE];
 #pragma unroll
   for (int i = 0; i < kMaxE; ++i) acc[i] = 0.f;
@@ -1358,6 +1366,23 @@ cudaError_t launch_gemm_tc(const GemmBwdParams<T>& p, int grid_dx, int nsplit,
   }
 }
 
+template <class T, int kJB, bool kWide>
+cudaError_t launch_dw(const BwdHeadsParams<T>& p, void* part_w,
+                      long long m_total, int c, int nsplit, float ln_eps,
+                      cudaStream_t st) {
+  const size_t smem_dw =
+      sizeof(float) * (2 * kTile + kTile * (c + 1) + kTile * (kJB + 1));
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attention_bwd_dw<T, kJB, kWide>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dw);
+  if (err != cudaSuccess) return err;
+  window_attention_bwd_dw<T, kJB, kWide>
+      <<<dim3(4 * c / kJB, nsplit), kThreads, smem_dw, st>>>(
+      p.x, p.ln, p.attn, p.dqkv, p.dy, static_cast<float*>(part_w), m_total,
+      c, ln_eps);
+  return cudaGetLastError();
+}
+
 template <class T>
 int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
                void* part_ln, void* out_ln, void* part_w, void* out_w,
@@ -1406,17 +1431,15 @@ int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem_dw =
-      sizeof(float) * (2 * kTile + kTile * (c + 1) + kTile * (kJB + 1));
-  err = cudaFuncSetAttribute(window_attention_bwd_dw<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_dw);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window_attention_bwd_dw<T><<<dim3(4 * c / kJB, nsplit), kThreads, smem_dw,
-                               st>>>(p.x, p.ln, p.attn, p.dqkv, p.dy,
-                                     static_cast<float*>(part_w), m_total, c,
-                                     ln_eps);
-  err = cudaGetLastError();
+  auto dw = [&](auto wide) {
+    constexpr bool kWide = decltype(wide)::value;
+    return c % 16 == 0
+               ? launch_dw<T, 16, kWide>(p, part_w, m_total, c, nsplit, ln_eps,
+                                         st)
+               : launch_dw<T, 8, kWide>(p, part_w, m_total, c, nsplit, ln_eps,
+                                        st);
+  };
+  err = c > kNarrowC ? dw(std::true_type{}) : dw(std::false_type{});
   if (err != cudaSuccess) return static_cast<int>(err);
   return sum_all(p.dbias_part, dbias, part_ln, out_ln, part_w, out_w,
                  ln != nullptr, nchunk, grid_dx, nsplit, nh * n * n, c, st);
@@ -1432,8 +1455,9 @@ int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
 // on the tensor-core GEMM route, else unused and may be NULL).
 // Results (fp32): dbias (nh, N, N), out_ln (2c) = dscale | dbias_ln, out_w =
 // dWqkv (3c x c) | dWproj (c x c) | dbqkv (3c) | dbproj (c). c must be a
-// multiple of 16. route, of the heads launch: kRouteTensorCore (bf16 or fp16,
-// head dim 16, n <= 224; bias_t unused, may be NULL) or kRouteCudaCore.
+// multiple of 8 up to 768. route, of the heads launch: kRouteTensorCore
+// (bf16 or fp16, head dim 16, n <= 224; bias_t unused, may be NULL) or
+// kRouteCudaCore.
 // gemm_route, of the dx and dw launches: kRouteTensorCore (bf16 or fp16, c
 // as mlptile::gemm_route_takes says; x, wqkv, dy on 16-byte boundaries;
 // grid_dx and nsplit are then the most blocks and token shares the two
@@ -1450,7 +1474,7 @@ extern "C" int medseg_window_attention_bwd(
   using namespace medseg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hd = c / nh;
-  if (hd * nh != c || hd > 32 || hd < 1 || n < 1 || t < 1 || c % kJB != 0 ||
+  if (hd * nh != c || hd > 32 || hd < 1 || n < 1 || t < 1 || c % 8 != 0 ||
       c > kMaxC || nchunk < 1 || grid_dx < 1 || nsplit < 1 ||
       !route_takes(route, dtype, n, c, hd) ||
       (route == kRouteCudaCore && bias_t == nullptr) ||

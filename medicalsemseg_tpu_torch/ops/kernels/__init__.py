@@ -107,7 +107,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_global_window_attention_fwd.restype = i
     lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 10 + [f, p]
     lib.medseg_sr_attention_fwd.restype = i
-    lib.medseg_sr_attention_smem_bytes.argtypes = [i, i, i]
+    lib.medseg_sr_attention_smem_bytes.argtypes = [i] * 4
     lib.medseg_sr_attention_smem_bytes.restype = ll
     lib.medseg_fused_mlp_fwd.argtypes = [p] * 8 + [i] * 9 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i

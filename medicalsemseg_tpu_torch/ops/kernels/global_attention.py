@@ -13,7 +13,8 @@ how it differs from K1.
 :func:`global_window_attention` takes windows already partitioned in
 batch-major window order, as :func:`..window_attention.window_attention`
 does. A CPU tensor goes through :func:`global_window_attention_plain`; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. K6 runs K1's launches, so
+:func:`..window_attention.window_attention_supported` is its predicate too.
 """
 
 from __future__ import annotations

@@ -18,9 +18,15 @@ other shape). A failed launch raises; nothing falls back to the other route.
 
 A CPU tensor goes through :func:`fused_mlp_plain` /
 :func:`fused_mlp_bwd_plain`; a CUDA tensor launches the kernel or raises.
+
+:func:`fused_mlp_supported` says from the dtype and the shape alone whether
+K2 (and, in training, K4) takes a block's MLP: C and Co up to 768, and in
+training Co == C.
 """
 
 from __future__ import annotations
+
+import functools
 
 from typing import Optional
 
@@ -37,17 +43,17 @@ ROUTES = kernels.ROUTES
 route_launches = dict.fromkeys(ROUTES, 0)
 bwd_route_launches = dict.fromkeys(ROUTES, 0)
 
-# The widths each route takes. K2 on the CUDA cores: shared memory per block
-# grows with C and Co (csrc/mlp.cu), 203 KB of the 227 KB limit at C = Co =
-# 512. K2 on the tensor cores: a 64-token tile and a W1 chunk of 64 hidden
-# units, each C + 8 wide, beside a W2 chunk of <= 192 output columns: 222 KB
-# at C = 768; Co comes in column tiles.
-MAX_WIDTH = 512
-TC_MAX_WIDTH = 768
-# K4 on the CUDA cores: the dx launch holds three (32, C) fp32 tiles, 211 KB
-# at C = 384. On the tensor cores the dx launch splits C into at most four
-# column parts of <= 96 channels (dx_parts): C <= 384 as well.
-MLP_BWD_MAX_WIDTH = 384
+# The widest C and Co of K2 and K4, on either route. K2 on the CUDA cores:
+# shared memory per block grows with C and Co (csrc/mlp.cu), 203 KB of the
+# 227 KB limit at C = Co = 512; above that Co comes in column tiles (two at
+# C = Co = 768, 220 KB in fp32). K2 on the tensor cores: a 64-token tile and
+# a W1 chunk of 64 hidden units, each C + 8 wide, sit beside a W2 chunk of
+# <= 192 output columns: 222 KB at C = 768; Co comes in column tiles. K4 on
+# the CUDA cores: the dx launch holds three (32, C) fp32 tiles, 211 KB at
+# C = 384, and 16-row tiles above. K4 on the tensor cores: the dx launch
+# splits C into at most four column parts of <= 96 channels (dx_parts), so
+# C <= 384 there.
+MAX_WIDTH = 768
 
 # the tensor-core kernels (csrc/mlp_tile.cuh): token rows a tile, hidden
 # units a chunk, widest column tile of K2, widest channel slice of K4's
@@ -77,11 +83,25 @@ def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def fused_mlp_supported(dtype, c: int, co: int, hdim: int,
+                        train: bool = False) -> bool:
+    """Whether K2 and, with ``train``, K4 take tokens of width C, hidden
+    width H and Co outputs in ``dtype``: bf16, fp16 or fp32 with C, Co <=
+    768; for K4 also Co == C (K4's tensor-core route takes C <= 384, its
+    CUDA-core route the rest). Pure: calls no library."""
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        return False
+    if min(c, co, hdim) < 1 or max(c, co) > MAX_WIDTH:
+        return False
+    return not train or co == c
+
+
 def mlp_route(dtype, c: int, co: int, hdim: int) -> str:
     """The route of a K2 launch: ``"tensor_core"`` for bf16 and fp16 with C,
     Co and H multiples of 16 and C, Co <= 768, else ``"cuda_core"``."""
     if (kernels.tensor_core_dtype(dtype) and c % 16 == 0 and co % 16 == 0
-            and hdim % 16 == 0 and max(c, co) <= TC_MAX_WIDTH):
+            and hdim % 16 == 0 and max(c, co) <= MAX_WIDTH):
         return "tensor_core"
     return "cuda_core"
 
@@ -184,9 +204,8 @@ def _launch_fwd(x, w1, b1, w2, b2, ln, ln_eps, residual, route):
     code = kernels.dtype_code("x", dt)
     route = kernels.pick_route(route, mlp_route(dt, c, co, hdim),
                                f"{dt} with C={c}, Co={co}, H={hdim}")
-    limit = TC_MAX_WIDTH if route == "tensor_core" else MAX_WIDTH
-    if max(c, co) > limit:
-        raise ValueError(f"width {max(c, co)} > {limit}")
+    if max(c, co) > MAX_WIDTH:
+        raise ValueError(f"width {max(c, co)} > {MAX_WIDTH}")
     w1, w2 = w1.to(dt), w2.to(dt)
     kernels.check_tensor("x", x, dev, dt)
     kernels.check_tensor("w1", w1, dev, dt, (hdim, c))
@@ -287,8 +306,8 @@ def _launch_bwd(x, w1, b1, w2, ln, dy, ln_eps, residual, route):
     counts."""
     m, c = x.shape
     hdim = w1.shape[0]
-    if c > MLP_BWD_MAX_WIDTH:
-        raise ValueError(f"width {c} > {MLP_BWD_MAX_WIDTH}")
+    if c > MAX_WIDTH:
+        raise ValueError(f"width {c} > {MAX_WIDTH}")
     dev, dt, f32 = x.device, x.dtype, torch.float32
     code = kernels.dtype_code("x", dt)
     route = kernels.pick_route(route, mlp_bwd_route(dt, c, hdim),

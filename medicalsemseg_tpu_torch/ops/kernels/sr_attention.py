@@ -14,13 +14,17 @@ reduced keys and C <= 384: every SegFormer3D stage) and the CUDA cores
 (fp32, whose agreement with the fp32 plain path TF32 would cost, other head
 dims, more keys or wider C). :func:`sr_plan` gives the tensor-core launch its
 token tile, its head groups (the blocks of a thread-block cluster that add
-their partial projections) and its token slots. A failed launch raises;
-nothing falls back to the other route.
+their partial projections) and its token slots; the CUDA-core launch plans
+itself in C (``sr_cc_plan``: its token tile, its chunk of reduced keys, as K
+and V stream through shared memory so that any M runs, and its projection
+chunk). A failed launch raises; nothing falls back to the other route.
 
 The TPU wrapper's ``_tile_rows`` / ``fused_sr_attention_fits`` size a tile to
-the TPU's fast memory and have no counterpart: what each route takes is
-stated in :func:`sr_attention`. A CPU tensor goes through
-:func:`sr_attention_plain`; a CUDA tensor launches a kernel or raises.
+the TPU's fast memory and have no counterpart. :func:`sr_attention_supported`
+says from the dtype and the shape alone whether a route takes a launch: head
+dims up to 32 (ROADMAP R15 is the kernel work above), C up to 768 and at
+most 64 heads, any M. A CPU tensor goes through :func:`sr_attention_plain`;
+a CUDA tensor launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ TC_MAX_HEADS = 24
 TC_MAX_GROUP_HEADS = 6
 TC_MAX_GROUPS = 8
 TC_MAX_ROWS = 64
+# what the CUDA-core route takes at any M (csrc/sr_attention.cu sr_cc_plan):
+# its smallest plan (16 token rows, 8 keys a chunk, 16 projection columns)
+# fits a block up to C = 768 with 64 heads in fp32
+MAX_WIDTH = 768
+MAX_HEADS = 64
 
 
 def sr_route(dtype, c: int, num_heads: int, m: int) -> str:
@@ -107,6 +116,19 @@ def sr_plan(b: int, n: int, c: int, num_heads: int, m: int, sms: int,
                      f"M={m}")
 
 
+@functools.lru_cache(maxsize=None)
+def sr_attention_supported(dtype, c: int, num_heads: int, m: int) -> bool:
+    """Whether a route of K7 takes tokens of width C over ``num_heads``
+    heads against M reduced keys in ``dtype``: bf16, fp16 or fp32, a head
+    dim that divides C and is at most 32, C <= 768, at most 64 heads, any M
+    (the tensor-core route takes a subset). Pure: calls no library."""
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        return False
+    hd = c // num_heads if num_heads > 0 else 0
+    return (1 <= hd <= MAX_HEAD_DIM and hd * num_heads == c
+            and c <= MAX_WIDTH and num_heads <= MAX_HEADS and m >= 1)
+
+
 def _heads(a: torch.Tensor, nh: int) -> torch.Tensor:
     b, n, c = a.shape
     return a.reshape(b, n, nh, c // nh).permute(0, 2, 1, 3)
@@ -154,10 +176,9 @@ def sr_attention(
     dtype. Both routes take any N (the last token tile is masked). The
     tensor-core route takes what :func:`sr_route` gives it (every stage of
     the default model: M = 27); the CUDA-core route head dims up to 32 and
-    any M whose K and V fit a block's shared memory beside the token tile:
-    M <= 75 at C = 384 in bf16, 34 in fp32, more at narrower widths.
-    ``route`` forces one (``"cuda_core"`` always; ``"tensor_core"`` only
-    where :func:`sr_route` gives it)."""
+    any M (K and V stream in chunks) at widths up to ~900. ``route``
+    forces one (``"cuda_core"`` always; ``"tensor_core"`` only where
+    :func:`sr_route` gives it)."""
     if x.device.type == "cpu":
         return sr_attention_plain(x, k, v, wq, bq, wproj, bproj, num_heads,
                                   residual)
@@ -201,9 +222,9 @@ def _launch(x, k, v, wq, bq, wproj, bproj, num_heads, residual, route):
                               **({} if residual is None
                                  else {"residual": residual}))
     else:
-        smem = lib.medseg_sr_attention_smem_bytes(m, c, code)
+        smem = lib.medseg_sr_attention_smem_bytes(m, c, num_heads, code)
         if smem > kernels.MAX_SMEM_BYTES:
-            raise ValueError(f"M={m} reduced tokens at C={c} need {smem} "
+            raise ValueError(f"C={c} with {num_heads} heads needs {smem} "
                              f"bytes of shared memory, over "
                              f"{kernels.MAX_SMEM_BYTES}")
     out = torch.empty_like(x)

@@ -30,10 +30,16 @@ order, and returns the attention output windows;
 CPU tensor goes through :func:`window_attention_plain` /
 :func:`window_attention_bwd_plain`; a CUDA tensor launches the kernel or
 raises.
+
+:func:`window_attention_supported` says from the dtype and the shape alone
+whether K1 (and, in training, K3) takes a block's windows: head dims up to
+32 (ROADMAP R15 is the kernel work above), C up to 768, windows of up to 7^3
+tokens (6^3 in training), and in training C a multiple of 8.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -52,7 +58,11 @@ launches = 0
 bwd_launches = 0
 
 MAX_HEAD_DIM = 32
-ATTN_BWD_MAX_WIDTH = 512
+ATTN_BWD_MAX_WIDTH = 768
+# the widest window whose CUDA-core heads block fits the card's shared
+# memory at head dim 32 (fp32 tiles growing with N): 7^3 tokens for K1, 6^3
+# for K3
+MAX_TOKENS, BWD_MAX_TOKENS = 343, 216
 
 # the routes of the heads launches, with their codes in the C entry points
 ROUTES = kernels.ROUTES
@@ -76,6 +86,23 @@ def attention_route(dtype, n: int, head_dim: int) -> str:
             and n <= TC_MAX_TOKENS):
         return "tensor_core"
     return "cuda_core"
+
+
+@functools.lru_cache(maxsize=None)
+def window_attention_supported(dtype, n: int, c: int, num_heads: int,
+                               train: bool = False) -> bool:
+    """Whether K1 (K6 shares its launches) and, with ``train``, K3 take
+    windows of N tokens of width C over ``num_heads`` heads in ``dtype``:
+    bf16, fp16 or fp32, a head dim that divides C and is at most 32, C <=
+    768 and N <= 343; for K3 also C a multiple of 8 and N <= 216 (the
+    tensor-core routes take a subset). Pure: calls no library."""
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        return False
+    hd = c // num_heads if num_heads > 0 else 0
+    if not (1 <= hd <= MAX_HEAD_DIM and hd * num_heads == c
+            and c <= ATTN_BWD_MAX_WIDTH and 1 <= n <= MAX_TOKENS):
+        return False
+    return not train or (c % 8 == 0 and n <= BWD_MAX_TOKENS)
 
 
 def pick_route(route: Optional[str], dtype, n: int, head_dim: int) -> str:
@@ -357,8 +384,8 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
     counts."""
     nh = bias.shape[0]
     t, n, c, hd = _check_geometry(wins, nh, grid_dims, window)
-    if c % 16 != 0 or c > ATTN_BWD_MAX_WIDTH:
-        raise ValueError(f"C={c}: the backward kernel takes multiples of 16 "
+    if c % 8 != 0 or c > ATTN_BWD_MAX_WIDTH:
+        raise ValueError(f"C={c}: the backward kernel takes multiples of 8 "
                          f"up to {ATTN_BWD_MAX_WIDTH}")
     dev, dt, f32 = wins.device, wins.dtype, torch.float32
     code = kernels.dtype_code("wins", dt)

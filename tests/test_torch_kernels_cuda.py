@@ -126,6 +126,10 @@ def _grads_close(names, got, want, dtype="bfloat16"):
     ((6, 6, 9), 3, 48, 3, 1, True, False, False),
     ((6, 6, 9), 3, 32, 1, 0, False, False, True),   # head dim 32
     ((12, 6, 6), 6, 48, 3, 3, True, False, True),
+    ((6, 6, 6), 3, 24, 3, 1, True, True, True),     # hidden 24: 8-row dw
+    ((6, 6, 6), 3, 24, 1, 0, True, False, False),   # blocks, head dim 24
+    ((4, 4, 4), 2, 768, 24, 1, True, True, True),   # hidden 96, stage 4:
+    ((2, 4, 4), 2, 520, 26, 0, True, False, False),  # the wide dw launch
 ])
 def test_window_attention_backward_kernel(gen, dims, ws, c, nh, shift, ln, res,
                                           qkv_bias, dtype):
@@ -403,11 +407,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
             torch.zeros(4, device="cuda"),
             torch.zeros(3, 8, 8, device="cuda"), grid_dims=(1, 1, 1),
             window=(2, 2, 2), shift=(0, 0, 0))
-    wins = torch.zeros(2, 8, 24, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 16"):
+    wins = torch.zeros(2, 8, 20, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
         kwa.window_attention_bwd(
-            wins, wins.new_zeros(72, 24), None, wins.new_zeros(24, 24),
-            torch.zeros(3, 8, 8, device="cuda"), wins, grid_dims=(1, 1, 1),
+            wins, wins.new_zeros(60, 20), None, wins.new_zeros(20, 20),
+            torch.zeros(1, 8, 8, device="cuda"), wins, grid_dims=(1, 1, 1),
             window=(2, 2, 2), shift=(0, 0, 0))
 
 
@@ -493,8 +497,8 @@ def test_mlp_kernel_at_hidden_3c(gen, m, c, dtype):
            DTYPE_TOL[dtype][0])
 
 
-# the most reduced tokens whose K and V fit a block beside the token tile at
-# C = 384 (csrc/sr_attention.cu: projection chunks of 16 columns there)
+# the most reduced tokens whose K and V fit one block whole beside the token
+# tile at C = 384 (K7's CUDA-core route before it streamed them in chunks)
 SR_MAX_M_BF16, SR_MAX_M_F32 = 75, 34
 
 
@@ -528,15 +532,20 @@ def test_zoo_wrappers_reject_what_the_kernels_do_not_take(gen):
     def kv(m):
         return torch.zeros(1, m, 384, device=dev, dtype=bf)
 
-    # the widest M whose K and V fit beside the token tile at C = 384: in
-    # bf16 with projection chunks of 16 columns, in fp32 likewise
-    for dt, m_max in ((bf, SR_MAX_M_BF16), (torch.float32, SR_MAX_M_F32)):
+    # K and V stream through shared memory in key chunks: M past what one
+    # block could hold whole at C = 384 (75 in bf16, 34 in fp32) runs, and
+    # only a width that no plan fits is refused
+    for dt in (bf, torch.float32):
         xd = x.to(dt)
-        ksr.sr_attention(xd, kv(m_max).to(dt), kv(m_max).to(dt), w, None, w,
-                         bp, 24)
-        with pytest.raises(ValueError, match="shared memory"):
-            ksr.sr_attention(xd, kv(m_max + 1).to(dt), kv(m_max + 1).to(dt),
-                             w, None, w, bp, 24)
+        for m in (SR_MAX_M_BF16 + 1, SR_MAX_M_F32 + 1, 512):
+            ksr.sr_attention(xd, kv(m).to(dt), kv(m).to(dt), w, None, w, bp,
+                             24)
+    wide = torch.zeros(1, 40, 2048, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ksr.sr_attention(wide, wide, wide, wide[0, :1].expand(2048, 2048)
+                         .contiguous(), None,
+                         wide[0, :1].expand(2048, 2048).contiguous(),
+                         torch.zeros(2048, device=dev), 64)
     with pytest.raises(ValueError, match="head dim"):
         ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 6)
     with pytest.raises(ValueError, match="residual"):

@@ -122,7 +122,7 @@ class _FakeEntry:
 class _FakeLibrary:
     def __init__(self, err, smem=1000):
         self.medseg_sr_attention_fwd = _FakeEntry(err)
-        self.medseg_sr_attention_smem_bytes = lambda m, c, code: smem
+        self.medseg_sr_attention_smem_bytes = lambda m, c, nh, code: smem
 
     def medseg_cuda_error_string(self, err):
         return b"launch refused"
@@ -225,7 +225,7 @@ def test_tensor_core_route_refuses_unaligned_tensors(fake_lib):
 
 def test_cuda_core_route_checks_its_shared_memory(fake_lib):
     fake_lib.medseg_sr_attention_smem_bytes = (
-        lambda m, c, code: kernels.MAX_SMEM_BYTES + 1)
+        lambda m, c, nh, code: kernels.MAX_SMEM_BYTES + 1)
     x, a = _case(F32)
     with pytest.raises(ValueError, match="shared memory"):
         ksr._launch(x, **a, route=None)
