@@ -102,13 +102,31 @@ Phases, in order; any failure exits non-zero:
                  against the fp32 plain path; one call of 16 windows timed)
                  and one flagship training step at --hidden_dim 96, batch 2
                  (K1-K4 in all 8 blocks, K3 and K4 on the CUDA cores at
-                 stage 4, C = 768; gradients against the fp32 plain path).
+                 stage 4, C = 768; gradients against the fp32 plain path);
+ 16. r15       - --num_heads 1 2 4 8 (head dim 48 at every stage): one
+                 flagship predictor call (logits against the fp32 plain
+                 path; K1's heads launches on their wide CUDA-core form) and
+                 one training step at batch 2 (K1-K4 in all 8 blocks;
+                 gradients against the fp32 plain path), then one
+                 GCViTUNETR and one SegFormer3D predictor call (K1 / K6 and
+                 K7 on the CUDA cores);
+ 17. zoo_train - GCViTUNETR, SegFormer3D and SwinSegFormer trained at full
+                 width: steps at batch 8 (or the largest of 4 and 2 that
+                 fits; launches by kernel and route, the loss falls, the
+                 BatchNorm running statistics move, ms per step, peak
+                 memory), one step's gradients against the fp32 plain path,
+                 then the training CLI at that batch and at batch 4 with
+                 --grad_accum_steps 2 --fused_loss (K8, and K5 in
+                 GCViTUNETR's decoder).
 The kernels group `f5` (in the default set) holds the same paths' kernels at
 their shapes against their plain versions, timed: K7's streaming route at
 SegFormer3D's four stages at vol 160 (M = 125) and at stage 4 with
 M = 216 / 512 (batch 16, bf16); K1 and K3 at the four stages of hidden 96
 and K2 and K4 at C = 768 (batch 2, bf16); K2's CUDA-core route at C = 768
-in fp32.
+in fp32. The group `r15` holds K1, K3 (every output), K6 and K7 at head
+dims 48 and 96 (the stages of hidden 48 and 96 with heads 1 2 4 8, batch 2,
+K7 at vol 96 and 160) in bf16 and fp32 against their plain versions, reruns
+bit-equal, timed beside their bounds and SDPA.
 `--phases profile` (not run by default) prints torch.profiler tables of one
 training step at batch 8, one micro-step at batch 4, one predictor call of
 each zoo model and one of the flagship without and with the fused decoder;
@@ -139,11 +157,12 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32",
-          "eval", "f5")
+          "eval", "f5", "r15", "zoo_train")
 # groups of the kernels phase, for --kernels
-KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5")
+KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5",
+                 "r15")
 EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts",
-                "sr_parts")
+                "sr_parts", "zoo_grads", "heads_forms")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -601,6 +620,40 @@ def _sdpa_reference(wins, a, kw, grad=False):
     return {name: (lambda m=m: fwd_bwd(m)) for name, m in masks.items()}
 
 
+def _sdpa_global_reference(wins, a, kw):
+    """``scaled_dot_product_attention`` on K6's q (the batch element's
+    query grid, scaled in fp32 and rounded), k and v (the windows' kv
+    projection) with the same additive fp32 bias: a reference point for
+    K6's heads launch, as :func:`_sdpa_reference` is for K1's (not K6's
+    function). Returns {name: fn}."""
+    import torch
+    import torch.nn.functional as F
+
+    from medicalsemseg_tpu_torch.ops import kernels
+
+    dt = wins.dtype
+    t, n, c = wins.shape
+    nh = a["bias"].shape[0]
+    hd = c // nh
+    b = a["q_global"].shape[0]
+    xn = (kernels.layer_norm(wins.float(), kw["ln"], 1e-5).to(dt)
+          if kw["ln"] is not None else wins)
+    with torch.no_grad():
+        kv = xn.float() @ a["wkv"].float().t()
+        if a["bkv"] is not None:
+            kv = kv + a["bkv"].float()
+        k, v = (u.to(dt).contiguous() for u in kv.reshape(
+            t, n, 2, nh, hd).permute(2, 0, 3, 1, 4))
+        q = (a["q_global"].float() * hd ** -0.5).to(dt).reshape(
+            b, n, nh, hd).permute(0, 2, 1, 3).repeat_interleave(t // b, 0)
+        q = q.contiguous()
+    mask = a["bias"][None]
+    # the scale is in q already
+    return {"sdpa": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=mask,
+                                                           scale=1.0)}
+
+
 def _mlp_reference(x, a, kw, grad=False):
     """layer_norm -> F.linear -> F.gelu -> F.linear [-> + x] on these tokens
     in their dtype (cuBLAS and PyTorch's own kernels): a reference point for
@@ -733,6 +786,8 @@ def phase_kernels(groups=KERNEL_GROUPS):
         _fp32_kernels(rep)
     if "f5" in groups:
         _f5_kernels(rep)
+    if "r15" in groups:
+        _r15_kernels(rep)
     for k in rep.values():
         k["launches"] = 0
         del k["tag"]
@@ -2120,19 +2175,20 @@ def _train_setup(extra_args=()):
 
 
 def _seed_drop_path(net, seed):
+    """One seeded generator for every DropPath and Dropout of ``net``."""
     import torch
 
-    from medicalsemseg_tpu_torch.models.layers import DropPath
+    from medicalsemseg_tpu_torch.models.layers import Dropout, DropPath
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     for mod in net.modules():
-        if isinstance(mod, DropPath):
+        if isinstance(mod, (DropPath, Dropout)):
             mod.generator = g
 
 
 def _grads_of(net, loss_fn, batch):
     """Loss and fp32 copies of every parameter gradient of one training-mode
-    forward and backward, with the DropPath draws seeded."""
+    forward and backward, with the DropPath and Dropout draws seeded."""
     import torch
 
     _seed_drop_path(net, 7)
@@ -2141,6 +2197,55 @@ def _grads_of(net, loss_fn, batch):
     loss = loss_fn(logits, batch["label"])
     grads = torch.autograd.grad(loss, list(net.parameters()))
     return float(loss.detach()), [g.float() for g in grads]
+
+
+def _blocks_vs_plain(phase, model, run, cls):
+    """Each block of class ``cls`` on its own, the kernels against their
+    plain versions (both bf16): the block's inputs from the training-mode
+    forward of ``run(model)``, a seeded cotangent standing for the rest of
+    the network, and the block's output, input gradient and every parameter
+    gradient within TRAIN_BLOCK_REL_TOL (inside the whole model a deep
+    block's gradients sit at their noise floor, PERF.md PR 2). Returns
+    (what ``run`` returned, the number of blocks)."""
+    import torch
+
+    inputs = {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args, name=name: inputs.__setitem__(
+            name, [a.detach() for a in args]))
+        for name, blk in model.named_modules() if isinstance(blk, cls)]
+    result = run(model)
+    for h in hooks:
+        h.remove()
+
+    def block_grads(blk, args):
+        _seed_drop_path(blk, 11)
+        x = args[0].clone().requires_grad_()
+        y = blk(x, *args[1:])
+        cot = torch.randn(y.shape, device="cuda", dtype=y.dtype,
+                          generator=torch.Generator(device="cuda").manual_seed(3))
+        grads = torch.autograd.grad((y.float() * cot.float()).sum(),
+                                    [x] + list(blk.parameters()))
+        return [y.detach().float()] + [g.float() for g in grads]
+
+    for name, args in inputs.items():
+        blk = model.get_submodule(name)
+        a = block_grads(blk, args)
+        with _plain_kernels():
+            b = block_grads(blk, args)
+        labels = ["y", "dx"] + [n for n, _ in blk.named_parameters()]
+        errs = {n: float((u - v).norm() / v.norm())
+                for n, u, v in zip(labels, a, b)}
+        worst = max(errs, key=errs.get)
+        print(f"{phase}: {name} alone (input {tuple(args[0].shape)}), "
+              f"kernels vs plain, bf16: y {errs['y']:.3e}, dx "
+              f"{errs['dx']:.3e}, worst of {len(errs) - 2} parameter "
+              f"gradients {worst} {errs[worst]:.3e} (tol "
+              f"{TRAIN_BLOCK_REL_TOL})", flush=True)
+        _require(errs[worst] <= TRAIN_BLOCK_REL_TOL, f"{phase}: {name}: "
+                 f"{worst} with the kernels is off by {errs[worst]:.3e}")
+        del a, b
+    return result, len(inputs)
 
 
 def _fp32_plain_grads(model, grads_of):
@@ -2189,7 +2294,14 @@ def phase_train():
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = train_step(state, batch)
+        try:
+            m = train_step(state, batch)
+        except torch.cuda.OutOfMemoryError:
+            raise PhaseError(
+                f"zoo_train {name}: batch {batch_size} no longer fits the "
+                "card's memory (peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                "when it ran out)") from None
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
@@ -2222,45 +2334,11 @@ def phase_train():
     def grads_of(net):
         return _grads_of(net, loss_fn, small)
 
-    inputs = {}
-    hooks = [blk.register_forward_pre_hook(
-        lambda mod, args, name=name: inputs.__setitem__(name, args[0].detach()))
-        for name, blk in model.named_modules() if isinstance(blk, SwinBlock)]
-    got_loss, got = grads_of(model)
-    for h in hooks:
-        h.remove()
-    _require(len(inputs) == 8, f"train: {len(inputs)} Swin blocks found")
+    (got_loss, got), found = _blocks_vs_plain("train", model, grads_of,
+                                              SwinBlock)
+    _require(found == 8, f"train: {found} Swin blocks found")
     with _plain_kernels():
         mid_loss, mid = grads_of(model)
-
-    def block_grads(blk, x):
-        _seed_drop_path(blk, 11)
-        x = x.clone().requires_grad_()
-        y = blk(x)
-        cot = torch.randn(y.shape, device="cuda", dtype=y.dtype,
-                          generator=torch.Generator(device="cuda").manual_seed(3))
-        grads = torch.autograd.grad((y.float() * cot.float()).sum(),
-                                    [x] + list(blk.parameters()))
-        return [y.detach().float()] + [g.float() for g in grads]
-
-    for name, x in inputs.items():
-        blk = model.get_submodule(name)
-        a = block_grads(blk, x)
-        with _plain_kernels():
-            b = block_grads(blk, x)
-        labels = ["y", "dx"] + [n for n, _ in blk.named_parameters()]
-        errs = {n: float((u - v).norm() / v.norm())
-                for n, u, v in zip(labels, a, b)}
-        worst = max(errs, key=errs.get)
-        print(f"train: {name} alone (input {tuple(x.shape)}, shift "
-              f"{blk.shift_size}), kernels vs plain, bf16: y {errs['y']:.3e}, "
-              f"dx {errs['dx']:.3e}, worst of {len(errs) - 2} parameter "
-              f"gradients {worst} {errs[worst]:.3e} (tol "
-              f"{TRAIN_BLOCK_REL_TOL})", flush=True)
-        _require(errs[worst] <= TRAIN_BLOCK_REL_TOL, f"train: {name}: {worst} "
-                 f"with the kernels is off by {errs[worst]:.3e}")
-        del a, b
-    del inputs
 
     want_loss, want, ref_peak = _fp32_plain_grads(model, grads_of)
     for label, b, b_loss, tol in (
@@ -3799,6 +3877,149 @@ def _f5_kernels(rep):
         torch.cuda.empty_cache()
 
 
+# --num_heads 1 2 4 8 at --hidden_dim 48 and 96: head dims 48 and 96 at every
+# stage (ROADMAP R15), the wide forms of K1, K3 and K6 and K7's CUDA-core
+# route; batch 2 (one training step's crops, the windows of two predictor
+# windows), in bf16 and fp32. SegFormer3D's stages at vol 96 (M = 27) and
+# vol 160 (M = 125) for K7.
+R15_HEADS = (1, 2, 4, 8)
+R15_HIDDEN = (48, 96)
+R15_BATCH = 2
+R15_SR_VOLS = ((96, (24, 12, 6, 3), 27), (160, (40, 20, 10, 5), 125))
+
+
+def _r15_kernels(rep):
+    """K1, K3 (every output), K6 and K7 at head dims 48 and 96 against their
+    plain versions (bf16: KERNEL_ATOL and the swin group's gradient
+    tolerances; fp32: FP32_KERNEL_TOL and its gradient tolerances), a rerun
+    bit-equal, timed beside their bounds and SDPA (stage rows with the paths
+    ``r15_h{hidden}[_fp32]``, K7's ``r15_h{hidden}_vol{96,160}[_fp32]``)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
+    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    k1, k3 = rep["window_attention"], rep["window_attention_bwd"]
+    k6, k7 = rep["global_window_attention"], rep["sr_attention"]
+    batch, n = R15_BATCH, WS ** 3
+    with torch.inference_mode():
+        for dt, hidden in [(d, h) for d in (torch.bfloat16, torch.float32)
+                           for h in R15_HIDDEN]:
+            fp32 = dt == torch.float32
+            tol = FP32_KERNEL_TOL if fp32 else KERNEL_ATOL
+            gtol = ((FP32_GRAD_NORM_TOL, FP32_GRAD_MAX_TOL) if fp32
+                    else (None, None))
+            timed = dict(elem=4, peak=PEAK_FP32_FLOPS) if fp32 else {}
+            path = f"r15_h{hidden}" + ("_fp32" if fp32 else "")
+            tag = "fp32" if fp32 else "bf16"
+            elem = 4 if fp32 else 2
+            for i, ((grid, c0, _), nh) in enumerate(zip(STAGES, R15_HEADS)):
+                c = c0 * hidden // 48
+                hd = c // nh
+                _require(kwa.attention_route(dt, n, hd) == "cuda_core"
+                         and ksr.sr_route(dt, c, nh, 27) == "cuda_core",
+                         f"r15: head dim {hd} not on the CUDA-core routes")
+                for shift, res in ((WS // 2, True), (0, False)):
+                    wins, a, kw = _attn_case(gen, batch, grid, c, nh, shift,
+                                             True, res, dt)
+                    case = (f"{tag} hidden {hidden} grid {grid}^3 x{batch}, "
+                            f"C={c}, head dim {hd}, shift {shift}, res {res}")
+                    got = kwa.window_attention(wins, **a, **kw)
+                    want = kwa.window_attention_plain(wins, **a, **kw)
+                    torch.cuda.synchronize()
+                    _compare("K1 " + case, got, want, k1, tol)
+                    _require(torch.equal(got, kwa.window_attention(
+                        wins, **a, **kw)), f"K1 {case}: a rerun differs")
+                    dy = torch.randn(wins.shape, generator=gen,
+                                     device="cuda").to(dt)
+                    b = {k: v for k, v in a.items() if k != "bproj"}
+                    want = kwa.window_attention_bwd_plain(wins, dy=dy, **b,
+                                                          **kw)
+                    got = kwa.window_attention_bwd(wins, dy=dy, **b, **kw)
+                    torch.cuda.synchronize()
+                    _compare_grads("K3 " + case, K3_NAMES, got, want, k3,
+                                   *gtol)
+                    again = kwa.window_attention_bwd(wins, dy=dy, **b, **kw)
+                    _require(all((u is None and v is None)
+                                 or torch.equal(u, v)
+                                 for u, v in zip(got, again)),
+                             f"K3 {case}: a rerun differs")
+                    del got, want, again
+                # the unshifted form is timed, beside SDPA on its q, k, v
+                _timed(k1, "window_attention", path, batch, grid, c, nh,
+                       lambda: kwa.window_attention(wins, **a, **kw),
+                       lambda: kwa.window_attention_plain(wins, **a, **kw), 3,
+                       extra=_sdpa_reference(wins, a, kw), **timed)
+                _timed(k3, "window_attention_bwd", path, batch, grid, c, nh,
+                       lambda: kwa.window_attention_bwd(wins, dy=dy, **b,
+                                                        **kw),
+                       lambda: kwa.window_attention_bwd_plain(
+                           wins, dy=dy, **b, **kw), 3,
+                       extra=_sdpa_reference(wins, a, kw, grad=True), **timed)
+                del wins, a, b, kw, dy
+                torch.cuda.empty_cache()
+
+                wins, a, kw = _global_case(gen, batch, grid, c, nh, True,
+                                           False, dt)
+                case = (f"{tag} hidden {hidden} grid {grid}^3 x{batch}, "
+                        f"C={c}, head dim {hd}")
+                got = kga.global_window_attention(wins, **a, **kw)
+                want = kga.global_window_attention_plain(wins, **a, **kw)
+                torch.cuda.synchronize()
+                _compare("K6 " + case, got, want, k6, tol)
+                _require(torch.equal(got, kga.global_window_attention(
+                    wins, **a, **kw)), f"K6 {case}: a rerun differs")
+                del got, want
+                t = wins.shape[0]
+                m = t * n
+                _stage_report(
+                    k6, path, c, batch,
+                    _time_ms(lambda: kga.global_window_attention(
+                        wins, **a, **kw), 3),
+                    _time_ms(lambda: kga.global_window_attention_plain(
+                        wins, **a, **kw), 3),
+                    6 * m * c * c + 4 * t * n * n * c,
+                    2 * m * c * elem + batch * n * c * elem
+                    + 3 * c * c * elem + 5 * c * 4 + nh * n * n * 4,
+                    timed.get("peak"),
+                    extra=_sdpa_global_reference(wins, a, kw))
+                del wins, a, kw
+                torch.cuda.empty_cache()
+
+                for vol, grids, m_keys in R15_SR_VOLS:
+                    ntok = grids[i] ** 3
+                    x, a = _sr_case(gen, batch, ntok, c, nh, True, True, dt)
+                    a["k"], a["v"] = (torch.randn(batch, m_keys, c,
+                                                  generator=gen,
+                                                  device="cuda").to(dt)
+                                      for _ in range(2))
+                    case = (f"{tag} hidden {hidden} vol {vol}, {batch}x{ntok} "
+                            f"tokens, M={m_keys}, C={c}, head dim {hd}")
+                    got = ksr.sr_attention(x, **a)
+                    want = ksr.sr_attention_plain(x, **a)
+                    torch.cuda.synchronize()
+                    _compare("K7 " + case, got, want, k7, tol)
+                    _require(torch.equal(got, ksr.sr_attention(x, **a)),
+                             f"K7 {case}: a rerun differs")
+                    del got, want
+                    rows = batch * ntok
+                    _stage_report(
+                        k7, f"r15_h{hidden}_vol{vol}"
+                        + ("_fp32" if fp32 else ""), c, batch,
+                        _time_ms(lambda: ksr.sr_attention(x, **a), 5),
+                        _time_ms(lambda: ksr.sr_attention_plain(x, **a), 5),
+                        4 * rows * c * c + 4 * rows * m_keys * c,
+                        3 * rows * c * elem + 2 * batch * m_keys * c * elem
+                        + 2 * c * c * elem + 2 * c * 4, timed.get("peak"),
+                        extra={"reference": _sr_reference(x, a)})
+                    stage = k7["per_stage"][-1]
+                    stage["N"], stage["M"] = ntok, m_keys
+                    del x, a
+                    torch.cuda.empty_cache()
+
+
 EVAL_SHAPES = ((240, 240, 140), (200, 180, 120))
 EVAL_ORGANS = 13     # label classes 1-13 are seeded blobs (BTCV's organs)
 
@@ -4056,7 +4277,14 @@ def phase_f5():
         _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = train_step(state, batch)
+        try:
+            m = train_step(state, batch)
+        except torch.cuda.OutOfMemoryError:
+            raise PhaseError(
+                f"zoo_train {name}: batch {batch_size} no longer fits the "
+                "card's memory (peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                "when it ran out)") from None
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         _require(all(bool(torch.isfinite(u).all()) for u in m.values()),
@@ -4095,6 +4323,682 @@ def phase_f5():
     del model, got, want
     torch.cuda.empty_cache()
     return total
+
+
+R15_ARGS = ["--num_heads"] + [str(h) for h in R15_HEADS]
+# per predictor call at heads 1 2 4 8: each attention launch on the wide
+# CUDA-core heads form
+R15_CALL_LAUNCHES = {
+    "nnFormerUNETR": {"window_attention": 8, "fused_mlp": 8},
+    "GCViTUNETR": {"window_attention": 4, "global_window_attention": 4,
+                   "fused_mlp": 8},
+    "SegFormer3D": {"sr_attention": 8},
+}
+
+
+def _call_vs_plain(phase, args, want_launches):
+    """One window of ``args``'s model in bf16 with the kernels against the
+    same weights in fp32 with the plain versions on the card (TF32 off), at
+    MODEL_REL_TOL; then one predictor call of PREDICT_BATCH windows with its
+    launches and routes (the heads launches on the CUDA cores) and its time.
+    Returns the call's launches."""
+    import copy
+
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    cfg = get_args(args)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = _seeded_model(cfg, gen).to("cuda")
+    ref = copy.deepcopy(model)
+    ref.dtype = torch.float32
+    vol = torch.randn(1, 96, 96, 96, 1, generator=gen).to("cuda")
+    x_in = (vol, torch.full((1, 3), 0.5, device="cuda"),
+            torch.ones(1, 3, device="cuda"))
+    with torch.inference_mode():
+        got = model(x_in)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with _plain_kernels():
+                want = ref(x_in)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        del ref
+        _require(got.shape == (1, 96, 96, 96, 14)
+                 and bool(torch.isfinite(got).all()),
+                 f"{phase}: logits {tuple(got.shape)}")
+        rel = float((got - want).norm() / want.norm())
+        print(f"{phase}: 96^3, bf16+kernels vs fp32 plain (card, TF32 off): "
+              f"rel norm err {rel:.3e} (tol {MODEL_REL_TOL})", flush=True)
+        _require(rel <= MODEL_REL_TOL, f"{phase}: bf16 logits disagree with "
+                 "the fp32 plain path")
+        del got, want
+        xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_in)
+        torch.cuda.empty_cache()
+        _reset_launches()
+        out = model(xb)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        routes = _add_routes(phase)
+        _require(out.shape == (PREDICT_BATCH, 96, 96, 96, 14)
+                 and bool(torch.isfinite(out).all()),
+                 f"{phase}: logits of {PREDICT_BATCH} windows")
+        del out
+        _require_launches(f"{phase} (one predictor call)", launches,
+                          {**dict.fromkeys(launches, 0), **want_launches})
+        for name in ("window_attention", "global_window_attention",
+                     "sr_attention"):
+            _require(routes[name]["tensor_core"] == 0,
+                     f"{phase}: {name} by route {routes[name]} (head dim 48: "
+                     "the CUDA cores)")
+        ms = _time_ms(lambda: model(xb), 2)
+        print(f"{phase}: one predictor call ({PREDICT_BATCH} windows): "
+              f"{ms:.1f} ms; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    del model, xb, x_in
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_r15():
+    """--num_heads 1 2 4 8 at --hidden_dim 48 (head dim 48 at every stage)
+    through the entry points a user calls: one flagship predictor call and
+    one training step at batch 2 (K1-K4 in all 8 blocks, K1's and K3's heads
+    launches on their wide CUDA-core form; gradients against the fp32 plain
+    path at TRAIN_GRAD_REL_TOL), then one GCViTUNETR and one SegFormer3D
+    predictor call (K1 / K6 and K7 on the CUDA cores)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+
+    total = {}
+
+    def add(delta):
+        for k, v in delta.items():
+            total[k] = total.get(k, 0) + v
+
+    add(_call_vs_plain("r15 nnFormerUNETR", FLAGSHIP_ARGS + R15_ARGS,
+                       R15_CALL_LAUNCHES["nnFormerUNETR"]))
+
+    cfg, model, state, train_step = _train_setup(R15_ARGS)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = _train_batch(gen, R15_BATCH, cfg.output_dim)
+    times = []
+    for step in range(2):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            m = train_step(state, batch)
+        except torch.cuda.OutOfMemoryError:
+            raise PhaseError(
+                f"zoo_train {name}: batch {batch_size} no longer fits the "
+                "card's memory (peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                "when it ran out)") from None
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _require(all(bool(torch.isfinite(u).all()) for u in m.values()),
+                 f"r15: non-finite metrics at step {step}")
+        launches = _read_launches()
+        routes = _add_routes(f"r15 training step {step}")
+        add(launches)
+    _require_launches("r15 training step", launches,
+                      dict.fromkeys(SWIN_KERNELS, 8))
+    _require(routes["window_attention"] == {"tensor_core": 0, "cuda_core": 8}
+             and routes["window_attention_bwd"] == {"tensor_core": 0,
+                                                    "cuda_core": 8},
+             f"r15: the heads launches by route {routes['window_attention']},"
+             f" {routes['window_attention_bwd']} (want 8 on the CUDA cores)")
+    print(f"r15: heads 1 2 4 8, batch {R15_BATCH} x 96^3, bf16: ms per step "
+          f"{' '.join(f'{t:.0f}' for t in times)}; loss "
+          f"{float(m['loss']):.4f}; launches {launches}", flush=True)
+    del state, m
+    loss_fn = build_loss(cfg)
+
+    def grads_of(net):
+        return _grads_of(net, loss_fn, batch)
+
+    got_loss, got = grads_of(model)
+    want_loss, want, _ = _fp32_plain_grads(model, grads_of)
+    rel = _rel_norm(got, want)
+    print(f"r15: gradients of one step (batch {R15_BATCH}), bf16+kernels vs "
+          f"fp32 plain: loss {got_loss:.5f} vs {want_loss:.5f}, rel norm err "
+          f"{rel:.3e} (tol {TRAIN_GRAD_REL_TOL})", flush=True)
+    _require(rel <= TRAIN_GRAD_REL_TOL, "r15: the gradients disagree with "
+             "the fp32 plain path")
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    for name in ("GCViTUNETR", "SegFormer3D"):
+        args = _zoo_args(name)
+        args = args[:args.index("--num_heads")] + R15_ARGS
+        add(_call_vs_plain(f"r15 {name}", args, R15_CALL_LAUNCHES[name]))
+    return total
+
+
+# Training of the three zoo models at full default width (hidden 48, depths
+# 2 2 2 2, heads 3 6 12 24, 96^3 crops, bf16). Kernel launches of one
+# training step: GC-ViT runs K1 forward and K3 backward in its 4 local
+# blocks (its 4 global blocks have no backward kernel and run the module's
+# unfused attention) and K2 / K4 in all 8 MLPs; SwinSegFormer runs K1-K4 in
+# its 8 Swin blocks; SegFormer3D runs none of them (K7 has no backward
+# kernel); K5 and K8 stay off at batch 8 (K5's gate window ends at 4M voxels;
+# the loss is the unfused one).
+ZOO_TRAIN_LAUNCHES = {
+    "GCViTUNETR": {"window_attention": 4, "window_attention_bwd": 4,
+                   "fused_mlp": 8, "fused_mlp_bwd": 8},
+    "SegFormer3D": {},
+    "SwinSegFormer": dict.fromkeys(SWIN_KERNELS, 8),
+}
+ZOO_TRAIN_STEPS = 4
+# crops a step: all three models fit the card at batch 8 (PERF.md, PR 12),
+# so a batch that no longer fits fails the phase
+ZOO_TRAIN_BATCH = 8
+ZOO_GRAD_BATCH = 2
+# batches of the whole-gradient check: zoo_train takes the first, the
+# zoo_grads readings all
+ZOO_GRAD_SEEDS = (22, 23, 24)
+# The whole gradient of a zoo step against fp32 plain is held against the
+# control measured beside it, bf16 plain (the same precision without the
+# kernels): at most ZOO_GRAD_CTL_FACTOR times the control's error, and at
+# most TRAIN_GRAD_REL_TOL. The factor is set from the zoo_grads readings
+# (PERF.md, PR 12): over ZOO_GRAD_SEEDS the kernels' error was 0.981-1.024
+# times the control's; K1-K4 with 2 and 3 bits of their outputs cleared
+# gave 1.505 and 2.653 (SwinSegFormer), 1.049 and 1.103 (GCViTUNETR).
+ZOO_GRAD_CTL_FACTOR = 1.08
+# bits of the bf16 mantissa (7) that the zoo_grads controls clear in every
+# output of K1-K4: stand-ins for kernels of a lower precision
+ZOO_GRAD_COARSE_BITS = (1, 2, 3)
+# --n_images_per_batch 4 --grad_accum_steps 2 --fused_loss: per micro-step
+# K8 once forward and once backward, and K5 for the UNETR decoder's three
+# full-resolution convs (GCViTUNETR only: the SegFormer heads have no 3^3
+# stride-1 conv)
+ZOO_B4_K5 = {"GCViTUNETR": 3, "SegFormer3D": 0, "SwinSegFormer": 0}
+
+
+def _zoo_train_steps(name, batch_size):
+    """ZOO_TRAIN_STEPS steps of ``name`` at ``batch_size`` on one seeded
+    batch: losses, ms, peak memory, the launches of the last step, whether
+    the BatchNorm running statistics moved. Fails where the batch does not
+    fit the card."""
+    import torch
+
+    from medicalsemseg_tpu_torch.models.layers import BatchNorm
+
+    cfg, model, state, train_step = _train_setup(["--model", name])
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    batch = _train_batch(gen, batch_size, cfg.output_dim)
+    stats = [b.clone() for m in model.modules() if isinstance(m, BatchNorm)
+             for b in (m.running_mean, m.running_var)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(ZOO_TRAIN_STEPS):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            m = train_step(state, batch)
+        except torch.cuda.OutOfMemoryError:
+            raise PhaseError(
+                f"zoo_train {name}: batch {batch_size} no longer fits the "
+                "card's memory (peak "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                "when it ran out)") from None
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        _require(all(bool(torch.isfinite(u).all()) for u in m.values()),
+                 f"zoo_train {name}: non-finite metrics at step {step}")
+    launches = _read_launches()
+    routes = _add_routes(f"zoo_train {name} step {ZOO_TRAIN_STEPS - 1}")
+    moved = [b for m in model.modules() if isinstance(m, BatchNorm)
+             for b in (m.running_mean, m.running_var)]
+    moved = all(not torch.equal(a, b) for a, b in zip(stats, moved))
+    return dict(cfg=cfg, model=model, losses=losses, times=times,
+                launches=launches, routes=routes, bn=len(stats) // 2,
+                bn_moved=moved, peak=torch.cuda.max_memory_allocated())
+
+
+# the blocks that run kernels in a zoo model's training step
+def _zoo_block_class(name):
+    from medicalsemseg_tpu_torch.models.gcvit import GCViTBlock
+    from medicalsemseg_tpu_torch.models.swin import SwinBlock
+
+    return {"GCViTUNETR": GCViTBlock, "SwinSegFormer": SwinBlock}.get(name)
+
+
+def _unfused_ms(model, batch):
+    """Device ms of the unfused attentions of one training step (GC-ViT's
+    global blocks, SegFormer's attention: K6 and K7 have no backward
+    kernel), forward and backward, each call timed alone on the inputs one
+    training-mode forward gives it (ROADMAP R17); 0 for a model without
+    them."""
+    import torch
+
+    from medicalsemseg_tpu_torch.models.gcvit import GCWindowAttention
+    from medicalsemseg_tpu_torch.models.segformer import SRAttention
+
+    calls = []
+    saved = [(cls, cls.unfused) for cls in (GCWindowAttention, SRAttention)]
+
+    def recorder(orig):
+        def record(self, *args):
+            calls.append((orig, self, [a.detach() for a in args]))
+            return orig(self, *args)
+        return record
+
+    for cls, orig in saved:
+        cls.unfused = recorder(orig)
+    try:
+        model.train()
+        with torch.no_grad():
+            model((batch["image"], batch["crop_loc"], batch["affine"]))
+    finally:
+        for cls, orig in saved:
+            cls.unfused = orig
+    total = 0.0
+    for orig, mod, args in calls:
+        args = [a.clone().requires_grad_(True) for a in args]
+        cot = torch.randn_like(orig(mod, *args).detach())
+
+        def fwd_bwd():
+            torch.autograd.backward(orig(mod, *args), cot)
+
+        total += _time_ms(fwd_bwd, 3)
+    return total, len(calls)
+
+
+def _zoo_train_cli(name, tmp, batch_size):
+    """The training CLI on the synthetic set in ``tmp``: one epoch at
+    ``batch_size`` with validation and a checkpoint, then one epoch of
+    micro-steps at batch 4 with --grad_accum_steps 2 --fused_loss. Returns
+    the launches of both runs."""
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.cli import run_training
+    from medicalsemseg_tpu_torch.config import get_args
+
+    base = TRAIN_ARGS + [
+        "--model", name, "--data_path", tmp, "--task", "Task03_ZooTrain",
+        "--t_fixed_ct_intensity", "--t_rand_crop_fgbg", "--t_spatial_pad",
+        "--val_interval", "1", "--save_ckpt_freq", "1",
+        "--metric_readback_freq", "1", "--epochs", "1"]
+    total = {}
+    n_train = ZOO_CLI_VOLUMES * 4 // 5     # fold 0 of 5 holds a fifth out
+    for tag, extra, micro in (
+            (f"batch {batch_size}", ["--n_images_per_batch",
+                                     str(batch_size)],
+             n_train // batch_size),
+            ("batch 4, --grad_accum_steps 2, --fused_loss", TRAIN_B4_FLAGS,
+             n_train // TRAIN_B4_BATCH)):
+        out = os.path.join(tmp, f"{name}_{len(total)}")
+        os.makedirs(out)
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _dw27_mode(None):
+            run_training.main(get_args(base + extra + [
+                "--output_dir", out, "--log_dir", os.path.join(out, "log")]))
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        with open(os.path.join(out, "log.txt")) as f:
+            row = [json.loads(line) for line in f][-1]
+        _require(all(np.isfinite(row[k]) for k in
+                     ("train/loss", "train/mDice", "val/loss", "val/mDice")),
+                 f"zoo_train {name} CLI {tag}: log.txt row {row}")
+        payload = torch.load(os.path.join(out, "checkpoint-0.pth"),
+                             weights_only=True)
+        _require(payload["step"] == micro,
+                 f"zoo_train {name} CLI {tag}: checkpoint step "
+                 f"{payload['step']} (want {micro})")
+        if "--fused_loss" in extra:
+            _require_launches(f"zoo_train {name} CLI {tag}", launches, {
+                "dice_ce_sums": micro, "dice_ce_dlogits": micro,
+                "dw27": ZOO_B4_K5[name] * micro})
+        else:
+            _require_launches(f"zoo_train {name} CLI {tag}", launches, {
+                "dice_ce_sums": 0, "dice_ce_dlogits": 0, "dw27": 0})
+        for k, v in ZOO_TRAIN_LAUNCHES[name].items():
+            if k.endswith("_bwd"):
+                _require(launches[k] == v * micro,
+                         f"zoo_train {name} CLI {tag}: {k} launched "
+                         f"{launches[k]} times (want {v * micro})")
+        print(f"zoo_train: {name} CLI {tag}: 1 epoch ({micro} steps, "
+              f"validation of {ZOO_CLI_VOLUMES - n_train} volumes) in "
+              f"{wall:.1f} s, loss {row['train/loss']:.4f}, val mDice "
+              f"{row['val/mDice']:.4f}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+ZOO_CLI_VOLUMES = 20     # fold 0 of 5: 16 train (2 steps at batch 8), 4 val
+
+
+class _coarse_kernels:
+    """Inside the block K1-K4 (the kernels of a zoo training step) return
+    every output with the low ``bits`` of its bf16 mantissa cleared (fp32
+    outputs to the same width): stand-ins for kernels of a lower precision,
+    the controls of the whole-gradient check (phase zoo_grads)."""
+
+    def __init__(self, bits):
+        self.bits = bits
+
+    def __enter__(self):
+        import torch
+
+        from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+        from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+        def coarse(t):
+            if not isinstance(t, torch.Tensor) or not t.is_floating_point():
+                return t
+            ints, drop = ((torch.int16, self.bits)
+                          if t.dtype == torch.bfloat16
+                          else (torch.int32, 16 + self.bits))
+            return (t.view(ints) & ~((1 << drop) - 1)).view(t.dtype)
+
+        def wrap(fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                return (tuple(coarse(t) for t in out)
+                        if isinstance(out, tuple) else coarse(out))
+            return call
+
+        names = ((kwa, "window_attention"), (kwa, "window_attention_bwd"),
+                 (kmlp, "fused_mlp"), (kmlp, "fused_mlp_bwd"))
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, wrap(fn))
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _zoo_grad_fn(cfg, seed):
+    """grads_of(net) for one training step at batch ZOO_GRAD_BATCH on a
+    batch seeded with ``seed``."""
+    import torch
+
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    small = _train_batch(gen, ZOO_GRAD_BATCH, cfg.output_dim)
+    loss_fn = build_loss(cfg)
+
+    def grads_of(net):
+        return _grads_of(net, loss_fn, small)
+
+    return grads_of
+
+
+def _zoo_grads(cfg, model, seed, runs):
+    """One step's whole gradient of a zoo model (``_zoo_grad_fn``): in bf16
+    inside each context of ``runs`` (label -> context manager factory),
+    then the fp32 plain reference. Returns {label: (loss, rel norm err
+    against fp32 plain)} and (the reference's loss, its peak bytes); the
+    model ends bf16."""
+    import torch
+
+    grads_of = _zoo_grad_fn(cfg, seed)
+    got = {}
+    for label, ctx in runs.items():
+        with ctx():
+            got[label] = grads_of(model)
+    want_loss, want, ref_peak = _fp32_plain_grads(model, grads_of)
+    model.dtype = torch.bfloat16
+    return ({label: (loss, _rel_norm(g, want))
+             for label, (loss, g) in got.items()}, (want_loss, ref_peak))
+
+
+def _zoo_grad_line(name, seed, rel, ref):
+    """The readings of one _zoo_grads call, printed; returns the kernels'
+    error over the control's (None without kernels in the runs)."""
+    ctl = rel["bf16 plain"][1]
+    parts = [f"{label} {err:.3e} (loss {loss:.5f})"
+             for label, (loss, err) in rel.items()]
+    ratio = rel["kernels"][1] / ctl if "kernels" in rel else None
+    print(f"zoo_grads: {name} seed {seed}, whole gradient at batch "
+          f"{ZOO_GRAD_BATCH}, rel norm err against fp32 plain (loss "
+          f"{ref[0]:.5f}, peak {ref[1] / 2 ** 30:.2f} GiB): "
+          + "; ".join(parts)
+          + (f"; kernels / control {ratio:.3f}" if ratio else ""),
+          flush=True)
+    return ratio
+
+
+def phase_zoo_train():
+    """GCViTUNETR, SegFormer3D and SwinSegFormer trained at full width: steps
+    through make_train_step at batch 8 (launch counts by kernel and route,
+    the loss falls, the BatchNorm running statistics move, ms per step, peak
+    memory), every kernel-running block alone against plain, one step's
+    whole gradient at batch 2 against the fp32 plain path beside the bf16
+    plain control, then the training CLI at batch 8 and at batch 4 with
+    --grad_accum_steps 2 --fused_loss."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_train_set(os.path.join(tmp, "Task03_ZooTrain"),
+                         ZOO_CLI_VOLUMES, (128, 120, 100), 14,
+                         np.random.default_rng(3))
+        for name in ZOO_MODELS:
+            t0 = time.perf_counter()
+            batch_size = ZOO_TRAIN_BATCH
+            run = _zoo_train_steps(name, batch_size)
+            torch.cuda.empty_cache()
+            launches, routes = run["launches"], run["routes"]
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v * ZOO_TRAIN_STEPS
+            _require_launches(f"zoo_train {name} (one step)", launches, {
+                **dict.fromkeys(launches, 0), **ZOO_TRAIN_LAUNCHES[name]})
+            _require(all(by["cuda_core"] == 0 for by in routes.values()),
+                     f"zoo_train {name}: a launch took the CUDA cores "
+                     f"{routes}")
+            losses = run["losses"]
+            _require(losses[-1] < losses[0], f"zoo_train {name}: the loss "
+                     f"did not fall: {losses}")
+            _require(run["bn"] == 0 or run["bn_moved"],
+                     f"zoo_train {name}: the BatchNorm running statistics "
+                     "did not move")
+            moved = " (running statistics moved)" if run["bn"] else ""
+            print(f"zoo_train: {name} batch {batch_size} x 96^3, bf16, "
+                  f"{ZOO_TRAIN_STEPS} steps: loss "
+                  f"{' '.join(f'{v:.4f}' for v in losses)}; ms per step "
+                  f"{' '.join(f'{t:.0f}' for t in run['times'])} (the first "
+                  f"includes cuDNN's choice of algorithms); peak device "
+                  f"memory {run['peak'] / 2 ** 30:.2f} GiB; BatchNorms "
+                  f"{run['bn']}{moved}; launches a step "
+                  f"{ {k: v for k, v in launches.items() if v} }",
+                  flush=True)
+
+            cfg, model = run["cfg"], run["model"]
+            step_ms = min(run["times"][1:])
+            del run
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device="cuda").manual_seed(21)
+            ms, calls = _unfused_ms(model, _train_batch(
+                gen, batch_size, cfg.output_dim))
+            if calls:
+                print(f"zoo_train: {name}: the {calls} unfused attentions "
+                      f"(no backward kernel, R17), forward and backward, "
+                      f"each timed alone: {ms:.1f} ms of a {step_ms:.0f} ms "
+                      f"step ({100 * ms / step_ms:.0f} %)", flush=True)
+            torch.cuda.empty_cache()
+
+            seed = ZOO_GRAD_SEEDS[0]
+            blocks = _zoo_block_class(name)
+            if blocks is not None:
+                _, found = _blocks_vs_plain(f"zoo_train {name}", model,
+                                            _zoo_grad_fn(cfg, seed), blocks)
+                _require(found == 8, f"zoo_train {name}: {found} blocks")
+            rel, ref = _zoo_grads(cfg, model, seed, {
+                "kernels": contextlib.nullcontext,
+                "bf16 plain": _plain_kernels})
+            ratio = _zoo_grad_line(name, seed, rel, ref)
+            limit = min(TRAIN_GRAD_REL_TOL,
+                        ZOO_GRAD_CTL_FACTOR * rel["bf16 plain"][1])
+            print(f"zoo_train: {name}: the kernels' whole gradient "
+                  f"{rel['kernels'][1]:.3e} from fp32 plain, {ratio:.3f} "
+                  f"times the control's (tol {limit:.3e}: the smaller of "
+                  f"{ZOO_GRAD_CTL_FACTOR} times the control and "
+                  f"{TRAIN_GRAD_REL_TOL})", flush=True)
+            _require(rel["kernels"][1] <= limit, f"zoo_train {name}: the "
+                     "gradients disagree with the fp32 plain path")
+            del model
+            torch.cuda.empty_cache()
+
+            cli = _zoo_train_cli(name, tmp, batch_size)
+            for k, v in cli.items():
+                total[k] = total.get(k, 0) + v
+            print(f"zoo_train: {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    return total
+
+
+def phase_zoo_grads():
+    """The readings behind ZOO_GRAD_CTL_FACTOR: each zoo model's whole
+    gradient of one step at batch 2 against fp32 plain, with the kernels and
+    with bf16 plain (the control), on the batches of ZOO_GRAD_SEEDS; on the
+    first, also with K1-K4's outputs coarsened by ZOO_GRAD_COARSE_BITS (the
+    controls the check must fail). SegFormer3D's step runs none of K1-K4."""
+    import contextlib
+
+    import torch
+
+    for name in ZOO_MODELS:
+        cfg, model, _, _ = _train_setup(["--model", name])
+        for i, seed in enumerate(ZOO_GRAD_SEEDS):
+            runs = {"kernels": contextlib.nullcontext,
+                    "bf16 plain": _plain_kernels}
+            if i == 0 and _zoo_block_class(name) is not None:
+                runs.update({f"kernels with {b} bits cleared":
+                             (lambda b=b: _coarse_kernels(b))
+                             for b in ZOO_GRAD_COARSE_BITS})
+            rel, ref = _zoo_grads(cfg, model, seed, runs)
+            _zoo_grad_line(name, seed, rel, ref)
+            ctl = rel["bf16 plain"][1]
+            for label, (_, err) in rel.items():
+                if label.startswith("kernels with"):
+                    print(f"zoo_grads: {name} control, {label}: "
+                          f"{err / ctl:.3f} times the bf16 plain error",
+                          flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
+# the one-pass CUDA-core heads forms' head dims at the flagship's stage
+# shapes: hidden 48 with heads 3 6 12 24 gives 16, hidden 96 gives 32
+FORMS_HIDDEN = (48, 96)
+
+
+class _heads_form:
+    """Inside the block the wrappers of K1, K6 and K3 pick the form of
+    their CUDA-core heads launches from ``one_pass``, the largest head dim
+    of the one-pass form (the wide form above it): 32 for the one-pass form
+    wherever it runs, 0 for the wide form everywhere."""
+
+    def __init__(self, one_pass):
+        self.one_pass = one_pass
+
+    def __enter__(self):
+        from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+        self.saved = (kwa.NARROW_HEAD_DIM, kwa.BWD_NARROW_HEAD_DIM)
+        kwa.NARROW_HEAD_DIM = kwa.BWD_NARROW_HEAD_DIM = self.one_pass
+
+    def __exit__(self, *exc):
+        from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+        kwa.NARROW_HEAD_DIM, kwa.BWD_NARROW_HEAD_DIM = self.saved
+
+
+def phase_heads_forms():
+    """The CUDA-core heads launches of K1, K6 and K3 in their two forms, the
+    one-pass form (a block a window and head, its tiles in shared memory, a
+    lane a channel) and the wide form (a block a head and a run of windows,
+    q, k, v in a scratch buffer, the head dim in chunks of 32), at head dims
+    16 and 32, where both run: batch 2 at the four flagship stages of
+    hidden 48 and 96, bf16 and fp32 on the CUDA-core route. Each form is
+    held against plain, then each whole call timed in each form (the heads
+    launch is what differs), one-pass, wide, one-pass, wide: the smaller of
+    each form's two times. These readings set NARROW_HEAD_DIM and
+    BWD_NARROW_HEAD_DIM (ops/kernels/window_attention.py)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    forms = (("one-pass", lambda: _heads_form(32)),
+             ("wide", lambda: _heads_form(0)))
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            fp32 = dt == torch.float32
+            tol = FP32_KERNEL_TOL if fp32 else KERNEL_ATOL
+            gtol = ((FP32_GRAD_NORM_TOL, FP32_GRAD_MAX_TOL) if fp32
+                    else (None, None))
+            for hidden in FORMS_HIDDEN:
+                for grid, c0, nh in STAGES:
+                    c = c0 * hidden // 48
+                    wins, a, kw = _attn_case(gen, R15_BATCH, grid, c, nh, 0,
+                                             True, True, dt)
+                    dy = torch.randn(wins.shape, generator=gen,
+                                     device="cuda").to(dt)
+                    b = {k: v for k, v in a.items() if k != "bproj"}
+                    gwins, ga, gkw = _global_case(gen, R15_BATCH, grid, c,
+                                                  nh, True, False, dt)
+                    calls = {
+                        "K1": lambda: kwa.window_attention(
+                            wins, **a, **kw, route="cuda_core"),
+                        "K6": lambda: kga.global_window_attention(
+                            gwins, **ga, **gkw, route="cuda_core"),
+                        "K3": lambda: kwa.window_attention_bwd(
+                            wins, dy=dy, **b, **kw, route="cuda_core")}
+                    case = (f"{'fp32' if fp32 else 'bf16'} hidden {hidden} "
+                            f"grid {grid}^3 x{R15_BATCH}, C={c}, head dim "
+                            f"{c // nh}")
+                    want = {
+                        "K1": kwa.window_attention_plain(wins, **a, **kw),
+                        "K6": kga.global_window_attention_plain(
+                            gwins, **ga, **gkw),
+                        "K3": kwa.window_attention_bwd_plain(
+                            wins, dy=dy, **b, **kw)}
+                    for form, ctx in forms:
+                        with ctx():
+                            for k, fn in calls.items():
+                                label = f"heads_forms: {k} {form} {case}"
+                                if k == "K3":
+                                    _compare_grads(label, K3_NAMES, fn(),
+                                                   want[k], {}, *gtol)
+                                else:
+                                    _compare(label, fn(), want[k], {}, tol)
+                    ms = {(k, f): [] for k in calls for f, _ in forms}
+                    for _ in range(2):
+                        for form, ctx in forms:
+                            with ctx():
+                                for k, fn in calls.items():
+                                    ms[k, form].append(_time_ms(fn, 3))
+                    for k in calls:
+                        one, wide = (min(ms[k, f]) for f, _ in forms)
+                        print(f"heads_forms: {k} {case}: one-pass "
+                              f"{one:.3f} ms, wide {wide:.3f} ms "
+                              f"(wide / one-pass {wide / one:.2f})",
+                              flush=True)
+                    del wins, a, b, kw, dy, gwins, ga, gkw, want
+                    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -4149,7 +5053,8 @@ def main(argv=None) -> int:
                             ("train_wino", phase_train_wino),
                             ("conv3d", phase_conv3d),
                             ("fp32", phase_fp32), ("eval", phase_eval),
-                            ("f5", phase_f5)):
+                            ("f5", phase_f5), ("r15", phase_r15),
+                            ("zoo_train", phase_zoo_train)):
             if name in phases:
                 t0 = time.perf_counter()
                 launches = phase()
@@ -4170,6 +5075,10 @@ def main(argv=None) -> int:
             phase_mlp_parts()
         if "sr_parts" in phases:
             phase_sr_parts()
+        if "zoo_grads" in phases:
+            phase_zoo_grads()
+        if "heads_forms" in phases:
+            phase_heads_forms()
         for k in kernels:
             if k["name"] in ROUTE_TOTALS:
                 k["launches_by_route"] = ROUTE_TOTALS[k["name"]]

@@ -7,8 +7,10 @@ medicalsemseg_tpu/cli/run_training.py).
 A full run: config -> data (cached, fold-split) -> model -> train step
 (the hand-written kernels forward and backward) -> epoch loop with periodic
 sliding-window validation, best-model tracking, periodic checkpoints with
-end-of-run clean-up, JSON-lines logging. ``--resume <file.pth>`` restores
-model, optimizer, counters and the DropPath generator and continues with the
+end-of-run clean-up, JSON-lines logging. ``--model`` is nnFormerUNETR (the
+default), GCViTUNETR, SegFormer3D or SwinSegFormer. ``--resume <file.pth>``
+restores model (with BatchNorm's running statistics), optimizer, counters
+and the generator of the DropPath / Dropout draws and continues with the
 next epoch; ``--pretrained <file.pth>`` puts a reference-format checkpoint's
 encoder weights into the fresh model first. ``--fused_loss`` computes DiceCE
 through kernel K8, and at ``--n_images_per_batch`` 2 to 4 of 96^3 crops the
@@ -58,10 +60,6 @@ _UNPORTED = (
      "ROADMAP queue 1 item 16, profiling"),
     ("--remat full / mixed", lambda c: c.remat in ("full", "mixed"),
      "ROADMAP 'Do not port': block rematerialisation"),
-    # the port has these models for prediction only
-    ("training of --model GCViTUNETR / SegFormer3D / SwinSegFormer",
-     lambda c: c.model in ("GCViTUNETR", "SegFormer3D", "SwinSegFormer"),
-     "ROADMAP queue 1 item 13, training of the model zoo"),
 )
 
 

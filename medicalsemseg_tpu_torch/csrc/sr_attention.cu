@@ -58,7 +58,9 @@
 //   chunks of up to 128 reduced keys (sr_cc_plan picks rows, keys and
 //   columns so that a block fits the card's 227 KB whatever M is). Between the projections a warp takes one
 //   (token, head) pair at a time, lanes over the keys for the logits and
-//   the softmax, then over the head's channels for . V. Where one chunk
+//   the softmax, then over the head's channels for . V (a lane takes
+//   channels d, d + 32, ... up to head dim 96; the tiles hold whole rows of
+//   C, so the shared memory does not grow with the head dim). Where one chunk
 //   holds every key (M = 27 at every stage, up to M = 66 at C = 384 in
 //   bf16) that is one pass. Otherwise a first sweep over the chunks keeps
 //   each pair's running max and sum (online softmax, fp32); a second stages
@@ -103,7 +105,7 @@
 namespace medseg {
 namespace {
 
-constexpr int kMaxHD = 32;   // largest head dim (one lane per channel in . V)
+constexpr int kMaxHD = 96;   // largest head dim (. V: lanes walk the channels)
 constexpr int kMaxKeys = 128;  // reduced keys of a K/V chunk
 
 template <class T>
@@ -248,11 +250,11 @@ __global__ void __launch_bounds__(kThreads)
       sum = warp_sum(sum);
       for (int mm = lane; mm < m; mm += 32) pr[mm] = round_to<T>(pr[mm] / sum);
       __syncwarp();
-      if (lane < hd) {
-        const T* vc = vs + h * hd + lane;
+      for (int d = lane; d < hd; d += 32) {
+        const T* vc = vs + h * hd + d;
         float a = 0.f;
         for (int mm = 0; mm < m; ++mm) a += pr[mm] * to_f32(vc[mm * kv_stride]);
-        xs[r * xs_stride + h * hd + lane] = round_to<T>(a);
+        xs[r * xs_stride + h * hd + d] = round_to<T>(a);
       }
       __syncwarp();
     }
@@ -300,9 +302,9 @@ __global__ void __launch_bounds__(kThreads)
         for (int mm = lane; mm < kk; mm += 32)
           pr[mm] = round_to<T>(expf(pr[mm] - mx) / sum);
         __syncwarp();
-        if (lane < hd) {
-          const T* vc = vs + h * hd + lane;
-          float* acc = xs + r * xs_stride + h * hd + lane;
+        for (int d = lane; d < hd; d += 32) {
+          const T* vc = vs + h * hd + d;
+          float* acc = xs + r * xs_stride + h * hd + d;
           float a = *acc;
           for (int mm = 0; mm < kk; ++mm)
             a += pr[mm] * to_f32(vc[mm * kv_stride]);
@@ -974,7 +976,7 @@ extern "C" long long medseg_sr_attention_smem_bytes(int m, int c, int nh,
 // bproj fp32. route: kRouteTensorCore (bf16 or fp16, C = 16 nh <= 384,
 // m <= 64, and rows, groups, slots as ops/kernels/sr_attention.py sr_plan
 // gives them; every pointer on a 16-byte boundary) or kRouteCudaCore (any
-// dtype, head dim <= 32, any M, C where sr_cc_plan fits a block; rows,
+// dtype, head dim <= 96, any M, C where sr_cc_plan fits a block; rows,
 // groups and slots are not read).
 extern "C" int medseg_sr_attention_fwd(const void* x, const void* k,
                                        const void* v, const void* wq,

@@ -43,10 +43,15 @@
 //    staging runs under the others' softmax. LayerNorm statistics take a
 //    row a thread and the staging four 16-byte loads in flight a thread:
 //    with a warp a row, the block waited a load's latency per row.
-//  * CUDA cores (window_attention_heads; fp32, any other head dim): the
-//    block projects in chunks of 32 channels with fp32 FMAs from shared
-//    memory and walks the scores one query row per warp. TF32 would cost
-//    the fp32 forms their agreement with the fp32 plain path.
+//  * CUDA cores (window_attention_heads; fp32, any other head dim up to
+//    16, and up to 32 where the wrapper asks): the block projects in
+//    chunks of 32 channels with fp32 FMAs from shared memory and walks the
+//    scores one query row per warp. TF32 would
+//    cost the fp32 forms their agreement with the fp32 plain path. Where
+//    the wrapper hands a scratch buffer (head dims above 16, up to 96) the
+//    wide form runs (window_attention_heads_wide, attn_wide.cuh): a block
+//    owns a head and a run of windows, keeps q, k, v in scratch slots of
+//    device memory and walks the head dim in chunks of 32 channels.
 //
 // What bounds it on the card: the tensor-core route does 2 x 216 x 216 x 16
 // x 2 FLOP of attention and 216 x 48 x C x 2 of projection per (window,
@@ -84,6 +89,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_wide.cuh"
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -91,7 +97,7 @@ namespace medseg {
 namespace {
 
 constexpr int kKC = 32;      // input channels staged per QKV chunk
-constexpr int kMaxHD = 32;   // largest head dim the kernel takes
+constexpr int kMaxHD = 32;   // largest head dim of the one-pass CUDA-core form
 constexpr int kRows = 32;    // token rows per projection block
 constexpr int kPK = 16;      // input channels staged per projection chunk
 
@@ -250,6 +256,128 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (lane < hd)
       p.attn[((size_t)win * n + t) * c + h * hd + lane] = from_f32<T>(mine);
+  }
+}
+
+// The CUDA-core heads launch at head dims above 16 (attn_wide.cuh): a block
+// owns head h and windows [chunk * wins_per_chunk, ...). Per window: the
+// head's q, k, v (K6: k, v, and q from q_global) go to the block's three
+// (N, hd) slots of scratch in T; then a group of kR query rows at a time,
+// the logits over the head-dim chunks, the softmax a row a warp, and P . V
+// a chunk of output channels at a time.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+    window_attention_heads_wide(HeadsParams<T> p, T* scratch, int t_total,
+                                int wins_per_chunk) {
+  using namespace wide;
+  extern __shared__ float smem[];
+  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int n = p.n, c = p.c, hd = p.hd;
+  float* mu = smem;                  // n
+  float* rs = mu + n;                // n
+  float* xs = rs + n;                // projection: n x (kKC + 1)
+  float* wsm = xs + n * (kKC + 1);   //   kKC x kD
+  float* tile = wsm + kKC * kD;      //   n x kS
+  float* S = rs + n;                 // attention: kR x n logits, then p
+  float* qc = S + kR * n;            //   kR x kS
+  float* kc = qc + kR * kS;          //   n x kS: k, then v
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  T* q = scratch + (size_t)(chunk * gridDim.y + h) * 3 * n * hd;
+  T* k = q + (size_t)n * hd;
+  T* v = k + (size_t)n * hd;
+  // column groups [p0, 3) of [q | k | v] are projected: K6 takes q from
+  // q_global, and its weight is [K | V]
+  const int p0 = p.qg != nullptr ? 1 : 0;
+  const float* bias_h = p.bias + (size_t)h * n * n;
+  const float scale = p.qg != nullptr ? 1.f : p.scale;  // K6: already in q
+  const int w_begin = chunk * wins_per_chunk;
+  const int w_end = min(t_total, w_begin + wins_per_chunk);
+
+  for (int win = w_begin; win < w_end; ++win) {
+    const T* xw = p.x + (size_t)win * n * c;
+    __syncthreads();  // the previous window's readers are done
+    if (p.ln != nullptr) {
+      for (int t = warp; t < n; t += kWarps) {
+        float m, r;
+        row_stats(xw + (size_t)t * c, c, p.eps, &m, &r);
+        if (lane == 0) {
+          mu[t] = m;
+          rs[t] = r;
+        }
+      }
+    }
+    for (int g = p0; g < 3; ++g) {
+      const int row0 = (g - p0) * c + h * hd;
+      project_head<T>(
+          xw, n, c, hd, p.ln, mu, rs, p.wqkv,
+          [=](int j) { return (size_t)(row0 + j) * c; }, 1,
+          q + (size_t)g * n * hd, xs, wsm, tile, [&](int j, float a) {
+            return a + (p.bqkv != nullptr ? p.bqkv[row0 + j] : 0.f);
+          });
+    }
+    if (p.qg != nullptr) {
+      // the batch element's query grid, scaled in fp32, then rounded
+      const T* qb = p.qg + ((size_t)(win / p.nwin) * n) * c + h * hd;
+      for (int e = tid; e < n * hd; e += kThreads) {
+        const int t = e / hd, d = e - t * hd;
+        q[e] = from_f32<T>(ld(qb + (size_t)t * c + d) * p.scale);
+      }
+    }
+
+    const int wk = win % p.nww, wj = (win / p.nww) % p.nwh,
+              wi = (win / (p.nww * p.nwh)) % p.nwd;
+    const bool ld_ = wi == p.nwd - 1, lh = wj == p.nwh - 1,
+               lw = wk == p.nww - 1;
+    for (int r0 = 0; r0 < n; r0 += kR) {
+      const int rows = min(kR, n - r0);
+      __syncthreads();  // q written; the previous group's readers are done
+      for (int o = tid; o < rows * n; o += kThreads) S[o] = 0.f;
+      for (int d0 = 0; d0 < hd; d0 += kD) {
+        const int dw = min(kD, hd - d0);
+        __syncthreads();
+        stage_chunk(q, hd, r0, rows, d0, dw, qc);
+        stage_chunk(k, hd, 0, n, d0, dw, kc);
+        __syncthreads();
+        chunk_products(qc, rows, kc, n, dw, S);
+      }
+      __syncthreads();
+      // the softmax, a row a warp, as the one-pass form
+      for (int i = warp; i < rows; i += kWarps) {
+        const int t = r0 + i;
+        float* sr = S + (size_t)i * n;
+        const int lab_t = p.shifted ? token_label(t, p.w1, p.w2, p.w0, p.s0,
+                                                  p.s1, p.s2, ld_, lh, lw)
+                                    : 0;
+        float mx = -INFINITY;
+        for (int m = lane; m < n; m += 32) {
+          float s = sr[m] * scale + bias_h[(size_t)t * n + m];
+          if (p.shifted && token_label(m, p.w1, p.w2, p.w0, p.s0, p.s1, p.s2,
+                                       ld_, lh, lw) != lab_t)
+            s += -100.f;
+          sr[m] = s;
+          mx = fmaxf(mx, s);
+        }
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int m = lane; m < n; m += 32) {
+          const float e = expf(sr[m] - mx);
+          sr[m] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        for (int m = lane; m < n; m += 32) sr[m] = round_to<T>(sr[m] / sum);
+      }
+      for (int d0 = 0; d0 < hd; d0 += kD) {
+        const int dw = min(kD, hd - d0);
+        __syncthreads();
+        stage_chunk(v, hd, 0, n, d0, dw, kc);
+        __syncthreads();
+        T* out = p.attn + ((size_t)win * n + r0) * c + h * hd + d0;
+        times_chunk(S, rows, n, kc, dw, [&](int i, int d, float a) {
+          out[(size_t)i * c + d] = from_f32<T>(a);
+        });
+      }
+    }
   }
 }
 
@@ -573,8 +701,21 @@ cudaError_t launch_heads_tc(const HeadsParams<T>& p, int t, int nh,
 
 template <class T>
 cudaError_t launch_heads_cuda_core(const HeadsParams<T>& p, int t, int nh,
-                                   cudaStream_t st) {
+                                   T* scratch, int nchunk, cudaStream_t st) {
   const int n = p.n, hd = p.hd;
+  if (scratch != nullptr) {
+    const int wpc = (t + nchunk - 1) / nchunk;
+    const size_t smem = sizeof(float) *
+        (2 * n + max(wide::project_floats(n),
+                     wide::kR * n + wide::kR * wide::kS + n * wide::kS));
+    cudaError_t err = cudaFuncSetAttribute(
+        window_attention_heads_wide<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    window_attention_heads_wide<T><<<dim3(nchunk, nh), kThreads, smem, st>>>(
+        p, scratch, t, wpc);
+    return cudaGetLastError();
+  }
   const size_t heads_smem = sizeof(float) *
       (2 * n + n * (kKC + 1) + kKC * 3 * hd + n * (3 * hd + 1) + kWarps * n);
   cudaError_t err = cudaFuncSetAttribute(
@@ -610,13 +751,16 @@ cudaError_t launch_proj_tc(const T* attn, const T* wproj, const float* bproj,
 
 template <class T>
 int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
-                     void* out, int t, int nh, int residual, int route,
-                     int gemm_route, cudaStream_t st) {
+                     void* out, void* scratch, int t, int nh, int nchunk,
+                     int residual, int route, int gemm_route,
+                     cudaStream_t st) {
   const int n = p.n, c = p.c;
   cudaError_t err = (MEDSEG_ATTN_SKIP & 1024) ? cudaSuccess
                     : route == kRouteTensorCore
                         ? launch_heads_tc(p, t, nh, st)
-                        : launch_heads_cuda_core(p, t, nh, st);
+                        : launch_heads_cuda_core(p, t, nh,
+                                                 static_cast<T*>(scratch),
+                                                 nchunk, st);
   if (err != cudaSuccess || (MEDSEG_ATTN_SKIP & 4)) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
@@ -643,21 +787,24 @@ int launch_attention(HeadsParams<T> p, const void* wproj, const void* bproj,
 // x, wqkv, wproj, attn, out of the element type named by dtype (kBf16,
 // kF16, kF32); ln, bqkv, bproj, bias fp32. route, of the heads launch:
 // kRouteTensorCore (bf16 or fp16, head dim 16, n <= 224) or kRouteCudaCore
-// (any dtype and head dim); gemm_route, of the projection launch:
+// (any dtype, head dim up to 96); gemm_route, of the projection launch:
 // kRouteTensorCore (bf16 or fp16, C as mlptile::gemm_route_takes says; x and
-// wproj on 16-byte boundaries) or kRouteCudaCore.
+// wproj on 16-byte boundaries) or kRouteCudaCore. scratch and nchunk: the
+// wide form's (the wrapper hands them at head dims above 16;
+// wide::plan_takes), else NULL and unread.
 extern "C" int medseg_window_attention_fwd(
     const void* x, const void* ln, const void* wqkv, const void* bqkv,
     const void* wproj, const void* bproj, const void* bias, void* attn,
-    void* out, int t, int n, int c, int nh, int w0, int w1, int w2, int s0,
-    int s1, int s2, int nwd, int nwh, int nww, int shifted, int residual,
-    int gemm_route, int route, int dtype, float ln_eps, float scale,
-    void* stream) {
+    void* out, void* scratch, int t, int n, int c, int nh, int nchunk,
+    int w0, int w1, int w2, int s0, int s1, int s2, int nwd, int nwh,
+    int nww, int shifted, int residual, int gemm_route, int route, int dtype,
+    float ln_eps, float scale, void* stream) {
   using namespace medseg;
-  const int hd = c / nh;
-  if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 ||
+  const int hd = nh > 0 ? c / nh : 0;
+  if (hd * nh != c || hd > wide::kMaxHD || hd < 1 || n < 1 || t < 1 ||
       !route_takes(route, dtype, n, c, hd) ||
-      !mlptile::gemm_route_takes(gemm_route, dtype, c))
+      !mlptile::gemm_route_takes(gemm_route, dtype, c) ||
+      !wide::plan_takes(hd, t, nchunk, scratch, kMaxHD))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
@@ -673,24 +820,28 @@ extern "C" int medseg_window_attention_fwd(
     p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;
     p.nwd = nwd; p.nwh = nwh; p.nww = nww;
     p.shifted = shifted; p.eps = ln_eps; p.scale = scale;
-    return launch_attention(p, wproj, bproj, out, t, nh, residual, route,
-                            gemm_route, static_cast<cudaStream_t>(stream));
+    return launch_attention(p, wproj, bproj, out, scratch, t, nh, nchunk,
+                            residual, route, gemm_route,
+                            static_cast<cudaStream_t>(stream));
   });
 }
 
 // K6. x (T, N, C) windows in batch-major order, T = B * nwin; q (B, N, C);
-// wkv (2C, C) [out, in]; bkv (2C) or nullptr; dtype and routes as for K1.
+// wkv (2C, C) [out, in]; bkv (2C) or nullptr; dtype, routes, scratch and
+// nchunk as for K1.
 extern "C" int medseg_global_window_attention_fwd(
     const void* x, const void* ln, const void* q, const void* wkv,
     const void* bkv, const void* wproj, const void* bproj, const void* bias,
-    void* attn, void* out, int t, int n, int c, int nh, int nwin,
-    int residual, int gemm_route, int route, int dtype, float ln_eps,
-    float scale, void* stream) {
+    void* attn, void* out, void* scratch, int t, int n, int c, int nh,
+    int nwin, int nchunk, int residual, int gemm_route, int route, int dtype,
+    float ln_eps, float scale, void* stream) {
   using namespace medseg;
-  const int hd = c / nh;
-  if (hd * nh != c || hd > kMaxHD || hd < 1 || n < 1 || t < 1 || nwin < 1 ||
-      t % nwin != 0 || q == nullptr || !route_takes(route, dtype, n, c, hd) ||
-      !mlptile::gemm_route_takes(gemm_route, dtype, c))
+  const int hd = nh > 0 ? c / nh : 0;
+  if (hd * nh != c || hd > wide::kMaxHD || hd < 1 || n < 1 || t < 1 ||
+      nwin < 1 || t % nwin != 0 || q == nullptr ||
+      !route_takes(route, dtype, n, c, hd) ||
+      !mlptile::gemm_route_takes(gemm_route, dtype, c) ||
+      !wide::plan_takes(hd, t, nchunk, scratch, kMaxHD))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
@@ -706,8 +857,9 @@ extern "C" int medseg_global_window_attention_fwd(
     p.w0 = p.w1 = p.w2 = 1; p.s0 = p.s1 = p.s2 = 0;
     p.nwd = p.nwh = p.nww = 1;
     p.shifted = 0; p.eps = ln_eps; p.scale = scale;
-    return launch_attention(p, wproj, bproj, out, t, nh, residual, route,
-                            gemm_route, static_cast<cudaStream_t>(stream));
+    return launch_attention(p, wproj, bproj, out, scratch, t, nh, nchunk,
+                            residual, route, gemm_route,
+                            static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -78,10 +78,15 @@
 //    partials as 8-byte reductions in L2 that no thread waits for (the slab
 //    starts at zero; each entry is added to by one thread, in program
 //    order, so the order of the sums is fixed).
-//  * CUDA cores (window_attention_bwd_heads; fp32, any other head dim): one
-//    query row per warp (softmax statistics, o, dq, ds), then one key row
-//    per warp (p and ds recomputed from the saved row statistics and the
-//    transposed bias; dk, dv), so that every sum is taken by one warp.
+//  * CUDA cores (window_attention_bwd_heads; fp32, any other head dim up to
+//    32): one query row per warp (softmax statistics, o, dq, ds), then one
+//    key row per warp (p and ds recomputed from the saved row statistics and
+//    the transposed bias; dk, dv), so that every sum is taken by one warp.
+//    Where the wrapper hands a scratch buffer (head dims above 32, up to
+//    96) the wide form runs (window_attention_bwd_heads_wide,
+//    attn_wide.cuh): the same two passes
+//    over groups of 32 rows, q, k, v and dout in scratch slots of device
+//    memory, the head dim in chunks of 32 channels.
 // One head per block keeps shared memory bounded for any C, so the same
 // kernel serves the widest stage, for which the TPU needed the head-split
 // variant.
@@ -104,6 +109,7 @@
 
 #include <type_traits>
 
+#include "attn_wide.cuh"
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -116,6 +122,8 @@ constexpr int kPK = 16;     // dqkv columns staged per dx chunk
 // kJB * kMaxC / kThreads a thread; C above 512 (stage 4 at --hidden_dim 96)
 // takes the wider instance, so narrower widths keep their register budget
 constexpr int kNarrowC = 512;
+// largest head dim of the one-pass CUDA-core heads form (a lane a channel)
+constexpr int kOnePassHD = 32;
 constexpr int kMaxC = 768;
 
 template <class T>
@@ -131,6 +139,7 @@ struct BwdHeadsParams {
   T* attn;                     // (T, N, C) o, heads concatenated
   T* dqkv;                     // (T, N, 3C)
   float* dbias_part;           // (chunks, nh, N, N)
+  T* scratch;                  // wide form: (chunks, nh, 4, N, hd) q|k|v|dout
   int t, n, c, hd, wins_per_chunk;
   int w0, w1, w2, s0, s1, s2;
   int nwd, nwh, nww;
@@ -396,6 +405,203 @@ __global__ void __launch_bounds__(kThreads)
         const size_t row = ((size_t)win * n + m) * 3 * c;
         p.dqkv[row + c + h * hd + lane] = from_f32<T>(mk);
         p.dqkv[row + 2 * c + h * hd + lane] = from_f32<T>(mv);
+      }
+    }
+  }
+}
+
+// The CUDA-core heads launch at head dims above 32 (attn_wide.cuh): the
+// same function as window_attention_bwd_heads. Per window the head's q, k,
+// v and dout go to the block's four (N, hd) slots of scratch in T; then a
+// group of kR query rows at a time: the logits and dp = dout v^T over the
+// head-dim chunks, the softmax statistics, delta and ds a row a warp (the
+// block's slab of bias partials as in the one-pass form), o and dq a chunk
+// of channels at a time; then a group of kR key rows at a time: the logits
+// and dp again (the same products in the same order), p and ds from the row
+// statistics and the transposed bias, dk and dv a chunk at a time.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+    window_attention_bwd_heads_wide(BwdHeadsParams<T> p) {
+  using namespace wide;
+  extern __shared__ float smem[];
+  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int n = p.n, c = p.c, hd = p.hd;
+  float* mu = smem;                  // n
+  float* rs = mu + n;                // n
+  float* rmax = rs + n;              // n: softmax row maximum
+  float* rsum = rmax + n;            // n: softmax row sum
+  float* delta = rsum + n;           // n: sum_m dp * p32
+  float* xs = delta + n;             // projection: n x (kKC + 1)
+  float* wsm = xs + n * (kKC + 1);   //   kKC x kD
+  float* tile = wsm + kKC * kD;      //   n x kS
+  float* S = delta + n;              // attention: kR x n logits / p
+  float* DP = S + kR * n;            //   kR x n dp / ds
+  float* ac = DP + kR * n;           //   kR x kS: the group's rows
+  float* bc = ac + kR * kS;          //   kR x kS
+  float* ec = bc + kR * kS;          //   n x kS: every row
+  float* fc = ec + n * kS;           //   n x kS
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t slot = (size_t)n * hd;
+  T* q = p.scratch + (size_t)(chunk * gridDim.y + h) * 4 * slot;
+  T* k = q + slot;
+  T* v = k + slot;
+  T* dout = v + slot;
+  const float* bias_h = p.bias + (size_t)h * n * n;
+  const float* bias_th = p.bias_t + (size_t)h * n * n;
+  float* part = p.dbias_part + ((size_t)chunk * gridDim.y + h) * n * n;
+  const int w_begin = chunk * p.wins_per_chunk;
+  const int w_end = min(p.t, w_begin + p.wins_per_chunk);
+
+  for (int win = w_begin; win < w_end; ++win) {
+    const T* xw = p.x + (size_t)win * n * c;
+    const T* dyw = p.dy + (size_t)win * n * c;
+    T* dq_out = p.dqkv + (size_t)win * n * 3 * c + h * hd;
+    __syncthreads();  // the previous window's readers are done
+    if (p.ln != nullptr) {
+      for (int t = warp; t < n; t += kWarps) {
+        float m, r;
+        row_stats(xw + (size_t)t * c, c, p.eps, &m, &r);
+        if (lane == 0) {
+          mu[t] = m;
+          rs[t] = r;
+        }
+      }
+    }
+    for (int g = 0; g < 3; ++g) {
+      const int row0 = g * c + h * hd;
+      project_head<T>(
+          xw, n, c, hd, p.ln, mu, rs, p.wqkv,
+          [=](int j) { return (size_t)(row0 + j) * c; }, 1, q + g * slot, xs,
+          wsm, tile, [&](int j, float a) {
+            return a + (p.bqkv != nullptr ? p.bqkv[row0 + j] : 0.f);
+          });
+    }
+    // dout[t][d] = T(sum_o dy[t][o] * Wproj[o][h * hd + d])
+    project_head<T>(
+        dyw, n, c, hd, static_cast<const float*>(nullptr), nullptr, nullptr,
+        p.wproj, [=](int j) { return (size_t)(h * hd + j); }, c, dout, xs,
+        wsm, tile, [](int, float a) { return a; });
+
+    const int wk = win % p.nww, wj = (win / p.nww) % p.nwh,
+              wi = (win / (p.nww * p.nwh)) % p.nwd;
+    const bool ld_ = wi == p.nwd - 1, lh = wj == p.nwh - 1,
+               lw = wk == p.nww - 1;
+    auto label = [&](int t) {
+      return token_label(t, p.w1, p.w2, p.w0, p.s0, p.s1, p.s2, ld_, lh, lw);
+    };
+    const bool first = win == w_begin;
+
+    // query rows: softmax statistics, o, ds (bias partials), dq
+    for (int r0 = 0; r0 < n; r0 += kR) {
+      const int rows = min(kR, n - r0);
+      __syncthreads();
+      for (int o = tid; o < rows * n; o += kThreads) S[o] = DP[o] = 0.f;
+      for (int d0 = 0; d0 < hd; d0 += kD) {
+        const int dw = min(kD, hd - d0);
+        __syncthreads();
+        stage_chunk(q, hd, r0, rows, d0, dw, ac);
+        stage_chunk(dout, hd, r0, rows, d0, dw, bc);
+        stage_chunk(k, hd, 0, n, d0, dw, ec);
+        stage_chunk(v, hd, 0, n, d0, dw, fc);
+        __syncthreads();
+        chunk_products(ac, rows, ec, n, dw, S);
+        chunk_products(bc, rows, fc, n, dw, DP);
+      }
+      __syncthreads();
+      for (int i = warp; i < rows; i += kWarps) {
+        const int t = r0 + i;
+        float* sr = S + (size_t)i * n;
+        float* dr = DP + (size_t)i * n;
+        const int lab_t = p.shifted ? label(t) : 0;
+        float mx = -INFINITY;
+        for (int m = lane; m < n; m += 32) {
+          float s = sr[m] * p.scale + bias_h[(size_t)t * n + m];
+          if (p.shifted && label(m) != lab_t) s += -100.f;
+          sr[m] = s;
+          mx = fmaxf(mx, s);
+        }
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int m = lane; m < n; m += 32) {
+          const float e = expf(sr[m] - mx);
+          sr[m] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        float dl = 0.f;
+        for (int m = lane; m < n; m += 32) {
+          const float p32 = sr[m] / sum;
+          sr[m] = p32;
+          dl += dr[m] * p32;
+        }
+        dl = warp_sum(dl);
+        for (int m = lane; m < n; m += 32) {
+          const float ds = sr[m] * (dr[m] - dl);
+          float* pp = part + (size_t)t * n + m;
+          *pp = first ? ds : *pp + ds;
+          dr[m] = round_to<T>(ds * p.scale);
+          sr[m] = round_to<T>(sr[m]);
+        }
+        if (lane == 0) {
+          rmax[t] = mx;
+          rsum[t] = sum;
+          delta[t] = dl;
+        }
+      }
+      for (int d0 = 0; d0 < hd; d0 += kD) {
+        const int dw = min(kD, hd - d0);
+        __syncthreads();
+        stage_chunk(v, hd, 0, n, d0, dw, ec);
+        stage_chunk(k, hd, 0, n, d0, dw, fc);
+        __syncthreads();
+        T* o_out = p.attn + ((size_t)win * n + r0) * c + h * hd + d0;
+        times_chunk(S, rows, n, ec, dw, [&](int i, int d, float a) {
+          o_out[(size_t)i * c + d] = from_f32<T>(a);
+        });
+        times_chunk(DP, rows, n, fc, dw, [&](int i, int d, float a) {
+          dq_out[(size_t)(r0 + i) * 3 * c + d0 + d] = from_f32<T>(a);
+        });
+      }
+    }
+
+    // key rows: p and ds again from the row statistics, dk and dv
+    for (int j0 = 0; j0 < n; j0 += kR) {
+      const int keys = min(kR, n - j0);
+      __syncthreads();
+      for (int o = tid; o < keys * n; o += kThreads) S[o] = DP[o] = 0.f;
+      for (int d0 = 0; d0 < hd; d0 += kD) {
+        const int dw = min(kD, hd - d0);
+        __syncthreads();
+        stage_chunk(k, hd, j0, keys, d0, dw, ac);
+        stage_chunk(v, hd, j0, keys, d0, dw, bc);
+        stage_chunk(q, hd, 0, n, d0, dw, ec);
+        stage_chunk(dout, hd, 0, n, d0, dw, fc);
+        __syncthreads();
+        chunk_products(ac, keys, ec, n, dw, S);
+        chunk_products(bc, keys, fc, n, dw, DP);
+      }
+      __syncthreads();
+      for (int e = tid; e < keys * n; e += kThreads) {
+        const int jj = e / n, t = e - jj * n, m = j0 + jj;
+        float s = S[e] * p.scale + bias_th[(size_t)m * n + t];
+        if (p.shifted && label(t) != label(m)) s += -100.f;
+        const float p32 = expf(s - rmax[t]) / rsum[t];
+        S[e] = round_to<T>(p32);
+        DP[e] = round_to<T>(p32 * (DP[e] - delta[t]) * p.scale);
+      }
+      for (int d0 = 0; d0 < hd; d0 += kD) {
+        const int dw = min(kD, hd - d0);
+        __syncthreads();
+        stage_chunk(q, hd, 0, n, d0, dw, ec);
+        stage_chunk(dout, hd, 0, n, d0, dw, fc);
+        __syncthreads();
+        T* kv_out = dq_out + (size_t)j0 * 3 * c + c + d0;
+        times_chunk(DP, keys, n, ec, dw, [&](int i, int d, float a) {
+          kv_out[(size_t)i * 3 * c + d] = from_f32<T>(a);
+        });
+        times_chunk(S, keys, n, fc, dw, [&](int i, int d, float a) {
+          kv_out[(size_t)i * 3 * c + c + d] = from_f32<T>(a);
+        });
       }
     }
   }
@@ -1293,6 +1499,22 @@ cudaError_t launch_heads(const BwdHeadsParams<T>& p, int nchunk, int nh,
 }
 
 template <class T>
+cudaError_t launch_heads_wide(const BwdHeadsParams<T>& p, int nchunk, int nh,
+                              cudaStream_t st) {
+  using namespace wide;
+  const int n = p.n;
+  const size_t smem = sizeof(float) *
+      (5 * n + max(project_floats(n), 2 * kR * n + 2 * kR * kS + 2 * n * kS));
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attention_bwd_heads_wide<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  window_attention_bwd_heads_wide<T>
+      <<<dim3(nchunk, nh), kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <class T>
 cudaError_t launch_heads_tc(const BwdHeadsParams<T>& p, int nchunk, int nh,
                             cudaStream_t st) {
   using namespace mmatile;
@@ -1393,8 +1615,10 @@ int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
   cudaError_t err = (MEDSEG_ATTN_SKIP & 1024) ? cudaSuccess
                     : route == kRouteTensorCore
                         ? launch_heads_tc(p, nchunk, nh, st)
+                    : p.scratch != nullptr
+                        ? launch_heads_wide(p, nchunk, nh, st)
                     : p.hd <= 16 ? launch_heads<T, 16>(p, nchunk, nh, st)
-                                 : launch_heads<T, 32>(p, nchunk, nh, st);
+                        : launch_heads<T, 32>(p, nchunk, nh, st);
   if (err != cudaSuccess || (MEDSEG_ATTN_SKIP & 4)) return static_cast<int>(err);
 
   const long long m_total = (long long)t * n;
@@ -1452,7 +1676,9 @@ int launch_bwd(BwdHeadsParams<T> p, const void* ln, void* dx, void* dbias,
 // attn and dqkv of the element type named by dtype. Scratch: dbias_part
 // (nchunk, nh, N, N; zero-filled by the caller for kRouteTensorCore), part_ln
 // (grid_dx, 2c), part_w (nsplit, 4c*c + 4c), ln_stats (T * N float2; with ln
-// on the tensor-core GEMM route, else unused and may be NULL).
+// on the tensor-core GEMM route, else unused and may be NULL), scratch
+// (nchunk, nh, 4, N, hd) of the element type where the wrapper picks the
+// wide form (head dims above 32), else NULL.
 // Results (fp32): dbias (nh, N, N), out_ln (2c) = dscale | dbias_ln, out_w =
 // dWqkv (3c x c) | dWproj (c x c) | dbqkv (3c) | dbproj (c). c must be a
 // multiple of 8 up to 768. route, of the heads launch: kRouteTensorCore
@@ -1467,14 +1693,15 @@ extern "C" int medseg_window_attention_bwd(
     const void* wproj, const void* bias, const void* bias_t, const void* dy,
     void* attn, void* dqkv, void* dx, void* dbias_part, void* dbias,
     void* part_ln, void* out_ln, void* part_w, void* out_w, void* ln_stats,
-    int t, int n, int c, int nh, int w0, int w1, int w2, int s0, int s1,
+    void* scratch, int t, int n, int c, int nh, int w0, int w1, int w2, int s0, int s1,
     int s2, int nwd, int nwh, int nww, int shifted, int residual, int nchunk,
     int grid_dx, int nsplit, int gemm_route, int route, int dtype,
     float ln_eps, float scale, void* stream) {
   using namespace medseg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hd = c / nh;
-  if (hd * nh != c || hd > 32 || hd < 1 || n < 1 || t < 1 || c % 8 != 0 ||
+  const int hd = nh > 0 ? c / nh : 0;
+  if (hd * nh != c || hd > wide::kMaxHD || hd < 1 || n < 1 || t < 1 ||
+      c % 8 != 0 || !wide::plan_takes(hd, t, nchunk, scratch, kOnePassHD) ||
       c > kMaxC || nchunk < 1 || grid_dx < 1 || nsplit < 1 ||
       !route_takes(route, dtype, n, c, hd) ||
       (route == kRouteCudaCore && bias_t == nullptr) ||
@@ -1500,6 +1727,7 @@ extern "C" int medseg_window_attention_bwd(
     p.attn = static_cast<T*>(attn);
     p.dqkv = static_cast<T*>(dqkv);
     p.dbias_part = static_cast<float*>(dbias_part);
+    p.scratch = static_cast<T*>(scratch);
     p.t = t; p.n = n; p.c = c; p.hd = hd;
     p.wins_per_chunk = wins_per_chunk;
     p.w0 = w0; p.w1 = w1; p.w2 = w2; p.s0 = s0; p.s1 = s1; p.s2 = s2;

@@ -28,6 +28,7 @@ from medicalsemseg_tpu_torch.models.layers import (
     BatchNorm,
     Conv3d,
     ConvTranspose3d,
+    Dropout,
     InstanceNorm,
     leaky_relu,
     linear,
@@ -205,8 +206,8 @@ class LinearEmbed(nn.Module):
 
 
 class FuseConv(nn.Module):
-    """1x1 conv + BatchNorm (eps 1e-3, running statistics) + exact GELU (the
-    JAX ``_FuseConv``)."""
+    """1x1 conv + BatchNorm (eps 1e-3; batch statistics in training, running
+    ones in eval) + exact GELU (the JAX ``_FuseConv``)."""
 
     def __init__(self, in_dim: int, features: int):
         super().__init__()
@@ -221,7 +222,8 @@ class SegFormerHead(nn.Module):
     """Progressive top-down all-MLP head over a 5-scale pyramid: embed the
     coarsest scale, resize it to the next finer one, fuse with that scale's
     embedding, and so on; the fused 512-channel map is resized to the input
-    size before the 1x1 classifier (``SwinSegFormer``)."""
+    size and, in training, dropped out (rate 0.1) before the 1x1 classifier
+    (``SwinSegFormer``)."""
 
     def __init__(self, encoder: nn.Module, in_dims: Sequence[int],
                  num_classes: int, embedding_dim: int = 512,
@@ -236,6 +238,7 @@ class SegFormerHead(nn.Module):
             self.add_module(f"linear_c{k}", LinearEmbed(dim, e))
         for k in range(4):
             self.add_module(f"linear_fuse_{k}", FuseConv(2 * e, e))
+        self.dropout = Dropout(0.1)  # JAX decoders.py:311
         self.linear_pred = Conv3d(e, num_classes, 1, bias=True)
 
     def forward(self, x_in: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -248,13 +251,14 @@ class SegFormerHead(nn.Module):
             c = getattr(self, f"linear_fuse_{k}")(torch.cat(
                 [c, getattr(self, f"linear_c{k}")(z[k])], dim=-1))
         c = resize_trilinear(c, vol.shape[1:4])
-        return self.linear_pred(c).float()
+        return self.linear_pred(self.dropout(c)).float()
 
 
 class SegFormerHeadOfficial(nn.Module):
     """Official SegFormer head over the last four scales: embed each, resize
-    all to the finest of them, concatenate, fuse once, classify, and resize
-    the logits to the input size (``SegFormer3D``)."""
+    all to the finest of them, concatenate, fuse once, drop out (rate 0.1,
+    in training), classify, and resize the logits to the input size
+    (``SegFormer3D``)."""
 
     def __init__(self, encoder: nn.Module, in_dims: Sequence[int],
                  num_classes: int, embedding_dim: int = 512,
@@ -269,6 +273,7 @@ class SegFormerHeadOfficial(nn.Module):
         for k, dim in enumerate(in_dims):
             self.add_module(f"linear_c{k + 1}", LinearEmbed(dim, e))
         self.linear_fuse = FuseConv(4 * e, e)
+        self.dropout = Dropout(0.1)  # JAX decoders.py:342
         self.linear_pred = Conv3d(e, num_classes, 1, bias=True)
 
     def forward(self, x_in: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -280,5 +285,6 @@ class SegFormerHeadOfficial(nn.Module):
                  resize_trilinear(self.linear_c3(c3), target),
                  resize_trilinear(self.linear_c2(c2), target),
                  self.linear_c1(c1)]
-        out = self.linear_pred(self.linear_fuse(torch.cat(parts, dim=-1)))
+        out = self.linear_pred(self.dropout(
+            self.linear_fuse(torch.cat(parts, dim=-1))))
         return resize_trilinear(out, vol.shape[1:4]).float()

@@ -72,7 +72,8 @@ def build_model(cfg: Config) -> nn.Module:
         encoder = MixVisionTransformer3D(
             in_chans=cfg.in_chans, embed_dim=cfg.hidden_dim,
             depths=tuple(cfg.depths), num_heads=tuple(cfg.num_heads),
-            sr_ratios=(8, 4, 2, 1), qkv_bias=cfg.qkv_bias)
+            sr_ratios=(8, 4, 2, 1), qkv_bias=cfg.qkv_bias,
+            drop_path_rate=cfg.drop_path_rate)
         return SegFormerHeadOfficial(encoder, dims[:len(cfg.depths)],
                                      cfg.output_dim, dtype=dtype)
     else:
@@ -81,7 +82,8 @@ def build_model(cfg: Config) -> nn.Module:
             dim=cfg.hidden_dim, depths=tuple(cfg.depths),
             num_heads=tuple(cfg.num_heads), window_sizes=cfg.window_sizes(),
             mlp_ratio=3.0, qkv_bias=cfg.qkv_bias,
-            ref_quirk_index=cfg.ref_quirk_rel_pos)
+            ref_quirk_index=cfg.ref_quirk_rel_pos,
+            drop_path_rate=cfg.drop_path_rate)
     return SwinUNETRCustom(encoder, cfg.in_chans, cfg.output_dim,
                            hidden_size=cfg.hidden_dim, patch_size=patch[0],
                            num_layers=len(cfg.depths), dtype=dtype)

@@ -1,6 +1,6 @@
 """GC-ViT 3D encoder (counterpart of medicalsemseg_tpu/models/gcvit.py: SE,
 _ConvSE, FeatExtract, ReduceSize, GCWindowAttention, GCViTBlock, GCViTLayer,
-GCViT3D), in its inference form.
+GCViT3D), at inference and in training.
 
 A 3^3 stride-2 conv stem, then four stages that alternate local window
 attention (kernel K1, no shift) and global-query window attention (kernel
@@ -13,11 +13,21 @@ the reference's colliding strides, and the global queries are per batch
 element.
 
 Every block runs the JAX block's absorbed form: the kernels apply LN1 / LN2
-to the raw tokens and add the shortcut. That needs a grid that is a multiple
-of the window, which the JAX model needs too (its window partition is a plain
-reshape). Layer scale, which the factory never sets, and training are not
-ported. Module names follow the JAX scopes (``levels.{i}.blocks.{j}.attn``,
-``levels.{i}.to_q_global.{k}``, ``levels.{i}.downsample``).
+to the raw tokens and add the shortcut (outside the kernel, around the
+dropped branch, in training with a live DropPath). That needs a grid that is
+a multiple of the window, which the JAX model needs too (its window
+partition is a plain reshape). In training the local blocks run K1 forward
+and K3 backward (``WindowAttentionFn``, the reference-quirk index too: its
+bias gradient reaches the table through the same ``index_add_``) and the
+MLPs K2 and K4 (``FusedMlpFn``). K6 has no backward kernel, in the JAX
+package either: in training a global block runs the module's own unfused
+attention, the counterpart of the JAX block's XLA branch (LN1 outside, q
+from the pyramid, kv dense, fp32 logits and softmax, . V, proj, shortcut
+outside), and autograd differentiates it and the query pyramid; in eval mode
+it runs K6 and refuses to run with gradients enabled. Layer scale, which the
+factory never sets, is not ported. Module names follow the JAX scopes
+(``levels.{i}.blocks.{j}.attn``, ``levels.{i}.to_q_global.{k}``,
+``levels.{i}.downsample``).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.models.layers import (
     Conv3d,
+    DropPath,
     LayerNorm,
     Mlp,
     linear,
@@ -50,10 +61,10 @@ from medicalsemseg_tpu_torch.ops.window import (
 
 Tuple3 = Tuple[int, int, int]
 
-_TRAINING = ("training of GCViTUNETR is not ported yet (ROADMAP queue 1 item "
-             "13, training of the model zoo): the global-query kernel has no "
-             "backward; call the model in eval mode under "
-             "torch.inference_mode()")
+_EVAL_GRAD = ("a global-query block in eval mode runs kernel K6, which has no "
+              "backward kernel: call the model under torch.inference_mode() "
+              "or torch.no_grad(), or in train() mode for the differentiable "
+              "unfused form")
 
 
 class SE(nn.Module):
@@ -119,9 +130,9 @@ class ReduceSize(nn.Module):
 
 
 class GCWindowAttention(nn.Module):
-    """Local (``qkv``: C -> 3C, kernel K1) or global-query (``qkv``: C -> 2C
-    for K and V, kernel K6) window attention with a relative-position bias,
-    on raw windows with the block's LN1 and shortcut absorbed."""
+    """Local (``qkv``: C -> 3C, kernel K1; K3 backward) or global-query
+    (``qkv``: C -> 2C for K and V, kernel K6 in eval mode; :meth:`unfused`
+    in training) window attention with a relative-position bias."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  use_global: bool, qkv_bias: bool = True,
@@ -147,52 +158,93 @@ class GCWindowAttention(nn.Module):
                                self.rel_index, self.window_size ** 3)
 
     def forward(self, wins: torch.Tensor, q_global: torch.Tensor,
-                grid_dims: Tuple3, ln: torch.Tensor) -> torch.Tensor:
-        """Raw windows (T, N, C) -> wins + attn(LN(wins)); ``q_global``
-        (B, N, C) is read by the global form only."""
+                grid_dims: Tuple3, ln: torch.Tensor,
+                residual: bool = True) -> torch.Tensor:
+        """Raw windows (T, N, C) -> [wins +] attn(LN(wins)) through the
+        kernels; ``q_global`` (B, N, C) is read by the global form only,
+        which has no backward and refuses gradients (see :meth:`unfused`)."""
         dt = wins.dtype
         ws = self.window_size
         qkv_b = None if self.qkv.bias is None else self.qkv.bias.float()
         if self.use_global:
+            if torch.is_grad_enabled():
+                raise NotImplementedError(_EVAL_GRAD)
             return kga.global_window_attention(
                 wins, q_global.to(dt).contiguous(), self.qkv.weight.to(dt),
                 qkv_b, self.proj.weight.to(dt), self.proj.bias.float(),
-                self.gathered_bias(), ln=ln, residual=True)
+                self.gathered_bias(), ln=ln, residual=residual)
+        if torch.is_grad_enabled():
+            return kwa.WindowAttentionFn.apply(
+                wins, ln, self.qkv.weight, self.qkv.bias, self.proj.weight,
+                self.proj.bias, self.relative_position_bias_table,
+                self.rel_index, grid_dims, (ws,) * 3, (0, 0, 0), 1e-5,
+                residual)
         return kwa.window_attention(
             wins, self.qkv.weight.to(dt), qkv_b, self.proj.weight.to(dt),
             self.proj.bias.float(), self.gathered_bias(), grid_dims=grid_dims,
-            window=(ws,) * 3, shift=(0, 0, 0), ln=ln, residual=True)
+            window=(ws,) * 3, shift=(0, 0, 0), ln=ln, residual=residual)
+
+    def unfused(self, wins: torch.Tensor,
+                q_global: torch.Tensor) -> torch.Tensor:
+        """The global-query attention of LN'd windows (T, N, C) as the JAX
+        module's XLA branch computes it (``q * scale`` in the compute dtype,
+        fp32 logits + bias, fp32 softmax rounded to the compute dtype, . V
+        and proj in it), in PyTorch ops that autograd differentiates."""
+        dt = wins.dtype
+        t, n, c = wins.shape
+        nh = self.num_heads
+        hd = c // nh
+        kv = linear(wins, self.qkv).reshape(t, n, 2, nh, hd)
+        k, v = kv.permute(2, 0, 3, 1, 4).unbind(0)
+        # one query grid per batch element
+        qg = q_global.to(dt).repeat_interleave(t // q_global.shape[0], dim=0)
+        q = qg.reshape(t, n, nh, hd).permute(0, 2, 1, 3)
+        attn = torch.matmul((q * hd ** -0.5).float(),
+                            k.float().transpose(-1, -2))
+        attn = torch.softmax(attn + self.gathered_bias()[None], dim=-1)
+        out = torch.matmul(attn.to(dt), v)
+        return linear(out.permute(0, 2, 1, 3).reshape(t, n, c), self.proj)
 
 
 class GCViTBlock(nn.Module):
     """LN -> (local | global) window attention -> LN -> MLP over
-    (B, D, H, W, C), both halves with the LayerNorm and the shortcut inside
-    the kernel."""
+    (B, D, H, W, C), both halves with the LayerNorm inside the kernel and
+    the shortcut inside too but in training with a live DropPath; a global
+    block in training runs :meth:`GCWindowAttention.unfused` with LN1 and
+    the shortcut outside, as the JAX block's XLA branch does."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  use_global: bool, mlp_ratio: float = 3.0,
-                 qkv_bias: bool = True, ref_quirk_index: bool = False):
+                 qkv_bias: bool = True, ref_quirk_index: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = GCWindowAttention(dim, num_heads, window_size, use_global,
                                       qkv_bias, ref_quirk_index)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor, q_global: torch.Tensor) -> torch.Tensor:
-        if self.training or torch.is_grad_enabled():
-            raise NotImplementedError(_TRAINING)
         b, d, h, w, c = x.shape
         ws = self.attn.window_size
         if d % ws or h % ws or w % ws:
             raise ValueError(f"grid {(d, h, w)} is no multiple of the window "
                              f"{ws}")
         grid_dims = (d // ws, h // ws, w // ws)
-        out = self.attn(window_partition(x, ws).contiguous(), q_global,
-                        grid_dims, self.norm1.params())
-        x = window_reverse(out, ws, (d, h, w))
-        y = self.mlp(x.reshape(-1, c), self.norm2.params(), residual=True)
-        return y.reshape(b, d, h, w, c)
+        res_in = not (self.training and self.drop_path.rate > 0.0)
+        if self.attn.use_global and self.training:
+            out = self.attn.unfused(window_partition(self.norm1(x), ws),
+                                    q_global)
+            x = x + self.drop_path(window_reverse(out, ws, (d, h, w)))
+        else:
+            out = self.attn(window_partition(x, ws).contiguous(), q_global,
+                            grid_dims, self.norm1.params(), residual=res_in)
+            out = window_reverse(out, ws, (d, h, w))
+            x = out if res_in else x + self.drop_path(out)
+        y = self.mlp(x.reshape(-1, c), self.norm2.params(), residual=res_in)
+        y = y.reshape(b, d, h, w, c)
+        return y if res_in else x + self.drop_path(y)
 
 
 def _pool_plan(resolution: Tuple3, ws: int) -> List[Tuple3]:
@@ -212,7 +264,8 @@ class GCViTLayer(nn.Module):
 
     def __init__(self, dim: int, resolution: Tuple3, depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float = 3.0,
-                 qkv_bias: bool = True, ref_quirk_index: bool = False):
+                 qkv_bias: bool = True, ref_quirk_index: bool = False,
+                 drop_path_rates: Sequence[float] = (0.0,)):
         super().__init__()
         self.resolution = tuple(resolution)
         self.window = min(window_size, min(resolution))
@@ -222,7 +275,8 @@ class GCViTLayer(nn.Module):
             or [FeatExtract(dim, keep_dim=True)])
         self.blocks = nn.ModuleList([
             GCViTBlock(dim, num_heads, self.window, i % 2 == 1, mlp_ratio,
-                       qkv_bias, ref_quirk_index) for i in range(depth)])
+                       qkv_bias, ref_quirk_index, drop_path_rates[i])
+            for i in range(depth)])
         self.downsample = ReduceSize(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -252,15 +306,18 @@ class GCViT3D(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_sizes: Sequence[int] = (6, 6, 6, 6),
                  mlp_ratio: float = 3.0, qkv_bias: bool = True,
-                 ref_quirk_index: bool = False):
+                 ref_quirk_index: bool = False, drop_path_rate: float = 0.2):
         super().__init__()
         self.patch_embed = Conv3d(in_chans, dim, 3, stride=2, padding=1)
         grid = tuple((s - 1) // 2 + 1 for s in img_size)
+        # stochastic depth rising linearly over the blocks, as in JAX
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.levels = nn.ModuleList()
         for i in range(len(depths)):
             self.levels.append(GCViTLayer(
                 dim * 2 ** i, grid, depths[i], num_heads[i], window_sizes[i],
-                mlp_ratio, qkv_bias, ref_quirk_index))
+                mlp_ratio, qkv_bias, ref_quirk_index,
+                dpr[sum(depths[:i]):sum(depths[:i + 1])]))
             self.add_module(f"norm{i}", LayerNorm(dim * 2 ** (i + 1)))
             grid = tuple((g - 1) // 2 + 1 for g in grid)
 

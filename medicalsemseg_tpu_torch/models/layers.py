@@ -59,10 +59,26 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Elementwise dropout (flax ``nn.Dropout``): each element is kept with
+    probability 1 - rate and scaled by 1 / keep in ``x``'s dtype. The mask
+    is drawn as one byte an element (``bernoulli_`` into a bool tensor), so
+    a full-resolution map of the SegFormer heads costs a quarter of an fp32
+    draw."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, dtype=torch.bool, device=x.device).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class DropPath(nn.Module):
     """Stochastic depth on the residual branch. Draws from ``generator``
-    when one is set (``set_generator``; it must live on the input's device),
-    else from torch's global generator of that device."""
+    when one is set (the train state sets it; it must live on the input's
+    device), else from torch's global generator of that device."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -73,6 +89,19 @@ class DropPath(nn.Module):
                 keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return drop_path(x, self.rate, self.training, self.generator,
                          keep_mask)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout in training (:func:`dropout`), drawing from
+    ``generator`` as :class:`DropPath` does."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, self.generator)
 
 
 class LayerNorm(nn.Module):
@@ -186,10 +215,18 @@ class InstanceNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Affine BatchNorm over (..., C) from its running statistics, in fp32
-    (flax ``nn.BatchNorm(use_running_average=True)``). ``running_mean`` and
-    ``running_var`` are the JAX model's ``batch_stats`` collection. Batch
-    statistics (training) are not ported."""
+    """Affine BatchNorm over (..., C) in fp32, flax ``nn.BatchNorm`` as the
+    JAX ``layers.BatchNorm`` builds it (momentum 0.9). In eval mode it
+    normalises with the running statistics; in training with the batch's
+    over every axis but C: mean E[x] and the biased variance max(0, E[x^2] -
+    E[x]^2) (flax's fast variance), and each training call moves the running
+    statistics to 0.9 * running + 0.1 * batch, the variance biased too
+    (``torch.nn.BatchNorm3d`` would keep the unbiased one), as JAX's
+    ``mutable=["batch_stats"]`` apply does on every micro-step.
+    ``running_mean`` and ``running_var`` are the JAX model's
+    ``batch_stats``."""
+
+    momentum = 0.9   # flax's: the weight of the running statistics
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -200,12 +237,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm with batch statistics is not ported yet (ROADMAP "
-                "queue 1 item 13, training of the model zoo)")
-        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        y = (x.float() - self.running_mean.float()) * mul + self.bias.float()
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean.detach())
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var.detach())
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean) * mul + self.bias.float()
         return y.to(x.dtype)
 
 

@@ -100,10 +100,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     lib.medseg_window_attention_fwd.argtypes = (
-        [p] * 9 + [i] * 18 + [f, f, p])
+        [p] * 10 + [i] * 19 + [f, f, p])
     lib.medseg_window_attention_fwd.restype = i
     lib.medseg_global_window_attention_fwd.argtypes = (
-        [p] * 10 + [i] * 9 + [f, f, p])
+        [p] * 11 + [i] * 10 + [f, f, p])
     lib.medseg_global_window_attention_fwd.restype = i
     lib.medseg_sr_attention_fwd.argtypes = [p] * 9 + [i] * 10 + [f, p]
     lib.medseg_sr_attention_fwd.restype = i
@@ -111,7 +111,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_sr_attention_smem_bytes.restype = ll
     lib.medseg_fused_mlp_fwd.argtypes = [p] * 8 + [i] * 9 + [f, p]
     lib.medseg_fused_mlp_fwd.restype = i
-    lib.medseg_window_attention_bwd.argtypes = [p] * 18 + [i] * 21 + [f, f, p]
+    lib.medseg_window_attention_bwd.argtypes = [p] * 19 + [i] * 21 + [f, f, p]
     lib.medseg_window_attention_bwd.restype = i
     lib.medseg_fused_mlp_bwd.argtypes = [p] * 12 + [i] * 9 + [f, p]
     lib.medseg_fused_mlp_bwd.restype = i

@@ -25,7 +25,8 @@ import torch
 
 from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels.window_attention import (
-    MAX_HEAD_DIM, ROUTES, pick_gemm_route, pick_route)
+    MAX_HEAD_DIM, ROUTES, head_runs, pick_gemm_route, pick_route,
+    wide_scratch)
 
 # kernel launches through global_window_attention() (one per call; the call
 # is two CUDA launches: heads, then projection), in all, by the route of the
@@ -132,11 +133,14 @@ def _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, *, ln, ln_eps,
     lib = kernels.load()
     attn = torch.empty_like(wins)
     out = torch.empty_like(wins)
+    runs = head_runs(t, nh, kernels.resident_blocks(dev))
+    scratch = wide_scratch(runs, n, c, nh, dt, dev)
     err = lib.medseg_global_window_attention_fwd(
         kernels.ptr(wins), kernels.ptr(ln), kernels.ptr(q_global),
         kernels.ptr(wkv), kernels.ptr(bkv), kernels.ptr(wproj),
         kernels.ptr(bproj), kernels.ptr(bias), kernels.ptr(attn),
-        kernels.ptr(out), t, n, c, nh, t // b, int(residual), ROUTES[gemm],
+        kernels.ptr(out), kernels.ptr(scratch), t, n, c, nh, t // b, runs,
+        int(residual), ROUTES[gemm],
         ROUTES[route], code, float(ln_eps), float(hd ** -0.5),
         kernels.stream_handle(dev))
     kernels.check(lib, err, "global_window_attention")

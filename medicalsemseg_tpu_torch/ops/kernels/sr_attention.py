@@ -22,8 +22,7 @@ chunk). A failed launch raises; nothing falls back to the other route.
 The TPU wrapper's ``_tile_rows`` / ``fused_sr_attention_fits`` size a tile to
 the TPU's fast memory and have no counterpart. :func:`sr_attention_supported`
 says from the dtype and the shape alone whether a route takes a launch: head
-dims up to 32 (ROADMAP R15 is the kernel work above), C up to 768 and at
-most 64 heads, any M. A CPU tensor goes through :func:`sr_attention_plain`;
+dims up to 96, C up to 768 and at most 64 heads, any M. A CPU tensor goes through :func:`sr_attention_plain`;
 a CUDA tensor launches a kernel or raises.
 """
 
@@ -120,7 +119,7 @@ def sr_plan(b: int, n: int, c: int, num_heads: int, m: int, sms: int,
 def sr_attention_supported(dtype, c: int, num_heads: int, m: int) -> bool:
     """Whether a route of K7 takes tokens of width C over ``num_heads``
     heads against M reduced keys in ``dtype``: bf16, fp16 or fp32, a head
-    dim that divides C and is at most 32, C <= 768, at most 64 heads, any M
+    dim that divides C and is at most 96, C <= 768, at most 64 heads, any M
     (the tensor-core route takes a subset). Pure: calls no library."""
     if dtype not in (torch.bfloat16, torch.float16, torch.float32):
         return False
@@ -175,7 +174,7 @@ def sr_attention(
     ``residual`` is the block's raw input (B, N, C), added in the activation
     dtype. Both routes take any N (the last token tile is masked). The
     tensor-core route takes what :func:`sr_route` gives it (every stage of
-    the default model: M = 27); the CUDA-core route head dims up to 32 and
+    the default model: M = 27); the CUDA-core route head dims up to 96 and
     any M (K and V stream in chunks) at widths up to ~900. ``route``
     forces one (``"cuda_core"`` always; ``"tensor_core"`` only where
     :func:`sr_route` gives it)."""

@@ -33,8 +33,12 @@ raises.
 
 :func:`window_attention_supported` says from the dtype and the shape alone
 whether K1 (and, in training, K3) takes a block's windows: head dims up to
-32 (ROADMAP R15 is the kernel work above), C up to 768, windows of up to 7^3
-tokens (6^3 in training), and in training C a multiple of 8.
+96, C up to 768, windows of up to 7^3 tokens (6^3 in training), and in
+training C a multiple of 8. Head dims above 16 (K1, K6) and 32 (K3) take
+the CUDA-core heads launches' wide form (``csrc/attn_wide.cuh``): a block
+owns a head and a run of windows and keeps its q, k, v (and K3's dout) in a
+scratch buffer that the wrapper allocates (:func:`wide_scratch`); the
+wrapper picks the form by handing it or not.
 """
 
 from __future__ import annotations
@@ -57,11 +61,19 @@ launches = 0
 # three CUDA launches and three sums of partials)
 bwd_launches = 0
 
-MAX_HEAD_DIM = 32
+MAX_HEAD_DIM = 96
+# the largest head dims of the one-pass CUDA-core heads forms of K1 / K6 and
+# of K3; above them the wide form (csrc/attn_wide.cuh) runs. Measured on an
+# H100 (chip_smoke.py --phases heads_forms, PERF.md PR 12), the wide form
+# of K1 and K6 took 0.74-0.96 of the one-pass form's time at head dim 32 at
+# the flagship's first three stages of hidden 96 and 1.25-1.35 at the
+# fourth (48 blocks either way), 0.95-1.57 at head dim 16; K3's took
+# 1.09-2.43 at both.
+NARROW_HEAD_DIM = 16
+BWD_NARROW_HEAD_DIM = 32
 ATTN_BWD_MAX_WIDTH = 768
 # the widest window whose CUDA-core heads block fits the card's shared
-# memory at head dim 32 (fp32 tiles growing with N): 7^3 tokens for K1, 6^3
-# for K3
+# memory (fp32 tiles growing with N): 7^3 tokens for K1, 6^3 for K3
 MAX_TOKENS, BWD_MAX_TOKENS = 343, 216
 
 # the routes of the heads launches, with their codes in the C entry points
@@ -93,7 +105,7 @@ def window_attention_supported(dtype, n: int, c: int, num_heads: int,
                                train: bool = False) -> bool:
     """Whether K1 (K6 shares its launches) and, with ``train``, K3 take
     windows of N tokens of width C over ``num_heads`` heads in ``dtype``:
-    bf16, fp16 or fp32, a head dim that divides C and is at most 32, C <=
+    bf16, fp16 or fp32, a head dim that divides C and is at most 96, C <=
     768 and N <= 343; for K3 also C a multiple of 8 and N <= 216 (the
     tensor-core routes take a subset). Pure: calls no library."""
     if dtype not in (torch.bfloat16, torch.float16, torch.float32):
@@ -151,6 +163,30 @@ def bwd_gemm_plan(m: int, c: int, blocks: int):
     groups = -(-4 * c // rows) * (c // gemm_width(c))
     tiles = -(-m // kmlp.TC_TILE_ROWS)
     return grid_dx, max(1, min(tiles, blocks // groups))
+
+
+def head_runs(t: int, nh: int, blocks: int) -> int:
+    """Runs of windows of a heads launch whose blocks each own a head and a
+    run (K3's, and K1's and K6's wide form): the T windows
+    spread over ``blocks // nh`` runs of ceil(T / runs) windows, every run
+    holding a window (the C entry points take the count and cut the runs
+    alike)."""
+    per_run = -(-t // max(1, blocks // nh))
+    return -(-t // per_run)
+
+
+def wide_scratch(runs: int, n: int, c: int, nh: int, dtype, device,
+                 bwd: bool = False) -> Optional[torch.Tensor]:
+    """The scratch buffer of a heads launch's wide form: (N, hd) tiles of
+    q, k, v (K3, ``bwd``: and dout) for each (run, head) block, in the
+    activations' dtype, whose values they hold exactly; None, which picks
+    the one-pass form, at head dims up to NARROW_HEAD_DIM (K3:
+    BWD_NARROW_HEAD_DIM)."""
+    hd = c // nh
+    if hd <= (BWD_NARROW_HEAD_DIM if bwd else NARROW_HEAD_DIM):
+        return None
+    return torch.empty((runs * nh, 4 if bwd else 3, n, hd), dtype=dtype,
+                       device=device)
 
 
 def _qkv_heads(xn, wqkv, bqkv, nh):
@@ -277,14 +313,16 @@ def _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, *, grid_dims, window,
     lib = kernels.load()
     attn = torch.empty_like(wins)
     out = torch.empty_like(wins)
+    runs = head_runs(t, nh, kernels.resident_blocks(dev))
+    scratch = wide_scratch(runs, n, c, nh, dt, dev)
     shifted = int(any(s > 0 for s in shift))
     err = lib.medseg_window_attention_fwd(
         kernels.ptr(wins), kernels.ptr(ln), kernels.ptr(wqkv),
         kernels.ptr(bqkv), kernels.ptr(wproj), kernels.ptr(bproj),
         kernels.ptr(bias), kernels.ptr(attn), kernels.ptr(out),
-        t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
-        ROUTES[gemm], ROUTES[route], code, float(ln_eps), float(hd ** -0.5),
-        kernels.stream_handle(dev))
+        kernels.ptr(scratch), t, n, c, nh, runs, *window, *shift,
+        *grid_dims, shifted, int(residual), ROUTES[gemm], ROUTES[route], code,
+        float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention")
     launches += 1
     route_launches[route] += 1
@@ -405,9 +443,9 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
     global bwd_launches
     lib = kernels.load()
     blocks = kernels.resident_blocks(dev)
-    # one block per (run of windows, head); every run holds a window
-    wins_per_chunk = -(-t // max(1, blocks // nh))
-    nchunk = -(-t // wins_per_chunk)
+    # one block per (run of windows, head)
+    nchunk = head_runs(t, nh, blocks)
+    scratch = wide_scratch(nchunk, n, c, nh, dt, dev, bwd=True)
     stats = None
     if gemm == "tensor_core":
         kernels.check_aligned(wins=wins, wqkv=wqkv, dy=dy)
@@ -441,7 +479,7 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
         kernels.ptr(dqkv), kernels.ptr(dx), kernels.ptr(dbias_part),
         kernels.ptr(dbias), kernels.ptr(part_ln), kernels.ptr(out_ln),
         kernels.ptr(part_w), kernels.ptr(out_w), kernels.ptr(stats),
-        t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
+        kernels.ptr(scratch), t, n, c, nh, *window, *shift, *grid_dims, shifted, int(residual),
         nchunk, grid_dx, nsplit, ROUTES[gemm], ROUTES[route], code,
         float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention_bwd")

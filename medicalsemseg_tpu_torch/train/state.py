@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 
 from medicalsemseg_tpu_torch.config import Config
-from medicalsemseg_tpu_torch.models.layers import DropPath
+from medicalsemseg_tpu_torch.models.layers import Dropout, DropPath
 from medicalsemseg_tpu_torch.train.losses import build_loss
 from medicalsemseg_tpu_torch.train.metrics import dice_per_class
 from medicalsemseg_tpu_torch.train.schedule import make_epoch_schedule
@@ -36,7 +36,7 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
-    generator: torch.Generator            # DropPath draws, on the model's device
+    generator: torch.Generator            # DropPath / Dropout draws, on the model's device
     step: int = 0                         # train_step calls so far
     updates: int = 0                      # optimizer updates so far
     grad_accum_steps: int = 1
@@ -46,7 +46,8 @@ class TrainState:
 
 def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
     """timm add_weight_decay semantics: decay only parameters of two or more
-    dimensions."""
+    dimensions (so no bias, no norm's scale or bias, BatchNorm's included;
+    its running statistics are buffers, which the optimizer never sees)."""
     return {name: p.dim() > 1 for name, p in model.named_parameters()}
 
 
@@ -72,14 +73,15 @@ def make_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int
 
 def create_train_state(cfg: Config, model: nn.Module, steps_per_epoch: int,
                        seed: Optional[int] = None) -> TrainState:
-    """State for ``model`` where it lies; the DropPath generator is seeded
-    with ``seed`` (default ``cfg.seed``) and handed to every DropPath."""
+    """State for ``model`` where it lies; the generator of the random
+    draws is seeded with ``seed`` (default ``cfg.seed``) and handed to every
+    DropPath and Dropout."""
     opt, schedule = make_optimizer(cfg, model, steps_per_epoch)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed if seed is None else seed)
     for m in model.modules():
-        if isinstance(m, DropPath):
+        if isinstance(m, (DropPath, Dropout)):
             m.generator = gen
     return TrainState(model=model, optimizer=opt, schedule=schedule,
                       generator=gen,

@@ -546,8 +546,9 @@ def test_zoo_wrappers_reject_what_the_kernels_do_not_take(gen):
                          .contiguous(), None,
                          wide[0, :1].expand(2048, 2048).contiguous(),
                          torch.zeros(2048, device=dev), 64)
-    with pytest.raises(ValueError, match="head dim"):
-        ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 6)
+    ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 6)   # head dim 64
+    with pytest.raises(ValueError, match="head dim"):      # 128, over 96
+        ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 3)
     with pytest.raises(ValueError, match="residual"):
         ksr.sr_attention(x, kv(8), kv(8), w, None, w, bp, 24,
                          residual=torch.zeros(1, 39, 384, device=dev, dtype=bf))

@@ -153,3 +153,99 @@ def test_unported_options_raise():
         build_model(small_cfg(model="SwinDepth"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(small_cfg(global_token=True))
+
+
+def train_step_both(cfg: Config, seed: int = 0, batch: int = 2):
+    """One training forward and backward of the same seeded variables and
+    batch on both sides, fp32, drop rates 0 (the SegFormer heads' dropout
+    set to 0 on both sides: the two frameworks draw different masks).
+    Returns {side: (loss, gradients, batch_stats)} for side "jax" (one
+    jitted ``jax.value_and_grad`` of the apply with mutable batch_stats, as
+    the JAX train step runs it) and "port" (``model.train()``, autograd), the
+    gradients and statistics as numpy trees in the JAX layout."""
+    from medicalsemseg_tpu.train.losses import build_loss as jax_build_loss
+
+    from medicalsemseg_tpu_torch.models.layers import Dropout
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+    from medicalsemseg_tpu_torch.utils.params import jax_tree_from_state_dict
+
+    jmodel, variables = jax_variables(cfg, seed)
+    if hasattr(jmodel, "dropout_ratio"):
+        jmodel = jmodel.clone(dropout_ratio=0.0)
+    rng = np.random.default_rng(seed + 100)
+    v = cfg.vol_size3()
+    img = rng.normal(size=(batch, *v, cfg.in_chans)).astype(np.float32)
+    label = rng.integers(0, cfg.output_dim, size=(batch, *v)).astype(np.int32)
+    crop = np.zeros((batch, 3), np.float32)
+    aff = np.ones((batch, 3), np.float32)
+    jloss = jax_build_loss(cfg)
+    stats0 = variables.get("batch_stats", {})
+
+    def loss(params, stats, x, y):
+        var = {"params": params}
+        if stats:
+            var["batch_stats"] = stats
+        logits, mutated = jmodel.apply(
+            var, (x, jnp.asarray(crop), jnp.asarray(aff)),
+            deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)},
+            mutable=["batch_stats"])
+        return jloss(logits, y), mutated.get("batch_stats", {})
+
+    (jl, jstats), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        variables["params"], stats0, jnp.asarray(img), jnp.asarray(label))
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+
+    model = build_model(cfg)
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    model.train()
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    logits = model((torch.from_numpy(img), torch.from_numpy(crop),
+                    torch.from_numpy(aff)))
+    pl = build_loss(cfg)(logits, torch.from_numpy(label))
+    pl.backward()
+    pgrads = jax_tree_from_state_dict(
+        {n: p.grad for n, p in model.named_parameters()}, variables["params"])
+    pstats = (jax_tree_from_state_dict(model.state_dict(), variables)
+              ["batch_stats"] if stats0 else {})
+    return {"jax": (float(jl), to_np(jgrads), to_np(jstats)),
+            "port": (float(pl.detach()), pgrads, pstats),
+            "stats0": to_np(stats0)}
+
+
+def flat_tree(tree):
+    """{path string: numpy array} of a nested tree."""
+    return {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_train_step_matches(both):
+    """Loss (rtol 1e-4) and every parameter's gradient (each leaf's error
+    norm under 2e-2 of its norm, all of them together under 5e-3: the
+    tolerances of ``test_torch_train_step.py``) against the JAX side, and
+    the BatchNorm running statistics after the step against flax's. A leaf
+    whose gradient is zero in exact arithmetic (a bias that reaches the loss
+    only through a BatchNorm with batch statistics, which cancels any
+    per-channel constant) is fp32 noise on both sides: its error norm is held
+    under 1e-6 of the whole gradient's norm instead."""
+    jl, jg, js = both["jax"]
+    pl, pg, ps = both["port"]
+    np.testing.assert_allclose(pl, jl, rtol=1e-4)
+    want, got = flat_tree(jg), flat_tree(pg)
+    assert set(got) == set(want)
+    norm = lambda a: float(np.linalg.norm(a.ravel()))  # noqa: E731
+    cat = lambda d: np.concatenate([d[k].ravel() for k in sorted(d)])  # noqa: E731
+    floor = 1e-6 * norm(cat(want))
+    for k in sorted(want):
+        err, ref = norm(got[k] - want[k]), norm(want[k])
+        if ref < floor:
+            assert err < floor, f"{k}: {err:.2e} (zero gradient)"
+        else:
+            assert err < 2e-2 * ref, f"{k}: {err / ref:.2e}"
+    assert norm(cat(got) - cat(want)) < 5e-3 * norm(cat(want))
+    want_s, got_s = flat_tree(js), flat_tree(ps)
+    assert set(got_s) == set(want_s)
+    for k in sorted(want_s):
+        np.testing.assert_allclose(got_s[k], want_s[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)

@@ -10,15 +10,15 @@ whether its kernel takes a call. Here, on the CPU:
 * the sweep: for the configurations the CLIs accept (models nnFormerUNETR,
   GCViTUNETR, SegFormer3D, SwinSegFormer; --vol_size 64 .. 192; --hidden_dim
   24, 48, 96; --num_heads 3 6 12 24 and 1 2 4 8; bf16, fp16, fp32; inference,
-  and training for the model that trains) every fused call site of every
-  block, with the shape the port's module sees. The port's predicate takes
-  every one of them, whether the JAX predicate sends it to Pallas or keeps
-  XLA (K3 and K4 at C = 768 in training), except a head dim above 32: there
-  the JAX package runs Pallas and the port raises on the card until
-  ROADMAP R15. Every shape a predicate takes, the wrapper's launch path
-  takes too (a stand-in library in place of the CUDA one), and a head dim
-  above 32 is refused there. The JAX predicates are called here only,
-  never by the port.
+  and training for the models that train through kernels: nnFormerUNETR,
+  SwinSegFormer, GCViTUNETR's local blocks and MLPs) every fused call site
+  of every block, with the shape the port's module sees. The port's
+  predicate takes every one of them, whether the JAX predicate sends it to
+  Pallas or keeps XLA (K3 and K4 at C = 768 in training), head dims 48 and
+  96 (--num_heads 1 2 4 8 at hidden 48 and 96) included. Every shape a
+  predicate takes, the wrapper's launch path takes too (a stand-in library
+  in place of the CUDA one). The JAX predicates are called here only, never
+  by the port.
 * unit cases of each predicate;
 * each module calls its wrapper for the F5 cases (the wrappers run their
   plain versions here because the tensors lie on the CPU).
@@ -66,10 +66,13 @@ def _swin_sites(vol, hidden, heads, train, jax_fits):
         grid = _ceil(grid, 2)
 
 
-def _gcvit_sites(vol, hidden, heads):
-    """GCViTUNETR at inference: a local (K1) and a global (K6) block and the
-    MLP (hidden 3C) at each level, where the grid divides into windows;
-    None where it does not (the JAX model cannot partition it either)."""
+def _gcvit_sites(vol, hidden, heads, train):
+    """GCViTUNETR: a local (K1, K3 in training) and, at inference, a global
+    (K6) block and the MLP (hidden 3C) at each level, where the grid divides
+    into windows; None where it does not (the JAX model cannot partition it
+    either). In training the global blocks run the module's own unfused
+    attention, as the JAX model's do, and the JAX model trains every block
+    through XLA (its levels never set ``pallas_train``)."""
     grid = _ceil(vol, 2)
     sites = []
     for i, nh in enumerate(heads):
@@ -77,9 +80,10 @@ def _gcvit_sites(vol, hidden, heads):
         ws = min(WINDOW, grid)
         if grid % ws:
             return None
-        sites += [("attn", (ws ** 3, c, nh), True),
-                  ("global", (ws ** 3, c, nh), True),
-                  ("mlp", (c, c, 3 * c), True)]
+        sites += [("attn", (ws ** 3, c, nh), not train),
+                  ("mlp", (c, c, 3 * c), not train)]
+        if not train:
+            sites.append(("global", (ws ** 3, c, nh), True))
         grid = _ceil(grid, 2)
     return sites
 
@@ -133,12 +137,12 @@ def _sweep(jax_fits):
     for model, vol, hidden, heads, dtype in itertools.product(
             ("nnFormerUNETR", "GCViTUNETR", "SegFormer3D", "SwinSegFormer"),
             VOLS, HIDDEN, HEADS, DTYPES):
-        modes = (False, True) if model == "nnFormerUNETR" else (False,)
+        modes = (False,) if model == "SegFormer3D" else (False, True)
         for train in modes:
             if model in ("nnFormerUNETR", "SwinSegFormer"):
                 sites = list(_swin_sites(vol, hidden, heads, train, jax_fits))
             elif model == "GCViTUNETR":
-                sites = _gcvit_sites(vol, hidden, heads) or []
+                sites = _gcvit_sites(vol, hidden, heads, train) or []
             else:
                 sites = list(_segformer_sites(vol, hidden, heads, jax_fits))
             for kind, shape, pallas in sites:
@@ -151,13 +155,17 @@ def _sweep(jax_fits):
 def test_sweep_kernel_wherever_jax_runs_pallas(jax_fits):
     rows = _sweep(jax_fits)
     assert len(rows) > 2000
-    missed = [r for r in rows if not r[9]
-              and _head_dim(r[6], r[7]) <= kwa.MAX_HEAD_DIM]
+    missed = [r for r in rows if not r[9]]
     assert not missed, missed[:5]
-    # the documented exception: head dims of 48 and 96 (--num_heads 1 2 4 8
-    # at hidden 48 and 96), where the wrappers raise on the card until R15
-    r15 = {(r[6], _head_dim(r[6], r[7])) for r in rows if not r[9]}
-    assert r15 and all(hd > kwa.MAX_HEAD_DIM for _, hd in r15)
+    # head dims 48 and 96 (--num_heads 1 2 4 8 at hidden 48 and 96) run the
+    # wide forms of K1, K3, K6 and the CUDA-core route of K7, in every dtype,
+    # at inference and in training
+    wide = {(r[6], r[4], r[5], _head_dim(r[6], r[7])) for r in rows
+            if _head_dim(r[6], r[7]) > kwa.BWD_NARROW_HEAD_DIM}
+    assert {hd for *_, hd in wide} == {48, 96}
+    assert {kind for kind, *_ in wide} == {"attn", "global", "sr"}
+    assert {(dt, train) for _, dt, train, _ in wide} == {
+        (dt, train) for dt in DTYPES for train in (False, True)}
     # the shapes of fault F5 run a kernel: SegFormer3D at vol 160
     # (M = 125 at every stage) in every dtype, K2 at C = 768 in fp32
     seg160 = [r for r in rows if r[0] == "SegFormer3D" and r[1] == 160
@@ -177,9 +185,11 @@ def test_sweep_kernel_wherever_jax_runs_pallas(jax_fits):
 class _FakeEntry:
     def __init__(self):
         self.calls = 0
+        self.args = []
 
     def __call__(self, *args):
         self.calls += 1
+        self.args.append(args)
         return 0
 
 
@@ -241,20 +251,30 @@ def _launch(kind, dtype, shape, train):
 
 
 def test_sweep_wrappers_take_what_the_predicates_take(jax_fits, fake_lib):
-    """Each distinct shape a predicate takes goes through its wrapper's
-    launch path (the checks and plans in Python) to the entry point; each
-    it refuses (head dim above 32) raises there, with no plain fallback."""
+    """Each distinct shape of the sweep goes through its wrapper's launch
+    path (the checks and plans in Python) to the entry point, and none is
+    refused: no wrapper raises "head dim" for any of them. Above head dim
+    16 (K1, K6) and 32 (K3) the attention wrappers hand the entry point a
+    scratch buffer of the wide form."""
     rows = _sweep(jax_fits)
     seen = {(r[6], r[4], r[7], r[5]) for r in rows if r[9]}
+    refused = {(r[6], r[4], r[7], r[5]) for r in rows if not r[9]}
+    assert not refused
     for kind, dtype, shape, train in sorted(seen, key=str):
         _launch(kind, dtype, shape, train)
     assert sum(e.calls for e in fake_lib.entries.values()) >= len(seen)
-    calls = sum(e.calls for e in fake_lib.entries.values())
-    refused = {(r[6], r[4], r[7], r[5]) for r in rows if not r[9]}
-    for kind, dtype, shape, train in sorted(refused, key=str):
-        with pytest.raises(ValueError, match="head dim"):
-            _launch(kind, dtype, shape, train)
-    assert sum(e.calls for e in fake_lib.entries.values()) == calls
+    # (the scratch pointer's place, C's place, the one-pass form's largest
+    # head dim) in each attention entry point: a scratch buffer exactly
+    # where the head dim is above that
+    for name, (at, c_at, one_pass) in {
+            "medseg_window_attention_fwd": (9, 12, 16),
+            "medseg_global_window_attention_fwd": (10, 13, 16),
+            "medseg_window_attention_bwd": (18, 21, 32)}.items():
+        args = fake_lib.entries[name].args
+        wide = [(a[at] is not None, a[c_at] // a[c_at + 1] > one_pass)
+                for a in args]
+        assert all(x == y for x, y in wide), name
+        assert any(x for x, _ in wide) and not all(x for x, _ in wide), name
 
 
 @pytest.mark.parametrize("dtype,n,c,nh,train,want", [
@@ -266,8 +286,8 @@ def test_sweep_wrappers_take_what_the_predicates_take(jax_fits, fake_lib):
     (F32, 216, 1024, 32, False, False),    # wider than any stage
     (F32, 216, 24, 3, True, True),         # hidden 24: 8-row dw blocks
     (F32, 216, 20, 1, True, False),        # no multiple of 8
-    (BF16, 216, 96, 2, False, False),      # head dim 48 (R15)
-    (BF16, 64, 192, 4, True, False),       # head dim 48 in training
+    (BF16, 216, 96, 2, False, True),       # head dim 48: the wide form
+    (BF16, 64, 192, 4, True, True),        # head dim 48 in training
     (BF16, 343, 96, 3, False, True),       # 7^3 windows on the CUDA cores
     (BF16, 343, 96, 3, True, False),       # K3 holds up to 6^3
     (F32, 512, 256, 8, False, False),      # 8^3 windows of head dim 32
@@ -280,8 +300,8 @@ def test_window_attention_supported(dtype, n, c, nh, train, want):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("c,nh,m,want", [
     (48, 3, 27, True), (384, 24, 125, True), (384, 24, 512, True),
-    (768, 24, 216, True), (768, 24, 512, True), (768, 8, 125, False),
-    (96, 2, 27, False), (16, 1, 1, True), (1024, 32, 27, False),
+    (768, 24, 216, True), (768, 24, 512, True), (768, 8, 125, True),
+    (96, 2, 27, True), (16, 1, 1, True), (1024, 32, 27, False),
     (768, 96, 64, False),
 ])
 def test_sr_attention_supported(dtype, c, nh, m, want):
@@ -312,7 +332,7 @@ def _spy(monkeypatch, mod, *names):
 @pytest.mark.parametrize("c,nh,grid,sr,kernel", [
     (384, 24, 5, 1, True),       # vol 160, stage 4: M = 125
     (48, 3, 40, 8, True),        # vol 160, stage 1: M = 125
-    (96, 2, 6, 2, False),        # head dim 48: raises on the card (R15)
+    (96, 2, 6, 2, True),         # head dim 48: the CUDA-core route
 ])
 def test_sr_attention_module_choice(monkeypatch, c, nh, grid, sr, kernel):
     """The module calls K7's wrapper whatever the shape; the predicate says
@@ -335,7 +355,7 @@ def test_sr_attention_module_choice(monkeypatch, c, nh, grid, sr, kernel):
     (48, 3, True, True),
     (768, 24, True, True),       # hidden 96, stage 4: K3 on the CUDA cores
     (768, 24, False, True),
-    (96, 2, False, False),       # head dim 48: raises on the card (R15)
+    (96, 2, False, True),        # head dim 48: the wide form
 ])
 def test_window_attention_module_choice(monkeypatch, dim, nh, train, kernel):
     from medicalsemseg_tpu_torch.models.swin import WindowAttention
@@ -382,7 +402,7 @@ def test_mlp_module_choice(monkeypatch, dim, train, dtype, kernel):
 
 
 @pytest.mark.parametrize("use_global", [False, True])
-@pytest.mark.parametrize("dim,nh,kernel", [(48, 3, True), (96, 2, False)])
+@pytest.mark.parametrize("dim,nh,kernel", [(48, 3, True), (96, 2, True)])
 def test_gcvit_attention_module_choice(monkeypatch, use_global, dim, nh,
                                        kernel):
     from medicalsemseg_tpu_torch.models.gcvit import GCWindowAttention
