@@ -111,13 +111,26 @@ Phases, in order; any failure exits non-zero:
                  GCViTUNETR and one SegFormer3D predictor call (K1 / K6 and
                  K7 on the CUDA cores);
  17. zoo_train - GCViTUNETR, SegFormer3D and SwinSegFormer trained at full
-                 width: steps at batch 8 (or the largest of 4 and 2 that
-                 fits; launches by kernel and route, the loss falls, the
-                 BatchNorm running statistics move, ms per step, peak
-                 memory), one step's gradients against the fp32 plain path,
+                 width: 4 steps at batch 8 (every step's launches by
+                 kernel and route, the loss falls, the BatchNorm running
+                 statistics move, ms per step, peak memory), one step's
+                 gradients against the fp32 plain path,
                  then the training CLI at that batch and at batch 4 with
                  --grad_accum_steps 2 --fused_loss (K8, and K5 in
-                 GCViTUNETR's decoder).
+                 GCViTUNETR's decoder);
+ 18. swin_opts - SwInception and SwinDepth at full width (bf16 card vs
+                 fp32 CPU on one window, one predictor call of 16 windows:
+                 K1 8, K2 0; 4 steps at batch 8, each block's attention
+                 alone against plain, the whole gradient of a batch-2 step
+                 against the bf16 plain control, the training CLI), the
+                 flagship with --rel_pos_bias_affine --global_token (the
+                 unfused attention: K1 0, K2 8 a call) and with the
+                 embedding options (--learned_cls_vectors --lcv_final_layer
+                 --rel_crop_pos_emb --abs_pos_emb --patch_size 2 2 1, through
+                 the prediction CLI, also with --tta_mirror), 4 steps of each
+                 option set at batch 2, and one SwInception step under
+                 MEDSEG_DW27_PALLAS=1 MEDSEG_WINOGRAD_TRAIN=1 with every K5
+                 and K9 launch held against cuDNN's wgrad / F.conv3d.
 The kernels group `f5` (in the default set) holds the same paths' kernels at
 their shapes against their plain versions, timed: K7's streaming route at
 SegFormer3D's four stages at vol 160 (M = 125) and at stage 4 with
@@ -127,9 +140,13 @@ in fp32. The group `r15` holds K1, K3 (every output), K6 and K7 at head
 dims 48 and 96 (the stages of hidden 48 and 96 with heads 1 2 4 8, batch 2,
 K7 at vol 96 and 160) in bf16 and fp32 against their plain versions, reruns
 bit-equal, timed beside their bounds and SDPA.
+`--phases zoo_grads` (not run by default) prints the whole-gradient readings
+behind ZOO_GRAD_CTL_FACTOR and, for SwInception and SwinDepth, the block
+controls behind holding their attention alone (`_swin_block_controls`);
 `--phases profile` (not run by default) prints torch.profiler tables of one
-training step at batch 8, one micro-step at batch 4, one predictor call of
-each zoo model and one of the flagship without and with the fused decoder;
+training step at batch 8 of the flagship, SwInception and SwinDepth, one
+micro-step at batch 4, one predictor call of each zoo model, SwInception and
+SwinDepth, and one of the flagship without and with the fused decoder;
 `--phases k9_parts`, `--phases k5_parts`, `--phases attn_parts`, `--phases
 mlp_parts` and `--phases sr_parts` time K9, K5, the tensor-core launches of
 K1 and K3, the tensor-core K2 and K4, and the tensor-core K7, built with one
@@ -157,7 +174,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32",
-          "eval", "f5", "r15", "zoo_train")
+          "eval", "f5", "r15", "zoo_train", "swin_opts")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5",
                  "r15")
@@ -708,11 +725,11 @@ def _read_routes():
             "sr_attention": dict(ksr.route_launches)}
 
 
-def _add_routes(phase):
-    """The launches by route since the last
-    ``_reset_launches``: print them, add them to ROUTE_TOTALS for the
+def _add_routes(phase, routes=None):
+    """The launches by route since the last ``_reset_launches`` (or
+    ``routes``, read so): print them, add them to ROUTE_TOTALS for the
     kernels line and return them."""
-    routes = _read_routes()
+    routes = _read_routes() if routes is None else routes
     print(f"{phase}: launches by route "
           f"{ {k: v for k, v in routes.items() if any(v.values())} }",
           flush=True)
@@ -1802,9 +1819,12 @@ def _seeded_model(cfg, gen):
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith(("qkv.weight", "proj.weight", "fc1.weight",
-                              "fc2.weight", ".q.weight", ".kv.weight")):
+                              "fc2.weight", ".q.weight", ".kv.weight",
+                              ".fc.weight", "gt_upsample.weight",
+                              "rel_crop_pos_emb.weight")):
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
-            elif name.endswith("relative_position_bias_table"):
+            elif name.endswith(("relative_position_bias_table",
+                                "rel_pos_bias_affine_emb", "global_token")):
                 p.normal_(0.0, 0.5, generator=gen)
             elif name.startswith("encoder") and name.endswith("bias"):
                 p.normal_(0.0, 0.1, generator=gen)
@@ -1816,13 +1836,101 @@ def _seeded_model(cfg, gen):
     return model.eval()
 
 
+def _model_vs_cpu(tag, cfg, want, x_in, xb):
+    """The full-width model of ``cfg`` with seeded weights: bf16 + kernels
+    on the card against fp32 + plain on the CPU on the one window ``x_in``
+    (the encoder's pyramid and the logits within MODEL_REL_TOL), then one
+    predictor call on the windows ``xb`` (CPU tensors): its launches, which
+    must be ``want`` (0 for every other kernel), on the tensor-core routes,
+    its ms with the kernels and with their plain versions, peak memory.
+    Returns the call's launches."""
+    import copy
+
+    import torch
+
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = _seeded_model(cfg, gen)
+    ref = copy.deepcopy(model)
+    ref.dtype = torch.float32
+    # the encoder's pyramid of the same two forwards: the logits lean on
+    # the full-resolution skip, the deepest scale only on the encoder
+    pyramids = []
+    hooks = [m.encoder.register_forward_hook(
+        lambda mod, args, out: pyramids.append([o.float().cpu() for o in out]))
+        for m in (ref, model)]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want_logits = ref(x_in)
+        cpu_s = time.perf_counter() - t0
+        del ref
+        gpu = model.to("cuda")
+        x_gpu = tuple(t.to("cuda") for t in x_in)
+        got = gpu(x_gpu)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        scales = [float((g - w).norm() / w.norm())
+                  for w, g in zip(*pyramids)]
+        print(f"{tag} encoder pyramid, rel norm err per scale "
+              f"{' '.join(f'{v:.3e}' for v in scales)} (tol "
+              f"{MODEL_REL_TOL})", flush=True)
+        _require(len(scales) == 5 and max(scales) <= MODEL_REL_TOL,
+                 f"{tag}: the encoder's bf16 pyramid disagrees with the fp32 "
+                 "CPU reference")
+        del pyramids
+        shape = tuple(x_in[0].shape[:4]) + (cfg.output_dim,)
+        _require(tuple(got.shape) == shape and got.dtype == torch.float32,
+                 f"{tag}: logits {tuple(got.shape)} {got.dtype}")
+        _require(bool(torch.isfinite(got).all()), f"{tag}: non-finite logits")
+        got = got.cpu()
+        rel = float((got - want_logits).norm() / want_logits.norm())
+        agree = float((got.argmax(-1) == want_logits.argmax(-1)).float().mean())
+        print(f"{tag} 96^3, bf16+kernels (card) vs fp32 plain (CPU, "
+              f"{cpu_s:.1f} s): rel norm err {rel:.3e} (tol "
+              f"{MODEL_REL_TOL}), argmax agreement {agree:.4f}", flush=True)
+        _require(rel <= MODEL_REL_TOL, f"{tag}: bf16 card logits disagree "
+                 "with the fp32 CPU reference")
+        del got, want_logits
+
+        xb = tuple(t.to("cuda") for t in xb)
+        n = xb[0].shape[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        out = gpu(xb)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        _check_routes(tag, "tensor_core")
+        peak = torch.cuda.max_memory_allocated()
+        _require(tuple(out.shape) == (n,) + shape[1:]
+                 and bool(torch.isfinite(out).all()),
+                 f"{tag}: logits of {n} windows")
+        del out
+        _require_launches(f"{tag} (one predictor call)", launches,
+                          {**dict.fromkeys(launches, 0), **want})
+
+        def call_ms(plain):
+            if plain:
+                with _plain_kernels():
+                    return _time_ms(lambda: gpu(xb), 2)
+            return _time_ms(lambda: gpu(xb), 2)
+
+        ms = [call_ms(plain) for plain in (False, True, True, False)]
+        print(f"{tag} one predictor call ({n} windows): kernels {ms[0]:.1f} "
+              f"ms, plain {ms[1]:.1f}, plain {ms[2]:.1f}, kernels "
+              f"{ms[3]:.1f}; peak device memory {peak / 2 ** 30:.2f} GiB; "
+              f"launches { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+    del model, gpu, xb
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_zoo():
     """GCViTUNETR, SegFormer3D and SwinSegFormer at the full default widths:
     bf16 + kernels on the card against fp32 + plain on the CPU on one window,
     then one predictor call of 16 windows: launch counts, ms with the kernels
     and with their plain versions, peak device memory."""
-    import copy
-
     import torch
 
     from medicalsemseg_tpu_torch.config import get_args
@@ -1830,87 +1938,14 @@ def phase_zoo():
     total = None
     for name in ZOO_MODELS:
         cfg = get_args(_zoo_args(name))
-        gen = torch.Generator().manual_seed(cfg.seed)
-        model = _seeded_model(cfg, gen)
-        ref = copy.deepcopy(model)
-        ref.dtype = torch.float32
+        gen = torch.Generator().manual_seed(cfg.seed + 1)
         vol = torch.randn(1, 96, 96, 96, 1, generator=gen)
         x_in = (vol, torch.full((1, 3), 0.5), torch.ones(1, 3))
-        # the encoder's pyramid of the same two forwards: the logits lean on
-        # the full-resolution skip, the deepest scale only on the encoder
-        pyramids = []
-        hooks = [m.encoder.register_forward_hook(
-            lambda mod, args, out: pyramids.append([o.float().cpu() for o in out]))
-            for m in (ref, model)]
-        with torch.inference_mode():
-            t0 = time.perf_counter()
-            want = ref(x_in)
-            cpu_s = time.perf_counter() - t0
-            del ref
-            gpu = model.to("cuda")
-            x_gpu = tuple(t.to("cuda") for t in x_in)
-            got = gpu(x_gpu)
-            torch.cuda.synchronize()
-            for h in hooks:
-                h.remove()
-            scales = [float((g - w).norm() / w.norm())
-                      for w, g in zip(*pyramids)]
-            print(f"zoo: {name} encoder pyramid, rel norm err per scale "
-                  f"{' '.join(f'{v:.3e}' for v in scales)} (tol "
-                  f"{MODEL_REL_TOL})", flush=True)
-            _require(len(scales) == 5 and max(scales) <= MODEL_REL_TOL,
-                     f"zoo {name}: the encoder's bf16 pyramid disagrees with "
-                     "the fp32 CPU reference")
-            del pyramids
-            _require(got.shape == (1, 96, 96, 96, 14)
-                     and got.dtype == torch.float32,
-                     f"zoo {name}: logits {tuple(got.shape)} {got.dtype}")
-            _require(bool(torch.isfinite(got).all()),
-                     f"zoo {name}: non-finite logits")
-            got = got.cpu()
-            rel = float((got - want).norm() / want.norm())
-            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-            print(f"zoo: {name} 96^3, bf16+kernels (card) vs fp32 plain (CPU, "
-                  f"{cpu_s:.1f} s): rel norm err {rel:.3e} (tol "
-                  f"{MODEL_REL_TOL}), argmax agreement {agree:.4f}",
-                  flush=True)
-            _require(rel <= MODEL_REL_TOL, f"zoo {name}: bf16 card logits "
-                     "disagree with the fp32 CPU reference")
-            del got, want
-
-            xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_gpu)
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
-            out = gpu(xb)
-            torch.cuda.synchronize()
-            launches = _read_launches()
-            _check_routes(f"zoo {name}", "tensor_core")
-            peak = torch.cuda.max_memory_allocated()
-            _require(out.shape == (PREDICT_BATCH, 96, 96, 96, 14)
-                     and bool(torch.isfinite(out).all()),
-                     f"zoo {name}: logits of {PREDICT_BATCH} windows")
-            del out
-            _require_launches(f"zoo {name} (one predictor call)", launches,
-                              {**dict.fromkeys(launches, 0),
-                               **ZOO_LAUNCHES[name]})
-            total = launches if total is None else {
-                k: total[k] + v for k, v in launches.items()}
-
-            def call_ms(plain):
-                if plain:
-                    with _plain_kernels():
-                        return _time_ms(lambda: gpu(xb), 2)
-                return _time_ms(lambda: gpu(xb), 2)
-
-            ms = [call_ms(plain) for plain in (False, True, True, False)]
-            print(f"zoo: {name} one predictor call ({PREDICT_BATCH} windows): "
-                  f"kernels {ms[0]:.1f} ms, plain {ms[1]:.1f}, plain "
-                  f"{ms[2]:.1f}, kernels {ms[3]:.1f}; peak device memory "
-                  f"{peak / 2 ** 30:.2f} GiB; launches "
-                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-        del model, gpu, xb
-        torch.cuda.empty_cache()
+        xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_in)
+        launches = _model_vs_cpu(f"zoo: {name}", cfg, ZOO_LAUNCHES[name],
+                                 x_in, xb)
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
     return total
 
 
@@ -2195,56 +2230,102 @@ def _grads_of(net, loss_fn, batch):
     net.train()
     logits = net((batch["image"], batch["crop_loc"], batch["affine"]))
     loss = loss_fn(logits, batch["label"])
-    grads = torch.autograd.grad(loss, list(net.parameters()))
-    return float(loss.detach()), [g.float() for g in grads]
+    params = list(net.parameters())
+    # the last stage's gt_upsample (--global_token) does not reach the loss
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p, dtype=torch.float32)
+                                  if g is None else g.float()
+                                  for p, g in zip(params, grads)]
+
+
+def _block_inputs(model, run, cls):
+    """(what ``run(model)`` returned, {name: (args, kwargs)}): the detached
+    inputs of every block of class ``cls`` in that forward, positional and
+    by keyword."""
+    import torch
+
+    def detached(v):
+        return v.detach() if isinstance(v, torch.Tensor) else v
+
+    inputs = {}
+    hooks = [blk.register_forward_pre_hook(
+        lambda mod, args, kwargs, name=name: inputs.__setitem__(
+            name, ([detached(a) for a in args],
+                   {k: detached(v) for k, v in kwargs.items()})),
+        with_kwargs=True)
+        for name, blk in model.named_modules() if isinstance(blk, cls)]
+    result = run(model)
+    for h in hooks:
+        h.remove()
+    return result, inputs
+
+
+def _block_grads(blk, args, kwargs):
+    """([output, every input gradient, every parameter gradient] as fp32,
+    the names of the keyword inputs held) of one training-mode forward and
+    backward of ``blk`` alone, with a seeded cotangent and seeded DropPath
+    draws. A floating-point tensor among the keyword inputs is an input
+    whose gradient is held too (e.g. the LayerNorm rows ``ln`` of a
+    ``WindowAttention``); of a tuple output (a SwinBlock's (x, gt)) the
+    first entry is held."""
+    import torch
+
+    _seed_drop_path(blk, 11)
+    x = args[0].clone().requires_grad_()
+    kw = {k: v.clone().requires_grad_()
+          if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+          for k, v in kwargs.items()}
+    extra = [k for k, v in kw.items() if isinstance(v, torch.Tensor)
+             and v.requires_grad]
+    y = blk(x, *args[1:], **kw)
+    if isinstance(y, tuple):
+        y = y[0]
+    cot = torch.randn(y.shape, device="cuda", dtype=y.dtype,
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+    grads = torch.autograd.grad(
+        (y.float() * cot.float()).sum(),
+        [x] + [kw[k] for k in extra] + list(blk.parameters()),
+        allow_unused=True)
+    return ([y.detach().float()] + [None if g is None else g.float()
+                                    for g in grads], extra)
+
+
+def _block_errors(blk, args, kwargs, ctx):
+    """Relative error norms ({"y", "dx", "d<keyword input>", parameter
+    name: err}) of ``_block_grads`` inside ``ctx()`` against the same inside
+    ``_plain_kernels()``."""
+    with ctx():
+        a, extra = _block_grads(blk, args, kwargs)
+    with _plain_kernels():
+        b, _ = _block_grads(blk, args, kwargs)
+    labels = (["y", "dx"] + [f"d{k}" for k in extra]
+              + [n for n, _ in blk.named_parameters()])
+    return {n: float((u - v).norm() / v.norm())
+            for n, u, v in zip(labels, a, b) if v is not None}
 
 
 def _blocks_vs_plain(phase, model, run, cls):
     """Each block of class ``cls`` on its own, the kernels against their
     plain versions (both bf16): the block's inputs from the training-mode
     forward of ``run(model)``, a seeded cotangent standing for the rest of
-    the network, and the block's output, input gradient and every parameter
-    gradient within TRAIN_BLOCK_REL_TOL (inside the whole model a deep
-    block's gradients sit at their noise floor, PERF.md PR 2). Returns
+    the network, and the block's output, every input gradient and every
+    parameter gradient within TRAIN_BLOCK_REL_TOL (inside the whole model a
+    deep block's gradients sit at their noise floor, PERF.md). Returns
     (what ``run`` returned, the number of blocks)."""
-    import torch
+    import contextlib
 
-    inputs = {}
-    hooks = [blk.register_forward_pre_hook(
-        lambda mod, args, name=name: inputs.__setitem__(
-            name, [a.detach() for a in args]))
-        for name, blk in model.named_modules() if isinstance(blk, cls)]
-    result = run(model)
-    for h in hooks:
-        h.remove()
-
-    def block_grads(blk, args):
-        _seed_drop_path(blk, 11)
-        x = args[0].clone().requires_grad_()
-        y = blk(x, *args[1:])
-        cot = torch.randn(y.shape, device="cuda", dtype=y.dtype,
-                          generator=torch.Generator(device="cuda").manual_seed(3))
-        grads = torch.autograd.grad((y.float() * cot.float()).sum(),
-                                    [x] + list(blk.parameters()))
-        return [y.detach().float()] + [g.float() for g in grads]
-
-    for name, args in inputs.items():
-        blk = model.get_submodule(name)
-        a = block_grads(blk, args)
-        with _plain_kernels():
-            b = block_grads(blk, args)
-        labels = ["y", "dx"] + [n for n, _ in blk.named_parameters()]
-        errs = {n: float((u - v).norm() / v.norm())
-                for n, u, v in zip(labels, a, b)}
+    result, inputs = _block_inputs(model, run, cls)
+    for name, (args, kwargs) in inputs.items():
+        errs = _block_errors(model.get_submodule(name), args, kwargs,
+                             contextlib.nullcontext)
         worst = max(errs, key=errs.get)
         print(f"{phase}: {name} alone (input {tuple(args[0].shape)}), "
               f"kernels vs plain, bf16: y {errs['y']:.3e}, dx "
-              f"{errs['dx']:.3e}, worst of {len(errs) - 2} parameter "
-              f"gradients {worst} {errs[worst]:.3e} (tol "
-              f"{TRAIN_BLOCK_REL_TOL})", flush=True)
+              f"{errs['dx']:.3e}, worst of {len(errs) - 2} other gradients "
+              f"{worst} {errs[worst]:.3e} (tol {TRAIN_BLOCK_REL_TOL})",
+              flush=True)
         _require(errs[worst] <= TRAIN_BLOCK_REL_TOL, f"{phase}: {name}: "
                  f"{worst} with the kernels is off by {errs[worst]:.3e}")
-        del a, b
     return result, len(inputs)
 
 
@@ -2507,14 +2588,17 @@ def phase_train_b4():
 
 
 def phase_profile():
-    """torch.profiler over one warm training step at batch 8, one warm
-    micro-step at batch 4 with the fused loss, and one warm predictor call of
-    16 windows of each zoo model: device time by kernel name, for PERF.md's
-    "where the time goes"."""
+    """torch.profiler over one warm training step at batch 8 of the
+    flagship, SwInception and SwinDepth, one warm micro-step at batch 4 with
+    the fused loss, and one warm predictor call of 16 windows of each zoo
+    model and of SwInception and SwinDepth: device time by kernel name, for
+    PERF.md's "where the time goes"."""
     with _dw27_mode(None):
         _profile_step(TRAIN_BATCH, ())
         _profile_step(TRAIN_B4_BATCH, TRAIN_B4_FLAGS)
-    for name in ZOO_MODELS:
+        for name in SWIN_MLP_MODELS:
+            _profile_step(TRAIN_BATCH, ("--model", name))
+    for name in ZOO_MODELS + SWIN_MLP_MODELS:
         _profile_call(name)
     _profile_call("nnFormerUNETR")
     _profile_call("nnFormerUNETR", "MEDSEG_FUSED_DECODER")
@@ -4488,13 +4572,17 @@ def phase_r15():
 # blocks (its 4 global blocks have no backward kernel and run the module's
 # unfused attention) and K2 / K4 in all 8 MLPs; SwinSegFormer runs K1-K4 in
 # its 8 Swin blocks; SegFormer3D runs none of them (K7 has no backward
-# kernel); K5 and K8 stay off at batch 8 (K5's gate window ends at 4M voxels;
-# the loss is the unfused one).
+# kernel); SwInception and SwinDepth run K1 / K3 in their 8 blocks and no K2
+# / K4 (their inception and depthwise MLPs have no kernel); K5 and K8 stay
+# off at batch 8 (K5's gate window ends at 4M voxels; the loss is the
+# unfused one).
 ZOO_TRAIN_LAUNCHES = {
     "GCViTUNETR": {"window_attention": 4, "window_attention_bwd": 4,
                    "fused_mlp": 8, "fused_mlp_bwd": 8},
     "SegFormer3D": {},
     "SwinSegFormer": dict.fromkeys(SWIN_KERNELS, 8),
+    "SwInception": {"window_attention": 8, "window_attention_bwd": 8},
+    "SwinDepth": {"window_attention": 8, "window_attention_bwd": 8},
 }
 ZOO_TRAIN_STEPS = 4
 # crops a step: all three models fit the card at batch 8 (PERF.md, PR 12),
@@ -4517,28 +4605,34 @@ ZOO_GRAD_CTL_FACTOR = 1.08
 ZOO_GRAD_COARSE_BITS = (1, 2, 3)
 # --n_images_per_batch 4 --grad_accum_steps 2 --fused_loss: per micro-step
 # K8 once forward and once backward, and K5 for the UNETR decoder's three
-# full-resolution convs (GCViTUNETR only: the SegFormer heads have no 3^3
-# stride-1 conv)
-ZOO_B4_K5 = {"GCViTUNETR": 3, "SegFormer3D": 0, "SwinSegFormer": 0}
+# full-resolution convs (the UNETR decoders of GCViTUNETR, SwInception and
+# SwinDepth: the SegFormer heads have no 3^3 stride-1 conv)
+ZOO_B4_K5 = {"GCViTUNETR": 3, "SegFormer3D": 0, "SwinSegFormer": 0,
+             "SwInception": 3, "SwinDepth": 3}
 
 
-def _zoo_train_steps(name, batch_size):
-    """ZOO_TRAIN_STEPS steps of ``name`` at ``batch_size`` on one seeded
-    batch: losses, ms, peak memory, the launches of the last step, whether
-    the BatchNorm running statistics moved. Fails where the batch does not
-    fit the card."""
+def _zoo_train_steps(name, batch_size, extra=(), batch_fn=None):
+    """ZOO_TRAIN_STEPS steps of ``name`` (with the flags ``extra``) at
+    ``batch_size`` on one seeded batch (``_train_batch``, or
+    ``batch_fn(batch)`` of it): losses, ms, peak memory, the launches of
+    each step (``steps``) and of all of them (``launches``), the routes of
+    all of them (added to ROUTE_TOTALS), whether the BatchNorm running
+    statistics moved. Fails where the batch does not fit the card."""
     import torch
 
     from medicalsemseg_tpu_torch.models.layers import BatchNorm
 
-    cfg, model, state, train_step = _train_setup(["--model", name])
+    cfg, model, state, train_step = _train_setup(["--model", name,
+                                                  *extra])
     gen = torch.Generator(device="cuda").manual_seed(21)
     batch = _train_batch(gen, batch_size, cfg.output_dim)
+    if batch_fn is not None:
+        batch = batch_fn(batch)
     stats = [b.clone() for m in model.modules() if isinstance(m, BatchNorm)
              for b in (m.running_mean, m.running_var)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, steps, routes = [], [], [], {}
     for step in range(ZOO_TRAIN_STEPS):
         _reset_launches()
         torch.cuda.synchronize()
@@ -4556,22 +4650,35 @@ def _zoo_train_steps(name, batch_size):
         losses.append(float(m["loss"]))
         _require(all(bool(torch.isfinite(u).all()) for u in m.values()),
                  f"zoo_train {name}: non-finite metrics at step {step}")
-    launches = _read_launches()
-    routes = _add_routes(f"zoo_train {name} step {ZOO_TRAIN_STEPS - 1}")
+        steps.append(_read_launches())
+        for kernel, by in _read_routes().items():
+            for r, n in by.items():
+                routes.setdefault(kernel, {}).setdefault(r, 0)
+                routes[kernel][r] += n
+    launches = {k: sum(s[k] for s in steps) for k in steps[0]}
+    routes = _add_routes(f"zoo_train {name}, {ZOO_TRAIN_STEPS} steps", routes)
     moved = [b for m in model.modules() if isinstance(m, BatchNorm)
              for b in (m.running_mean, m.running_var)]
     moved = all(not torch.equal(a, b) for a, b in zip(stats, moved))
     return dict(cfg=cfg, model=model, losses=losses, times=times,
-                launches=launches, routes=routes, bn=len(stats) // 2,
+                steps=steps, launches=launches, routes=routes,
+                bn=len(stats) // 2,
                 bn_moved=moved, peak=torch.cuda.max_memory_allocated())
 
 
-# the blocks that run kernels in a zoo model's training step
+# the modules held alone against plain in a model's training step: the
+# blocks that run kernels, or, in SwInception and SwinDepth, the blocks'
+# attention (K1, K3 with the LayerNorm rows as an input): their whole
+# blocks carry the plain MLP's bf16 autograd, which turns the kernels' 5e-5
+# change of its input into ~8e-3 of its own gradients and 2.5e-3 of the
+# attention's (PERF.md, Findings; the control is in zoo_grads)
 def _zoo_block_class(name):
     from medicalsemseg_tpu_torch.models.gcvit import GCViTBlock
-    from medicalsemseg_tpu_torch.models.swin import SwinBlock
+    from medicalsemseg_tpu_torch.models.swin import SwinBlock, WindowAttention
 
-    return {"GCViTUNETR": GCViTBlock, "SwinSegFormer": SwinBlock}.get(name)
+    return {"GCViTUNETR": GCViTBlock, "SwinSegFormer": SwinBlock,
+            "SwInception": WindowAttention,
+            "SwinDepth": WindowAttention}.get(name)
 
 
 def _unfused_ms(model, batch):
@@ -4615,18 +4722,21 @@ def _unfused_ms(model, batch):
     return total, len(calls)
 
 
-def _zoo_train_cli(name, tmp, batch_size):
-    """The training CLI on the synthetic set in ``tmp``: one epoch at
-    ``batch_size`` with validation and a checkpoint, then one epoch of
-    micro-steps at batch 4 with --grad_accum_steps 2 --fused_loss. Returns
-    the launches of both runs."""
+def _zoo_train_cli(name, tmp, batch_size, extra=()):
+    """The training CLI on the synthetic set in ``tmp`` (``name`` with the
+    flags ``extra``): one epoch at ``batch_size`` with validation and a
+    checkpoint, then one epoch of micro-steps at batch 4 with
+    --grad_accum_steps 2 --fused_loss. Requires the backward kernels'
+    launches of a step (ZOO_TRAIN_LAUNCHES[name]) and K5's of a batch-4
+    micro-step (ZOO_B4_K5[name]). Returns the launches of both runs."""
     import numpy as np
     import torch
 
     from medicalsemseg_tpu_torch.cli import run_training
     from medicalsemseg_tpu_torch.config import get_args
 
-    base = TRAIN_ARGS + [
+    bwd, b4_k5 = ZOO_TRAIN_LAUNCHES[name], ZOO_B4_K5[name]
+    base = TRAIN_ARGS + list(extra) + [
         "--model", name, "--data_path", tmp, "--task", "Task03_ZooTrain",
         "--t_fixed_ct_intensity", "--t_rand_crop_fgbg", "--t_spatial_pad",
         "--val_interval", "1", "--save_ckpt_freq", "1",
@@ -4639,8 +4749,7 @@ def _zoo_train_cli(name, tmp, batch_size):
              n_train // batch_size),
             ("batch 4, --grad_accum_steps 2, --fused_loss", TRAIN_B4_FLAGS,
              n_train // TRAIN_B4_BATCH)):
-        out = os.path.join(tmp, f"{name}_{len(total)}")
-        os.makedirs(out)
+        out = tempfile.mkdtemp(prefix=f"{name}_", dir=tmp)
         _reset_launches()
         t0 = time.perf_counter()
         with _dw27_mode(None):
@@ -4661,11 +4770,11 @@ def _zoo_train_cli(name, tmp, batch_size):
         if "--fused_loss" in extra:
             _require_launches(f"zoo_train {name} CLI {tag}", launches, {
                 "dice_ce_sums": micro, "dice_ce_dlogits": micro,
-                "dw27": ZOO_B4_K5[name] * micro})
+                "dw27": b4_k5 * micro})
         else:
             _require_launches(f"zoo_train {name} CLI {tag}", launches, {
                 "dice_ce_sums": 0, "dice_ce_dlogits": 0, "dw27": 0})
-        for k, v in ZOO_TRAIN_LAUNCHES[name].items():
+        for k, v in bwd.items():
             if k.endswith("_bwd"):
                 _require(launches[k] == v * micro,
                          f"zoo_train {name} CLI {tag}: {k} launched "
@@ -4799,11 +4908,12 @@ def phase_zoo_train():
             batch_size = ZOO_TRAIN_BATCH
             run = _zoo_train_steps(name, batch_size)
             torch.cuda.empty_cache()
-            launches, routes = run["launches"], run["routes"]
-            for k, v in launches.items():
-                total[k] = total.get(k, 0) + v * ZOO_TRAIN_STEPS
-            _require_launches(f"zoo_train {name} (one step)", launches, {
-                **dict.fromkeys(launches, 0), **ZOO_TRAIN_LAUNCHES[name]})
+            launches, routes = run["steps"][-1], run["routes"]
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+            for i, step in enumerate(run["steps"]):
+                _require_launches(f"zoo_train {name} (step {i})", step, {
+                    **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name]})
             _require(all(by["cuda_core"] == 0 for by in routes.values()),
                      f"zoo_train {name}: a launch took the CUDA cores "
                      f"{routes}")
@@ -4868,17 +4978,101 @@ def phase_zoo_train():
     return total
 
 
+class _attn_shifted:
+    """Inside the block the plain versions run, and the attention ``attn``
+    returns its output plus ``delta``: the forward's change by the kernels
+    without their backward (the control of phase zoo_grads)."""
+
+    def __init__(self, attn, delta):
+        self.attn, self.delta = attn, delta
+
+    def __enter__(self):
+        self.plain = _plain_kernels()
+        self.plain.__enter__()
+        self.hook = self.attn.register_forward_hook(
+            lambda mod, args, out: out + self.delta)
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+        self.plain.__exit__(*exc)
+
+
+def _swin_block_controls(name, model, run):
+    """The readings behind holding SwInception's and SwinDepth's attention
+    alone (``_zoo_block_class``): each whole SwinBlock (the plain MLP's bf16
+    autograd included) against plain with the kernels, and with the plain
+    versions whose attention output is shifted by what the kernels change
+    of it on the same input (the cause's control: no kernel runs); then
+    each attention alone with the kernels and with K1-K4's outputs
+    coarsened by ZOO_GRAD_COARSE_BITS (what the 2e-3 limit must catch).
+    Prints the worst of each over the blocks."""
+    import contextlib
+
+    from medicalsemseg_tpu_torch.models.swin import SwinBlock, WindowAttention
+
+    def group(errs, prefixes):
+        return max((v, k) for k, v in errs.items() if k.startswith(prefixes))
+
+    _, inputs = _block_inputs(model, run, SwinBlock)
+    whole = {"kernels": [], "plain, attention output shifted": []}
+    for block, (args, kwargs) in inputs.items():
+        blk = model.get_submodule(block)
+        outs = []
+        hook = blk.attn.register_forward_hook(
+            lambda mod, a, out: outs.append(out.detach()))
+        for ctx in (contextlib.nullcontext, _plain_kernels):
+            with ctx():
+                _seed_drop_path(blk, 11)
+                blk(*args, **kwargs)
+        hook.remove()
+        for label, ctx in (
+                ("kernels", contextlib.nullcontext),
+                ("plain, attention output shifted",
+                 lambda: _attn_shifted(blk.attn, outs[0] - outs[1]))):
+            errs = _block_errors(blk, args, kwargs, ctx)
+            attn, mlp = group(errs, ("attn.", "norm1.")), group(errs, (
+                "mlp.", "norm2."))
+            whole[label].append((errs["dx"], attn[0]))
+            change = float((outs[0] - outs[1]).float().norm()
+                           / outs[1].float().norm())
+            print(f"zoo_grads: {name} {block} whole (input "
+                  f"{tuple(args[0].shape)}), {label} vs plain: y "
+                  f"{errs['y']:.3e}, dx {errs['dx']:.3e}, attention's worst "
+                  f"{attn[1]} {attn[0]:.3e}, MLP's worst {mlp[1]} "
+                  f"{mlp[0]:.3e} (the kernels change the attention's output "
+                  f"by {change:.3e})", flush=True)
+        del outs
+    for label, errs in whole.items():
+        print(f"zoo_grads: {name} control, whole blocks, {label}: worst dx "
+              f"{max(e[0] for e in errs):.3e}, worst attention gradient "
+              f"{max(e[1] for e in errs):.3e} over {len(errs)} blocks",
+              flush=True)
+    _, inputs = _block_inputs(model, run, WindowAttention)
+    for bits in (0,) + ZOO_GRAD_COARSE_BITS:
+        ctx = ((lambda: _coarse_kernels(bits)) if bits
+               else contextlib.nullcontext)
+        worst = max(max(_block_errors(model.get_submodule(attn), args,
+                                      kwargs, ctx).values())
+                    for attn, (args, kwargs) in inputs.items())
+        label = f"kernels with {bits} bits cleared" if bits else "kernels"
+        print(f"zoo_grads: {name} control, each attention alone, {label}: "
+              f"worst {worst:.3e} over {len(inputs)} (tol "
+              f"{TRAIN_BLOCK_REL_TOL})", flush=True)
+
+
 def phase_zoo_grads():
-    """The readings behind ZOO_GRAD_CTL_FACTOR: each zoo model's whole
-    gradient of one step at batch 2 against fp32 plain, with the kernels and
-    with bf16 plain (the control), on the batches of ZOO_GRAD_SEEDS; on the
-    first, also with K1-K4's outputs coarsened by ZOO_GRAD_COARSE_BITS (the
-    controls the check must fail). SegFormer3D's step runs none of K1-K4."""
+    """The readings behind ZOO_GRAD_CTL_FACTOR: each zoo model's, and
+    SwInception's and SwinDepth's, whole gradient of one step at batch 2
+    against fp32 plain, with the kernels and with bf16 plain (the control),
+    on the batches of ZOO_GRAD_SEEDS; on the first, also with K1-K4's
+    outputs coarsened by ZOO_GRAD_COARSE_BITS (the controls the check must
+    fail), and for SwInception and SwinDepth the block controls of
+    ``_swin_block_controls``. SegFormer3D's step runs none of K1-K4."""
     import contextlib
 
     import torch
 
-    for name in ZOO_MODELS:
+    for name in ZOO_MODELS + SWIN_MLP_MODELS:
         cfg, model, _, _ = _train_setup(["--model", name])
         for i, seed in enumerate(ZOO_GRAD_SEEDS):
             runs = {"kernels": contextlib.nullcontext,
@@ -4895,8 +5089,349 @@ def phase_zoo_grads():
                     print(f"zoo_grads: {name} control, {label}: "
                           f"{err / ctl:.3f} times the bf16 plain error",
                           flush=True)
+        if name in SWIN_MLP_MODELS:
+            _swin_block_controls(name, model,
+                                 _zoo_grad_fn(cfg, ZOO_GRAD_SEEDS[0]))
         del model
         torch.cuda.empty_cache()
+
+
+# ---- the thirteenth slice: SwInception, SwinDepth and every option of the
+# Swin encoder, for prediction and training
+
+SWIN_MLP_MODELS = ("SwInception", "SwinDepth")
+SWIN_EMBEDDING_FLAGS = ["--learned_cls_vectors", "--lcv_final_layer",
+                        "--rel_crop_pos_emb", "--abs_pos_emb", "--patch_size",
+                        "2", "2", "1"]
+SWIN_ATTENTION_FLAGS = ["--rel_pos_bias_affine", "--global_token"]
+# a non-uniform voxel spacing (the affine-scaled bias reads it)
+SWIN_OPTS_AFFINE = (0.8, 0.8, 2.5)
+# kernel launches of one predictor call and of one training step: the
+# inception and depthwise MLPs have no kernel, so those models launch K1
+# (K3) in their 8 blocks and no K2 (K4); the attention options take every
+# block off K1 / K3 (the unfused attention), not off K2 / K4
+SWIN_OPTS_CALL = {
+    "SwInception": {"window_attention": 8},
+    "SwinDepth": {"window_attention": 8},
+    "embedding": {"window_attention": 8, "fused_mlp": 8},
+    "attention": {"fused_mlp": 8},
+}
+SWIN_OPTS_STEP = {
+    **{name: ZOO_TRAIN_LAUNCHES[name] for name in SWIN_MLP_MODELS},
+    "embedding": dict.fromkeys(SWIN_KERNELS, 8),
+    "attention": {"fused_mlp": 8, "fused_mlp_bwd": 8},
+}
+SWIN_OPTS_FLAGS = {"SwInception": ["--model", "SwInception"],
+                   "SwinDepth": ["--model", "SwinDepth"],
+                   "embedding": SWIN_EMBEDDING_FLAGS,
+                   "attention": SWIN_ATTENTION_FLAGS}
+# K9 (Winograd, bf16) against F.conv3d in bf16 on the same inputs: the
+# three input-transform stages each round to bf16 (the TPU kernel's points),
+# about twice the direct conv's rounding, as TRAIN_WINO_ALT_REL_TOL says
+WINO_LIBRARY_REL_TOL = 2e-2
+SWIN_OPTS_GATED_BATCH = 2
+
+
+def _opts_inputs(n, gen):
+    """(volume, per-window crop positions, the non-uniform spacing) of
+    ``n`` windows, CPU tensors."""
+    import torch
+
+    return (torch.randn(n, 96, 96, 96, 1, generator=gen),
+            torch.rand(n, 3, generator=gen),
+            torch.tensor(SWIN_OPTS_AFFINE).expand(n, 3).contiguous())
+
+
+def _opts_batch(gen):
+    """A batch_fn of _zoo_train_steps: per-crop positions and the
+    non-uniform spacing in place of _train_batch's constants."""
+    def fn(batch):
+        import torch
+
+        n = batch["image"].shape[0]
+        batch["crop_loc"] = torch.rand(n, 3, generator=gen).to("cuda")
+        batch["affine"] = torch.tensor(SWIN_OPTS_AFFINE,
+                                       device="cuda").expand(n, 3)
+        return batch
+    return fn
+
+
+class _held_convs:
+    """Inside the block every launch of K5 (``dw27``) and K9
+    (``winograd_conv3d_f23``) is also computed by the library on the same
+    inputs (cuDNN's weight gradient, ``F.conv3d``) and its relative error
+    norm recorded in ``errors`` (name -> list); the library's calls are no
+    launches."""
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
+        from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
+
+        self.errors = {"dw27": [], "winograd_conv3d_f23": []}
+        self.saved = [(k5, "dw27", k5.dw27),
+                      (k9, "winograd_conv3d_f23", k9.winograd_conv3d_f23)]
+        ncdhw = lambda t: t.permute(0, 4, 1, 2, 3)  # noqa: E731
+
+        def rel(got, want):
+            return float((got.float() - want.float()).norm()
+                         / want.float().norm())
+
+        def dw(x, dy, _f=k5.dw27):
+            out = _f(x, dy)
+            want = torch.nn.grad.conv3d_weight(
+                ncdhw(x), (dy.shape[-1], x.shape[-1], 3, 3, 3), ncdhw(dy),
+                padding=1)
+            self.errors["dw27"].append(
+                (tuple(x.shape), dy.shape[-1],
+                 rel(out.permute(4, 3, 0, 1, 2), want)))
+            return out
+
+        def wino(x, w, *args, _f=k9.winograd_conv3d_f23, **kw):
+            out = _f(x, w, *args, **kw)
+            want = F.conv3d(ncdhw(x), w, padding=1).permute(0, 2, 3, 4, 1)
+            self.errors["winograd_conv3d_f23"].append(
+                (tuple(x.shape), w.shape[0], rel(out, want)))
+            return out
+
+        k5.dw27, k9.winograd_conv3d_f23 = dw, wino
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _k5_launches_required(model, run):
+    """K5's launches of one ``run()`` of ``model`` with MEDSEG_DW27_PALLAS=1,
+    from the port's gate (``dw27_eligible``) and the input of every 3^3 /
+    stride-1 conv whose weight takes a gradient, seen by hooks in a run
+    with the gate shut."""
+    from medicalsemseg_tpu_torch.ops import convgrad
+
+    count = [0]
+
+    def hook(mod, args, out):
+        with _dw27_mode("1"):
+            count[0] += int(mod.weight.requires_grad
+                            and convgrad.dw27_eligible(args[0].shape))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if _is_conv3_s1(m)]
+    with _dw27_mode("0"):
+        run()
+    for h in hooks:
+        h.remove()
+    return count[0]
+
+
+def _swin_opts_predict_cli(tmp):
+    """The prediction CLI with the embedding options on a synthetic CT
+    volume, without and with --tta_mirror: K1 and K2 in all 8 blocks of
+    every predictor call. Returns the launches of both runs."""
+    import numpy as np
+
+    from medicalsemseg_tpu_torch.cli import run_test
+    from medicalsemseg_tpu_torch.data import nifti
+
+    task = os.path.join(tmp, "Task09_SwinOpts")
+    os.makedirs(os.path.join(task, "imagesTs"))
+    rng = np.random.default_rng(13)
+    aff = np.diag([0.8, 0.8, 2.5, 1.0])
+    nifti.save(nifti.NiftiImage(_ct_volume(rng, (200, 180, 120)), aff),
+               os.path.join(task, "imagesTs", "ct0.nii.gz"))
+    with open(os.path.join(task, "dataset.json"), "w") as f:
+        json.dump({"training": [], "test": ["./imagesTs/ct0.nii.gz"]}, f)
+    total = {}
+    for tta in ([], ["--tta_mirror"]):
+        out = tempfile.mkdtemp(prefix="pred_", dir=tmp)
+        cfg = run_test.get_args(
+            FLAGSHIP_ARGS + SWIN_EMBEDDING_FLAGS + tta + [
+                "--data_path", tmp, "--task", "Task09_SwinOpts",
+                "--output_dir", out, "--device", "cuda"])
+        _reset_launches()
+        t0 = time.perf_counter()
+        records = run_test.main(cfg)
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        calls = sum(r["predictor_calls"] for r in records)
+        _require(calls > 0, "swin_opts CLI: no predictor call")
+        _require_launches(
+            f"swin_opts CLI embedding options {' '.join(tta)}", launches,
+            {**dict.fromkeys(launches, 0),
+             **{k: v * calls for k, v in SWIN_OPTS_CALL["embedding"].items()}})
+        preds = os.listdir(os.path.join(out, "test_output", "Fold0", "pred"))
+        _require(len(preds) == 1, f"swin_opts CLI: predictions {preds}")
+        print(f"swin_opts: prediction CLI, flagship with "
+              f"{' '.join(SWIN_EMBEDDING_FLAGS)} {' '.join(tta)} on a "
+              f"200x180x120 CT volume (spacing 0.8 0.8 2.5): {calls} "
+              f"predictor calls, {wall:.1f} s, windows "
+              f"{[r['windows'] for r in records]}", flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _swin_opts_train(tag, name, extra, batch_size, batch_fn, tmp=None):
+    """Steps of the model at ``batch_size`` (the launches of every step must
+    be SWIN_OPTS_STEP[tag]; the loss falls; the BatchNorms' statistics
+    move); the modules of ``_zoo_block_class(name)`` alone against plain;
+    the whole gradient of a batch-2 step against fp32 plain beside the bf16
+    plain control; with ``tmp`` (the synthetic set's folder) the training
+    CLI at that batch and at batch 4 with accumulation and the fused loss.
+    Returns the launches."""
+    import contextlib
+
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import convgrad
+
+    # both models fit batch 8 (PERF.md, Findings): a batch that no longer fits
+    # fails the phase
+    run = _zoo_train_steps(name, batch_size, extra, batch_fn)
+    total, routes = dict(run["launches"]), run["routes"]
+    # K5 for the decoder's three full-resolution convs where the auto
+    # window of MEDSEG_DW27_PALLAS opens (batch 2-4 of 96^3)
+    with _dw27_mode(None):
+        k5 = 3 * convgrad.dw27_eligible((batch_size, CROP, CROP, CROP, 48))
+    for i, step in enumerate(run["steps"]):
+        _require_launches(f"swin_opts {tag} (step {i})", step, {
+            **dict.fromkeys(step, 0), **SWIN_OPTS_STEP[tag], "dw27": k5})
+    _require(all(by["cuda_core"] == 0 for by in routes.values()),
+             f"swin_opts {tag}: a launch took the CUDA cores {routes}")
+    losses = run["losses"]
+    _require(losses[-1] < losses[0], f"swin_opts {tag}: the loss did not "
+             f"fall: {losses}")
+    _require(run["bn"] == 0 or run["bn_moved"], f"swin_opts {tag}: the "
+             "BatchNorm running statistics did not move")
+    print(f"swin_opts: {tag} batch {batch_size} x 96^3, bf16, "
+          f"{ZOO_TRAIN_STEPS} steps: loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; ms per step "
+          f"{' '.join(f'{t:.0f}' for t in run['times'])} (the first includes "
+          f"cuDNN's choice of algorithms); peak device memory "
+          f"{run['peak'] / 2 ** 30:.2f} GiB; BatchNorms {run['bn']}; "
+          f"launches a step "
+          f"{ {k: v for k, v in run['steps'][-1].items() if v} }",
+          flush=True)
+    cfg, model = run["cfg"], run["model"]
+    del run
+    torch.cuda.empty_cache()
+    seed = ZOO_GRAD_SEEDS[0]
+    blocks = _zoo_block_class(name)
+    if blocks is not None:
+        _, found = _blocks_vs_plain(f"swin_opts {tag}", model,
+                                    _zoo_grad_fn(cfg, seed), blocks)
+        _require(found == 8, f"swin_opts {tag}: {found} attentions")
+    rel, ref = _zoo_grads(cfg, model, seed, {
+        "kernels": contextlib.nullcontext, "bf16 plain": _plain_kernels})
+    ratio = _zoo_grad_line(f"swin_opts {tag}", seed, rel, ref)
+    limit = min(TRAIN_GRAD_REL_TOL, ZOO_GRAD_CTL_FACTOR * rel["bf16 plain"][1])
+    print(f"swin_opts: {tag}: the kernels' whole gradient "
+          f"{rel['kernels'][1]:.3e} from fp32 plain, {ratio:.3f} times the "
+          f"control's (tol {limit:.3e})", flush=True)
+    _require(rel["kernels"][1] <= limit, f"swin_opts {tag}: the gradients "
+             "disagree with the fp32 plain path")
+    del model
+    torch.cuda.empty_cache()
+    if tmp is not None:
+        for k, v in _zoo_train_cli(name, tmp, batch_size, extra).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _swin_opts_gated():
+    """One SwInception training step at batch 2 with MEDSEG_DW27_PALLAS=1
+    and MEDSEG_WINOGRAD_TRAIN=1: K5 takes the weight gradient of every 3^3
+    conv with 16 or more input channels (the inception convs of stages 3
+    and 4 among them, 24 -> 153 and 48 -> 307 on its CUDA-core route), K9
+    the forward of every conv with 16-127 input channels and the input
+    gradient where the output gradient has 16-127 channels, at grids the
+    JAX gate keeps on XLA (24, 12, 6). Each launch against the library on
+    the same inputs; the launch counts as the gates give them."""
+    import torch
+
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+
+    cfg, model, state, train_step = _train_setup(["--model", "SwInception"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = _train_batch(gen, SWIN_OPTS_GATED_BATCH, cfg.output_dim)
+    loss_fn = build_loss(cfg)
+    run = lambda: _grads_of(model, loss_fn, batch)  # noqa: E731
+    need_k9 = _k9_launches_required(model, run, "MEDSEG_WINOGRAD_TRAIN")
+    need_k5 = _k5_launches_required(model, run)
+    with _gates("MEDSEG_WINOGRAD_TRAIN"), _dw27_mode("1"), \
+            _held_convs() as held:
+        _reset_launches()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+    _require(bool(torch.isfinite(m["loss"])), "swin_opts gated: loss")
+    _require_launches("swin_opts gated step", launches, {
+        "dw27": need_k5, "winograd_conv3d_f23": need_k9,
+        "window_attention": 8, "window_attention_bwd": 8})
+    for name, tol in (("dw27", LIBRARY_REL_TOL),
+                      ("winograd_conv3d_f23", WINO_LIBRARY_REL_TOL)):
+        errs = held.errors[name]
+        _require(len(errs) == launches[name], f"swin_opts gated: {name} "
+                 f"held {len(errs)} of {launches[name]} launches")
+        shapes = sorted({(s[-1], co) for s, co, _ in errs})
+        worst = max(errs, key=lambda e: e[2])
+        print(f"swin_opts: gated SwInception step (batch "
+              f"{SWIN_OPTS_GATED_BATCH}): {name} {len(errs)} launches, "
+              f"channels in -> out {shapes}, each against the library: "
+              f"worst rel norm err {worst[2]:.3e} at {worst[0]} -> "
+              f"{worst[1]} (tol {tol})", flush=True)
+        _require(worst[2] <= tol, f"swin_opts gated: {name} at {worst[0]} "
+                 f"-> {worst[1]} disagrees with the library")
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_swin_opts():
+    """SwInception and SwinDepth at full width (bf16 card vs fp32 CPU on one
+    window, one predictor call of 16 windows, training at batch 8 with the
+    blocks alone and the whole gradient checked, the training CLI), the
+    flagship with the embedding options (the prediction CLI, also with
+    --tta_mirror, and training steps) and with the attention options (logits
+    against the fp32 CPU reference, one predictor call, training steps), and
+    one SwInception step under the K5 and K9 gates."""
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    gen = torch.Generator().manual_seed(9)
+    for tag in SWIN_MLP_MODELS + ("attention",):
+        cfg = get_args(_zoo_args("nnFormerUNETR") + SWIN_OPTS_FLAGS[tag])
+        add(_model_vs_cpu(f"swin_opts: {tag}", cfg, SWIN_OPTS_CALL[tag],
+                          _opts_inputs(1, gen), _opts_inputs(PREDICT_BATCH,
+                                                             gen)))
+    with tempfile.TemporaryDirectory() as tmp:
+        add(_swin_opts_predict_cli(tmp))
+        _write_train_set(os.path.join(tmp, "Task03_ZooTrain"),
+                         ZOO_CLI_VOLUMES, (128, 120, 100), 14,
+                         np.random.default_rng(3))
+        tgen = torch.Generator().manual_seed(10)
+        for tag in SWIN_MLP_MODELS:
+            t0 = time.perf_counter()
+            add(_swin_opts_train(tag, tag, (), ZOO_TRAIN_BATCH,
+                                 _opts_batch(tgen), tmp))
+            print(f"swin_opts: {tag} training: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for tag in ("embedding", "attention"):
+            add(_swin_opts_train(tag, "nnFormerUNETR", SWIN_OPTS_FLAGS[tag],
+                                 ZOO_GRAD_BATCH, _opts_batch(tgen)))
+    add(_swin_opts_gated())
+    return total
 
 
 # the one-pass CUDA-core heads forms' head dims at the flagship's stage
@@ -5054,7 +5589,8 @@ def main(argv=None) -> int:
                             ("conv3d", phase_conv3d),
                             ("fp32", phase_fp32), ("eval", phase_eval),
                             ("f5", phase_f5), ("r15", phase_r15),
-                            ("zoo_train", phase_zoo_train)):
+                            ("zoo_train", phase_zoo_train),
+                            ("swin_opts", phase_swin_opts)):
             if name in phases:
                 t0 = time.perf_counter()
                 launches = phase()

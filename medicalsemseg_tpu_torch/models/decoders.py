@@ -18,7 +18,7 @@ the JAX scopes (``linear_c{k}.proj``, ``linear_fuse[_k].{conv,bn}``,
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -114,9 +114,11 @@ class UnetrBasicBlock(nn.Module):
 
 
 class UnetrUpBlock(nn.Module):
-    """Transposed-conv upsample (kernel == stride), concat skip, res block."""
+    """Transposed-conv upsample (kernel == stride, one factor or one per
+    axis), concat skip, res block."""
 
-    def __init__(self, in_ch: int, out_ch: int, upsample: int = 2):
+    def __init__(self, in_ch: int, out_ch: int,
+                 upsample: Union[int, Tuple[int, int, int]] = 2):
         super().__init__()
         self.transp_conv = Convolution(ConvTranspose3d(in_ch, out_ch, upsample))
         self.conv_block = UnetResBlock(2 * out_ch, out_ch)
@@ -142,10 +144,12 @@ class SwinUNETRDecoder(nn.Module):
     s4@R/16] plus the raw input volume for the full-resolution skip.
 
     unet_encoders: [0] raw volume, [1] stem, [k + 2] stage k output;
-    unet_decoders: [0] the patch-size upsample, [i + 1] stage i upsample."""
+    unet_decoders: [0] the patch-size upsample (by the patch of each axis),
+    [i + 1] stage i upsample."""
 
     def __init__(self, in_chans: int, out_channels: int, hidden_size: int = 48,
-                 patch_size: int = 2, num_layers: int = 4):
+                 patch_size: Tuple[int, int, int] = (2, 2, 2),
+                 num_layers: int = 4):
         super().__init__()
         h = hidden_size
         self.unet_encoders = nn.ModuleList(
@@ -153,7 +157,7 @@ class SwinUNETRDecoder(nn.Module):
             + [UnetrBasicBlock(h * 2 ** (i + 1), h * 2 ** (i + 1))
                for i in range(num_layers)])
         self.unet_decoders = nn.ModuleList(
-            [UnetrUpBlock(h, h, patch_size)]
+            [UnetrUpBlock(h, h, tuple(patch_size))]
             + [UnetrUpBlock(h * 2 ** (i + 1), h * 2 ** i)
                for i in range(num_layers)])
         self.out = UnetOutBlock(h, out_channels)
@@ -180,8 +184,8 @@ class SwinUNETRCustom(SwinUNETRDecoder):
 
     def __init__(self, encoder: nn.Module, in_chans: int,
                  out_channels: int, hidden_size: int = 48,
-                 patch_size: int = 2, num_layers: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 patch_size: Tuple[int, int, int] = (2, 2, 2),
+                 num_layers: int = 4, dtype: torch.dtype = torch.bfloat16):
         super().__init__(in_chans, out_channels, hidden_size, patch_size,
                          num_layers=num_layers)
         self.encoder = encoder
@@ -190,7 +194,7 @@ class SwinUNETRCustom(SwinUNETRDecoder):
     def forward(self, x_in: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
                 ) -> torch.Tensor:
         vol = x_in[0].to(self.dtype)
-        return self.decode(vol, self.encoder(vol))
+        return self.decode(vol, self.encoder(vol, *x_in[1:]))
 
 
 class LinearEmbed(nn.Module):
@@ -244,7 +248,7 @@ class SegFormerHead(nn.Module):
     def forward(self, x_in: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
                 ) -> torch.Tensor:
         vol = x_in[0].to(self.dtype)
-        z = self.encoder(vol)
+        z = self.encoder(vol, *x_in[1:])
         c = self.linear_c4(z[4])
         for k in (3, 2, 1, 0):
             c = resize_trilinear(c, z[k].shape[1:4])

@@ -1,13 +1,17 @@
 """Model factory (counterpart of medicalsemseg_tpu/models/factory.py).
 
-Ported: the flagship ``nnFormerUNETR``, ``SwinSegFormer`` (the same Swin
-encoder under the progressive SegFormer head), ``SegFormer3D`` (MixViT encoder
-under the official SegFormer head) and ``GCViTUNETR`` (GC-ViT encoder under
-the UNETR decoder). The other models of the zoo and the Swin encoder's
-options beyond ``--qkv_bias`` raise ``NotImplementedError``.
+Ported: the flagship ``nnFormerUNETR``, ``SwInception`` and ``SwinDepth``
+(the same Swin encoder with the inception or depthwise-conv token MLP, every
+one of the three with all the Swin encoder's options, under the UNETR
+decoder), ``SwinSegFormer`` (the Swin encoder under the progressive
+SegFormer head), ``SegFormer3D`` (MixViT encoder under the official
+SegFormer head) and ``GCViTUNETR`` (GC-ViT encoder under the UNETR decoder).
+The other models of the zoo raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn as nn
@@ -19,23 +23,62 @@ from medicalsemseg_tpu_torch.models.decoders import (
     SegFormerHeadOfficial,
     SwinUNETRCustom,
 )
+from medicalsemseg_tpu_torch.models.embeddings import (
+    LearnedClassVectors,
+    scale_intensity_range,
+    scale_intensity_range_percentiles,
+)
 from medicalsemseg_tpu_torch.models.gcvit import SE, GCViT3D, GCWindowAttention
 from medicalsemseg_tpu_torch.models.layers import Conv3d, ConvTranspose3d
 from medicalsemseg_tpu_torch.models.segformer import MixVisionTransformer3D
-from medicalsemseg_tpu_torch.models.swin import SwinEncoder3D, WindowAttention
+from medicalsemseg_tpu_torch.models.swin import (
+    SwinEncoder3D,
+    WindowAttention,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
 
-MODEL_NAMES = ("nnFormerUNETR", "SwinSegFormer", "SegFormer3D", "GCViTUNETR")
+# the Swin-encoder models under the UNETR decoder, by their token MLP
+SWIN_UNETR_MLPS = {"nnFormerUNETR": "dense", "SwInception": "inception",
+                   "SwinDepth": "dwconv"}
+MODEL_NAMES = tuple(SWIN_UNETR_MLPS) + ("SwinSegFormer", "SegFormer3D",
+                                        "GCViTUNETR")
 
-# options of the Swin encoder that the port does not take yet, by the models
-# whose JAX factory branch reads them
-_UNPORTED_FLAGS = {
-    "nnFormerUNETR": ("learned_cls_vectors", "rel_crop_pos_emb",
-                      "rel_pos_bias_affine", "abs_pos_emb", "global_token"),
-    "SwinSegFormer": ("abs_pos_emb",),
-}
+
+def _lcv_transform(cfg: Config):
+    """The intensity transform of the class vectors' HU interval table:
+    the fixed CT window [t_ct_min, t_ct_max] to [0, 1] under
+    ``--t_fixed_ct_intensity``, else the table's own 5th / 95th
+    percentiles to [0, 1]; clipped either way."""
+    if cfg.t_fixed_ct_intensity:
+        return functools.partial(scale_intensity_range, a_min=cfg.t_ct_min,
+                                 a_max=cfg.t_ct_max, b_min=0.0, b_max=1.0,
+                                 clip=True)
+    return functools.partial(scale_intensity_range_percentiles, lower=5,
+                             upper=95, b_min=0.0, b_max=1.0, clip=True)
+
+
+def _swin_encoder(cfg: Config, mlp_type: str) -> SwinEncoder3D:
+    """The Swin encoder of the UNETR models with every option the JAX
+    factory branch reads."""
+    return SwinEncoder3D(
+        img_size=cfg.vol_size3(), patch_size=cfg.patch_size3(),
+        in_chans=cfg.in_chans, embed_dim=cfg.hidden_dim,
+        depths=tuple(cfg.depths), num_heads=tuple(cfg.num_heads),
+        window_sizes=cfg.window_sizes(), mlp_ratio=cfg.mlp_ratio,
+        qkv_bias=cfg.qkv_bias, drop_path_rate=cfg.drop_path_rate,
+        mlp_type=mlp_type, learned_cls_vectors=cfg.learned_cls_vectors,
+        lcv_transform=(_lcv_transform(cfg) if cfg.learned_cls_vectors
+                       else None),
+        lcv_vector_dim=cfg.lcv_vector_dim, lcv_sincos_emb=cfg.lcv_sincos_emb,
+        lcv_final_layer=cfg.lcv_final_layer,
+        lcv_concat_vector=cfg.lcv_concat_vector, lcv_only=cfg.lcv_only,
+        lcv_linear_comb=cfg.lcv_linear_comb,
+        lcv_patch_voxel_mean=cfg.lcv_patch_voxel_mean,
+        rel_crop_pos_emb=cfg.rel_crop_pos_emb,
+        rel_pos_bias_affine=cfg.rel_pos_bias_affine,
+        abs_pos_emb=cfg.abs_pos_emb, global_token=cfg.global_token)
 
 
 def build_model(cfg: Config) -> nn.Module:
@@ -46,28 +89,26 @@ def build_model(cfg: Config) -> nn.Module:
     name = cfg.model
     if name not in MODEL_NAMES:
         raise NotImplementedError(
-            f"--model {name} is not ported yet (ROADMAP queue 1 item 13, "
-            f"the rest of the model zoo); the port has {', '.join(MODEL_NAMES)}")
-    on = [f for f in _UNPORTED_FLAGS.get(name, ()) if getattr(cfg, f)]
-    if on:
-        raise NotImplementedError(
-            f"encoder options {on} are not ported yet (ROADMAP queue 1 item "
-            "13, the rest of the model zoo)")
+            f"--model {name} is not ported yet (ROADMAP queue 1 items "
+            f"13d-13i, the rest of the model zoo); the port has "
+            f"{', '.join(MODEL_NAMES)}")
     dtype = DTYPES[cfg.compute_dtype]
     patch = cfg.patch_size3()
     dims = [cfg.hidden_dim * 2 ** i for i in range(len(cfg.depths) + 1)]
 
-    if name in ("nnFormerUNETR", "SwinSegFormer"):
-        # SwinSegFormer's encoder is built without --mlp_ratio (the
-        # encoder's own 4.0), as the JAX factory builds it
+    if name in SWIN_UNETR_MLPS:
+        encoder = _swin_encoder(cfg, SWIN_UNETR_MLPS[name])
+    elif name == "SwinSegFormer":
+        # built without the LCV / crop / affine / global-token options and
+        # without --mlp_ratio (the encoder's own 4.0), as the JAX factory
+        # builds it
         encoder = SwinEncoder3D(
             img_size=cfg.vol_size3(), patch_size=patch, in_chans=cfg.in_chans,
             embed_dim=cfg.hidden_dim, depths=tuple(cfg.depths),
             num_heads=tuple(cfg.num_heads), window_sizes=cfg.window_sizes(),
-            mlp_ratio=cfg.mlp_ratio if name == "nnFormerUNETR" else 4.0,
-            qkv_bias=cfg.qkv_bias, drop_path_rate=cfg.drop_path_rate)
-        if name == "SwinSegFormer":
-            return SegFormerHead(encoder, dims, cfg.output_dim, dtype=dtype)
+            qkv_bias=cfg.qkv_bias, drop_path_rate=cfg.drop_path_rate,
+            abs_pos_emb=cfg.abs_pos_emb)
+        return SegFormerHead(encoder, dims, cfg.output_dim, dtype=dtype)
     elif name == "SegFormer3D":
         encoder = MixVisionTransformer3D(
             in_chans=cfg.in_chans, embed_dim=cfg.hidden_dim,
@@ -77,6 +118,12 @@ def build_model(cfg: Config) -> nn.Module:
         return SegFormerHeadOfficial(encoder, dims[:len(cfg.depths)],
                                      cfg.output_dim, dtype=dtype)
     else:
+        if patch != (2, 2, 2):
+            # GC-ViT's stem halves every axis; the JAX decoder's first
+            # up-block upsamples by the patch, so another patch cannot meet
+            # the full-resolution skip there either
+            raise ValueError(f"GCViTUNETR needs --patch_size 2 (its stem "
+                             f"halves every axis), got {patch}")
         encoder = GCViT3D(
             img_size=cfg.vol_size3(), in_chans=cfg.in_chans,
             dim=cfg.hidden_dim, depths=tuple(cfg.depths),
@@ -85,7 +132,7 @@ def build_model(cfg: Config) -> nn.Module:
             ref_quirk_index=cfg.ref_quirk_rel_pos,
             drop_path_rate=cfg.drop_path_rate)
     return SwinUNETRCustom(encoder, cfg.in_chans, cfg.output_dim,
-                           hidden_size=cfg.hidden_dim, patch_size=patch[0],
+                           hidden_size=cfg.hidden_dim, patch_size=patch,
                            num_layers=len(cfg.depths), dtype=dtype)
 
 
@@ -123,10 +170,11 @@ def _default_init_dense(parent: nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX model's initialisers, drawn from ``generator``: truncated
     normal(0.02) for the dense weights the JAX modules name it for (attention,
-    MLPs) and for bias tables, lecun normal for conv kernels and for the
-    dense layers left at flax's default (the SE gates, the SegFormer heads'
-    per-scale embeddings), zeros for biases, ones/zeros for norms and running
-    statistics (set at construction)."""
+    MLPs, the encoder options' dense layers), for bias tables and for the
+    global token, normal(1.0) for the learned class vectors, lecun normal
+    for conv kernels and for the dense layers left at flax's default (the SE
+    gates, the SegFormer heads' per-scale embeddings), zeros for biases,
+    ones/zeros for norms and running statistics (set at construction)."""
     lecun_dense = {m for parent in model.modules()
                    for m in _default_init_dense(parent)}
     with torch.no_grad():
@@ -146,4 +194,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, (WindowAttention, GCWindowAttention)):
                 _trunc_normal_(m.relative_position_bias_table, 0.02, generator)
+                if getattr(m, "rel_pos_bias_affine", False):
+                    _trunc_normal_(m.rel_pos_bias_affine_emb, 0.02, generator)
+            elif (isinstance(m, LearnedClassVectors)
+                  and isinstance(m.vectors, nn.Parameter)):
+                m.vectors.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(m, SwinEncoder3D) and hasattr(m, "global_token"):
+                _trunc_normal_(m.global_token, 0.02, generator)
     return model

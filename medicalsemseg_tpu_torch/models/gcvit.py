@@ -321,7 +321,10 @@ class GCViT3D(nn.Module):
             self.add_module(f"norm{i}", LayerNorm(dim * 2 ** (i + 1)))
             grid = tuple((g - 1) // 2 + 1 for g in grid)
 
-    def forward(self, vol: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, vol: torch.Tensor, crop_loc=None,
+                affine=None) -> List[torch.Tensor]:
+        """The pyramid of ``vol``; ``crop_loc`` and ``affine`` are not read
+        (the encoders' common signature)."""
         x = self.patch_embed(vol)
         outputs = [x]
         for i, level in enumerate(self.levels):

@@ -9,7 +9,7 @@ memory format, so the convolutions copy nothing to change layout.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -20,6 +20,13 @@ from medicalsemseg_tpu_torch.ops.convgrad import Conv3x3x3Fn
 from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 from medicalsemseg_tpu_torch.ops.kernels import layer_norm
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+
+
+Tuple3 = Tuple[int, int, int]
+
+
+def _triple(k: Union[int, Tuple3]) -> Tuple3:
+    return (k,) * 3 if isinstance(k, int) else tuple(int(v) for v in k)
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
@@ -137,15 +144,17 @@ class Conv3d(nn.Module):
     gradients, goes to cuDNN (oneDNN on the CPU) on the channels_last_3d
     view (a grouped conv on a contiguous copy)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 1, padding: Optional[int] = None,
+    def __init__(self, in_ch: int, out_ch: int,
+                 kernel_size: Union[int, Tuple3] = 3,
+                 stride: Union[int, Tuple3] = 1,
+                 padding: Optional[int] = None,
                  bias: bool = True, groups: int = 1):
         super().__init__()
         self.kernel_size, self.stride, self.groups = kernel_size, stride, groups
         # "SAME" for odd kernels at stride 1, as the JAX Conv3d default
         self.padding = kernel_size // 2 if padding is None else padding
-        self.weight = nn.Parameter(torch.empty(
-            out_ch, in_ch // groups, kernel_size, kernel_size, kernel_size))
+        k3 = _triple(kernel_size)
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, *k3))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -180,12 +189,12 @@ class ConvTranspose3d(nn.Module):
     spatially flipped relative to this layout (utils/torch_import.py
     ``conv_transpose``); ``utils.params`` converts between the two."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 bias: bool = False):
+    def __init__(self, in_ch: int, out_ch: int,
+                 kernel_size: Union[int, Tuple3], bias: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
         self.weight = nn.Parameter(
-            torch.empty(in_ch, out_ch, kernel_size, kernel_size, kernel_size))
+            torch.empty(in_ch, out_ch, *_triple(kernel_size)))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -280,3 +289,93 @@ class Mlp(nn.Module):
                               self.fc1.bias.float(), self.fc2.weight.to(dt),
                               self.fc2.bias.float(), ln=ln, residual=residual)
 
+
+
+def tokens_to_volume(x: torch.Tensor, grid: Tuple3) -> torch.Tensor:
+    """(B, N, C) -> (B, D, H, W, C)."""
+    return x.reshape(x.shape[0], *grid, x.shape[-1])
+
+
+def volume_to_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) -> (B, N, C)."""
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+class BasicConv3d(nn.Module):
+    """Conv (with bias) -> BatchNorm (eps 1e-3) -> exact GELU over
+    (B, D, H, W, C), SwInception's conv unit (the JAX ``BasicConv3d``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1):
+        super().__init__()
+        self.conv = Conv3d(in_ch, out_ch, kernel_size, bias=True)
+        self.bn = BatchNorm(out_ch, eps=1e-3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.bn(self.conv(x)))
+
+
+class InceptionMlp(nn.Module):
+    """SwInception's token MLP: five parallel conv branches over the token
+    grid, concatenated, then a dense layer back to C (the JAX
+    ``InceptionMlp``). Each branch is ``int(hidden / 5)`` wide; the 3^3,
+    5^3 and 7^3 branches bottleneck through ``C // 8`` channels and stack
+    one, two and three 3^3 convs; the pool branch is a 3^3 average pool
+    (padding counted) and a 1^3 conv. ``convs`` holds the eleven
+    :class:`BasicConv3d` in the order the JAX module creates them
+    (``BasicConv3d_0`` .. ``_10``): the 1^3 branch, the 3^3 branch's two,
+    the 5^3 branch's three, the 7^3 branch's four, the pool branch's one.
+    The 3^3 convs are ``Conv3d``'s 3^3 form (weight gradient through K5's
+    gate, forward and input gradient through K9's)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        bd = int(hidden / 5)
+        bn = max(dim // 8, 1)
+        plan = ([(dim, bd, 1)]
+                + [(dim, bn, 1), (bn, bd, 3)]
+                + [(dim, bn, 1), (bn, bn, 3), (bn, bd, 3)]
+                + [(dim, bn, 1), (bn, bn, 3), (bn, bn, 3), (bn, bd, 3)]
+                + [(dim, bd, 1)])
+        self.convs = nn.ModuleList([BasicConv3d(i, o, k) for i, o, k in plan])
+        self.fc = nn.Linear(5 * bd, dim)
+
+    def forward(self, x: torch.Tensor, grid: Tuple3) -> torch.Tensor:
+        """Tokens (B, N, C) of the grid (D, H, W) -> (B, N, C)."""
+        v = tokens_to_volume(x, grid)
+        c = self.convs
+        b1 = c[0](v)
+        b3 = c[2](c[1](v))
+        b5 = c[5](c[4](c[3](v)))
+        b7 = c[9](c[8](c[7](c[6](v))))
+        # the padding counts (count_include_pad); padded explicitly, as
+        # avg_pool3d refuses grids smaller than its window; summed in fp32
+        # (the CPU has no bf16 avg_pool3d) and rounded once
+        padded = F.pad(v.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+        pool = F.avg_pool3d(to_ncdhw(padded), 3, stride=1)
+        bp = c[10](to_ndhwc(pool).to(v.dtype))
+        cat = torch.cat([b1, b3, b5, b7, bp], dim=-1)
+        return linear(volume_to_tokens(cat), self.fc)
+
+
+class DepthwiseConvMlp(nn.Module):
+    """SwinDepth's token MLP: dense to the hidden width, exact GELU, three
+    times (depthwise 3^3 conv with bias -> BatchNorm eps 1e-3 -> exact GELU)
+    over the token grid, dense back to C (the JAX ``DepthwiseConvMlp``).
+    The depthwise convs run PyTorch's own kernel, as the JAX package runs
+    XLA there."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.convs = nn.ModuleList([Conv3d(hidden, hidden, 3, groups=hidden)
+                                    for _ in range(3)])
+        self.bns = nn.ModuleList([BatchNorm(hidden, eps=1e-3)
+                                  for _ in range(3)])
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor, grid: Tuple3) -> torch.Tensor:
+        """Tokens (B, N, C) of the grid (D, H, W) -> (B, N, C)."""
+        v = tokens_to_volume(F.gelu(linear(x, self.fc1)), grid)
+        for conv, bn in zip(self.convs, self.bns):
+            v = F.gelu(bn(conv(v)))
+        return linear(volume_to_tokens(v), self.fc2)

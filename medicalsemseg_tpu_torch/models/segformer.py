@@ -177,7 +177,10 @@ class MixVisionTransformer3D(nn.Module):
                     qkv_bias, dpr[sum(depths[:s]) + i]))
             self.add_module(f"norm{s + 1}", LayerNorm(dims[s]))
 
-    def forward(self, vol: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, vol: torch.Tensor, crop_loc=None,
+                affine=None) -> List[torch.Tensor]:
+        """The pyramid of ``vol``; ``crop_loc`` and ``affine`` are not read
+        (the encoders' common signature)."""
         x = vol
         outs = []
         for s, depth in enumerate(self.depths):

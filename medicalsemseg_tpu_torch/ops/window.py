@@ -88,6 +88,16 @@ def _shift_mask_np(dims: Tuple3, window_size: int,
 
 
 @functools.lru_cache(maxsize=None)
+def shift_mask(dims: Tuple3, window_size: int, shift_size: int,
+               device: torch.device) -> torch.Tensor:
+    """:func:`_shift_mask_np` as a tensor on ``device``, made once per
+    grid and device (the unfused attention adds it to every call's
+    logits)."""
+    return torch.from_numpy(_shift_mask_np(dims, window_size,
+                                           shift_size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def relative_position_index(window_size: Tuple3) -> np.ndarray:
     """(ws³, ws³) int32 index into the (2w0-1)(2w1-1)(2w2-1) rel-pos table."""
     w0, w1, w2 = window_size

@@ -149,7 +149,10 @@ def make_train_step(cfg: Config):
             logits = logits[0]
         else:
             loss = loss_fn(logits, batch["label"])
-        grads = list(torch.autograd.grad(loss, params))
+        # a parameter the loss does not reach (the last stage's
+        # gt_upsample under --global_token) gets a zero gradient, as in JAX
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
         grad_norm = global_norm(grads)
 
         k = state.grad_accum_steps

@@ -2,7 +2,8 @@
 checkpoints.
 
 One key map (:func:`key_map`) pairs every leaf of a ported JAX model's
-parameter tree (nested dicts of arrays; nnFormerUNETR, SwinSegFormer,
+parameter tree (nested dicts of arrays; nnFormerUNETR, SwInception,
+SwinDepth and SwinSegFormer with every option of the Swin encoder,
 SegFormer3D, GCViTUNETR) with its key in the port's state_dict, which for the
 flagship is also the reference PyTorch layout, and names the layout change
 between them:
@@ -16,16 +17,19 @@ between them:
 ``medicalsemseg_tpu/utils/torch_import.py:import_swin_unetr_checkpoint``)
 and :func:`jax_tree_from_state_dict` walk it in the two directions. Given the
 variables {'params': ..., 'batch_stats': ...} instead of the bare parameter
-tree, they also carry the BatchNorm running statistics of the SegFormer heads
-(``batch_stats/<fuse>/BatchNorm_0/BatchNorm_0/{mean,var}`` <->
-``<fuse>.bn.running_{mean,var}``). Every change is a permutation of a leaf's
+tree, they also carry the running statistics of every BatchNorm, wherever
+it sits (``batch_stats/<path>/{mean,var}`` <-> ``<prefix>.running_{mean,var}``,
+``<prefix>`` being the state_dict prefix of ``params/<path>/scale``: the
+SegFormer heads' ``<fuse>.bn``, SwInception's ``...mlp.convs.{k}.bn``,
+SwinDepth's ``...mlp.bns.{k}``). Every change is a permutation of a leaf's
 elements, so the same functions carry gradients and optimizer moments as well
 as weights.
 :func:`load_adamw_state_from_optax` fills ``torch.optim.AdamW``'s state from
 optax's (mu, nu, count). All take numpy and import no jax.
 :func:`load_pretrained_encoder` puts the ``encoder.*`` weights of a reference
 checkpoint into a model, resizing relative-position bias tables that were
-trained with another window size.
+trained with another window size and stacking the reference's per-interval
+class vectors (``encoder.lcv.vectors.{k}``) into the port's one table.
 """
 
 from __future__ import annotations
@@ -65,10 +69,14 @@ def key_map(params: Dict) -> KeyMap:
     if "params" in params:
         out = [(("params",) + path, key, kind)
                for path, key, kind in key_map(params["params"])]
-        for name in sorted(params.get("batch_stats", {})):
-            bn = ("batch_stats", name, "BatchNorm_0", "BatchNorm_0")
-            out.append((bn + ("mean",), f"{name}.bn.running_mean", "plain"))
-            out.append((bn + ("var",), f"{name}.bn.running_var", "plain"))
+        # a BatchNorm's statistics sit at its parameters' path in the other
+        # collection; its state_dict prefix is that of its scale
+        norms = {path[1:-1]: key[:-len(".weight")] for path, key, _ in out
+                 if path[-1] == "scale"}
+        for path in _stats_paths(params.get("batch_stats", {})):
+            for leaf, buf in (("mean", "running_mean"), ("var", "running_var")):
+                out.append((("batch_stats",) + path + (leaf,),
+                            f"{norms[path]}.{buf}", "plain"))
         return out
 
     out: KeyMap = []
@@ -115,11 +123,55 @@ def key_map(params: Dict) -> KeyMap:
             yield i, tree[f"{stem}{i}"]
             i += 1
 
+    def batch_norm(path, prefix, p):
+        # the BatchNorm wrapper: the leaves sit under 'BatchNorm_0'
+        norm(path + ("BatchNorm_0",), prefix, p["BatchNorm_0"])
+
+    def swin_mlp(path, prefix, blk):
+        # the dense MLP (Mlp_0), SwInception's (InceptionMlp_0: eleven
+        # BasicConv3d_k, then Dense_0) or SwinDepth's (DepthwiseConvMlp_0:
+        # Dense_0, Conv3d_k and BatchNorm_k, Dense_1)
+        if "Mlp_0" in blk:
+            for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+                kernel(path + ("Mlp_0", d), f"{prefix}.{fc}",
+                       blk["Mlp_0"][d], "dense")
+        elif "InceptionMlp_0" in blk:
+            mp, m = path + ("InceptionMlp_0",), blk["InceptionMlp_0"]
+            for k, bc in numbered(m, "BasicConv3d_"):
+                bp = mp + (f"BasicConv3d_{k}",)
+                conv(bp + ("Conv3d_0",), f"{prefix}.convs.{k}.conv",
+                     bc["Conv3d_0"])
+                batch_norm(bp + ("BatchNorm_0",), f"{prefix}.convs.{k}.bn",
+                           bc["BatchNorm_0"])
+            kernel(mp + ("Dense_0",), f"{prefix}.fc", m["Dense_0"], "dense")
+        else:
+            mp, m = path + ("DepthwiseConvMlp_0",), blk["DepthwiseConvMlp_0"]
+            for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+                kernel(mp + (d,), f"{prefix}.{fc}", m[d], "dense")
+            for k, c in numbered(m, "Conv3d_"):
+                conv(mp + (f"Conv3d_{k}",), f"{prefix}.convs.{k}", c)
+                batch_norm(mp + (f"BatchNorm_{k}",), f"{prefix}.bns.{k}",
+                           m[f"BatchNorm_{k}"])
+
     def swin_encoder(enc):
-        pe = ("encoder", "patch_embed")
-        conv(pe, "encoder.patch_embed.proj", enc["patch_embed"])
-        norm(pe + ("LayerNorm_0",), "encoder.patch_embed.norm",
-             enc["patch_embed"]["LayerNorm_0"])
+        if "patch_embed" in enc:    # absent under --lcv_only
+            pe = ("encoder", "patch_embed")
+            conv(pe, "encoder.patch_embed.proj", enc["patch_embed"])
+            norm(pe + ("LayerNorm_0",), "encoder.patch_embed.norm",
+                 enc["patch_embed"]["LayerNorm_0"])
+        lcv = enc.get("lcv", {})
+        if "vectors" in lcv:
+            out.append((("encoder", "lcv", "vectors"), "encoder.lcv.vectors",
+                        "plain"))
+        if "fc" in lcv:
+            kernel(("encoder", "lcv", "fc"), "encoder.lcv.fc", lcv["fc"],
+                   "dense")
+        if "rel_crop_pos_emb" in enc:
+            kernel(("encoder", "rel_crop_pos_emb"), "encoder.rel_crop_pos_emb",
+                   enc["rel_crop_pos_emb"], "dense")
+        if "global_token" in enc:
+            out.append((("encoder", "global_token"), "encoder.global_token",
+                        "plain"))
         for i, layer in numbered(enc, "layers_"):
             lp = ("encoder", f"layers_{i}")
             for j, blk in numbered(layer, "blocks_"):
@@ -127,16 +179,29 @@ def key_map(params: Dict) -> KeyMap:
                 base = f"encoder.layers.{i}.blocks.{j}"
                 norm(bp + ("LayerNorm_0",), f"{base}.norm1", blk["LayerNorm_0"])
                 norm(bp + ("LayerNorm_1",), f"{base}.norm2", blk["LayerNorm_1"])
-                attn_leaves(bp + ("attn",), f"{base}.attn", blk["attn"])
-                table(bp + ("attn",), f"{base}.attn")
-                for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
-                    kernel(bp + ("Mlp_0", d), f"{base}.mlp.{fc}",
-                           blk["Mlp_0"][d], "dense")
+                at, ap = blk["attn"], bp + ("attn",)
+                attn_leaves(ap, f"{base}.attn", at)
+                table(ap, f"{base}.attn")
+                if "rel_pos_bias_affine_emb" in at:
+                    out.append((ap + ("rel_pos_bias_affine_emb",),
+                                f"{base}.attn.rel_pos_bias_affine_emb",
+                                "plain"))
+                    kernel(ap + ("rel_pos_bias_affine_lin",),
+                           f"{base}.attn.rel_pos_bias_affine_lin",
+                           at["rel_pos_bias_affine_lin"], "dense")
+                if "gt_proj" in at:
+                    kernel(ap + ("gt_proj",), f"{base}.attn.gt_proj",
+                           at["gt_proj"], "dense")
+                swin_mlp(bp, f"{base}.mlp", blk)
             down = layer["downsample"]
             norm(lp + ("downsample", "LayerNorm_0"),
                  f"encoder.layers.{i}.downsample.norm", down["LayerNorm_0"])
             conv(lp + ("downsample", "reduction"),
                  f"encoder.layers.{i}.downsample.reduction", down["reduction"])
+            if "gt_upsample" in layer:
+                kernel(lp + ("gt_upsample",),
+                       f"encoder.layers.{i}.gt_upsample",
+                       layer["gt_upsample"], "dense")
             norm(("encoder", f"norm{i}"), f"encoder.norm{i}", enc[f"norm{i}"])
 
     def conv_se(path, prefix, p):
@@ -222,8 +287,8 @@ def key_map(params: Dict) -> KeyMap:
             elif name.startswith("linear_fuse"):
                 conv((name, "Conv3d_0"), f"{name}.conv",
                      tree[name]["Conv3d_0"])
-                norm((name, "BatchNorm_0", "BatchNorm_0"), f"{name}.bn",
-                     tree[name]["BatchNorm_0"]["BatchNorm_0"])
+                batch_norm((name, "BatchNorm_0"), f"{name}.bn",
+                           tree[name]["BatchNorm_0"])
         conv(("linear_pred",), "linear_pred", tree["linear_pred"])
 
     enc = params["encoder"]
@@ -238,6 +303,14 @@ def key_map(params: Dict) -> KeyMap:
     else:
         segformer_head(params)
     return out
+
+
+def _stats_paths(tree, path=()):
+    """The paths of the BatchNorm statistics dicts ({'mean', 'var'}) of a
+    ``batch_stats`` tree, in sorted order."""
+    if "mean" in tree:
+        return [path]
+    return [p for k in sorted(tree) for p in _stats_paths(tree[k], path + (k,))]
 
 
 def _get(tree, path):
@@ -343,7 +416,8 @@ def load_pretrained_encoder(model: torch.nn.Module, path: str) -> List[str]:
     ``path`` into ``model`` (the rest of the model keeps its values) and
     return the keys loaded. A relative-position bias table whose row count
     differs from the model's (2 w - 1)^3 comes from another (cubic) window
-    size and is resized to the model's. Raises if an encoder key of the
+    size and is resized to the model's. Class vectors stored a row a key
+    (``encoder.lcv.vectors.{k}``, the reference's layout) are stacked. Raises if an encoder key of the
     model is missing from the file or the file has one the model lacks."""
     def window_of(rows: int) -> Tuple[int, int, int]:
         return (int(round((rows ** (1 / 3) + 1) / 2)),) * 3
@@ -351,6 +425,11 @@ def load_pretrained_encoder(model: torch.nn.Module, path: str) -> List[str]:
     own = model.state_dict()
     enc = {k: v for k, v in load_checkpoint(path).items()
            if k.startswith("encoder.")}
+    # the reference keeps the class vectors as a ParameterList, one row each
+    rows = sorted((int(k.rsplit(".", 1)[1]), k) for k in enc
+                  if k.startswith("encoder.lcv.vectors."))
+    if rows:
+        enc["encoder.lcv.vectors"] = torch.stack([enc.pop(k) for _, k in rows])
     for key, value in enc.items():
         if (key.endswith("relative_position_bias_table") and key in own
                 and value.shape[0] != own[key].shape[0]):

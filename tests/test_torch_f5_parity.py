@@ -175,7 +175,7 @@ def test_c768_block_trains_plain_and_matches_jax(grid, shift, monkeypatch):
         spies[name] = _Spy(getattr(mod, name))
         monkeypatch.setattr(mod, name, spies[name])
     xt = torch.from_numpy(x).requires_grad_()
-    y = blk(xt)
+    y, _ = blk(xt)
     names = list(sd)
     grads = torch.autograd.grad(y, [xt] + [dict(blk.named_parameters())[n]
                                            for n in names],

@@ -61,6 +61,13 @@ def jax_variables(cfg: Config, seed: int = 0):
     shapes = jax.eval_shape(
         lambda r, x: model.init(r, x, deterministic=True),
         jax.random.PRNGKey(0), x_in)
+    return model, seeded_tree(shapes, seed)
+
+
+def seeded_tree(shapes, seed: int):
+    """A JAX variables tree of the structure ``shapes`` (``jax.eval_shape``
+    of an init) filled from a numpy generator seeded with ``seed``, as
+    :func:`jax_variables` describes."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -80,7 +87,7 @@ def jax_variables(cfg: Config, seed: int = 0):
             z = z / np.sqrt(np.prod(leaf.shape[:-1]))
         return z.astype(np.float32)
 
-    return model, jax.tree_util.tree_map_with_path(fill, dict(shapes))
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
 
 
 def jax_params(cfg: Config, seed: int = 0):
@@ -148,17 +155,28 @@ def test_encoder_matches_pallas_absorbed_forms(monkeypatch):
                                    atol=ATOL)
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize("what", ["nnFormer", "FocalNetUNETR",
+                                  "UNETR_Official", "SwinUNETR_Official",
+                                  "--flat_optimizer"])
+def test_unported_options_raise(what):
+    """The models of ROADMAP items 13d-13i, and --flat_optimizer ("Do not
+    port"), raise and name the ROADMAP."""
+    from medicalsemseg_tpu_torch.train.state import make_optimizer
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(small_cfg(model="SwinDepth"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(small_cfg(global_token=True))
+        if what == "--flat_optimizer":
+            cfg = small_cfg(flat_optimizer=True)
+            make_optimizer(cfg, build_model(cfg), 1)
+        else:
+            build_model(small_cfg(model=what))
 
 
-def train_step_both(cfg: Config, seed: int = 0, batch: int = 2):
+def train_step_both(cfg: Config, seed: int = 0, batch: int = 2,
+                    crop=None, affine=None):
     """One training forward and backward of the same seeded variables and
     batch on both sides, fp32, drop rates 0 (the SegFormer heads' dropout
     set to 0 on both sides: the two frameworks draw different masks).
+    ``crop`` and ``affine`` (batch, 3) default to zeros and ones.
     Returns {side: (loss, gradients, batch_stats)} for side "jax" (one
     jitted ``jax.value_and_grad`` of the apply with mutable batch_stats, as
     the JAX train step runs it) and "port" (``model.train()``, autograd), the
@@ -176,8 +194,8 @@ def train_step_both(cfg: Config, seed: int = 0, batch: int = 2):
     v = cfg.vol_size3()
     img = rng.normal(size=(batch, *v, cfg.in_chans)).astype(np.float32)
     label = rng.integers(0, cfg.output_dim, size=(batch, *v)).astype(np.int32)
-    crop = np.zeros((batch, 3), np.float32)
-    aff = np.ones((batch, 3), np.float32)
+    crop = np.zeros((batch, 3), np.float32) if crop is None else crop
+    aff = np.ones((batch, 3), np.float32) if affine is None else affine
     jloss = jax_build_loss(cfg)
     stats0 = variables.get("batch_stats", {})
 
@@ -206,7 +224,8 @@ def train_step_both(cfg: Config, seed: int = 0, batch: int = 2):
     pl = build_loss(cfg)(logits, torch.from_numpy(label))
     pl.backward()
     pgrads = jax_tree_from_state_dict(
-        {n: p.grad for n, p in model.named_parameters()}, variables["params"])
+        {n: torch.zeros_like(p) if p.grad is None else p.grad
+         for n, p in model.named_parameters()}, variables["params"])
     pstats = (jax_tree_from_state_dict(model.state_dict(), variables)
               ["batch_stats"] if stats0 else {})
     return {"jax": (float(jl), to_np(jgrads), to_np(jstats)),
@@ -220,7 +239,7 @@ def flat_tree(tree):
             jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def assert_train_step_matches(both):
+def assert_train_step_matches(both, leaf_floor: float = 1e-6):
     """Loss (rtol 1e-4) and every parameter's gradient (each leaf's error
     norm under 2e-2 of its norm, all of them together under 5e-3: the
     tolerances of ``test_torch_train_step.py``) against the JAX side, and
@@ -228,7 +247,8 @@ def assert_train_step_matches(both):
     whose gradient is zero in exact arithmetic (a bias that reaches the loss
     only through a BatchNorm with batch statistics, which cancels any
     per-channel constant) is fp32 noise on both sides: its error norm is held
-    under 1e-6 of the whole gradient's norm instead."""
+    under ``leaf_floor`` (1e-6) of the whole gradient's norm instead, as is
+    any leaf smaller than that."""
     jl, jg, js = both["jax"]
     pl, pg, ps = both["port"]
     np.testing.assert_allclose(pl, jl, rtol=1e-4)
@@ -236,7 +256,7 @@ def assert_train_step_matches(both):
     assert set(got) == set(want)
     norm = lambda a: float(np.linalg.norm(a.ravel()))  # noqa: E731
     cat = lambda d: np.concatenate([d[k].ravel() for k in sorted(d)])  # noqa: E731
-    floor = 1e-6 * norm(cat(want))
+    floor = leaf_floor * norm(cat(want))
     for k in sorted(want):
         err, ref = norm(got[k] - want[k]), norm(want[k])
         if ref < floor:

@@ -420,3 +420,194 @@ def test_gcvit_attention_module_choice(monkeypatch, use_global, dim, nh,
     assert kwa.window_attention_supported(F32, ws ** 3, dim, nh) is kernel
     assert spies[name].calls == 1
     assert spies[name + "_plain"].calls == 1      # the CPU wrapper's
+
+
+# ---- SwInception, SwinDepth and the Swin encoder's options (the thirteenth
+# slice): the attention sites of their blocks, which of them leave the
+# kernels (the options alone decide), and the 3^3 convs of the inception
+# MLP at the K5 and K9 gates
+
+OPTION_SETS = {
+    "none": {},
+    "embedding": dict(learned_cls_vectors=True, lcv_final_layer=True,
+                      rel_crop_pos_emb=True, abs_pos_emb=True,
+                      patch_size=(2, 2, 1)),
+    "attention": dict(rel_pos_bias_affine=True, global_token=True),
+}
+SWIN_MLPS = {"nnFormerUNETR": "dense", "SwInception": "inception",
+             "SwinDepth": "dwconv"}
+
+
+def _option_sites(model, options, vol, hidden, heads, train, jax_fits):
+    """(kind, shape, JAX takes Pallas) of every block call site of a Swin
+    UNETR model: its attention ("attn" on the kernels or "unfused"), and
+    for the dense MLP "mlp". The JAX block leaves its fused attention
+    exactly for ``global_token`` or ``rel_pos_bias_affine``
+    (medicalsemseg_tpu/models/swin.py:308-309) and runs its fused MLP only
+    for ``mlp_type == "dense"`` (:372-375), whatever the options."""
+    from medicalsemseg_tpu.ops import window as jw
+
+    patch = options.get("patch_size", (2, 2, 2))
+    grid = tuple(_ceil(vol, p) for p in patch)
+    unfused = options.get("global_token") or options.get(
+        "rel_pos_bias_affine")
+    for i, nh in enumerate(heads):
+        c = hidden * 2 ** i
+        ws, ss = tw.resolve_window(grid, WINDOW, WINDOW // 2)
+        assert (ws, ss) == jw.resolve_window(grid, WINDOW, WINDOW // 2)
+        if unfused:
+            yield "unfused", (ws ** 3, c, nh), False
+        else:
+            yield "attn", (ws ** 3, c, nh), (
+                not train or jax_fits["attn"](c, nh, ws))
+        if SWIN_MLPS[model] == "dense":
+            yield "mlp", (c, c, 4 * c), (not train
+                                         or jax_fits["mlp"](c, 4 * c))
+        grid = tuple(_ceil(g, 2) for g in grid)
+
+
+def _option_sweep(jax_fits):
+    rows = []
+    for model, opts, vol, hidden, heads, dtype, train in itertools.product(
+            SWIN_MLPS, OPTION_SETS, VOLS, HIDDEN, HEADS, DTYPES,
+            (False, True)):
+        for kind, shape, pallas in _option_sites(
+                model, OPTION_SETS[opts], vol, hidden, heads, train,
+                jax_fits):
+            port = (None if kind == "unfused"
+                    else _port_takes(kind, dtype, shape, train))
+            rows.append((model, opts, vol, hidden, heads, dtype, train, kind,
+                         shape, pallas, port))
+    return rows
+
+
+def test_sweep_swin_mlps_and_options(jax_fits, fake_lib):
+    """SwInception, SwinDepth and the flagship, bare and with each option
+    set, over the sweep's volumes, widths, heads, dtypes and both modes:
+    every site at which the JAX block runs Pallas, the port's predicate
+    takes and its wrapper's launch path accepts; the unfused attention is
+    exactly the attention option set's, at every shape; the inception and
+    depthwise MLPs have no kernel site."""
+    rows = _option_sweep(jax_fits)
+    assert len(rows) > 5000
+    missed = [r for r in rows if r[9] and not r[10]]
+    assert not missed, missed[:5]
+    assert all(r[10] for r in rows if r[7] in ("attn", "mlp"))
+    unfused = {r[1] for r in rows if r[7] == "unfused"}
+    assert unfused == {"attention"}
+    assert not any(r[9] for r in rows if r[7] == "unfused")
+    assert {r[0] for r in rows if r[7] == "mlp"} == {"nnFormerUNETR"}
+    # the anisotropic patch's grids (e.g. 48 x 48 x 96 at vol 96) resolve
+    # to the same windows as the cubic ones: the kernels' shapes
+    embedding = {(r[8], r[6]) for r in rows if r[1] == "embedding"
+                 and r[7] == "attn"}
+    assert embedding <= {(r[8], r[6]) for r in rows if r[1] == "none"
+                         and r[7] == "attn"}
+    seen = {(r[7], r[5], r[8], r[6]) for r in rows if r[7] != "unfused"}
+    for kind, dtype, shape, train in sorted(seen, key=str):
+        _launch(kind, dtype, shape, train)
+
+
+@pytest.mark.parametrize("model,opts", [
+    ("SwInception", "none"), ("SwinDepth", "attention"),
+    ("nnFormerUNETR", "embedding"), ("nnFormerUNETR", "attention")])
+def test_blocks_choose_their_attention_by_the_options(model, opts):
+    """Every block of the built encoder (vol 96, patch 2 or 2 2 1, C = 24)
+    runs the kernels unless the attention options are set, at every stage
+    whatever its grid; the MLP is the model's."""
+    from medicalsemseg_tpu_torch.config import Config
+    from medicalsemseg_tpu_torch.models.factory import _swin_encoder
+
+    cfg = Config(model=model, vol_size=96, hidden_dim=24,
+                 t_fixed_ct_intensity=True, **OPTION_SETS[opts])
+    enc = _swin_encoder(cfg, SWIN_MLPS[model])
+    blocks = [b for layer in enc.layers for b in layer.blocks]
+    assert len(blocks) == 8
+    assert {b.attn.fused for b in blocks} == {opts != "attention"}
+    assert {b.mlp_type for b in blocks} == {SWIN_MLPS[model]}
+
+
+def _inception_convs(vol, hidden, batch):
+    """(input shape (B, D, H, W, Ci), Co) of the 3^3 convs of SwInception's
+    MLPs at patch 2: per stage the bottleneck's bn -> bn and bn -> branch
+    convs (bn = C // 8, branch = int(4 C / 5))."""
+    grid = _ceil(vol, 2)
+    for i in range(4):
+        c = hidden * 2 ** i
+        bn, bd = max(c // 8, 1), int(4 * c / 5)
+        for ci, co in ((bn, bd), (bn, bn), (bn, bd), (bn, bn), (bn, bn),
+                       (bn, bd)):
+            yield (batch, grid, grid, grid, ci), co
+        grid = _ceil(grid, 2)
+
+
+@pytest.mark.parametrize("mode", ["1", "auto"])
+@pytest.mark.parametrize("batch", [2, 8])
+def test_inception_convs_at_the_k5_gate(monkeypatch, mode, batch):
+    """MEDSEG_DW27_PALLAS at the inception convs' shapes (inputs of 6, 12,
+    24, 48 channels, outputs of 38, 76, 153, 307 at full width): the port's
+    gate says what the JAX gate says wherever W is a multiple of 8 (the TPU
+    layout rule the port's kernel does not need, ``dw27_applicable``): K5
+    for the inputs of 16 and more channels under mode 1 (the odd output
+    counts 153 and 307 on its CUDA-core route), the auto window shut."""
+    import jax
+    import jax.numpy as jnp
+    from medicalsemseg_tpu.ops import convgrad as jax_convgrad
+    from medicalsemseg_tpu.ops.pallas import dw27 as jax_dw27
+
+    from medicalsemseg_tpu_torch.ops import convgrad
+
+    monkeypatch.setattr(jax_dw27, "_FORCE_INTERPRET", True)
+    monkeypatch.setenv("MEDSEG_DW27_PALLAS", mode)
+    taken = set()
+    for shape, co in _inception_convs(96, 48, batch):
+        port = convgrad.dw27_eligible(shape)
+        want = jax_convgrad._dw27_pallas_eligible(
+            jax.ShapeDtypeStruct(shape, jnp.bfloat16))
+        if shape[3] % 8 == 0:
+            assert port == want, shape
+        assert port == (mode == "1" and shape[-1] >= 16), shape
+        if port:
+            taken.add((shape[-1], co))
+    assert sorted(taken) == ([(24, 24), (24, 153), (48, 48), (48, 307)]
+                             if mode == "1" else [])
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_inception_convs_at_the_k9_gate(monkeypatch, batch):
+    """MEDSEG_WINOGRAD_TRAIN at the inception convs' shapes: the port's
+    gate is the channel window alone (16 <= C < 128, bf16), so K9 takes the
+    forward of every conv with 24 or 48 input channels and the input
+    gradient of every conv whose output gradient has 24, 38, 48 or 76
+    channels, at every stage's grid. The JAX gate adds its layout's shape
+    rules (D % 4, H % 4, (W / 2) % 8) and keeps XLA at the grids 24, 12 and
+    6 of stages 2-4; the port's kernel reads any D, H, W (bounds-checked
+    border), and ``chip_smoke.py``'s ``swin_opts`` phase holds each of its
+    launches there against ``F.conv3d``."""
+    import jax.numpy as jnp
+    from medicalsemseg_tpu.ops import convgrad as jax_convgrad
+    from medicalsemseg_tpu.ops.pallas import winograd3d as jax_k9
+
+    from medicalsemseg_tpu_torch.ops import convgrad
+    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
+
+    monkeypatch.setattr(jax_k9, "_FORCE_INTERPRET", True)
+    monkeypatch.setattr(k9, "ALLOW_CPU", True)
+    monkeypatch.setenv("MEDSEG_WINOGRAD_TRAIN", "1")
+    import jax
+    fwd, dx, jax_only = set(), set(), set()
+    for shape, co in _inception_convs(96, 48, batch):
+        for tag, s in (("fwd", shape), ("dx", shape[:-1] + (co,))):
+            x = torch.zeros((1,) * 5, dtype=BF16).expand(s)
+            port = convgrad.winograd_train_eligible(x)
+            want = jax_convgrad._wino23_eligible(
+                jax.ShapeDtypeStruct(s, jnp.bfloat16))
+            assert port == (16 <= s[-1] < 128), s
+            if want:
+                assert port, s          # the port takes whatever JAX takes
+                jax_only.add(s[1])
+            if port:
+                (fwd if tag == "fwd" else dx).add((s[1], s[-1]))
+    assert sorted(fwd) == [(6, 48), (12, 24)]
+    assert sorted(dx) == [(6, 48), (12, 24), (24, 76), (48, 38)]
+    assert jax_only == {48}             # stage 1's grid only
