@@ -91,11 +91,11 @@ Phases, in order; any failure exits non-zero:
                  predictor call's logits and one step's gradients against
                  the fp32 plain path, and one --compute_dtype float16 call;
  14. eval      - the labelled evaluation CLI on two synthetic CT volumes
-                 with 13 seeded organ labels (14 classes), once with host HD95
-                 and once with --device_hd95 (HD95 bit-equal; 8 K1 and 8 K2
-                 launches per predictor call; per-volume seconds), then the
-                 fold majority-vote CLI over three fold directories against
-                 majority_vote_np;
+                 with 13 seeded organ labels (14 classes) with --device_hd95,
+                 and on the smaller one with host HD95 (HD95 bit-equal; 8 K1
+                 and 8 K2 launches per predictor call; per-volume seconds),
+                 then the fold majority-vote CLI over three fold directories
+                 against majority_vote_np;
  15. f5        - the shapes that no kernel took before (fault F5):
                  SegFormer3D at --vol_size 160 through the predictor (K7 on
                  its streaming CUDA-core route in all 8 blocks; logits
@@ -130,7 +130,25 @@ Phases, in order; any failure exits non-zero:
                  the prediction CLI, also with --tta_mirror), 4 steps of each
                  option set at batch 2, and one SwInception step under
                  MEDSEG_DW27_PALLAS=1 MEDSEG_WINOGRAD_TRAIN=1 with every K5
-                 and K9 launch held against cuDNN's wgrad / F.conv3d.
+                 and K9 launch held against cuDNN's wgrad / F.conv3d;
+ 19. zoo_official - the official nnFormer, VideoSwinUNETR and
+                 SwinUNETR_Official at full width: one window bf16 card vs
+                 fp32 CPU, one predictor call of 16 windows with every K1 and
+                 K2 launch held against its plain version (K1 11 and K2 14
+                 for nnFormer, 8 and 8 for VideoSwinUNETR and for
+                 SwinUNETR_Official with MEDSEG_OFFICIAL_FUSED=1, six of its
+                 K1 launches on the CUDA cores at 7^3 = 343-token windows;
+                 none without the gate), the prediction CLI on a 200x180x120
+                 CT volume (nnFormer also with --ref_quirk_rel_pos,
+                 SwinUNETR_Official with the gate on and off), nnFormer's
+                 labelled evaluation with --device_hd95, and each model's
+                 training: 4 steps at batch 8 (nnFormer with
+                 --deep_supervision: K3 11, K4 14 a step; the MONAI blocks
+                 train plain, as in JAX), nnFormer's attentions alone
+                 against plain and the whole gradient of its batch-2 step
+                 against the bf16 plain control, the training CLI at batch 8
+                 and nnFormer's at batch 4 with --grad_accum_steps 2
+                 --fused_loss (K8 for each of its three heads).
 The kernels group `f5` (in the default set) holds the same paths' kernels at
 their shapes against their plain versions, timed: K7's streaming route at
 SegFormer3D's four stages at vol 160 (M = 125) and at stage 4 with
@@ -139,10 +157,18 @@ and K2 and K4 at C = 768 (batch 2, bf16); K2's CUDA-core route at C = 768
 in fp32. The group `r15` holds K1, K3 (every output), K6 and K7 at head
 dims 48 and 96 (the stages of hidden 48 and 96 with heads 1 2 4 8, batch 2,
 K7 at vol 96 and 160) in bf16 and fp32 against their plain versions, reruns
-bit-equal, timed beside their bounds and SDPA.
+bit-equal, timed beside their bounds and SDPA. The group `official` holds
+K1 at SwinUNETR_Official's four stages of one predictor call with the gate on
+(343-token windows on padded grids 49^3, 28^3, 14^3 on the CUDA cores, the
+clamped 6^3 window at stage 4 on the tensor cores; unshifted and shifted,
+the unshifted timed beside plain, its bound and SDPA) and at a clamped
+anisotropic window with a zeroed shift (both routes).
 `--phases zoo_grads` (not run by default) prints the whole-gradient readings
 behind ZOO_GRAD_CTL_FACTOR and, for SwInception and SwinDepth, the block
 controls behind holding their attention alone (`_swin_block_controls`);
+`--phases profile_official` (not run by default) prints torch.profiler tables
+of one training step at batch 8 and one predictor call of each zoo_official
+model (SwinUNETR_Official's call also with MEDSEG_OFFICIAL_FUSED=1);
 `--phases profile` (not run by default) prints torch.profiler tables of one
 training step at batch 8 of the flagship, SwInception and SwinDepth, one
 micro-step at batch 4, one predictor call of each zoo model, SwInception and
@@ -164,6 +190,7 @@ last the line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -174,12 +201,12 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32",
-          "eval", "f5", "r15", "zoo_train", "swin_opts")
+          "eval", "f5", "r15", "zoo_train", "swin_opts", "zoo_official")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5",
-                 "r15")
+                 "r15", "official")
 EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts",
-                "sr_parts", "zoo_grads", "heads_forms")
+                "sr_parts", "zoo_grads", "heads_forms", "profile_official")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -739,16 +766,18 @@ def _add_routes(phase, routes=None):
     return routes
 
 
-def _check_routes(phase, route, need=True):
+def _check_routes(phase, route, need=True, other_routes=None):
     """The launches of the kernels with two routes since the last
-    ``_reset_launches`` all took ``route`` (and, with ``need``, there was at
-    least one): print them and add them to ROUTE_TOTALS for the kernels
-    line."""
+    ``_reset_launches`` all took ``route`` but for the counts of the other
+    route that ``other_routes`` ({kernel: launches}) names (and, with
+    ``need``, there was at least one on ``route``): print them and add them
+    to ROUTE_TOTALS for the kernels line."""
     routes = _add_routes(phase)
     other = "cuda_core" if route == "tensor_core" else "tensor_core"
     for name, by in routes.items():
-        _require(by[other] == 0, f"{phase}: {name} took the {other} route "
-                 f"{by[other]} times (want {route})")
+        want = (other_routes or {}).get(name, 0)
+        _require(by[other] == want, f"{phase}: {name} took the {other} "
+                 f"route {by[other]} times (want {want})")
     _require(not need or sum(by[route] for by in routes.values()) > 0,
              f"{phase}: no launch took the {route} route")
 
@@ -805,6 +834,8 @@ def phase_kernels(groups=KERNEL_GROUPS):
         _f5_kernels(rep)
     if "r15" in groups:
         _r15_kernels(rep)
+    if "official" in groups:
+        _official_kernels(rep["window_attention"])
     for k in rep.values():
         k["launches"] = 0
         del k["tag"]
@@ -1836,78 +1867,102 @@ def _seeded_model(cfg, gen):
     return model.eval()
 
 
-def _model_vs_cpu(tag, cfg, want, x_in, xb):
+def _model_vs_cpu(tag, cfg, want, x_in, xb, other_routes=None, ref=None,
+                  held=False):
     """The full-width model of ``cfg`` with seeded weights: bf16 + kernels
     on the card against fp32 + plain on the CPU on the one window ``x_in``
-    (the encoder's pyramid and the logits within MODEL_REL_TOL), then one
-    predictor call on the windows ``xb`` (CPU tensors): its launches, which
-    must be ``want`` (0 for every other kernel), on the tensor-core routes,
-    its ms with the kernels and with their plain versions, peak memory.
-    Returns the call's launches."""
+    (the encoder's pyramid, where the model has an ``encoder``, and the
+    logits within MODEL_REL_TOL; ``ref``: the reference's logits, computed
+    before on the same weights), then one predictor call on the windows
+    ``xb`` (CPU tensors): its launches, which must be ``want`` (0 for every
+    other kernel), on the tensor-core routes but for ``other_routes``
+    ({kernel: launches}), with ``held`` every K1 and K2 launch held against
+    its plain version (``_held_launches``); then peak memory and the call's
+    ms with the kernels and with their plain versions. Returns (the call's
+    launches, the reference's logits)."""
     import copy
 
     import torch
 
     gen = torch.Generator().manual_seed(cfg.seed)
     model = _seeded_model(cfg, gen)
-    ref = copy.deepcopy(model)
-    ref.dtype = torch.float32
     # the encoder's pyramid of the same two forwards: the logits lean on
     # the full-resolution skip, the deepest scale only on the encoder
-    pyramids = []
-    hooks = [m.encoder.register_forward_hook(
-        lambda mod, args, out: pyramids.append([o.float().cpu() for o in out]))
-        for m in (ref, model)]
+    pyramids, hooks = [], []
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        want_logits = ref(x_in)
-        cpu_s = time.perf_counter() - t0
-        del ref
+        cpu_s = 0.0
+        if ref is None:
+            cpu = copy.deepcopy(model)
+            cpu.dtype = torch.float32
+            if hasattr(model, "encoder"):
+                hooks = [m.encoder.register_forward_hook(
+                    lambda mod, args, out: pyramids.append(
+                        [o.float().cpu() for o in out])) for m in (cpu, model)]
+            t0 = time.perf_counter()
+            ref = cpu(x_in)
+            cpu_s = time.perf_counter() - t0
+            del cpu
         gpu = model.to("cuda")
-        x_gpu = tuple(t.to("cuda") for t in x_in)
-        got = gpu(x_gpu)
+        got = gpu(tuple(t.to("cuda") for t in x_in))
         torch.cuda.synchronize()
         for h in hooks:
             h.remove()
-        scales = [float((g - w).norm() / w.norm())
-                  for w, g in zip(*pyramids)]
-        print(f"{tag} encoder pyramid, rel norm err per scale "
-              f"{' '.join(f'{v:.3e}' for v in scales)} (tol "
-              f"{MODEL_REL_TOL})", flush=True)
-        _require(len(scales) == 5 and max(scales) <= MODEL_REL_TOL,
-                 f"{tag}: the encoder's bf16 pyramid disagrees with the fp32 "
-                 "CPU reference")
-        del pyramids
+        if pyramids:
+            scales = [float((g - w).norm() / w.norm())
+                      for w, g in zip(*pyramids)]
+            print(f"{tag} encoder pyramid, rel norm err per scale "
+                  f"{' '.join(f'{v:.3e}' for v in scales)} (tol "
+                  f"{MODEL_REL_TOL})", flush=True)
+            _require(len(scales) == 5 and max(scales) <= MODEL_REL_TOL,
+                     f"{tag}: the encoder's bf16 pyramid disagrees with the "
+                     "fp32 CPU reference")
+            del pyramids
         shape = tuple(x_in[0].shape[:4]) + (cfg.output_dim,)
         _require(tuple(got.shape) == shape and got.dtype == torch.float32,
                  f"{tag}: logits {tuple(got.shape)} {got.dtype}")
         _require(bool(torch.isfinite(got).all()), f"{tag}: non-finite logits")
         got = got.cpu()
-        rel = float((got - want_logits).norm() / want_logits.norm())
-        agree = float((got.argmax(-1) == want_logits.argmax(-1)).float().mean())
-        print(f"{tag} 96^3, bf16+kernels (card) vs fp32 plain (CPU, "
-              f"{cpu_s:.1f} s): rel norm err {rel:.3e} (tol "
-              f"{MODEL_REL_TOL}), argmax agreement {agree:.4f}", flush=True)
+        rel = float((got - ref).norm() / ref.norm())
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        print(f"{tag} 96^3, bf16+kernels (card) vs fp32 plain (CPU"
+              f"{f', {cpu_s:.1f} s' if cpu_s else ''}): rel norm err "
+              f"{rel:.3e} (tol {MODEL_REL_TOL}), argmax agreement "
+              f"{agree:.4f}", flush=True)
         _require(rel <= MODEL_REL_TOL, f"{tag}: bf16 card logits disagree "
                  "with the fp32 CPU reference")
-        del got, want_logits
+        del got
 
         xb = tuple(t.to("cuda") for t in xb)
         n = xb[0].shape[0]
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        out = gpu(xb)
-        torch.cuda.synchronize()
+        with (_held_launches() if held else contextlib.nullcontext()) as hl:
+            out = gpu(xb)
+            torch.cuda.synchronize()
         launches = _read_launches()
-        _check_routes(tag, "tensor_core")
-        peak = torch.cuda.max_memory_allocated()
+        _check_routes(tag, "tensor_core", need=bool(want),
+                      other_routes=other_routes)
         _require(tuple(out.shape) == (n,) + shape[1:]
                  and bool(torch.isfinite(out).all()),
                  f"{tag}: logits of {n} windows")
         del out
         _require_launches(f"{tag} (one predictor call)", launches,
                           {**dict.fromkeys(launches, 0), **want})
+        for name, errs in (hl.errors.items() if held else ()):
+            _require(len(errs) == launches[name], f"{tag}: {name} held "
+                     f"{len(errs)} of {launches[name]} launches")
+            if errs:
+                worst = max(errs, key=lambda e: e[1])
+                print(f"{tag}: each of the {len(errs)} {name} launches "
+                      f"against its plain version: worst max_abs_err "
+                      f"{worst[1]:.3e} at {worst[0]} (tol {KERNEL_ATOL} + "
+                      f"{KERNEL_RTOL}*|ref|)", flush=True)
+                _require(all(e[2] for e in errs), f"{tag}: a {name} launch "
+                         "disagrees with its plain version")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gpu(xb)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
 
         def call_ms(plain):
             if plain:
@@ -1923,7 +1978,7 @@ def _model_vs_cpu(tag, cfg, want, x_in, xb):
               flush=True)
     del model, gpu, xb
     torch.cuda.empty_cache()
-    return launches
+    return launches, ref
 
 
 def phase_zoo():
@@ -1942,8 +1997,8 @@ def phase_zoo():
         vol = torch.randn(1, 96, 96, 96, 1, generator=gen)
         x_in = (vol, torch.full((1, 3), 0.5), torch.ones(1, 3))
         xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_in)
-        launches = _model_vs_cpu(f"zoo: {name}", cfg, ZOO_LAUNCHES[name],
-                                 x_in, xb)
+        launches, _ = _model_vs_cpu(f"zoo: {name}", cfg,
+                                    ZOO_LAUNCHES[name], x_in, xb)
         total = launches if total is None else {
             k: total[k] + v for k, v in launches.items()}
     return total
@@ -2226,10 +2281,13 @@ def _grads_of(net, loss_fn, batch):
     forward and backward, with the DropPath and Dropout draws seeded."""
     import torch
 
+    from medicalsemseg_tpu_torch.train.state import _deep_supervision_loss
+
     _seed_drop_path(net, 7)
     net.train()
     logits = net((batch["image"], batch["crop_loc"], batch["affine"]))
-    loss = loss_fn(logits, batch["label"])
+    loss = (_deep_supervision_loss(loss_fn, logits, batch["label"])
+            if isinstance(logits, list) else loss_fn(logits, batch["label"]))
     params = list(net.parameters())
     # the last stage's gt_upsample (--global_token) does not reach the loss
     grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -2455,22 +2513,28 @@ B4_CONVS = ("unet_encoders.0.layer.conv2.conv.weight",
             "unet_decoders.0.conv_block.conv2.conv.weight")
 
 
-class _dw27_mode:
-    """MEDSEG_DW27_PALLAS set to ``mode`` (None: unset, the auto gate)
+class _env_var:
+    """The environment variable ``name`` set to ``value`` (None: unset)
     inside the block."""
 
-    def __init__(self, mode):
-        self.mode = mode
+    def __init__(self, name, value):
+        self.name, self.value = name, value
 
     def __enter__(self):
-        self.saved = os.environ.pop("MEDSEG_DW27_PALLAS", None)
-        if self.mode is not None:
-            os.environ["MEDSEG_DW27_PALLAS"] = self.mode
+        self.saved = os.environ.pop(self.name, None)
+        if self.value is not None:
+            os.environ[self.name] = self.value
 
     def __exit__(self, *exc):
-        os.environ.pop("MEDSEG_DW27_PALLAS", None)
+        os.environ.pop(self.name, None)
         if self.saved is not None:
-            os.environ["MEDSEG_DW27_PALLAS"] = self.saved
+            os.environ[self.name] = self.saved
+
+
+def _dw27_mode(mode):
+    """MEDSEG_DW27_PALLAS set to ``mode`` (None: unset, the auto gate)
+    inside the block."""
+    return _env_var("MEDSEG_DW27_PALLAS", mode)
 
 
 def phase_train_b4():
@@ -2602,6 +2666,21 @@ def phase_profile():
         _profile_call(name)
     _profile_call("nnFormerUNETR")
     _profile_call("nnFormerUNETR", "MEDSEG_FUSED_DECODER")
+
+
+def phase_profile_official():
+    """torch.profiler over one warm training step at batch 8 (nnFormer with
+    --deep_supervision) and one warm predictor call of 16 windows of each
+    zoo_official model, SwinUNETR_Official's call also with
+    MEDSEG_OFFICIAL_FUSED=1 (read when the model is built)."""
+    with _dw27_mode(None):
+        for name in ZOO_OFFICIAL_MODELS:
+            _profile_step(TRAIN_BATCH, ("--model", name,
+                                        *ZOO_OFFICIAL_TRAIN_FLAGS[name]))
+    for name in ZOO_OFFICIAL_MODELS:
+        _profile_call(name)
+    with _env_var(OFFICIAL_GATE, "1"):
+        _profile_call("SwinUNETR_Official", note=f" {OFFICIAL_GATE}=1")
 
 
 K9_PARTS = (("whole", 0), ("without the V build", 1),
@@ -3041,7 +3120,7 @@ def _profile_step(n_batch, extra_args):
     torch.cuda.empty_cache()
 
 
-def _profile_call(name, *gates):
+def _profile_call(name, *gates, note=""):
     import torch
 
     from medicalsemseg_tpu_torch.config import get_args
@@ -3057,7 +3136,8 @@ def _profile_call(name, *gates):
         for _ in range(2):
             model(xb)
         _profiled(f"one predictor call of {PREDICT_BATCH} windows, {name} "
-                  f"{' '.join(g + '=1' for g in gates)}", lambda: model(xb))
+                  f"{' '.join(g + '=1' for g in gates)}{note}",
+                  lambda: model(xb))
     del model, xb
     torch.cuda.empty_cache()
 
@@ -3969,6 +4049,98 @@ def _f5_kernels(rep):
 R15_HEADS = (1, 2, 4, 8)
 R15_HIDDEN = (48, 96)
 R15_BATCH = 2
+# K1 at the windows of MONAI's blocks (SwinUNETR_Official under
+# MEDSEG_OFFICIAL_FUSED=1): the constructor window 7^3, its shift 3^3
+OFFICIAL_WINDOW = (7, 7, 7)
+
+
+def _official_attn_case(gen, batch, dims, ws, shift, c, nh, ln):
+    """K1's inputs on the windows of a (batch, *dims, C) bf16 volume that
+    is a multiple of the per-axis window ``ws``; with ``ln`` the LayerNorm
+    rows and the shortcut inside (the absorbed route)."""
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import window as tw
+
+    dev, bf = "cuda", torch.bfloat16
+    n = int(np.prod(ws))
+    x = torch.randn(batch, *dims, c, generator=gen, device=dev).to(bf)
+    wins = tw.window_partition(x, ws).contiguous()
+    s = c ** -0.5
+    args = dict(
+        wqkv=(torch.randn(3 * c, c, generator=gen, device=dev) * s).to(bf),
+        bqkv=torch.randn(3 * c, generator=gen, device=dev) * 0.1,
+        wproj=(torch.randn(c, c, generator=gen, device=dev) * s).to(bf),
+        bproj=torch.randn(c, generator=gen, device=dev) * 0.1,
+        bias=torch.randn(nh, n, n, generator=gen, device=dev) * 0.5)
+    kw = dict(grid_dims=tuple(d // w for d, w in zip(dims, ws)), window=ws,
+              shift=tuple(shift), residual=ln,
+              ln=(torch.stack([1 + 0.3 * torch.randn(c, generator=gen,
+                                                     device=dev),
+                               0.1 * torch.randn(c, generator=gen,
+                                                 device=dev)])
+                  if ln else None))
+    return wins, args, kw
+
+
+def _official_kernels(report):
+    """K1 against its plain version at SwinUNETR_Official's four stages of
+    one predictor call (batch 16) with the gate on: stages 1-3 pad their
+    grids 48, 24, 12 to 49, 28, 14 and take 7^3 = 343-token windows (the
+    CUDA-core heads route: over the tensor-core route's 224 tokens), no
+    LayerNorm inside; stage 4 clamps the window to the 6^3 grid with no
+    shift (the tensor-core route, LayerNorm and shortcut inside). Each stage
+    unshifted and shifted; the unshifted one timed beside its plain version,
+    its bound and SDPA on the same q, k, v (a reference point). Then the
+    clamped anisotropic window of the JAX tests' third case (grid (2, 4, 4)
+    under window (4, 2, 2): window (2, 2, 2), shift (0, 1, 1)) on both
+    routes."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import window as tw
+    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    half = tuple(w // 2 for w in OFFICIAL_WINDOW)
+    for grid, c, nh in STAGES:
+        ws, ss = tw.resolve_window_official((grid,) * 3, OFFICIAL_WINDOW, half)
+        dims = tuple(-(-grid // w) * w for w in ws)
+        ln = dims == (grid,) * 3
+        n = ws[0] * ws[1] * ws[2]
+        route = kwa.attention_route(torch.bfloat16, n, c // nh)
+        shifts = [(0, 0, 0)] + ([ss] if any(ss) else [])
+        for shift in shifts:
+            wins, a, kw = _official_attn_case(gen, PREDICT_BATCH, dims, ws,
+                                              shift, c, nh, ln)
+            label = (f"K1 official grid {grid}^3 (padded to {dims}), window "
+                     f"{ws}, shift {shift}, {route}")
+            _compare(label, kwa.window_attention(wins, **a, **kw),
+                     kwa.window_attention_plain(wins, **a, **kw), report)
+            if shift == (0, 0, 0):
+                t = wins.shape[0]
+                ms = _time_ms(lambda: kwa.window_attention(wins, **a, **kw), 5)
+                pms = _time_ms(lambda: kwa.window_attention_plain(
+                    wins, **a, **kw), 3)
+                flops, nbytes = _work("window_attention", t, n, c, nh)
+                _stage_report(report, f"official predict {n} tokens "
+                              f"{route}", c, PREDICT_BATCH, ms, pms, flops,
+                              nbytes, extra=_sdpa_reference(wins, a, kw))
+                report["per_stage"][-1].update(tokens=n, route=route)
+            del wins, a, kw
+            torch.cuda.empty_cache()
+    ws, ss = tw.resolve_window_official((2, 4, 4), (4, 2, 2), (2, 1, 1))
+    _require((ws, ss) == ((2, 2, 2), (0, 1, 1)),
+             f"official clamp: {(ws, ss)}")
+    wins, a, kw = _official_attn_case(gen, PREDICT_BATCH, (2, 4, 4), ws, ss,
+                                      48, 3, True)
+    for route in kwa.ROUTES:
+        _compare(f"K1 official clamped grid (2, 4, 4) under window (4, 2, "
+                 f"2): window {ws}, shift {ss}, {route}",
+                 kwa.window_attention(wins, **a, **kw, route=route),
+                 kwa.window_attention_plain(wins, **a, **kw), report)
+
+
 R15_SR_VOLS = ((96, (24, 12, 6, 3), 27), (160, (40, 20, 10, 5), 125))
 
 
@@ -4126,11 +4298,12 @@ def _label_volume(rng, shape):
 
 
 def phase_eval():
-    """The labelled evaluation CLI on two synthetic CT volumes with 14
-    classes, at full width: once with host HD95 and once with
-    --device_hd95 (HD95 bit-equal), 8 K1 and 8 K2 launches per predictor
-    call; then the fold majority-vote CLI over three fold directories,
-    held against majority_vote_np."""
+    """The labelled evaluation CLI at full width: two synthetic CT volumes
+    with 14 classes with --device_hd95, then the smaller one with host HD95
+    (HD95 bit-equal; the host's transform over 13 organ classes of the
+    larger volume is cut from the script's time), 8 K1 and 8 K2 launches
+    per predictor call; then the fold majority-vote CLI over three fold
+    directories, held against majority_vote_np."""
     import shutil
 
     import numpy as np
@@ -4143,11 +4316,12 @@ def phase_eval():
     from medicalsemseg_tpu_torch.train.metrics import hausdorff95
 
     rng = np.random.default_rng(3)
-    task = "Task03_SmokeEval"
+    task, small = "Task03_SmokeEval", "Task04_SmokeEvalSmall"
     total = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for sub in ("imagesTr", "labelsTr"):
-            os.makedirs(os.path.join(tmp, task, sub))
+        for t in (task, small):
+            for sub in ("imagesTr", "labelsTr"):
+                os.makedirs(os.path.join(tmp, t, sub))
         val = []
         for i, shape in enumerate(EVAL_SHAPES):
             aff = np.diag([0.8, 0.8, 2.5, 1.0])
@@ -4159,14 +4333,19 @@ def phase_eval():
                        os.path.join(tmp, task, "labelsTr", name))
             val.append({"image": f"./imagesTr/{name}",
                         "label": f"./labelsTr/{name}"})
-        with open(os.path.join(tmp, task, "dataset.json"), "w") as f:
-            json.dump({"training": [], "validation": val}, f)
+        for sub in ("imagesTr", "labelsTr"):   # the smaller volume alone
+            os.link(os.path.join(tmp, task, sub, "img1.nii.gz"),
+                    os.path.join(tmp, small, sub, "img1.nii.gz"))
+        for t, v in ((task, val), (small, val[1:])):
+            with open(os.path.join(tmp, t, "dataset.json"), "w") as f:
+                json.dump({"training": [], "validation": v}, f)
 
         results = {}
-        for label, extra in (("host", []), ("device", ["--device_hd95"])):
+        for label, extra, t, ids in (("device", ["--device_hd95"], task,
+                                      (0, 1)), ("host", [], small, (1,))):
             out_dir = os.path.join(tmp, "out_" + label)
             cfg = get_args(FLAGSHIP_ARGS + extra + [
-                "--data_path", tmp, "--task", task, "--output_dir", out_dir,
+                "--data_path", tmp, "--task", t, "--output_dir", out_dir,
                 "--device", "cuda"])
             _reset_launches()
             t0 = time.perf_counter()
@@ -4177,7 +4356,7 @@ def phase_eval():
             for k, v in delta.items():
                 total[k] = total.get(k, 0) + v
             calls = sum(r["predictor_calls"] for r in res["records"])
-            _require(len(res["records"]) == 2 and calls > 0,
+            _require(len(res["records"]) == len(ids) and calls > 0,
                      f"eval {label}: {len(res['records'])} volumes, {calls} "
                      "predictor calls")
             _require_launches(f"eval {label} ({calls} predictor calls)",
@@ -4192,9 +4371,9 @@ def phase_eval():
                       f"{r['hd95_seconds']:.3f}, seconds {r['seconds']:.3f}",
                       flush=True)
             print(f"eval: {label} HD95: mDice {res['mDice']:.4f}, mHD95 "
-                  f"{res['mHD95']:.3f}, {wall:.2f} s for 2 volumes",
+                  f"{res['mHD95']:.3f}, {wall:.2f} s for {len(ids)} volumes",
                   flush=True)
-            for i, r in enumerate(res["records"]):
+            for i, r in zip(ids, res["records"]):
                 for sub in ("pred", "img", "gt"):
                     path = os.path.join(out_dir, "eval_output", "Fold0", sub,
                                         f"img{i}.nii.gz")
@@ -4209,31 +4388,30 @@ def phase_eval():
             return nifti.load(os.path.join(out_dir, "eval_output", "Fold0",
                                            sub, f"img{i}.nii.gz")).data
 
-        same_pred = all(np.array_equal(saved(host_dir, "pred", i),
-                                       saved(dev_dir, "pred", i))
-                        for i in range(2))
+        same_pred = np.array_equal(saved(host_dir, "pred", 1),
+                                   saved(dev_dir, "pred", 1))
         if same_pred:
             want = host["hd95"]
         else:   # the two runs' argmax differ: host HD95 of the device run's
-            want = np.stack([hausdorff95(saved(dev_dir, "pred", i),
-                                         saved(dev_dir, "gt", i), 14)
-                             for i in range(2)])
-        print(f"eval: predictions of the two runs equal: {same_pred}; HD95 "
-              f"rows (host) {np.round(want, 3).tolist()}", flush=True)
-        _require(np.array_equal(dev["hd95"], want, equal_nan=True),
+            want = hausdorff95(saved(dev_dir, "pred", 1),
+                               saved(dev_dir, "gt", 1), 14)[None]
+        print(f"eval: predictions of the smaller volume equal in the two "
+              f"runs: {same_pred}; its HD95 row (host) "
+              f"{np.round(want, 3).tolist()}", flush=True)
+        _require(np.array_equal(dev["hd95"][1:], want, equal_nan=True),
                  "eval: device HD95 is not bit-equal to host HD95")
         _require(np.isfinite(want[:, :EVAL_ORGANS]).any(),
                  "eval: no organ has a finite HD95")
 
         folds = os.path.join(tmp, "folds")
-        preds = sorted(os.listdir(os.path.join(host_dir, "eval_output",
+        preds = sorted(os.listdir(os.path.join(dev_dir, "eval_output",
                                                "Fold0", "pred")))
         stacks = {}
         for k in range(3):
             d = os.path.join(folds, f"Fold{k}", "pred")
             os.makedirs(d)
             for name in preds:
-                img = nifti.load(os.path.join(host_dir, "eval_output",
+                img = nifti.load(os.path.join(dev_dir, "eval_output",
                                               "Fold0", "pred", name))
                 data = np.array(img.data)
                 if k:   # folds 1 and 2 claim class 3 in nested blocks
@@ -4583,6 +4761,12 @@ ZOO_TRAIN_LAUNCHES = {
     "SwinSegFormer": dict.fromkeys(SWIN_KERNELS, 8),
     "SwInception": {"window_attention": 8, "window_attention_bwd": 8},
     "SwinDepth": {"window_attention": 8, "window_attention_bwd": 8},
+    # the official nnFormer: K1 / K3 in its 11 Swin blocks, K2 / K4 in
+    # their MLPs and the 3 cross blocks'; the MONAI blocks train plain
+    "nnFormer": {"window_attention": 11, "window_attention_bwd": 11,
+                 "fused_mlp": 14, "fused_mlp_bwd": 14},
+    "VideoSwinUNETR": {},
+    "SwinUNETR_Official": {},
 }
 ZOO_TRAIN_STEPS = 4
 # crops a step: all three models fit the card at batch 8 (PERF.md, PR 12),
@@ -4604,11 +4788,16 @@ ZOO_GRAD_CTL_FACTOR = 1.08
 # output of K1-K4: stand-ins for kernels of a lower precision
 ZOO_GRAD_COARSE_BITS = (1, 2, 3)
 # --n_images_per_batch 4 --grad_accum_steps 2 --fused_loss: per micro-step
-# K8 once forward and once backward, and K5 for the UNETR decoder's three
-# full-resolution convs (the UNETR decoders of GCViTUNETR, SwInception and
-# SwinDepth: the SegFormer heads have no 3^3 stride-1 conv)
+# K8 once forward and once backward (for each head), and K5 for the UNETR
+# decoder's three full-resolution convs (the UNETR decoders of GCViTUNETR,
+# SwInception and SwinDepth: the SegFormer heads have no 3^3 stride-1 conv);
+# None: the training CLI runs no batch-4 epoch of that model
 ZOO_B4_K5 = {"GCViTUNETR": 3, "SegFormer3D": 0, "SwinSegFormer": 0,
-             "SwInception": 3, "SwinDepth": 3}
+             "SwInception": 3, "SwinDepth": 3,
+             # nnFormer's conv stem: its second conv, 24 -> 24 at 96^3 (the
+             # first reads one channel, the others a 48^3 grid)
+             "nnFormer": 1, "VideoSwinUNETR": None,
+             "SwinUNETR_Official": None}
 
 
 def _zoo_train_steps(name, batch_size, extra=(), batch_fn=None):
@@ -4725,10 +4914,12 @@ def _unfused_ms(model, batch):
 def _zoo_train_cli(name, tmp, batch_size, extra=()):
     """The training CLI on the synthetic set in ``tmp`` (``name`` with the
     flags ``extra``): one epoch at ``batch_size`` with validation and a
-    checkpoint, then one epoch of micro-steps at batch 4 with
-    --grad_accum_steps 2 --fused_loss. Requires the backward kernels'
-    launches of a step (ZOO_TRAIN_LAUNCHES[name]) and K5's of a batch-4
-    micro-step (ZOO_B4_K5[name]). Returns the launches of both runs."""
+    checkpoint, then (where ZOO_B4_K5[name] is not None) one epoch of
+    micro-steps at batch 4 with --grad_accum_steps 2 --fused_loss. Requires
+    the backward kernels' launches of a step (ZOO_TRAIN_LAUNCHES[name]), K5's
+    of a batch-4 micro-step (ZOO_B4_K5[name]) and K8's, once forward and once
+    backward for each head (three under --deep_supervision). Returns the
+    launches of the runs."""
     import numpy as np
     import torch
 
@@ -4736,6 +4927,7 @@ def _zoo_train_cli(name, tmp, batch_size, extra=()):
     from medicalsemseg_tpu_torch.config import get_args
 
     bwd, b4_k5 = ZOO_TRAIN_LAUNCHES[name], ZOO_B4_K5[name]
+    heads = 3 if "--deep_supervision" in extra else 1
     base = TRAIN_ARGS + list(extra) + [
         "--model", name, "--data_path", tmp, "--task", "Task03_ZooTrain",
         "--t_fixed_ct_intensity", "--t_rand_crop_fgbg", "--t_spatial_pad",
@@ -4743,12 +4935,13 @@ def _zoo_train_cli(name, tmp, batch_size, extra=()):
         "--metric_readback_freq", "1", "--epochs", "1"]
     total = {}
     n_train = ZOO_CLI_VOLUMES * 4 // 5     # fold 0 of 5 holds a fifth out
-    for tag, extra, micro in (
-            (f"batch {batch_size}", ["--n_images_per_batch",
+    runs = [(f"batch {batch_size}", ["--n_images_per_batch",
                                      str(batch_size)],
-             n_train // batch_size),
-            ("batch 4, --grad_accum_steps 2, --fused_loss", TRAIN_B4_FLAGS,
-             n_train // TRAIN_B4_BATCH)):
+             n_train // batch_size)]
+    if b4_k5 is not None:
+        runs.append(("batch 4, --grad_accum_steps 2, --fused_loss",
+                     TRAIN_B4_FLAGS, n_train // TRAIN_B4_BATCH))
+    for tag, extra, micro in runs:
         out = tempfile.mkdtemp(prefix=f"{name}_", dir=tmp)
         _reset_launches()
         t0 = time.perf_counter()
@@ -4769,8 +4962,8 @@ def _zoo_train_cli(name, tmp, batch_size, extra=()):
                  f"{payload['step']} (want {micro})")
         if "--fused_loss" in extra:
             _require_launches(f"zoo_train {name} CLI {tag}", launches, {
-                "dice_ce_sums": micro, "dice_ce_dlogits": micro,
-                "dw27": b4_k5 * micro})
+                "dice_ce_sums": heads * micro,
+                "dice_ce_dlogits": heads * micro, "dw27": b4_k5 * micro})
         else:
             _require_launches(f"zoo_train {name} CLI {tag}", launches, {
                 "dice_ce_sums": 0, "dice_ce_dlogits": 0, "dw27": 0})
@@ -5413,8 +5606,8 @@ def phase_swin_opts():
     for tag in SWIN_MLP_MODELS + ("attention",):
         cfg = get_args(_zoo_args("nnFormerUNETR") + SWIN_OPTS_FLAGS[tag])
         add(_model_vs_cpu(f"swin_opts: {tag}", cfg, SWIN_OPTS_CALL[tag],
-                          _opts_inputs(1, gen), _opts_inputs(PREDICT_BATCH,
-                                                             gen)))
+                          _opts_inputs(1, gen),
+                          _opts_inputs(PREDICT_BATCH, gen))[0])
     with tempfile.TemporaryDirectory() as tmp:
         add(_swin_opts_predict_cli(tmp))
         _write_train_set(os.path.join(tmp, "Task03_ZooTrain"),
@@ -5431,6 +5624,298 @@ def phase_swin_opts():
             add(_swin_opts_train(tag, "nnFormerUNETR", SWIN_OPTS_FLAGS[tag],
                                  ZOO_GRAD_BATCH, _opts_batch(tgen)))
     add(_swin_opts_gated())
+    return total
+
+
+# ---- the fourteenth slice: the official nnFormer and MONAI's Swin block
+# family (VideoSwinUNETR, SwinUNETR_Official), for prediction, training and
+# evaluation
+
+ZOO_OFFICIAL_MODELS = ("nnFormer", "VideoSwinUNETR", "SwinUNETR_Official")
+OFFICIAL_GATE = "MEDSEG_OFFICIAL_FUSED"
+# kernel launches of one predictor call: nnFormer's 8 encoder and 3 decoder
+# Swin blocks (K1, K2) and its 3 cross blocks' MLPs (K2); the MONAI blocks'
+# 8 (K1, K2), SwinUNETR_Official's only with the gate on
+ZOO_OFFICIAL_CALL = {
+    "nnFormer": {"window_attention": 11, "fused_mlp": 14},
+    "VideoSwinUNETR": {"window_attention": 8, "fused_mlp": 8},
+    "SwinUNETR_Official": {"window_attention": 8, "fused_mlp": 8},
+}
+# K1's heads launches of one call on the CUDA cores: SwinUNETR_Official's
+# 7^3 windows at stages 1-3 (343 tokens, over the tensor-core route's 224)
+ZOO_OFFICIAL_CUDA_CORE = {"window_attention": 6}
+# flags of the training runs: nnFormer with its three deep-supervision heads
+ZOO_OFFICIAL_TRAIN_FLAGS = {"nnFormer": ["--deep_supervision"],
+                            "VideoSwinUNETR": [], "SwinUNETR_Official": []}
+
+
+class _held_launches:
+    """Inside the block every launch of K1 (``window_attention``) and K2
+    (``fused_mlp``) is also computed by its plain version on the same
+    inputs on the card and held against it (KERNEL_ATOL + KERNEL_RTOL |ref|
+    elementwise); ``errors`` maps each kernel to (input shape, max abs err,
+    within tolerance) per launch. The plain calls are no launches."""
+
+    def __enter__(self):
+        import torch
+
+        from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+        from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+
+        self.errors = {"window_attention": [], "fused_mlp": []}
+        self.saved = [(kwa, "window_attention", kwa.window_attention),
+                      (kmlp, "fused_mlp", kmlp.fused_mlp)]
+
+        def held(name, fn, plain):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                want = plain(*args, **{k: v for k, v in kw.items()
+                                       if k not in ("route", "gemm_route")})
+                g, w = out.float(), want.float()
+                err = (g - w).abs()
+                ok = (bool(torch.isfinite(g).all()) and bool(
+                    (err <= KERNEL_ATOL + KERNEL_RTOL * w.abs()).all()))
+                self.errors[name].append((tuple(args[0].shape),
+                                          float(err.max()), ok))
+                return out
+            return call
+
+        kwa.window_attention = held("window_attention", kwa.window_attention,
+                                    kwa.window_attention_plain)
+        kmlp.fused_mlp = held("fused_mlp", kmlp.fused_mlp,
+                              kmlp.fused_mlp_plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _official_predict_cli(tmp):
+    """The prediction CLI on the 200x180x120 CT volume: nnFormer, also with
+    --ref_quirk_rel_pos, VideoSwinUNETR, SwinUNETR_Official with the gate on
+    (K1 on the CUDA cores at its 7^3 windows) and off (no kernel). Returns
+    the launches of all runs."""
+    import numpy as np
+
+    from medicalsemseg_tpu_torch.cli import run_test
+    from medicalsemseg_tpu_torch.data import nifti
+
+    task = os.path.join(tmp, "Task10_Official")
+    os.makedirs(os.path.join(task, "imagesTs"))
+    nifti.save(nifti.NiftiImage(_ct_volume(np.random.default_rng(14),
+                                           EVAL_SHAPES[1]),
+                                np.diag([0.8, 0.8, 2.5, 1.0])),
+               os.path.join(task, "imagesTs", "ct0.nii.gz"))
+    with open(os.path.join(task, "dataset.json"), "w") as f:
+        json.dump({"training": [], "test": ["./imagesTs/ct0.nii.gz"]}, f)
+    total = {}
+    for name, extra, gate in (
+            ("nnFormer", [], None), ("nnFormer", ["--ref_quirk_rel_pos"], None),
+            ("VideoSwinUNETR", [], None), ("SwinUNETR_Official", [], "1"),
+            ("SwinUNETR_Official", [], None)):
+        label = " ".join([name] + extra + ([f"{OFFICIAL_GATE}={gate}"]
+                                           if gate else []))
+        want = ZOO_OFFICIAL_CALL[name] if gate or name != \
+            "SwinUNETR_Official" else {}
+        out = tempfile.mkdtemp(prefix="pred_", dir=tmp)
+        with _env_var(OFFICIAL_GATE, gate):
+            cfg = run_test.get_args(_zoo_args(name) + extra + [
+                "--data_path", tmp, "--task", "Task10_Official",
+                "--output_dir", out, "--device", "cuda"])
+            _reset_launches()
+            t0 = time.perf_counter()
+            records = run_test.main(cfg)
+            wall = time.perf_counter() - t0
+        launches = _read_launches()
+        calls = sum(r["predictor_calls"] for r in records)
+        _require(calls > 0, f"zoo_official CLI {label}: no predictor call")
+        _check_routes(f"zoo_official CLI {label}", "tensor_core",
+                      need=bool(want), other_routes={
+                          k: v * calls for k, v in (
+                              ZOO_OFFICIAL_CUDA_CORE if gate else {}).items()})
+        _require_launches(f"zoo_official CLI {label}", launches,
+                          {**dict.fromkeys(launches, 0),
+                           **{k: v * calls for k, v in want.items()}})
+        pred = nifti.load(os.path.join(out, "test_output", "Fold0", "pred",
+                                       "ct0.nii.gz")).data
+        _require(pred.shape == EVAL_SHAPES[1] and int(pred.max()) < 14,
+                 f"zoo_official CLI {label}: prediction {pred.shape}")
+        print(f"zoo_official: prediction CLI, {label} on a 200x180x120 CT "
+              f"volume: {calls} predictor calls, predicted in "
+              f"{records[0]['predict_seconds']:.2f} s, {wall:.1f} s in all",
+              flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _official_eval(tmp):
+    """The labelled evaluation CLI of nnFormer with --device_hd95 on the
+    200x180x120 CT volume with 13 seeded organ labels. Returns its
+    launches."""
+    import numpy as np
+
+    from medicalsemseg_tpu_torch.cli import run_evaluation
+    from medicalsemseg_tpu_torch.config import get_args
+    from medicalsemseg_tpu_torch.data import nifti
+
+    rng = np.random.default_rng(15)
+    task = "Task11_OfficialEval"
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(tmp, task, sub))
+    aff = np.diag([0.8, 0.8, 2.5, 1.0])
+    nifti.save(nifti.NiftiImage(_ct_volume(rng, EVAL_SHAPES[1]), aff),
+               os.path.join(tmp, task, "imagesTr", "img0.nii.gz"))
+    nifti.save(nifti.NiftiImage(_label_volume(rng, EVAL_SHAPES[1]), aff),
+               os.path.join(tmp, task, "labelsTr", "img0.nii.gz"))
+    with open(os.path.join(tmp, task, "dataset.json"), "w") as f:
+        json.dump({"training": [], "validation": [
+            {"image": "./imagesTr/img0.nii.gz",
+             "label": "./labelsTr/img0.nii.gz"}]}, f)
+    cfg = get_args(_zoo_args("nnFormer") + [
+        "--device_hd95", "--data_path", tmp, "--task", task, "--output_dir",
+        os.path.join(tmp, "out_eval"), "--device", "cuda"])
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = run_evaluation.main(cfg)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _check_routes("zoo_official eval nnFormer", "tensor_core")
+    calls = sum(r["predictor_calls"] for r in res["records"])
+    _require(len(res["records"]) == 1 and calls > 0,
+             f"zoo_official eval: {len(res['records'])} volumes, {calls} "
+             "predictor calls")
+    _require_launches(f"zoo_official eval ({calls} predictor calls)",
+                      launches, {**dict.fromkeys(launches, 0),
+                                 **{k: v * calls for k, v in
+                                    ZOO_OFFICIAL_CALL["nnFormer"].items()}})
+    _require(np.isfinite(res["mDice"]), "zoo_official eval: mDice")
+    r = res["records"][0]
+    print(f"zoo_official: evaluation CLI, nnFormer --device_hd95 on "
+          f"{r['shape']}: {calls} predictor calls, predict_seconds "
+          f"{r['predict_seconds']:.3f}, hd95_seconds {r['hd95_seconds']:.3f}, "
+          f"mDice {res['mDice']:.4f}, mHD95 {res['mHD95']:.3f}, {wall:.1f} s",
+          flush=True)
+    return launches
+
+
+def _official_train(name, tmp):
+    """Steps of ``name`` at batch 8 (a batch that no longer fits fails the
+    phase), every step's launches as ZOO_TRAIN_LAUNCHES says, the loss
+    falling; for nnFormer, the one of the three that trains through kernels,
+    its Swin-block attentions alone against plain and the whole gradient of
+    a batch-2 step against fp32 plain beside the bf16 plain control (the
+    MONAI blocks train plain, so there the two runs would be one
+    computation); the training CLI at batch 8, and nnFormer's also at batch
+    4 with --grad_accum_steps 2 --fused_loss (K8 for each of its three
+    heads). Returns the launches."""
+    import contextlib
+
+    import torch
+
+    from medicalsemseg_tpu_torch.models.swin import WindowAttention
+
+    extra = ZOO_OFFICIAL_TRAIN_FLAGS[name]
+    batch = ZOO_TRAIN_BATCH
+    run = _zoo_train_steps(name, batch, extra)
+    total = dict(run["launches"])
+    for i, step in enumerate(run["steps"]):
+        _require_launches(f"zoo_official {name} (step {i})", step, {
+            **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name]})
+    _require(all(by["cuda_core"] == 0 for by in run["routes"].values()),
+             f"zoo_official {name}: a launch took the CUDA cores "
+             f"{run['routes']}")
+    losses = run["losses"]
+    _require(losses[-1] < losses[0], f"zoo_official {name}: the loss did not "
+             f"fall: {losses}")
+    print(f"zoo_official: {name} {' '.join(extra)} batch {batch} x 96^3, "
+          f"bf16, {ZOO_TRAIN_STEPS} steps: loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; ms per step "
+          f"{' '.join(f'{t:.0f}' for t in run['times'])} (the first includes "
+          f"cuDNN's choice of algorithms); peak device memory "
+          f"{run['peak'] / 2 ** 30:.2f} GiB; launches a step "
+          f"{ {k: v for k, v in run['steps'][-1].items() if v} }",
+          flush=True)
+    cfg, model = run["cfg"], run["model"]
+    del run
+    torch.cuda.empty_cache()
+    seed = ZOO_GRAD_SEEDS[0]
+    if ZOO_TRAIN_LAUNCHES[name]:
+        _, found = _blocks_vs_plain(f"zoo_official {name}", model,
+                                    _zoo_grad_fn(cfg, seed), WindowAttention)
+        _require(found == ZOO_TRAIN_LAUNCHES[name]["window_attention"],
+                 f"zoo_official {name}: {found} attentions")
+        rel, ref = _zoo_grads(cfg, model, seed, {
+            "kernels": contextlib.nullcontext, "bf16 plain": _plain_kernels})
+        ratio = _zoo_grad_line(f"zoo_official {name}", seed, rel, ref)
+        limit = min(TRAIN_GRAD_REL_TOL,
+                    ZOO_GRAD_CTL_FACTOR * rel["bf16 plain"][1])
+        print(f"zoo_official: {name}: the whole gradient with the kernels "
+              f"{rel['kernels'][1]:.3e} from fp32 plain, {ratio:.3f} times "
+              f"the control's (tol {limit:.3e})", flush=True)
+        _require(rel["kernels"][1] <= limit, f"zoo_official {name}: the "
+                 "gradients disagree with the fp32 plain path")
+    del model
+    torch.cuda.empty_cache()
+    cli = _zoo_train_cli(name, tmp, batch, extra)
+    for k, v in cli.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_zoo_official():
+    """nnFormer, VideoSwinUNETR and SwinUNETR_Official at full width: one
+    window bf16 card vs fp32 CPU and one predictor call of 16 windows with
+    every K1 / K2 launch held against plain (SwinUNETR_Official with
+    MEDSEG_OFFICIAL_FUSED=1 and without), the prediction CLI (also nnFormer
+    with --ref_quirk_rel_pos and both gates of SwinUNETR_Official),
+    nnFormer's labelled evaluation with --device_hd95, and each model's
+    training (steps, gradients, the CLI)."""
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    gen = torch.Generator().manual_seed(16)
+    vol = torch.randn(1, 96, 96, 96, 1, generator=gen)
+    x_in = (vol, torch.full((1, 3), 0.5), torch.ones(1, 3))
+    xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_in)
+    t0 = time.perf_counter()
+    for name in ("nnFormer", "VideoSwinUNETR"):
+        add(_model_vs_cpu(f"zoo_official: {name}", get_args(_zoo_args(name)),
+                          ZOO_OFFICIAL_CALL[name], x_in, xb, held=True)[0])
+    ref = None
+    for gate in ("1", None):
+        with _env_var(OFFICIAL_GATE, gate):
+            launches, ref = _model_vs_cpu(
+                f"zoo_official: SwinUNETR_Official ({OFFICIAL_GATE}="
+                f"{gate or 'unset'})", get_args(_zoo_args("SwinUNETR_Official")),
+                ZOO_OFFICIAL_CALL["SwinUNETR_Official"] if gate else {}, x_in,
+                xb, ZOO_OFFICIAL_CUDA_CORE if gate else None, ref, held=True)
+        add(launches)
+    print(f"zoo_official: prediction: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        add(_official_predict_cli(tmp))
+        add(_official_eval(tmp))
+        print(f"zoo_official: the CLIs: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        _write_train_set(os.path.join(tmp, "Task03_ZooTrain"),
+                         ZOO_CLI_VOLUMES, (128, 120, 100), 14,
+                         np.random.default_rng(3))
+        for name in ZOO_OFFICIAL_MODELS:
+            t0 = time.perf_counter()
+            add(_official_train(name, tmp))
+            print(f"zoo_official: {name} training: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
     return total
 
 
@@ -5564,7 +6049,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    for gate in WINO_GATES:      # every phase sets the gates it means to test
+    # every phase sets the gates it means to test
+    for gate in WINO_GATES + (OFFICIAL_GATE,):
         os.environ.pop(gate, None)
     kernels = []
     try:
@@ -5590,7 +6076,8 @@ def main(argv=None) -> int:
                             ("fp32", phase_fp32), ("eval", phase_eval),
                             ("f5", phase_f5), ("r15", phase_r15),
                             ("zoo_train", phase_zoo_train),
-                            ("swin_opts", phase_swin_opts)):
+                            ("swin_opts", phase_swin_opts),
+                            ("zoo_official", phase_zoo_official)):
             if name in phases:
                 t0 = time.perf_counter()
                 launches = phase()
@@ -5601,6 +6088,8 @@ def main(argv=None) -> int:
                     k["launches"] += launches[k["name"]]
         if "profile" in phases:
             phase_profile()
+        if "profile_official" in phases:
+            phase_profile_official()
         if "k9_parts" in phases:
             phase_k9_parts()
         if "k5_parts" in phases:

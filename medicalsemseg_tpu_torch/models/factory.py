@@ -5,13 +5,17 @@ Ported: the flagship ``nnFormerUNETR``, ``SwInception`` and ``SwinDepth``
 one of the three with all the Swin encoder's options, under the UNETR
 decoder), ``SwinSegFormer`` (the Swin encoder under the progressive
 SegFormer head), ``SegFormer3D`` (MixViT encoder under the official
-SegFormer head) and ``GCViTUNETR`` (GC-ViT encoder under the UNETR decoder).
-The other models of the zoo raise ``NotImplementedError``.
+SegFormer head), ``GCViTUNETR`` (GC-ViT encoder under the UNETR decoder),
+the official ``nnFormer`` (symmetric, with cross-attention skips and deep
+supervision), ``VideoSwinUNETR`` (Video-Swin on MONAI's blocks under the
+UNETR decoder) and ``SwinUNETR_Official`` (MONAI's SwinUNETR). The other
+models of the zoo raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 import torch.nn as nn
@@ -30,10 +34,23 @@ from medicalsemseg_tpu_torch.models.embeddings import (
 )
 from medicalsemseg_tpu_torch.models.gcvit import SE, GCViT3D, GCWindowAttention
 from medicalsemseg_tpu_torch.models.layers import Conv3d, ConvTranspose3d
+from medicalsemseg_tpu_torch.models.nnformer import (
+    CrossWindowAttention,
+    NNFormer,
+)
 from medicalsemseg_tpu_torch.models.segformer import MixVisionTransformer3D
 from medicalsemseg_tpu_torch.models.swin import (
     SwinEncoder3D,
     WindowAttention,
+)
+from medicalsemseg_tpu_torch.models.swin_official import (
+    OfficialPatchMerging,
+    OfficialWindowAttention,
+    SwinUNETROfficial,
+)
+from medicalsemseg_tpu_torch.models.video_swin import (
+    VideoPatchMerging,
+    VideoSwin3D,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -43,7 +60,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 SWIN_UNETR_MLPS = {"nnFormerUNETR": "dense", "SwInception": "inception",
                    "SwinDepth": "dwconv"}
 MODEL_NAMES = tuple(SWIN_UNETR_MLPS) + ("SwinSegFormer", "SegFormer3D",
-                                        "GCViTUNETR")
+                                        "GCViTUNETR", "nnFormer",
+                                        "VideoSwinUNETR", "SwinUNETR_Official")
+
+
+def official_fused_enabled() -> bool:
+    """``MEDSEG_OFFICIAL_FUSED=1``: SwinUNETR_Official's blocks run K1 (its
+    7^3 windows on the CUDA-core route) and K2 in eval mode. Off by
+    default, as in the JAX factory, so both packages take the same route."""
+    return os.environ.get("MEDSEG_OFFICIAL_FUSED", "0") == "1"
 
 
 def _lcv_transform(cfg: Config):
@@ -89,8 +114,8 @@ def build_model(cfg: Config) -> nn.Module:
     name = cfg.model
     if name not in MODEL_NAMES:
         raise NotImplementedError(
-            f"--model {name} is not ported yet (ROADMAP queue 1 items "
-            f"13d-13i, the rest of the model zoo); the port has "
+            f"--model {name} is not ported yet (ROADMAP queue 1 items 13e, "
+            f"13h and 13i, the rest of the model zoo); the port has "
             f"{', '.join(MODEL_NAMES)}")
     dtype = DTYPES[cfg.compute_dtype]
     patch = cfg.patch_size3()
@@ -117,6 +142,32 @@ def build_model(cfg: Config) -> nn.Module:
             drop_path_rate=cfg.drop_path_rate)
         return SegFormerHeadOfficial(encoder, dims[:len(cfg.depths)],
                                      cfg.output_dim, dtype=dtype)
+    elif name == "nnFormer":
+        return NNFormer(
+            cfg.vol_size3(), cfg.output_dim, in_chans=cfg.in_chans,
+            embed_dim=cfg.hidden_dim, depths=tuple(cfg.depths),
+            num_heads=tuple(cfg.num_heads), window_sizes=cfg.window_sizes(),
+            patch_size=patch, qkv_bias=cfg.qkv_bias,
+            drop_path_rate=cfg.drop_path_rate,
+            deep_supervision=cfg.deep_supervision,
+            ref_quirk_index=cfg.ref_quirk_rel_pos, dtype=dtype)
+    elif name == "SwinUNETR_Official":
+        # MONAI's fixed 7^3 window, patch 2, qkv bias and MLP ratio 4, as
+        # the JAX factory builds it
+        return SwinUNETROfficial(
+            cfg.output_dim, in_chans=cfg.in_chans,
+            feature_size=cfg.hidden_dim, depths=tuple(cfg.depths),
+            num_heads=tuple(cfg.num_heads),
+            drop_path_rate=cfg.drop_path_rate,
+            fused=official_fused_enabled(), dtype=dtype)
+    elif name == "VideoSwinUNETR":
+        w = cfg.window_sizes()[0]
+        encoder = VideoSwin3D(
+            cfg.vol_size3(), in_chans=cfg.in_chans, embed_dim=cfg.hidden_dim,
+            depths=tuple(cfg.depths), num_heads=tuple(cfg.num_heads),
+            window=(w, w, w), patch_size=patch, mlp_ratio=cfg.mlp_ratio,
+            qkv_bias=cfg.qkv_bias, drop_path_rate=cfg.drop_path_rate,
+            ape=cfg.abs_pos_emb)
     else:
         if patch != (2, 2, 2):
             # GC-ViT's stem halves every axis; the JAX decoder's first
@@ -159,11 +210,16 @@ def _conv_fan_in(weight: torch.Tensor, transposed: bool = False) -> int:
 
 def _default_init_dense(parent: nn.Module):
     """The ``nn.Linear`` children of ``parent`` whose JAX counterpart is an
-    ``nn.Dense`` without a ``kernel_init``."""
+    ``nn.Dense`` (or raw dense leaves) with flax's default ``kernel_init``,
+    lecun normal."""
     if isinstance(parent, SE):
         return [parent.fc1, parent.fc2]
     if isinstance(parent, LinearEmbed):
         return [parent.proj]
+    if isinstance(parent, OfficialWindowAttention):
+        return [parent.qkv, parent.proj]
+    if isinstance(parent, (OfficialPatchMerging, VideoPatchMerging)):
+        return [parent.reduction]
     return []
 
 
@@ -192,7 +248,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (WindowAttention, GCWindowAttention)):
+            elif isinstance(m, (WindowAttention, GCWindowAttention,
+                                CrossWindowAttention,
+                                OfficialWindowAttention)):
                 _trunc_normal_(m.relative_position_bias_table, 0.02, generator)
                 if getattr(m, "rel_pos_bias_affine", False):
                     _trunc_normal_(m.rel_pos_bias_affine_emb, 0.02, generator)
@@ -201,4 +259,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.vectors.normal_(0.0, 1.0, generator=generator)
             elif isinstance(m, SwinEncoder3D) and hasattr(m, "global_token"):
                 _trunc_normal_(m.global_token, 0.02, generator)
+            elif isinstance(m, VideoSwin3D) and hasattr(
+                    m, "absolute_pos_embed"):
+                _trunc_normal_(m.absolute_pos_embed, 0.02, generator)
     return model

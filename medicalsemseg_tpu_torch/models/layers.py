@@ -289,6 +289,12 @@ class Mlp(nn.Module):
                               self.fc1.bias.float(), self.fc2.weight.to(dt),
                               self.fc2.bias.float(), ln=ln, residual=residual)
 
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """mlp(x) of LN'd tokens (..., C) in PyTorch ops that autograd
+        differentiates, each dense in the compute dtype: the JAX module's
+        XLA form, which the MONAI blocks run where they leave the kernels
+        (training, or ``MEDSEG_OFFICIAL_FUSED`` off)."""
+        return linear(F.gelu(linear(x, self.fc1)), self.fc2)
 
 
 def tokens_to_volume(x: torch.Tensor, grid: Tuple3) -> torch.Tensor:

@@ -51,6 +51,7 @@ from medicalsemseg_tpu_torch.ops.window import (
     gather_rel_bias,
     pad_to_multiple,
     relative_position_index,
+    relative_position_index_ref_quirk,
     resolve_window,
     roll3,
     shift_mask,
@@ -81,12 +82,15 @@ class WindowAttention(nn.Module):
     fp32 dense ``rel_pos_bias_affine_lin``); ``global_token`` appends one
     shared token to every window and mixes the windows' copies of it back
     into one with ``gt_proj``, a dense layer over the ``n_windows`` windows
-    of a volume. Either option makes the block run :meth:`unfused`."""
+    of a volume. Either option makes the block run :meth:`unfused`.
+    ``ref_quirk_index`` gathers every bias (and scatters the kernels' bias
+    gradient) with the reference's colliding-stride index
+    (``relative_position_index_ref_quirk``) instead of the standard one."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  qkv_bias: bool = False, n_windows: int = 1,
                  rel_pos_bias_affine: bool = False,
-                 global_token: bool = False):
+                 global_token: bool = False, ref_quirk_index: bool = False):
         super().__init__()
         self.window_size, self.num_heads = window_size, num_heads
         self.n_windows = n_windows
@@ -97,7 +101,9 @@ class WindowAttention(nn.Module):
         rows = (2 * window_size - 1) ** 3
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros(rows, num_heads))
-        idx = relative_position_index((window_size,) * 3).astype(np.int64)
+        index_fn = (relative_position_index_ref_quirk if ref_quirk_index
+                    else relative_position_index)
+        idx = index_fn((window_size,) * 3).astype(np.int64)
         self.register_buffer("rel_index", torch.from_numpy(idx).reshape(-1),
                              persistent=False)
         if rel_pos_bias_affine:
@@ -217,14 +223,15 @@ class SwinBlock(nn.Module):
                  window_size: int, shift_size: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path_rate: float = 0.0,
                  mlp_type: str = "dense", rel_pos_bias_affine: bool = False,
-                 global_token: bool = False):
+                 global_token: bool = False, ref_quirk_index: bool = False):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
         ws, _ = resolve_window(input_resolution, window_size, shift_size)
         n_windows = int(np.prod([-(-r // ws) for r in input_resolution]))
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, ws, num_heads, qkv_bias, n_windows,
-                                    rel_pos_bias_affine, global_token)
+                                    rel_pos_bias_affine, global_token,
+                                    ref_quirk_index)
         self.norm2 = LayerNorm(dim)
         self.mlp_type = mlp_type
         self.mlp = make_mlp(mlp_type, dim, int(dim * mlp_ratio))
@@ -291,26 +298,29 @@ class BasicLayer(nn.Module):
                  qkv_bias: bool = False,
                  drop_path_rates: Sequence[float] = (0.0,),
                  mlp_type: str = "dense", rel_pos_bias_affine: bool = False,
-                 global_token: bool = False):
+                 global_token: bool = False, ref_quirk_index: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinBlock(dim, input_resolution, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
                       qkv_bias, drop_path_rates[i], mlp_type,
-                      rel_pos_bias_affine, global_token)
+                      rel_pos_bias_affine, global_token, ref_quirk_index)
             for i in range(depth)])
         self.downsample = PatchMerging(dim)
         if global_token:
             self.gt_upsample = nn.Linear(dim, 2 * dim)
 
     def forward(self, x: torch.Tensor, affine: Optional[torch.Tensor] = None,
-                gt: Optional[torch.Tensor] = None):
-        """(the downsampled stage output, the global token or None)."""
+                gt: Optional[torch.Tensor] = None, downsample: bool = True):
+        """(the stage output before merging, the merged output, the global
+        token or None), as the JAX layer returns them; ``downsample=False``
+        leaves the merging out (its result is then None), for a caller that
+        does not read it."""
         for blk in self.blocks:
             x, gt = blk(x, affine=affine, gt=gt)
         if gt is not None:
             gt = linear(gt, self.gt_upsample)
-        return self.downsample(x), gt
+        return x, self.downsample(x) if downsample else None, gt
 
 
 @functools.lru_cache(maxsize=None)
@@ -422,6 +432,6 @@ class SwinEncoder3D(nn.Module):
             x = x + _sincos_table(self.embed_dim, tuple(x.shape[1:4]),
                                   x.device, x.dtype)
         for i, layer in enumerate(self.layers):
-            x, gt = layer(x, affine, gt)
+            _, x, gt = layer(x, affine, gt)
             outputs.append(getattr(self, f"norm{i}")(x))
         return outputs

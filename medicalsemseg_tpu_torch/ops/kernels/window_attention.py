@@ -50,7 +50,8 @@ import torch
 
 from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
-from medicalsemseg_tpu_torch.ops.window import _shift_mask_np, gather_rel_bias
+from medicalsemseg_tpu_torch.ops.window import (_official_attn_mask,
+                                                gather_rel_bias)
 
 Tuple3 = Tuple[int, int, int]
 
@@ -202,15 +203,15 @@ def _qkv_heads(xn, wqkv, bqkv, nh):
 
 def _scores(q, k, bias, grid_dims, window, shift):
     """fp32 logits (T, nh, N, N): q k^T * hd^-0.5 + bias + shifted mask. The
-    mask comes from the region grid (``_shift_mask_np``), independently of
-    the kernels' per-token label formula."""
+    mask comes from the region grid of MONAI's ``compute_mask``
+    (``_official_attn_mask``: any per-axis window and shift, 0 on some axes
+    included), independently of the kernels' per-token label formula."""
     t, nh, n, hd = q.shape
     attn = (q @ k.transpose(-1, -2)) * (hd ** -0.5) + bias.float()[None]
     if any(s > 0 for s in shift):
-        if len(set(window)) != 1 or len(set(shift)) != 1:
-            raise NotImplementedError("plain mask needs a cubic window/shift")
         dims = tuple(g * w for g, w in zip(grid_dims, window))
-        mask = torch.from_numpy(_shift_mask_np(dims, window[0], shift[0]))
+        mask = torch.from_numpy(_official_attn_mask(dims, tuple(window),
+                                                    tuple(shift)))
         nw = mask.shape[0]
         attn = (attn.reshape(t // nw, nw, nh, n, n)
                 + mask.to(attn.device)[None, :, None]).reshape(t, nh, n, n)

@@ -34,16 +34,19 @@ def pad_to_multiple(x: torch.Tensor, multiple: Tuple3) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, pw, 0, ph, 0, pd))
 
 
-def roll3(x: torch.Tensor, shift: int) -> torch.Tensor:
-    """Cyclic roll of the three spatial dims of (B, D, H, W, C) by ``shift``."""
-    if shift == 0:
+def roll3(x: torch.Tensor, shift) -> torch.Tensor:
+    """Cyclic roll of the three spatial dims of (B, D, H, W, C) by ``shift``,
+    one value for all three or one per axis."""
+    s3 = _ws3(shift)
+    if not any(s3):
         return x
-    return torch.roll(x, shifts=(shift, shift, shift), dims=(1, 2, 3))
+    return torch.roll(x, shifts=s3, dims=(1, 2, 3))
 
 
 def window_partition(x: torch.Tensor, window_size) -> torch.Tensor:
-    """(B, D, H, W, C) -> (B * nW, prod(ws), C), windows ordered batch-major
-    then depth-major: g = ((b * nwd + i) * nwh + j) * nww + k."""
+    """(B, D, H, W, C) -> (B * nW, prod(ws), C) for a cubic (int) or
+    per-axis (tuple) window, windows ordered batch-major then depth-major:
+    g = ((b * nwd + i) * nwh + j) * nww + k."""
     b, d, h, w, c = x.shape
     w0, w1, w2 = _ws3(window_size)
     x = x.reshape(b, d // w0, w0, h // w1, w1, w // w2, w2, c)
@@ -66,35 +69,41 @@ def window_reverse(windows: torch.Tensor, window_size,
 
 
 @functools.lru_cache(maxsize=None)
-def _shift_mask_np(dims: Tuple3, window_size: int,
-                   shift_size: int) -> np.ndarray:
-    """Region-id SW-MSA mask over a (D, H, W) grid that is a multiple of the
-    window: tokens from different pre-shift regions get -100.
-    Returns (nW, ws**3, ws**3) float32."""
-    d, h, w = dims
-    ws, ss = window_size, shift_size
-    img = np.zeros((1, d, h, w, 1), dtype=np.float32)
+def _official_attn_mask(dims: Tuple3, ws: Tuple3, ss: Tuple3) -> np.ndarray:
+    """Region-id SW-MSA mask of MONAI's ``compute_mask`` over a (D, H, W)
+    grid that is a multiple of the per-axis window ``ws``, with a per-axis
+    shift ``ss`` that may be 0 on some axes (that axis then has two
+    regions, the last window and the rest, which no window mixes): tokens
+    from different pre-shift regions get -100. Returns (nW, N, N) float32."""
+    img = np.zeros(dims, np.int32)
     cnt = 0
-    spans = (slice(0, -ws), slice(-ws, -ss), slice(-ss, None))
-    for s0 in spans:
-        for s1 in spans:
-            for s2 in spans:
-                img[:, s0, s1, s2, :] = cnt
+
+    def spans(w, s):
+        # the last two slices collapse into one when the axis is not shifted
+        return ((slice(0, -w), slice(-w, -s), slice(-s, None)) if s
+                else (slice(0, -w), slice(-w, None)))
+
+    for sd in spans(ws[0], ss[0]):
+        for sh in spans(ws[1], ss[1]):
+            for sw in spans(ws[2], ss[2]):
+                img[sd, sh, sw] = cnt
                 cnt += 1
-    win = img.reshape(1, d // ws, ws, h // ws, ws, w // ws, ws, 1)
-    win = win.transpose(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, ws * ws * ws)
+    d, h, w = dims
+    win = img.reshape(d // ws[0], ws[0], h // ws[1], ws[1], w // ws[2],
+                      ws[2]).transpose(0, 2, 4, 1, 3, 5).reshape(
+                          -1, ws[0] * ws[1] * ws[2])
     diff = win[:, None, :] - win[:, :, None]
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
-def shift_mask(dims: Tuple3, window_size: int, shift_size: int,
+def shift_mask(dims: Tuple3, window_size, shift_size,
                device: torch.device) -> torch.Tensor:
-    """:func:`_shift_mask_np` as a tensor on ``device``, made once per
-    grid and device (the unfused attention adds it to every call's
-    logits)."""
-    return torch.from_numpy(_shift_mask_np(dims, window_size,
-                                           shift_size)).to(device)
+    """:func:`_official_attn_mask` of a cubic (int) or per-axis window and
+    shift as a tensor on ``device``, made once per grid, window, shift and
+    device (the unfused attentions add it to every call's logits)."""
+    return torch.from_numpy(_official_attn_mask(
+        dims, _ws3(window_size), _ws3(shift_size))).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,6 +144,15 @@ def relative_position_index_ref_quirk(window_size: Tuple3) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _full_window_index(window: Tuple3) -> np.ndarray:
+    """The rel-pos index of the constructor window (the arithmetic of
+    :func:`relative_position_index`), kept apart because the MONAI blocks
+    slice it ``[:n, :n]`` at a clamped runtime window of n tokens, which
+    is not the clamped window's own index."""
+    return relative_position_index(tuple(window))
+
+
 def gather_rel_bias(table: torch.Tensor, rel_index: torch.Tensor,
                     n: int) -> torch.Tensor:
     """(L, nh) bias table and (N * N,) index -> contiguous (nh, N, N) fp32
@@ -150,3 +168,14 @@ def resolve_window(input_resolution: Sequence[int], window_size: int,
     if min(input_resolution) <= window_size:
         return min(input_resolution), 0
     return window_size, shift_size
+
+
+def resolve_window_official(x_size: Tuple3, window: Tuple3,
+                            shift: Tuple3) -> Tuple[Tuple3, Tuple3]:
+    """MONAI's ``get_window_size``: per axis, a window at least the grid's
+    size is clamped to it and that axis's shift set to 0."""
+    ws, ss = list(window), list(shift)
+    for i in range(3):
+        if x_size[i] <= window[i]:
+            ws[i], ss[i] = x_size[i], 0
+    return tuple(ws), tuple(ss)

@@ -4,9 +4,11 @@ checkpoints.
 One key map (:func:`key_map`) pairs every leaf of a ported JAX model's
 parameter tree (nested dicts of arrays; nnFormerUNETR, SwInception,
 SwinDepth and SwinSegFormer with every option of the Swin encoder,
-SegFormer3D, GCViTUNETR) with its key in the port's state_dict, which for the
-flagship is also the reference PyTorch layout, and names the layout change
-between them:
+SegFormer3D, GCViTUNETR, the official nnFormer, VideoSwinUNETR,
+SwinUNETR_Official) with its key in the port's state_dict, which for the
+flagship is also the reference PyTorch layout (for VideoSwinUNETR and
+SwinUNETR_Official the Video-Swin and MONAI layouts, but for the MLP's
+``fc1`` / ``fc2``), and names the layout change between them:
 
   dense   Dense kernel (I, O)                  <-> Linear weight (O, I)
   conv    Conv kernel (k, k, k, I / g, O)      <-> Conv3d weight (O, I / g, k, k, k)
@@ -153,6 +155,64 @@ def key_map(params: Dict) -> KeyMap:
                 batch_norm(mp + (f"BatchNorm_{k}",), f"{prefix}.bns.{k}",
                            m[f"BatchNorm_{k}"])
 
+    def swin_block(bp, base, blk):
+        # the flagship's SwinBlock: LayerNorm_0 / _1, raw attention leaves,
+        # the bias table, the affine bias and global-token leaves, the MLP
+        norm(bp + ("LayerNorm_0",), f"{base}.norm1", blk["LayerNorm_0"])
+        norm(bp + ("LayerNorm_1",), f"{base}.norm2", blk["LayerNorm_1"])
+        at, ap = blk["attn"], bp + ("attn",)
+        attn_leaves(ap, f"{base}.attn", at)
+        table(ap, f"{base}.attn")
+        if "rel_pos_bias_affine_emb" in at:
+            out.append((ap + ("rel_pos_bias_affine_emb",),
+                        f"{base}.attn.rel_pos_bias_affine_emb", "plain"))
+            kernel(ap + ("rel_pos_bias_affine_lin",),
+                   f"{base}.attn.rel_pos_bias_affine_lin",
+                   at["rel_pos_bias_affine_lin"], "dense")
+        if "gt_proj" in at:
+            kernel(ap + ("gt_proj",), f"{base}.attn.gt_proj", at["gt_proj"],
+                   "dense")
+        swin_mlp(bp, f"{base}.mlp", blk)
+
+    def swin_merging(path, prefix, down):
+        # the flagship's PatchMerging: GELU -> LN -> strided 3^3 conv
+        norm(path + ("LayerNorm_0",), f"{prefix}.norm", down["LayerNorm_0"])
+        conv(path + ("reduction",), f"{prefix}.reduction", down["reduction"])
+
+    def dense_mlp(path, prefix, p):
+        for d, fc in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+            kernel(path + (d,), f"{prefix}.{fc}", p[d], "dense")
+
+    def official_block(bp, base, blk):
+        # MONAI's block: norm1 / norm2, nn.Dense-named qkv / proj, the
+        # constructor window's table, the MLP
+        norm(bp + ("norm1",), f"{base}.norm1", blk["norm1"])
+        norm(bp + ("norm2",), f"{base}.norm2", blk["norm2"])
+        for d in ("qkv", "proj"):
+            kernel(bp + ("attn", d), f"{base}.attn.{d}", blk["attn"][d],
+                   "dense")
+        table(bp + ("attn",), f"{base}.attn")
+        dense_mlp(bp + ("mlp",), f"{base}.mlp", blk["mlp"])
+
+    def official_merging(path, prefix, down):
+        # LN(8C) -> dense without bias
+        norm(path + ("norm",), f"{prefix}.norm", down["norm"])
+        kernel(path + ("reduction",), f"{prefix}.reduction",
+               down["reduction"], "dense")
+
+    def official_stages(root, tree, names, port_stage):
+        # stage k: blocks f"{stem}{i}" and the merging at ``down``, where
+        # (stem, down) = names(k), under the state_dict prefix port_stage(k)
+        k = 0
+        while names(k)[1] in tree:
+            (stem, down), stage = names(k), port_stage(k)
+            for i, blk in numbered(tree, stem):
+                official_block(root + (f"{stem}{i}",), f"{stage}.blocks.{i}",
+                               blk)
+            official_merging(root + (down,), f"{stage}.downsample",
+                             tree[down])
+            k += 1
+
     def swin_encoder(enc):
         if "patch_embed" in enc:    # absent under --lcv_only
             pe = ("encoder", "patch_embed")
@@ -175,29 +235,10 @@ def key_map(params: Dict) -> KeyMap:
         for i, layer in numbered(enc, "layers_"):
             lp = ("encoder", f"layers_{i}")
             for j, blk in numbered(layer, "blocks_"):
-                bp = lp + (f"blocks_{j}",)
-                base = f"encoder.layers.{i}.blocks.{j}"
-                norm(bp + ("LayerNorm_0",), f"{base}.norm1", blk["LayerNorm_0"])
-                norm(bp + ("LayerNorm_1",), f"{base}.norm2", blk["LayerNorm_1"])
-                at, ap = blk["attn"], bp + ("attn",)
-                attn_leaves(ap, f"{base}.attn", at)
-                table(ap, f"{base}.attn")
-                if "rel_pos_bias_affine_emb" in at:
-                    out.append((ap + ("rel_pos_bias_affine_emb",),
-                                f"{base}.attn.rel_pos_bias_affine_emb",
-                                "plain"))
-                    kernel(ap + ("rel_pos_bias_affine_lin",),
-                           f"{base}.attn.rel_pos_bias_affine_lin",
-                           at["rel_pos_bias_affine_lin"], "dense")
-                if "gt_proj" in at:
-                    kernel(ap + ("gt_proj",), f"{base}.attn.gt_proj",
-                           at["gt_proj"], "dense")
-                swin_mlp(bp, f"{base}.mlp", blk)
-            down = layer["downsample"]
-            norm(lp + ("downsample", "LayerNorm_0"),
-                 f"encoder.layers.{i}.downsample.norm", down["LayerNorm_0"])
-            conv(lp + ("downsample", "reduction"),
-                 f"encoder.layers.{i}.downsample.reduction", down["reduction"])
+                swin_block(lp + (f"blocks_{j}",),
+                           f"encoder.layers.{i}.blocks.{j}", blk)
+            swin_merging(lp + ("downsample",),
+                         f"encoder.layers.{i}.downsample", layer["downsample"])
             if "gt_upsample" in layer:
                 kernel(lp + ("gt_upsample",),
                        f"encoder.layers.{i}.gt_upsample",
@@ -291,11 +332,92 @@ def key_map(params: Dict) -> KeyMap:
                            tree[name]["BatchNorm_0"])
         conv(("linear_pred",), "linear_pred", tree["linear_pred"])
 
+    def nnformer(tree):
+        pe = tree["patch_embed"]
+        for name in ("proj1_conv1", "proj1_conv2", "proj2_conv1",
+                     "proj2_conv2"):
+            conv(("patch_embed", name), f"patch_embed.{name}", pe[name])
+        for name in ("proj1_norm", "proj1_norm2", "proj2_norm", "norm"):
+            norm(("patch_embed", name), f"patch_embed.{name}", pe[name])
+        for i, layer in numbered(tree, "layers_"):
+            for j, blk in numbered(layer, "blocks_"):
+                swin_block((f"layers_{i}", f"blocks_{j}"),
+                           f"layers.{i}.blocks.{j}", blk)
+            swin_merging((f"layers_{i}", "downsample"),
+                         f"layers.{i}.downsample", layer["downsample"])
+            norm((f"norm{i}",), f"norm{i}", tree[f"norm{i}"])
+        for j, up in numbered(tree, "up_"):
+            norm((f"up_{j}", "norm"), f"up.{j}.norm", up["norm"])
+            kernel((f"up_{j}", "up", "ConvTranspose_0"), f"up.{j}.up",
+                   up["up"]["ConvTranspose_0"], "convT")
+            cp, cross = (f"dec_{j}_cross",), tree[f"dec_{j}_cross"]
+            base = f"decoder.{j}.cross"
+            norm(cp + ("norm1",), f"{base}.norm1", cross["norm1"])
+            norm(cp + ("norm2",), f"{base}.norm2", cross["norm2"])
+            for d in ("kv", "proj"):
+                kernel(cp + ("attn", d), f"{base}.attn.{d}",
+                       cross["attn"][d], "dense")
+            table(cp + ("attn",), f"{base}.attn")
+            dense_mlp(cp + ("mlp",), f"{base}.mlp", cross["mlp"])
+            b = 1
+            while f"dec_{j}_blocks_{b}" in tree:
+                swin_block((f"dec_{j}_blocks_{b}",),
+                           f"decoder.{j}.blocks.{b - 1}",
+                           tree[f"dec_{j}_blocks_{b}"])
+                b += 1
+        for j, head in numbered(tree, "final_"):
+            kernel((f"final_{j}", "ConvTranspose_0"), f"final.{j}",
+                   head["ConvTranspose_0"], "convT")
+
+    def swin_unetr_official(tree):
+        vit = tree["swinViT"]
+        conv(("swinViT", "patch_embed"), "swinViT.patch_embed.proj",
+             vit["patch_embed"])
+        official_stages(
+            ("swinViT",), vit,
+            lambda k: (f"layers{k + 1}_blocks", f"layers{k + 1}_downsample"),
+            lambda k: f"swinViT.layers{k + 1}.0")
+        if "encoder1" not in tree:     # the swinViT subtree alone
+            return
+        for name in ("encoder1", "encoder2", "encoder3", "encoder4",
+                     "encoder10"):
+            res_block((name,), f"{name}.layer", tree[name])
+        for k in range(1, 6):
+            dp, d = (f"decoder{k}",), tree[f"decoder{k}"]
+            kernel(dp + ("transp_conv", "ConvTranspose_0"),
+                   f"decoder{k}.transp_conv.conv",
+                   d["transp_conv"]["ConvTranspose_0"], "convT")
+            res_block(dp + ("conv_block",), f"decoder{k}.conv_block",
+                      d["conv_block"])
+        conv(("out", "conv"), "out.conv.conv", tree["out"]["conv"])
+
+    def video_swin_encoder(enc):
+        kernel(("encoder", "patch_embed"), "encoder.patch_embed.proj",
+               enc["patch_embed"], "conv")
+        if "patch_norm" in enc:
+            norm(("encoder", "patch_norm"), "encoder.patch_embed.norm",
+                 enc["patch_norm"])
+        if "absolute_pos_embed" in enc:
+            out.append((("encoder", "absolute_pos_embed"),
+                        "encoder.absolute_pos_embed", "plain"))
+        official_stages(
+            ("encoder",), enc,
+            lambda k: (f"layers_{k}_blocks_", f"layers_{k}_downsample"),
+            lambda k: f"encoder.layers.{k}")
+
+    if "swinViT" in params:
+        swin_unetr_official(params)
+        return out
+    if "final_0" in params:
+        nnformer(params)
+        return out
     enc = params["encoder"]
     if "levels_0" in enc:
         gcvit_encoder(enc)
     elif "patch_embed1" in enc:
         segformer_encoder(enc)
+    elif "layers_0_downsample" in enc:
+        video_swin_encoder(enc)
     else:
         swin_encoder(enc)
     if "decoder" in params:

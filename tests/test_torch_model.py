@@ -155,12 +155,12 @@ def test_encoder_matches_pallas_absorbed_forms(monkeypatch):
                                    atol=ATOL)
 
 
-@pytest.mark.parametrize("what", ["nnFormer", "FocalNetUNETR",
-                                  "UNETR_Official", "SwinUNETR_Official",
+@pytest.mark.parametrize("what", ["LRGFormerUNETR", "FocalNetUNETR",
+                                  "UNETR_Official", "Swin2D",
                                   "--flat_optimizer"])
 def test_unported_options_raise(what):
-    """The models of ROADMAP items 13d-13i, and --flat_optimizer ("Do not
-    port"), raise and name the ROADMAP."""
+    """The models of ROADMAP items 13e, 13h and 13i, and --flat_optimizer
+    ("Do not port"), raise and name the ROADMAP."""
     from medicalsemseg_tpu_torch.train.state import make_optimizer
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -176,15 +176,20 @@ def train_step_both(cfg: Config, seed: int = 0, batch: int = 2,
     """One training forward and backward of the same seeded variables and
     batch on both sides, fp32, drop rates 0 (the SegFormer heads' dropout
     set to 0 on both sides: the two frameworks draw different masks).
-    ``crop`` and ``affine`` (batch, 3) default to zeros and ones.
+    ``crop`` and ``affine`` (batch, 3) default to zeros and ones. A model
+    that returns a list of heads (nnFormer under ``--deep_supervision``)
+    takes each side's ``_deep_supervision_loss``.
     Returns {side: (loss, gradients, batch_stats)} for side "jax" (one
     jitted ``jax.value_and_grad`` of the apply with mutable batch_stats, as
     the JAX train step runs it) and "port" (``model.train()``, autograd), the
     gradients and statistics as numpy trees in the JAX layout."""
     from medicalsemseg_tpu.train.losses import build_loss as jax_build_loss
+    from medicalsemseg_tpu.train.state import (
+        _deep_supervision_loss as jax_ds_loss)
 
     from medicalsemseg_tpu_torch.models.layers import Dropout
     from medicalsemseg_tpu_torch.train.losses import build_loss
+    from medicalsemseg_tpu_torch.train.state import _deep_supervision_loss
     from medicalsemseg_tpu_torch.utils.params import jax_tree_from_state_dict
 
     jmodel, variables = jax_variables(cfg, seed)
@@ -207,7 +212,9 @@ def train_step_both(cfg: Config, seed: int = 0, batch: int = 2,
             var, (x, jnp.asarray(crop), jnp.asarray(aff)),
             deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)},
             mutable=["batch_stats"])
-        return jloss(logits, y), mutated.get("batch_stats", {})
+        lv = (jax_ds_loss(jloss, logits, y) if isinstance(logits, list)
+              else jloss(logits, y))
+        return lv, mutated.get("batch_stats", {})
 
     (jl, jstats), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
         variables["params"], stats0, jnp.asarray(img), jnp.asarray(label))
@@ -221,7 +228,9 @@ def train_step_both(cfg: Config, seed: int = 0, batch: int = 2,
             m.rate = 0.0
     logits = model((torch.from_numpy(img), torch.from_numpy(crop),
                     torch.from_numpy(aff)))
-    pl = build_loss(cfg)(logits, torch.from_numpy(label))
+    ploss = build_loss(cfg)
+    pl = (_deep_supervision_loss(ploss, logits, torch.from_numpy(label))
+          if isinstance(logits, list) else ploss(logits, torch.from_numpy(label)))
     pl.backward()
     pgrads = jax_tree_from_state_dict(
         {n: torch.zeros_like(p) if p.grad is None else p.grad

@@ -8,11 +8,15 @@ predicate (``window_attention_supported``, ``fused_mlp_supported``,
 whether its kernel takes a call. Here, on the CPU:
 
 * the sweep: for the configurations the CLIs accept (models nnFormerUNETR,
-  GCViTUNETR, SegFormer3D, SwinSegFormer; --vol_size 64 .. 192; --hidden_dim
-  24, 48, 96; --num_heads 3 6 12 24 and 1 2 4 8; bf16, fp16, fp32; inference,
+  GCViTUNETR, SegFormer3D, SwinSegFormer, nnFormer with and without
+  --ref_quirk_rel_pos, VideoSwinUNETR, SwinUNETR_Official with
+  MEDSEG_OFFICIAL_FUSED on and off; --vol_size 64 .. 192; --hidden_dim 24,
+  48, 96; --num_heads 3 6 12 24 and 1 2 4 8; bf16, fp16, fp32; inference,
   and training for the models that train through kernels: nnFormerUNETR,
-  SwinSegFormer, GCViTUNETR's local blocks and MLPs) every fused call site
-  of every block, with the shape the port's module sees. The port's
+  SwinSegFormer, GCViTUNETR's local blocks and MLPs, nnFormer; the MONAI
+  blocks of VideoSwinUNETR and SwinUNETR_Official train plain in both
+  packages, so they add no training site) every fused call site of every
+  block, with the shape the port's module sees. The port's
   predicate takes every one of them, whether the JAX predicate sends it to
   Pallas or keeps XLA (K3 and K4 at C = 768 in training), head dims 48 and
   96 (--num_heads 1 2 4 8 at hidden 48 and 96) included. Every shape a
@@ -88,6 +92,48 @@ def _gcvit_sites(vol, hidden, heads, train):
     return sites
 
 
+def _nnformer_sites(vol, hidden, heads, train, quirk, jax_fits):
+    """The official nnFormer: the Swin encoder's sites, then per decoder
+    stage the cross block's MLP (K2; the JAX block keeps XLA there) and one
+    shifted Swin block (depths 2: depth - 1 of them). Quirk-index blocks
+    train through XLA in JAX (never its Pallas VJP), through K3 / K4 in the
+    port."""
+    grids = []
+    for i, site in enumerate(_swin_sites(vol, hidden, heads, train,
+                                         jax_fits)):
+        kind, shape, pallas = site
+        yield kind, shape, pallas and not (train and quirk)
+        if kind == "attn":
+            grids.append(_ceil(vol, 2 * 2 ** (i // 2)))
+    for j in range(len(heads) - 1):
+        grid, c, nh = grids[-2 - j], hidden * 2 ** (len(heads) - 2 - j), \
+            heads[-2 - j]
+        yield "mlp", (c, c, 4 * c), False
+        ws, _ = tw.resolve_window((grid,) * 3, WINDOW, WINDOW // 2)
+        yield "attn", (ws ** 3, c, nh), (not train or (
+            not quirk and jax_fits["attn"](c, nh, ws)))
+        yield "mlp", (c, c, 4 * c), not train or jax_fits["mlp"](c, 4 * c)
+
+
+def _official_sites(vol, hidden, heads, window):
+    """The MONAI blocks at inference with the kernels on (VideoSwinUNETR;
+    SwinUNETR_Official under MEDSEG_OFFICIAL_FUSED=1, at its fixed 7^3
+    window): K1 on the per-axis clamped window (the padded grid's windows
+    of 343 tokens at 7^3) and K2 in every block, as the JAX block calls
+    Pallas (``use_pallas and deterministic``)."""
+    from medicalsemseg_tpu.models import swin_official as jso
+
+    grid = _ceil(vol, 2)
+    for i, nh in enumerate(heads):
+        c = hidden * 2 ** i
+        w3, s3 = (window,) * 3, (window // 2,) * 3
+        ws, ss = tw.resolve_window_official((grid,) * 3, w3, s3)
+        assert (ws, ss) == jso.resolve_window_official((grid,) * 3, w3, s3)
+        yield "attn", (int(np.prod(ws)), c, nh), True
+        yield "mlp", (c, c, 4 * c), True
+        grid = _ceil(grid, 2)
+
+
 def _segformer_sites(vol, hidden, heads, jax_fits):
     """SegFormer3D at inference: K7 in every block of the four stages (7^3
     stride-4 embedding, then 3^3 stride 2; spatial reduction 8, 4, 2, 1)."""
@@ -135,14 +181,27 @@ def _sweep(jax_fits):
     Pallas, port kernel) of the sweep."""
     rows = []
     for model, vol, hidden, heads, dtype in itertools.product(
-            ("nnFormerUNETR", "GCViTUNETR", "SegFormer3D", "SwinSegFormer"),
+            ("nnFormerUNETR", "GCViTUNETR", "SegFormer3D", "SwinSegFormer",
+             "nnFormer", "nnFormer+quirk", "VideoSwinUNETR",
+             "SwinUNETR_Official+fused", "SwinUNETR_Official"),
             VOLS, HIDDEN, HEADS, DTYPES):
         modes = (False,) if model == "SegFormer3D" else (False, True)
         for train in modes:
             if model in ("nnFormerUNETR", "SwinSegFormer"):
                 sites = list(_swin_sites(vol, hidden, heads, train, jax_fits))
+            elif model.startswith("nnFormer"):
+                sites = list(_nnformer_sites(vol, hidden, heads, train,
+                                             model.endswith("quirk"),
+                                             jax_fits))
             elif model == "GCViTUNETR":
                 sites = _gcvit_sites(vol, hidden, heads, train) or []
+            elif model in ("VideoSwinUNETR", "SwinUNETR_Official+fused"):
+                # the blocks train plain in both packages
+                sites = [] if train else list(_official_sites(
+                    vol, hidden, heads, 7 if model.endswith("fused")
+                    else WINDOW))
+            elif model == "SwinUNETR_Official":
+                sites = []      # the gate off: plain in both packages
             else:
                 sites = list(_segformer_sites(vol, hidden, heads, jax_fits))
             for kind, shape, pallas in sites:
@@ -180,6 +239,17 @@ def test_sweep_kernel_wherever_jax_runs_pallas(jax_fits):
     train768 = [r for r in rows if r[5] and r[7][1] == 768
                 and r[3] == HEADS[0]]
     assert train768 and all(r[9] and not r[8] for r in train768)
+    # SwinUNETR_Official's 7^3 windows (343 tokens, beyond the tensor-core
+    # route) at every stage but a clamped one, at inference only; nnFormer's
+    # quirk-index blocks train through K3 where JAX keeps XLA
+    official = [r for r in rows if r[0] == "SwinUNETR_Official+fused"
+                and r[6] == "attn"]
+    assert official and all(r[9] and r[8] and not r[5] for r in official)
+    assert {r[7][0] for r in official} >= {343, 216, 64}
+    assert not any(r[0] == "SwinUNETR_Official" for r in rows)
+    quirk = [r for r in rows if r[0] == "nnFormer+quirk" and r[5]
+             and r[6] == "attn"]
+    assert quirk and all(r[9] and not r[8] for r in quirk)
 
 
 class _FakeEntry:
