@@ -148,7 +148,23 @@ Phases, in order; any failure exits non-zero:
                  against plain and the whole gradient of its batch-2 step
                  against the bf16 plain control, the training CLI at batch 8
                  and nnFormer's at batch 4 with --grad_accum_steps 2
-                 --fused_loss (K8 for each of its three heads).
+                 --fused_loss (K8 for each of its three heads);
+ 20. zoo_rest  - FocalNetUNETR and UNETR_Official (ViT-B) at 96^3 and
+                 LRGFormerUNETR at 64^3 (it fails at 96 in the JAX package,
+                 so the port raises there), full width: one window bf16
+                 card vs fp32 CPU, one predictor call of 16 windows with
+                 every K2 launch held against its plain version (K2 8 a
+                 FocalNet call, 12 a UNETR_Official call at (3456, 768,
+                 3072), none in LRGFormer), the prediction CLI on a
+                 200x180x120 CT volume (FocalNetUNETR also with
+                 MEDSEG_FUSED_DECODER=1), 4 training steps at batch 8 (the
+                 MLPs train plain, as in JAX: no launch), the whole gradient
+                 of a batch-2 step against fp32 plain and the training CLI
+                 at batch 8; LRGFormerUNETR's predictor call at vol 128
+                 (33,281 tokens a window at stage 1) against fp32 on the
+                 card with its peak memory; Swin2D through build_model (16
+                 images of 384^2, patch 2, window 6): forward and gradient
+                 against fp32 on the card.
 The kernels group `f5` (in the default set) holds the same paths' kernels at
 their shapes against their plain versions, timed: K7's streaming route at
 SegFormer3D's four stages at vol 160 (M = 125) and at stage 4 with
@@ -162,7 +178,13 @@ K1 at SwinUNETR_Official's four stages of one predictor call with the gate on
 (343-token windows on padded grids 49^3, 28^3, 14^3 on the CUDA cores, the
 clamped 6^3 window at stage 4 on the tensor cores; unshifted and shifted,
 the unshifted timed beside plain, its bound and SDPA) and at a clamped
-anisotropic window with a zeroed shift (both routes).
+anisotropic window with a zeroed shift (both routes). The group `zoo_rest`
+holds K2 at ViT-B's shape of one UNETR_Official predictor call, (M, C, H) =
+(3456, 768, 3072), in bf16 (tensor cores) and fp32 (CUDA cores) against its
+plain version, timed beside its bound and the layer_norm -> linear -> gelu
+-> linear composition, and times FocalNet's depthwise 6^3 and 8^3 convs at
+16 x 48^3 x 48 on the contiguous layout (PyTorch's kernel) and the
+channels-last view (cuDNN), forward and forward + backward.
 `--phases zoo_grads` (not run by default) prints the whole-gradient readings
 behind ZOO_GRAD_CTL_FACTOR and, for SwInception and SwinDepth, the block
 controls behind holding their attention alone (`_swin_block_controls`);
@@ -201,10 +223,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32",
-          "eval", "f5", "r15", "zoo_train", "swin_opts", "zoo_official")
+          "eval", "f5", "r15", "zoo_train", "swin_opts", "zoo_official",
+          "zoo_rest")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5",
-                 "r15", "official")
+                 "r15", "official", "zoo_rest")
 EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts",
                 "sr_parts", "zoo_grads", "heads_forms", "profile_official")
 
@@ -836,6 +859,8 @@ def phase_kernels(groups=KERNEL_GROUPS):
         _r15_kernels(rep)
     if "official" in groups:
         _official_kernels(rep["window_attention"])
+    if "zoo_rest" in groups:
+        _zoo_rest_kernels(rep)
     for k in rep.values():
         k["launches"] = 0
         del k["tag"]
@@ -1852,12 +1877,26 @@ def _seeded_model(cfg, gen):
             if name.endswith(("qkv.weight", "proj.weight", "fc1.weight",
                               "fc2.weight", ".q.weight", ".kv.weight",
                               ".fc.weight", "gt_upsample.weight",
-                              "rel_crop_pos_emb.weight")):
+                              "rel_crop_pos_emb.weight",
+                              # FocalNet's modulation, LRGFormer's streams
+                              # and global downsampling, Swin2D's merging
+                              # and head
+                              "modulation.f.weight", "modulation.h.weight",
+                              "qkv_local.weight", "qkv_region.weight",
+                              "qkv_global.weight", "proj_local.weight",
+                              "proj_region.weight", "proj_global.weight",
+                              "downsample_global.weight")) or (
+                    p.dim() == 2 and name.endswith(".weight")
+                    and name.startswith(("linear_", "backbone."))):
+                # dense weights (O, I) and 1x1 convs (O, I, 1, 1, 1): fan-in
+                # I
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
             elif name.endswith(("relative_position_bias_table",
-                                "rel_pos_bias_affine_emb", "global_token")):
+                                "rel_pos_bias_affine_emb", "global_token",
+                                "pos_embed")):
                 p.normal_(0.0, 0.5, generator=gen)
-            elif name.startswith("encoder") and name.endswith("bias"):
+            elif name.startswith(("encoder", "vit", "backbone")) and \
+                    name.endswith("bias"):
                 p.normal_(0.0, 0.1, generator=gen)
         for name, buf in model.named_buffers():
             if name.endswith("running_mean"):
@@ -1924,7 +1963,8 @@ def _model_vs_cpu(tag, cfg, want, x_in, xb, other_routes=None, ref=None,
         got = got.cpu()
         rel = float((got - ref).norm() / ref.norm())
         agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-        print(f"{tag} 96^3, bf16+kernels (card) vs fp32 plain (CPU"
+        print(f"{tag} {x_in[0].shape[1]}^3, bf16+kernels (card) vs fp32 "
+              f"plain (CPU"
               f"{f', {cpu_s:.1f} s' if cpu_s else ''}): rel norm err "
               f"{rel:.3e} (tol {MODEL_REL_TOL}), argmax agreement "
               f"{agree:.4f}", flush=True)
@@ -4767,6 +4807,12 @@ ZOO_TRAIN_LAUNCHES = {
                  "fused_mlp": 14, "fused_mlp_bwd": 14},
     "VideoSwinUNETR": {},
     "SwinUNETR_Official": {},
+    # FocalNet's and ViT's MLPs train plain, as in JAX; LRGFormer has no
+    # kernel of its own, but batch 8 of 64^3 (2.1M voxels) lies in K5's auto
+    # window, so the decoder's three full-resolution convs take K5 for their
+    # weight gradient, as in JAX
+    "FocalNetUNETR": {}, "UNETR_Official": {},
+    "LRGFormerUNETR": {"dw27": 3},
 }
 ZOO_TRAIN_STEPS = 4
 # crops a step: all three models fit the card at batch 8 (PERF.md, PR 12),
@@ -4797,7 +4843,8 @@ ZOO_B4_K5 = {"GCViTUNETR": 3, "SegFormer3D": 0, "SwinSegFormer": 0,
              # nnFormer's conv stem: its second conv, 24 -> 24 at 96^3 (the
              # first reads one channel, the others a 48^3 grid)
              "nnFormer": 1, "VideoSwinUNETR": None,
-             "SwinUNETR_Official": None}
+             "SwinUNETR_Official": None, "FocalNetUNETR": None,
+             "UNETR_Official": None, "LRGFormerUNETR": None}
 
 
 def _zoo_train_steps(name, batch_size, extra=(), batch_fn=None):
@@ -4966,7 +5013,8 @@ def _zoo_train_cli(name, tmp, batch_size, extra=()):
                 "dice_ce_dlogits": heads * micro, "dw27": b4_k5 * micro})
         else:
             _require_launches(f"zoo_train {name} CLI {tag}", launches, {
-                "dice_ce_sums": 0, "dice_ce_dlogits": 0, "dw27": 0})
+                "dice_ce_sums": 0, "dice_ce_dlogits": 0,
+                "dw27": bwd.get("dw27", 0) * micro})
         for k, v in bwd.items():
             if k.endswith("_bwd"):
                 _require(launches[k] == v * micro,
@@ -5035,6 +5083,8 @@ def _zoo_grad_fn(cfg, seed):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     small = _train_batch(gen, ZOO_GRAD_BATCH, cfg.output_dim)
+    if cfg.vol_size3() != (CROP,) * 3:      # LRGFormerUNETR at vol 64
+        small = _crop_batch(small, cfg.vol_size3())
     loss_fn = build_loss(cfg)
 
     def grads_of(net):
@@ -5919,6 +5969,451 @@ def phase_zoo_official():
     return total
 
 
+# ---- the fifteenth slice: the last four models of the zoo, FocalNetUNETR,
+# UNETR_Official, LRGFormerUNETR and Swin2D, for prediction, training and
+# evaluation
+
+ZOO_REST_MODELS = ("FocalNetUNETR", "UNETR_Official", "LRGFormerUNETR")
+# the volume each model runs at: LRGFormerUNETR fails at 96 in the JAX
+# package (its grid bookkeeping) and so raises in the port; 64 and 128 run
+ZOO_REST_VOL = {"FocalNetUNETR": 96, "UNETR_Official": 96,
+                "LRGFormerUNETR": 64}
+LRG_BIG_VOL = 128
+# kernel launches of one predictor call: K2 in FocalNet's 8 blocks and in
+# ViT-B's 12 (their global and focal mixing is plain PyTorch, as XLA in
+# JAX); LRGFormer reaches no kernel in either package
+ZOO_REST_CALL = {"FocalNetUNETR": {"fused_mlp": 8},
+                 "UNETR_Official": {"fused_mlp": 12},
+                 "LRGFormerUNETR": {}}
+# Swin2D through build_model: 16 images of 384^2 at patch 2 and window 6,
+# which divides every stage's grid (192, 96, 48, 24)
+SWIN2D_ARGS = ["--model", "Swin2D", "--input_dim", "2", "--vol_size", "384",
+               "--patch_size", "2", "--window_size", "6", "--hidden_dim",
+               "48", "--depths", "2", "2", "2", "2", "--num_heads", "3", "6",
+               "12", "24", "--output_dim", "14"]
+# FocalNet's focal layers at the default window 6: depthwise kernels of 6^3
+# and 8^3 at stage 1 of a predictor call (16 x 48^3 x 48)
+FOCAL_KERNELS = (6, 8)
+
+
+def _zoo_rest_args(name, vol=None):
+    return _zoo_args(name) + ["--vol_size", str(vol or ZOO_REST_VOL[name])]
+
+
+def _crop_batch(batch, dims):
+    """``_train_batch``'s 96^3 crops cut to ``dims`` (a smaller volume)."""
+    d, h, w = dims
+    return {**batch, "image": batch["image"][:, :d, :h, :w].contiguous(),
+            "label": batch["label"][:, :d, :h, :w].contiguous()}
+
+
+def _zoo_rest_predict_cli(tmp):
+    """The prediction CLI on the 200x180x120 CT volume: FocalNetUNETR, also
+    with MEDSEG_FUSED_DECODER=1 (K9 in its UNETR decoder, as the flagship's),
+    UNETR_Official (its decoder never fuses) and LRGFormerUNETR at vol 64.
+    Returns the launches of all runs."""
+    import numpy as np
+
+    from medicalsemseg_tpu_torch.cli import run_test
+    from medicalsemseg_tpu_torch.data import nifti
+
+    task = os.path.join(tmp, "Task12_ZooRest")
+    os.makedirs(os.path.join(task, "imagesTs"))
+    nifti.save(nifti.NiftiImage(_ct_volume(np.random.default_rng(17),
+                                           EVAL_SHAPES[1]),
+                                np.diag([0.8, 0.8, 2.5, 1.0])),
+               os.path.join(task, "imagesTs", "ct0.nii.gz"))
+    with open(os.path.join(task, "dataset.json"), "w") as f:
+        json.dump({"training": [], "test": ["./imagesTs/ct0.nii.gz"]}, f)
+    total = {}
+    for name, gate in (("FocalNetUNETR", None),
+                       ("FocalNetUNETR", "MEDSEG_FUSED_DECODER"),
+                       ("UNETR_Official", None), ("LRGFormerUNETR", None)):
+        label = name + (f" {gate}=1" if gate else "")
+        out = tempfile.mkdtemp(prefix="pred_", dir=tmp)
+        cfg = run_test.get_args(_zoo_rest_args(name) + [
+            "--data_path", tmp, "--task", "Task12_ZooRest", "--output_dir",
+            out, "--device", "cuda"])
+        with _gates(*((gate,) if gate else ())):
+            _reset_launches()
+            t0 = time.perf_counter()
+            records = run_test.main(cfg)
+            wall = time.perf_counter() - t0
+        launches = _read_launches()
+        calls = sum(r["predictor_calls"] for r in records)
+        _require(calls > 0, f"zoo_rest CLI {label}: no predictor call")
+        _check_routes(f"zoo_rest CLI {label}", "tensor_core",
+                      need=bool(ZOO_REST_CALL[name]))
+        k9 = launches["winograd_conv3d_f23"]
+        _require(bool(gate) == (k9 > 0) and k9 % calls == 0,
+                 f"zoo_rest CLI {label}: K9 launched {k9} times in {calls} "
+                 "predictor calls")
+        _require_launches(f"zoo_rest CLI {label}", launches, {
+            **dict.fromkeys(launches, 0), "winograd_conv3d_f23": k9,
+            **{k: v * calls for k, v in ZOO_REST_CALL[name].items()}})
+        pred = nifti.load(os.path.join(out, "test_output", "Fold0", "pred",
+                                       "ct0.nii.gz")).data
+        _require(pred.shape == EVAL_SHAPES[1] and int(pred.max()) < 14,
+                 f"zoo_rest CLI {label}: prediction {pred.shape}")
+        print(f"zoo_rest: prediction CLI, {label} (roi {ZOO_REST_VOL[name]}) "
+              f"on a 200x180x120 CT volume: {calls} predictor calls"
+              + (f", K9 {k9 // calls} a call" if gate else "")
+              + f", predicted in {records[0]['predict_seconds']:.2f} s, "
+              f"{wall:.1f} s in all", flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _zoo_rest_train(name, tmp):
+    """4 steps of ``name`` at batch 8 (the MLPs train plain in both
+    packages; LRGFormerUNETR's decoder takes K5 at this batch, each launch
+    then held against cuDNN in one more step; the loss falls), the whole
+    gradient of a batch-2 step in bf16 against fp32 plain at
+    TRAIN_GRAD_REL_TOL (no kernel runs at batch 2, so the bf16 run is its
+    own plain control), then the training CLI at batch 8. Returns the
+    launches."""
+    import torch
+
+    vol = ZOO_REST_VOL[name]
+    extra = ["--vol_size", str(vol)]
+    crop = (lambda b: _crop_batch(b, (vol,) * 3)) if vol != CROP else None
+    run = _zoo_train_steps(name, ZOO_TRAIN_BATCH, extra, crop)
+    total = dict(run["launches"])
+    for i, step in enumerate(run["steps"]):
+        _require_launches(f"zoo_rest {name} (step {i})", step, {
+            **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name]})
+    losses = run["losses"]
+    _require(losses[-1] < losses[0], f"zoo_rest {name}: the loss did not "
+             f"fall: {losses}")
+    print(f"zoo_rest: {name} batch {ZOO_TRAIN_BATCH} x {vol}^3, bf16, "
+          f"{ZOO_TRAIN_STEPS} steps: loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; ms per step "
+          f"{' '.join(f'{t:.0f}' for t in run['times'])} (the first includes "
+          f"cuDNN's choice of algorithms); peak device memory "
+          f"{run['peak'] / 2 ** 30:.2f} GiB", flush=True)
+    cfg, model = run["cfg"], run["model"]
+    del run
+    torch.cuda.empty_cache()
+    need_k5 = ZOO_TRAIN_LAUNCHES[name].get("dw27", 0)
+    if need_k5:
+        # one more step's forward and backward with every K5 launch held
+        # against cuDNN's weight gradient on the same tensors
+        from medicalsemseg_tpu_torch.train.losses import build_loss
+
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        batch = _train_batch(gen, ZOO_TRAIN_BATCH, cfg.output_dim)
+        if crop is not None:
+            batch = crop(batch)
+        with _held_convs() as held:
+            _reset_launches()
+            _grads_of(model, build_loss(cfg), batch)
+            launches = _read_launches()
+        errs = held.errors["dw27"]
+        _require(launches["dw27"] == len(errs) == need_k5, f"zoo_rest "
+                 f"{name}: K5 launched {launches['dw27']} times, held "
+                 f"{len(errs)} (want {need_k5})")
+        worst = max(errs, key=lambda e: e[2])
+        print(f"zoo_rest: {name} batch {ZOO_TRAIN_BATCH}: each of the "
+              f"{len(errs)} K5 launches against cuDNN's weight gradient: "
+              f"worst rel norm err {worst[2]:.3e} at {worst[0]} -> "
+              f"{worst[1]} (tol {LIBRARY_REL_TOL})", flush=True)
+        _require(worst[2] <= LIBRARY_REL_TOL, f"zoo_rest {name}: a K5 "
+                 "launch disagrees with cuDNN's weight gradient")
+        total["dw27"] += need_k5
+        del batch
+        torch.cuda.empty_cache()
+    rel, ref = _zoo_grads(cfg, model, ZOO_GRAD_SEEDS[0],
+                          {"bf16 plain": _plain_kernels})
+    _zoo_grad_line(f"zoo_rest {name}", ZOO_GRAD_SEEDS[0], rel, ref)
+    _require(rel["bf16 plain"][1] <= TRAIN_GRAD_REL_TOL,
+             f"zoo_rest {name}: the bf16 gradient is {rel['bf16 plain'][1]:.3e}"
+             f" from fp32 plain (tol {TRAIN_GRAD_REL_TOL})")
+    del model
+    torch.cuda.empty_cache()
+    cli = _zoo_train_cli(name, tmp, ZOO_TRAIN_BATCH, extra)
+    for k, v in cli.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def _lrg_big_call():
+    """LRGFormerUNETR at vol 128: one predictor call of 16 windows (33,281
+    tokens a window at stage 1: the chunked attention's logits of one chunk
+    are 16 x 3 x 2048 x 33,281 fp32, 13 GB) in bf16, its time and peak
+    memory, against the same call in fp32 on the card (TF32 off; four
+    windows at a time: the windows are independent)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    from medicalsemseg_tpu_torch.models.lrgformer import lrg_stage_grids
+
+    cfg = get_args(_zoo_rest_args("LRGFormerUNETR", LRG_BIG_VOL))
+    gen = torch.Generator().manual_seed(cfg.seed + 2)
+    model = _seeded_model(cfg, gen).to("cuda")
+    # local tokens at twice the patch, region tokens at 4 times that
+    _, grids = lrg_stage_grids(cfg.vol_size3(), tuple(
+        2 * p for p in cfg.patch_size3()), 4, len(cfg.depths))
+    tokens = sum(int(np.prod(g)) for g in grids[0]) + 1
+    vol = torch.randn(PREDICT_BATCH, *cfg.vol_size3(), 1, generator=gen)
+    xb = (vol.to("cuda"), torch.full((PREDICT_BATCH, 3), 0.5, device="cuda"),
+          torch.ones(PREDICT_BATCH, 3, device="cuda"))
+    with torch.inference_mode():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        got = model(xb)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = _read_launches()
+        _require(not any(launches.values()), f"zoo_rest LRGFormerUNETR "
+                 f"vol {LRG_BIG_VOL}: launches {launches}")
+        _require(tuple(got.shape) == (PREDICT_BATCH, *cfg.vol_size3(), 14)
+                 and bool(torch.isfinite(got).all()),
+                 f"zoo_rest LRGFormerUNETR vol {LRG_BIG_VOL}: logits")
+        ms = _time_ms(lambda: model(xb), 1)
+        ref = copy.deepcopy(model)
+        ref.dtype = torch.float32
+        with _no_tf32():
+            want = torch.cat([ref(tuple(t[i:i + 4] for t in xb))
+                              for i in range(0, PREDICT_BATCH, 4)])
+        del ref
+        rel = float((got - want).norm() / want.norm())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"zoo_rest: LRGFormerUNETR at vol {LRG_BIG_VOL} ({tokens} tokens a "
+          f"window at stage 1), one predictor call of {PREDICT_BATCH} windows: "
+          f"{ms:.1f} ms, peak device memory {peak / 2 ** 30:.2f} GiB; bf16 vs "
+          f"fp32 on the card (TF32 off): rel norm err {rel:.3e} (tol "
+          f"{MODEL_REL_TOL}), argmax agreement {agree:.4f}", flush=True)
+    _require(rel <= MODEL_REL_TOL, f"zoo_rest LRGFormerUNETR vol "
+             f"{LRG_BIG_VOL}: bf16 logits disagree with fp32")
+    del model, got, want, xb
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _swin2d_check():
+    """Swin2D through build_model (the CLIs feed 3D volumes only, in both
+    packages): a forward and a gradient (DropPath draws seeded alike) of 16
+    images of 384^2 in bf16 against the same weights in fp32 on the card,
+    TF32 off; the forward's and the step's ms and peak memory."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    cfg = get_args(SWIN2D_ARGS)
+    gen = torch.Generator().manual_seed(cfg.seed + 3)
+    model = _seeded_model(cfg, gen).to("cuda")
+    n, edge = PREDICT_BATCH, cfg.vol_size3()[0]
+    batch = {"image": torch.randn(n, edge, edge, 1, generator=gen).to("cuda"),
+             "label": torch.randint(0, cfg.output_dim, (n, edge, edge),
+                                    generator=gen).to("cuda"),
+             "crop_loc": torch.zeros(n, 2, device="cuda"),
+             "affine": torch.ones(n, 2, device="cuda")}
+    x_in = (batch["image"], batch["crop_loc"], batch["affine"])
+
+    def loss_fn(logits, label):
+        return F.cross_entropy(logits.permute(0, 3, 1, 2), label)
+
+    ref = copy.deepcopy(model)      # outside inference mode: it trains too
+    ref.backbone.dtype = torch.float32
+    with torch.inference_mode():
+        _reset_launches()
+        got = model.eval()(x_in)
+        _require(not any(_read_launches().values()), "zoo_rest Swin2D: a "
+                 "kernel launched")
+        _require(tuple(got.shape) == (n, edge, edge, cfg.output_dim)
+                 and bool(torch.isfinite(got).all()), "zoo_rest Swin2D: "
+                 "logits")
+        fwd_ms = _time_ms(lambda: model(x_in), 3)
+        with _no_tf32():
+            want = ref.eval()(x_in)
+        rel = float((got - want).norm() / want.norm())
+        del got, want
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = _grads_of(model, loss_fn, batch)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = _time_ms(lambda: _grads_of(model, loss_fn, batch), 2)
+    with _no_tf32():
+        want_loss, want_grads = _grads_of(ref, loss_fn, batch)
+    grel = _rel_norm(grads, want_grads)
+    print(f"zoo_rest: Swin2D, {n} images of {edge}^2, patch 2, window 6, "
+          f"bf16 vs fp32 on the card (TF32 off): logits rel norm err "
+          f"{rel:.3e} (tol {MODEL_REL_TOL}); loss {loss:.5f} / {want_loss:.5f},"
+          f" whole gradient rel norm err {grel:.3e} (tol {TRAIN_GRAD_REL_TOL});"
+          f" forward {fwd_ms:.1f} ms, forward and backward {step_ms:.1f} ms, "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB", flush=True)
+    _require(rel <= MODEL_REL_TOL, "zoo_rest Swin2D: bf16 logits disagree "
+             "with fp32")
+    _require(grel <= TRAIN_GRAD_REL_TOL, "zoo_rest Swin2D: bf16 gradients "
+             "disagree with fp32")
+    del model, ref, grads, want_grads
+    torch.cuda.empty_cache()
+
+
+def phase_zoo_rest():
+    """FocalNetUNETR and UNETR_Official at 96^3 and LRGFormerUNETR at 64^3,
+    full width: one window bf16 card vs fp32 CPU and one predictor call of
+    16 windows with every K2 launch held against its plain version, the
+    prediction CLI, 4 training steps at batch 8, the whole gradient of a
+    batch-2 step and the training CLI; LRGFormerUNETR's predictor call at
+    vol 128 against fp32 on the card; Swin2D's forward and gradient."""
+    import numpy as np
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    for name in ZOO_REST_MODELS:
+        cfg = get_args(_zoo_rest_args(name))
+        gen = torch.Generator().manual_seed(cfg.seed + 4)
+        vol = torch.randn(1, *cfg.vol_size3(), 1, generator=gen)
+        x_in = (vol, torch.full((1, 3), 0.5), torch.ones(1, 3))
+        xb = tuple(torch.cat([t] * PREDICT_BATCH) for t in x_in)
+        add(_model_vs_cpu(f"zoo_rest: {name}", cfg, ZOO_REST_CALL[name],
+                          x_in, xb, held=True)[0])
+    add(_lrg_big_call())
+    _swin2d_check()
+    print(f"zoo_rest: prediction: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        add(_zoo_rest_predict_cli(tmp))
+        print(f"zoo_rest: the prediction CLI: {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+        _write_train_set(os.path.join(tmp, "Task03_ZooTrain"),
+                         ZOO_CLI_VOLUMES, (128, 120, 100), 14,
+                         np.random.default_rng(3))
+        for name in ZOO_REST_MODELS:
+            t0 = time.perf_counter()
+            add(_zoo_rest_train(name, tmp))
+            print(f"zoo_rest: {name} training: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
+def _depthwise_times():
+    """FocalNet's depthwise focal layers at stage 1 of a predictor call (16
+    x 48^3 x 48, kernels 6^3 and 8^3, flax's "SAME" padding, bf16): the
+    port's route (the contiguous layout: PyTorch's own depthwise kernel,
+    copies and the pad included) against the channels-last view (cuDNN),
+    forward, and forward + backward at batch 8. Printed only: the library's
+    kernels, no kernel of the port's."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    c = 48
+    for k in FOCAL_KERNELS:
+        pad = ((k - 1) // 2, k // 2) * 3
+        w = (torch.randn(c, 1, k, k, k, generator=gen, device="cuda")
+             * k ** -1.5).to(torch.bfloat16)
+        for batch, train in ((PREDICT_BATCH, False), (TRAIN_BATCH, True)):
+            x = torch.randn(batch, 48, 48, 48, c, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            if train:
+                x.requires_grad_(True)
+                w.requires_grad_(True)
+            xn = x.permute(0, 4, 1, 2, 3)
+
+            def contiguous():
+                return F.conv3d(F.pad(xn.contiguous(), pad), w, groups=c)
+
+            def channels_last():
+                xp = F.pad(xn, pad).contiguous(
+                    memory_format=torch.channels_last_3d)
+                return F.conv3d(xp, w.contiguous(
+                    memory_format=torch.channels_last_3d), groups=c)
+
+            a, b = contiguous(), channels_last()
+            err = float((a.float() - b.float()).abs().max().detach())
+            if train:
+                dy = torch.randn_like(a)
+                torch.autograd.grad(b, (x, w), dy)
+
+                def step(fn):
+                    return lambda: torch.autograd.grad(fn(), (x, w), dy)
+
+                # cuDNN's backward takes seconds here: timed once (the
+                # comparison before it was the warm-up)
+                times = [_time_ms(step(contiguous), 3),
+                         _time_once_ms(step(channels_last))]
+            else:
+                with torch.inference_mode():
+                    times = [_time_ms(fn, 5)
+                             for fn in (contiguous, channels_last)]
+            print(f"  depthwise {k}^3 conv, {batch} x 48^3 x {c}, bf16, "
+                  f"{'forward + backward' if train else 'forward'}: "
+                  f"contiguous (PyTorch's depthwise kernel) {times[0]:.3f} ms, "
+                  f"channels-last (cuDNN) {times[1]:.3f} ms; max abs diff "
+                  f"{err:.3e}", flush=True)
+            del x, xn, a, b
+            w = w.detach()
+            torch.cuda.empty_cache()
+
+
+def _zoo_rest_kernels(rep):
+    """K2 at ViT-B's shape in UNETR_Official's predictor call, (M, C, H) =
+    (16 x 216, 768, 3072) with LN2 absorbed and the shortcut inside, in bf16
+    (the tensor-core route) and fp32 (the CUDA-core route), against its
+    plain version at KERNEL_ATOL (fp32: FP32_KERNEL_TOL), a rerun
+    bit-equal, timed beside its bound and the composition layer_norm ->
+    linear -> gelu -> linear; then FocalNet's depthwise convs
+    (``_depthwise_times``)."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    k2 = rep["fused_mlp"]
+    c, grid = 768, WS
+    with torch.inference_mode():
+        for dtype, route, peak in ((torch.bfloat16, "tensor_core", None),
+                                   (torch.float32, "cuda_core",
+                                    PEAK_FP32_FLOPS)):
+            x, a, kw = _mlp_case(gen, PREDICT_BATCH, grid, c, True, True,
+                                 dtype=dtype)
+            m = x.shape[0]
+            _require(kmlp.mlp_route(dtype, c, c, 4 * c) == route,
+                     f"K2 ViT-B {dtype}: not the {route} route")
+            got = kmlp.fused_mlp(x, **a, **kw)
+            want = kmlp.fused_mlp_plain(x, **a, **kw)
+            torch.cuda.synchronize()
+            _compare(f"K2 ViT-B {route} {dtype} M={m}, C={c}, hidden 4C, "
+                     "ln+res True", got, want, k2,
+                     KERNEL_ATOL if peak is None else FP32_KERNEL_TOL)
+            _require(torch.equal(got, kmlp.fused_mlp(x, **a, **kw)),
+                     f"K2 ViT-B {dtype}: a rerun differs")
+            del got, want
+            elem = x.element_size()
+            _stage_report(
+                k2, f"vit_b_{'bf16' if peak is None else 'fp32'}", c,
+                PREDICT_BATCH,
+                _time_ms(lambda: kmlp.fused_mlp(x, **a, **kw), 10),
+                _time_ms(lambda: kmlp.fused_mlp_plain(x, **a, **kw), 10),
+                16 * m * c * c, 2 * m * c * elem + 8 * c * c * elem
+                + 5 * c * 4 + 2 * c * 4, peak,
+                extra=_mlp_reference(x, a, kw))
+            k2["per_stage"][-1]["M"] = m
+            del x, a, kw
+            torch.cuda.empty_cache()
+    _depthwise_times()
+
+
 # the one-pass CUDA-core heads forms' head dims at the flagship's stage
 # shapes: hidden 48 with heads 3 6 12 24 gives 16, hidden 96 gives 32
 FORMS_HIDDEN = (48, 96)
@@ -6077,7 +6572,8 @@ def main(argv=None) -> int:
                             ("f5", phase_f5), ("r15", phase_r15),
                             ("zoo_train", phase_zoo_train),
                             ("swin_opts", phase_swin_opts),
-                            ("zoo_official", phase_zoo_official)):
+                            ("zoo_official", phase_zoo_official),
+                            ("zoo_rest", phase_zoo_rest)):
             if name in phases:
                 t0 = time.perf_counter()
                 launches = phase()

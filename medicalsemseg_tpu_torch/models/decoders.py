@@ -68,10 +68,13 @@ class UnetResBlock(nn.Module):
     channel count inside K9's window): ``norm1`` is reduced to its fp32
     statistics, and ``conv2`` runs as kernel K9 with the normalize and
     LeakyReLU pass folded into its input as a per-(sample, channel) scale
-    and shift, so the normalized volume is never written."""
+    and shift, so the normalized volume is never written. ``fusable=False``
+    keeps the block out of the fused form (the decoders of UNETR and
+    SwinUNETR_Official: their JAX modules pass no ``fuse`` to them)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, fusable: bool = True):
         super().__init__()
+        self.fusable = fusable
         self.conv1 = Convolution(Conv3d(in_ch, out_ch, 3, bias=False))
         self.norm1 = InstanceNorm(out_ch)
         self.conv2 = Convolution(Conv3d(out_ch, out_ch, 3, bias=False))
@@ -81,7 +84,8 @@ class UnetResBlock(nn.Module):
             self.norm3 = InstanceNorm(out_ch)
 
     def _fused(self, y: torch.Tensor) -> bool:
-        return (not self.training and not torch.is_grad_enabled()
+        return (self.fusable and not self.training
+                and not torch.is_grad_enabled()
                 and decoder_fuse_enabled(y)
                 and k9.winograd_f23_applicable(tuple(y.shape[1:4]),
                                                y.shape[-1]))
@@ -105,9 +109,9 @@ class UnetResBlock(nn.Module):
 class UnetrBasicBlock(nn.Module):
     """MONAI ``UnetrBasicBlock(res_block=True)``: the block at ``.layer``."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, fusable: bool = True):
         super().__init__()
-        self.layer = UnetResBlock(in_ch, out_ch)
+        self.layer = UnetResBlock(in_ch, out_ch, fusable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer(x)
@@ -118,10 +122,11 @@ class UnetrUpBlock(nn.Module):
     axis), concat skip, res block."""
 
     def __init__(self, in_ch: int, out_ch: int,
-                 upsample: Union[int, Tuple[int, int, int]] = 2):
+                 upsample: Union[int, Tuple[int, int, int]] = 2,
+                 fusable: bool = True):
         super().__init__()
         self.transp_conv = Convolution(ConvTranspose3d(in_ch, out_ch, upsample))
-        self.conv_block = UnetResBlock(2 * out_ch, out_ch)
+        self.conv_block = UnetResBlock(2 * out_ch, out_ch, fusable)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         x = self.transp_conv(x)

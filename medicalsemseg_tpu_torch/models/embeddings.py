@@ -1,7 +1,8 @@
 """Patch, position and intensity-class embeddings (counterpart of
 medicalsemseg_tpu/models/embeddings.py): the Hounsfield-unit interval
 tables, the intensity scalings applied to them, the fixed 3D sin-cos
-position table, ``PatchEmbed3D`` and ``LearnedClassVectors``."""
+position table, ``PatchEmbed3D``, LRGFormer's ``PatchEmbedGlobal`` and
+``PatchEmbedRegion`` and ``LearnedClassVectors``."""
 
 from __future__ import annotations
 
@@ -77,21 +78,83 @@ def get_3d_sincos_pos_embed(embed_dim: int, grid_size) -> np.ndarray:
 
 class PatchEmbed3D(nn.Module):
     """(B, D, H, W, Cin) -> (B, D/pd, H/ph, W/pw, C): a kernel = stride =
-    patch conv, then LayerNorm. The patch may differ per axis. Trailing
-    edges are zero-padded up to a multiple of the patch."""
+    patch conv, then LayerNorm (none with ``use_norm=False``, ViT's stem).
+    The patch may differ per axis. Trailing edges are zero-padded up to a
+    multiple of the patch."""
 
-    def __init__(self, patch_size: Tuple3, in_chans: int, embed_dim: int):
+    def __init__(self, patch_size: Tuple3, in_chans: int, embed_dim: int,
+                 use_norm: bool = True):
         super().__init__()
         self.patch = tuple(int(p) for p in patch_size)
         self.proj = Conv3d(in_chans, embed_dim, self.patch, stride=self.patch,
                            padding=0)
-        self.norm = LayerNorm(embed_dim)
+        self.norm = LayerNorm(embed_dim) if use_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pads = [(-x.shape[i + 1]) % p for i, p in enumerate(self.patch)]
         if any(pads):
             x = F.pad(x, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
-        return self.norm(self.proj(x))
+        x = self.proj(x)
+        return x if self.norm is None else self.norm(x)
+
+
+def patch_linear(x: torch.Tensor, conv: Conv3d) -> torch.Tensor:
+    """A VALID conv whose kernel equals its stride (``conv.stride``, one per
+    axis) on (B, D, H, W, Cin), as one dense layer over each block's voxels:
+    (B, D/kd, H/kh, W/kw, O). Trailing voxels that fill no block are
+    dropped, as VALID drops them."""
+    kd, kh, kw = _k3(conv.stride)
+    b, d, h, w, c = x.shape
+    gd, gh, gw = d // kd, h // kh, w // kw
+    x = x[:, :gd * kd, :gh * kh, :gw * kw]
+    x = x.reshape(b, gd, kd, gh, kh, gw, kw, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    x = x.reshape(b, gd, gh, gw, kd * kh * kw * c)
+    wt = conv.weight.permute(0, 2, 3, 4, 1).reshape(conv.weight.shape[0], -1)
+    dt = x.dtype
+    return F.linear(x, wt.to(dt), None if conv.bias is None
+                    else conv.bias.to(dt))
+
+
+def _k3(k) -> Tuple3:
+    return (k,) * 3 if isinstance(k, int) else tuple(int(v) for v in k)
+
+
+class PatchEmbedGlobal(nn.Module):
+    """The whole volume -> ONE global token: two 2^3 stride-2 convs, then a
+    conv whose kernel is the quartered volume, then LayerNorm (the JAX
+    ``PatchEmbedGlobal``). (B, D, H, W, Cin) -> (B, 1, 1, 1, C); the convs
+    run as :func:`patch_linear`."""
+
+    def __init__(self, vol_size: Tuple3, in_chans: int, embed_dim: int):
+        super().__init__()
+        k = tuple(v // 4 for v in vol_size)
+        self.down1 = Conv3d(in_chans, 2 * in_chans, 2, stride=2, padding=0)
+        self.down2 = Conv3d(2 * in_chans, 4 * in_chans, 2, stride=2,
+                            padding=0)
+        self.proj = Conv3d(4 * in_chans, embed_dim, k, stride=k, padding=0)
+        self.norm = LayerNorm(embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in (self.down1, self.down2, self.proj):
+            x = patch_linear(x, conv)
+        return self.norm(x)
+
+
+class PatchEmbedRegion(nn.Module):
+    """The volume -> coarse region tokens: one 2^3 stride-2 conv, then a conv
+    of half the region size, then LayerNorm (the JAX ``PatchEmbedRegion``).
+    (B, D, H, W, Cin) -> (B, D/r, H/r, W/r, C) for region size r; the convs
+    run as :func:`patch_linear`."""
+
+    def __init__(self, region_size: Tuple3, in_chans: int, embed_dim: int):
+        super().__init__()
+        k = tuple(v // 2 for v in region_size)
+        self.down = Conv3d(in_chans, 2 * in_chans, 2, stride=2, padding=0)
+        self.proj = Conv3d(2 * in_chans, embed_dim, k, stride=k, padding=0)
+        self.norm = LayerNorm(embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(patch_linear(patch_linear(x, self.down), self.proj))
 
 
 class LearnedClassVectors(nn.Module):

@@ -1,15 +1,19 @@
 """Model factory (counterpart of medicalsemseg_tpu/models/factory.py).
 
-Ported: the flagship ``nnFormerUNETR``, ``SwInception`` and ``SwinDepth``
-(the same Swin encoder with the inception or depthwise-conv token MLP, every
-one of the three with all the Swin encoder's options, under the UNETR
-decoder), ``SwinSegFormer`` (the Swin encoder under the progressive
-SegFormer head), ``SegFormer3D`` (MixViT encoder under the official
-SegFormer head), ``GCViTUNETR`` (GC-ViT encoder under the UNETR decoder),
-the official ``nnFormer`` (symmetric, with cross-attention skips and deep
-supervision), ``VideoSwinUNETR`` (Video-Swin on MONAI's blocks under the
-UNETR decoder) and ``SwinUNETR_Official`` (MONAI's SwinUNETR). The other
-models of the zoo raise ``NotImplementedError``.
+Every model of the JAX factory: the flagship ``nnFormerUNETR``,
+``SwInception`` and ``SwinDepth`` (the same Swin encoder with the inception
+or depthwise-conv token MLP, every one of the three with all the Swin
+encoder's options, under the UNETR decoder), ``SwinSegFormer`` (the Swin
+encoder under the progressive SegFormer head), ``SegFormer3D`` (MixViT
+encoder under the official SegFormer head), ``GCViTUNETR`` (GC-ViT encoder
+under the UNETR decoder), ``FocalNetUNETR`` (FocalNet under the UNETR
+decoder), ``UNETR_Official`` (a ViT-B UNETR), the official ``nnFormer``
+(symmetric, with cross-attention skips and deep supervision),
+``SwinUNETR_Official`` (MONAI's SwinUNETR), ``LRGFormerUNETR`` (the
+local / region / global encoder under the UNETR decoder),
+``VideoSwinUNETR`` (Video-Swin on MONAI's blocks under the UNETR decoder)
+and ``Swin2D`` (the 2D Swin pyramid under a linear-fuse head; ``--input_dim
+2``).
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ from medicalsemseg_tpu_torch.models.embeddings import (
     scale_intensity_range,
     scale_intensity_range_percentiles,
 )
+from medicalsemseg_tpu_torch.models.focalnet import FocalNet3D
 from medicalsemseg_tpu_torch.models.gcvit import SE, GCViT3D, GCWindowAttention
 from medicalsemseg_tpu_torch.models.layers import Conv3d, ConvTranspose3d
+from medicalsemseg_tpu_torch.models.lrgformer import LRGFormer3D
 from medicalsemseg_tpu_torch.models.nnformer import (
     CrossWindowAttention,
     NNFormer,
@@ -43,15 +49,22 @@ from medicalsemseg_tpu_torch.models.swin import (
     SwinEncoder3D,
     WindowAttention,
 )
+from medicalsemseg_tpu_torch.models.swin2d import (
+    Swin2DSeg,
+    SwinTransformer2D,
+    WindowAttention2D,
+)
 from medicalsemseg_tpu_torch.models.swin_official import (
     OfficialPatchMerging,
     OfficialWindowAttention,
     SwinUNETROfficial,
 )
+from medicalsemseg_tpu_torch.models.unetr import UNETR
 from medicalsemseg_tpu_torch.models.video_swin import (
     VideoPatchMerging,
     VideoSwin3D,
 )
+from medicalsemseg_tpu_torch.models.vit import ViT3D
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
@@ -59,9 +72,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 # the Swin-encoder models under the UNETR decoder, by their token MLP
 SWIN_UNETR_MLPS = {"nnFormerUNETR": "dense", "SwInception": "inception",
                    "SwinDepth": "dwconv"}
-MODEL_NAMES = tuple(SWIN_UNETR_MLPS) + ("SwinSegFormer", "SegFormer3D",
-                                        "GCViTUNETR", "nnFormer",
-                                        "VideoSwinUNETR", "SwinUNETR_Official")
+# the JAX factory's names, in its order
+MODEL_NAMES = (
+    "nnFormerUNETR", "SwInception", "SwinDepth", "SwinSegFormer",
+    "SegFormer3D", "GCViTUNETR", "FocalNetUNETR", "UNETR_Official",
+    "nnFormer", "SwinUNETR_Official", "LRGFormerUNETR", "VideoSwinUNETR",
+    "Swin2D",
+)
 
 
 def official_fused_enabled() -> bool:
@@ -113,10 +130,8 @@ def build_model(cfg: Config) -> nn.Module:
     n_classes) fp32 logits."""
     name = cfg.model
     if name not in MODEL_NAMES:
-        raise NotImplementedError(
-            f"--model {name} is not ported yet (ROADMAP queue 1 items 13e, "
-            f"13h and 13i, the rest of the model zoo); the port has "
-            f"{', '.join(MODEL_NAMES)}")
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{', '.join(MODEL_NAMES)}")
     dtype = DTYPES[cfg.compute_dtype]
     patch = cfg.patch_size3()
     dims = [cfg.hidden_dim * 2 ** i for i in range(len(cfg.depths) + 1)]
@@ -160,6 +175,39 @@ def build_model(cfg: Config) -> nn.Module:
             num_heads=tuple(cfg.num_heads),
             drop_path_rate=cfg.drop_path_rate,
             fused=official_fused_enabled(), dtype=dtype)
+    elif name == "FocalNetUNETR":
+        encoder = FocalNet3D(
+            patch_size=patch, in_chans=cfg.in_chans, embed_dim=cfg.hidden_dim,
+            depths=tuple(cfg.depths), focal_windows=cfg.window_sizes(),
+            drop_path_rate=cfg.drop_path_rate)
+    elif name == "UNETR_Official":
+        # ViT-B (width 768, 12 blocks of 12 heads, patch 16) whatever the
+        # flags, the feature size from --hidden_dim, as the JAX factory
+        # builds it
+        return UNETR(cfg.vol_size3(), cfg.output_dim, in_chans=cfg.in_chans,
+                     feature_size=max(cfg.hidden_dim // 3, 8),
+                     hidden_size=768, depth=12, num_heads=12,
+                     patch_size=(16, 16, 16),
+                     drop_path_rate=cfg.drop_path_rate, dtype=dtype)
+    elif name == "LRGFormerUNETR":
+        # local tokens at twice the patch (the reference's token budget)
+        patch = tuple(2 * p for p in patch)
+        encoder = LRGFormer3D(
+            cfg.vol_size3(), patch_size=patch, in_chans=cfg.in_chans,
+            embed_dim=cfg.hidden_dim, depths=tuple(cfg.depths),
+            num_heads=tuple(cfg.num_heads), mlp_ratio=cfg.mlp_ratio,
+            qkv_bias=cfg.qkv_bias, drop_path_rate=cfg.drop_path_rate)
+    elif name == "Swin2D":
+        if cfg.input_dim != 2:
+            raise ValueError("--model Swin2D requires --input_dim 2")
+        return Swin2DSeg(
+            cfg.vol_size3()[0], cfg.output_dim, in_chans=cfg.in_chans,
+            embed_dim=cfg.hidden_dim, depths=tuple(cfg.depths),
+            num_heads=tuple(cfg.num_heads),
+            window_size=cfg.window_sizes()[0],
+            patch_size=patch[0] if patch[0] > 1 else 4,
+            mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
+            drop_path_rate=cfg.drop_path_rate, dtype=dtype)
     elif name == "VideoSwinUNETR":
         w = cfg.window_sizes()[0]
         encoder = VideoSwin3D(
@@ -242,7 +290,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     _trunc_normal_(m.weight, 0.02, generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (Conv3d, ConvTranspose3d)):
+            elif isinstance(m, (Conv3d, ConvTranspose3d, nn.Conv2d)):
                 _lecun_normal_(m.weight, _conv_fan_in(
                     m.weight, transposed=isinstance(m, ConvTranspose3d)),
                     generator)
@@ -250,7 +298,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, (WindowAttention, GCWindowAttention,
                                 CrossWindowAttention,
-                                OfficialWindowAttention)):
+                                OfficialWindowAttention, WindowAttention2D)):
                 _trunc_normal_(m.relative_position_bias_table, 0.02, generator)
                 if getattr(m, "rel_pos_bias_affine", False):
                     _trunc_normal_(m.rel_pos_bias_affine_emb, 0.02, generator)
@@ -262,4 +310,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, VideoSwin3D) and hasattr(
                     m, "absolute_pos_embed"):
                 _trunc_normal_(m.absolute_pos_embed, 0.02, generator)
+            elif (isinstance(m, SwinTransformer2D)
+                  and m.absolute_pos_embed is not None):
+                _trunc_normal_(m.absolute_pos_embed, 0.02, generator)
+            elif isinstance(m, ViT3D):
+                _trunc_normal_(m.pos_embed, 0.02, generator)
+                if m.cls_token is not None:
+                    _trunc_normal_(m.cls_token, 0.02, generator)
     return model

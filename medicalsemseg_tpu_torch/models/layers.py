@@ -132,7 +132,10 @@ class LayerNorm(nn.Module):
 class Conv3d(nn.Module):
     """Channels-last 3D convolution; weight (O, I / groups, k, k, k) as in
     torch. ``padding`` is the same on both sides of every axis (the JAX
-    modules' explicit ((p, p),) * 3, 0 for their VALID).
+    modules' explicit ((p, p),) * 3, 0 for their VALID). Left at None it is
+    flax's "SAME" at stride 1 for a cubic kernel k: (k - 1) // 2 before and
+    k // 2 after every axis, so an even kernel (FocalNet's focal layers of 6
+    and 8) pads one voxel more after than before.
 
     Dense 1x1x1 / stride 1 runs as a matmul over the channel axis (the JAX
     package's ``_Fast1x1Conv``). Dense 3x3x3 / stride 1 / SAME with gradients
@@ -151,8 +154,13 @@ class Conv3d(nn.Module):
                  bias: bool = True, groups: int = 1):
         super().__init__()
         self.kernel_size, self.stride, self.groups = kernel_size, stride, groups
-        # "SAME" for odd kernels at stride 1, as the JAX Conv3d default
+        # "SAME" at stride 1, as the JAX Conv3d default: symmetric for an
+        # odd kernel, one more voxel after than before for an even one
         self.padding = kernel_size // 2 if padding is None else padding
+        self.same_even = None
+        if padding is None and kernel_size % 2 == 0:
+            self.padding = 0
+            self.same_even = ((kernel_size - 1) // 2, kernel_size // 2) * 3
         k3 = _triple(kernel_size)
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, *k3))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
@@ -177,6 +185,8 @@ class Conv3d(nn.Module):
             # the contiguous layout and is several times faster, copies
             # included
             xn = xn.contiguous()
+        if self.same_even is not None:
+            xn = F.pad(xn, self.same_even)
         y = F.conv3d(xn, self.weight.to(dt), b, stride=self.stride,
                      padding=self.padding, groups=self.groups)
         return to_ndhwc(y)

@@ -308,16 +308,16 @@ class SwinUNETROfficial(nn.Module):
         self.swinViT = SwinViTOfficial(
             in_chans, fs, depths, num_heads, drop_path_rate=drop_path_rate,
             normalize=normalize, fused=fused)
-        self.encoder1 = UnetrBasicBlock(in_chans, fs)
-        self.encoder2 = UnetrBasicBlock(fs, fs)
-        self.encoder3 = UnetrBasicBlock(2 * fs, 2 * fs)
-        self.encoder4 = UnetrBasicBlock(4 * fs, 4 * fs)
-        self.encoder10 = UnetrBasicBlock(16 * fs, 16 * fs)
-        self.decoder5 = UnetrUpBlock(16 * fs, 8 * fs)
-        self.decoder4 = UnetrUpBlock(8 * fs, 4 * fs)
-        self.decoder3 = UnetrUpBlock(4 * fs, 2 * fs)
-        self.decoder2 = UnetrUpBlock(2 * fs, fs)
-        self.decoder1 = UnetrUpBlock(fs, fs)
+        self.encoder1 = UnetrBasicBlock(in_chans, fs, fusable=False)
+        self.encoder2 = UnetrBasicBlock(fs, fs, fusable=False)
+        self.encoder3 = UnetrBasicBlock(2 * fs, 2 * fs, fusable=False)
+        self.encoder4 = UnetrBasicBlock(4 * fs, 4 * fs, fusable=False)
+        self.encoder10 = UnetrBasicBlock(16 * fs, 16 * fs, fusable=False)
+        self.decoder5 = UnetrUpBlock(16 * fs, 8 * fs, fusable=False)
+        self.decoder4 = UnetrUpBlock(8 * fs, 4 * fs, fusable=False)
+        self.decoder3 = UnetrUpBlock(4 * fs, 2 * fs, fusable=False)
+        self.decoder2 = UnetrUpBlock(2 * fs, fs, fusable=False)
+        self.decoder1 = UnetrUpBlock(fs, fs, fusable=False)
         self.out = UnetOutBlock(fs, out_channels)
 
     def forward(self, x_in: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]

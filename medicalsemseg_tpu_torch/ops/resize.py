@@ -1,6 +1,7 @@
-"""Volumetric linear resize (counterpart of medicalsemseg_tpu/ops/resize.py:
-``resize_trilinear``, and of the ``jax.image.resize(..., "linear")`` in the
-GC-ViT stage).
+"""Linear resize (counterpart of medicalsemseg_tpu/ops/resize.py:
+``resize_trilinear``, of the ``jax.image.resize(..., "linear")`` in the
+GC-ViT stage and of the ``jax.image.resize(..., "bilinear")`` in the Swin2D
+segmentation head).
 
 Half-pixel centres and a triangle kernel, separable: one (out, in) weight
 matrix per axis, built in NumPy and cached, applied as a matmul along that
@@ -36,11 +37,11 @@ def linear_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[:, None], w, 0.0).astype(np.float32)
 
 
-def resize_linear(x: torch.Tensor,
-                  out_size: Tuple[int, int, int]) -> torch.Tensor:
-    """(B, D, H, W, C) -> (B, *out_size, C); the weights are cast to
-    ``x.dtype`` and the products accumulate in fp32 on the card."""
-    for axis, size in zip((1, 2, 3), out_size):
+def resize_linear(x: torch.Tensor, out_size: Tuple[int, ...]) -> torch.Tensor:
+    """(B, *spatial, C) -> (B, *out_size, C), one spatial axis after the
+    other: trilinear for volumes, bilinear for images; the weights are cast
+    to ``x.dtype`` and the products accumulate in fp32 on the card."""
+    for axis, size in enumerate(out_size, start=1):
         n_in = x.shape[axis]
         if n_in == size:
             continue

@@ -1,17 +1,19 @@
 """Parameter conversion between the JAX models and the port, and torch
 checkpoints.
 
-One key map (:func:`key_map`) pairs every leaf of a ported JAX model's
-parameter tree (nested dicts of arrays; nnFormerUNETR, SwInception,
-SwinDepth and SwinSegFormer with every option of the Swin encoder,
-SegFormer3D, GCViTUNETR, the official nnFormer, VideoSwinUNETR,
-SwinUNETR_Official) with its key in the port's state_dict, which for the
-flagship is also the reference PyTorch layout (for VideoSwinUNETR and
-SwinUNETR_Official the Video-Swin and MONAI layouts, but for the MLP's
-``fc1`` / ``fc2``), and names the layout change between them:
+One key map (:func:`key_map`) pairs every leaf of a JAX model's parameter
+tree (nested dicts of arrays; every model of the factory: nnFormerUNETR,
+SwInception, SwinDepth and SwinSegFormer with every option of the Swin
+encoder, SegFormer3D, GCViTUNETR, FocalNetUNETR, UNETR_Official, the
+official nnFormer, SwinUNETR_Official, LRGFormerUNETR, VideoSwinUNETR,
+Swin2D) with its key in the port's state_dict, which for the flagship is
+also the reference PyTorch layout (for VideoSwinUNETR and SwinUNETR_Official
+the Video-Swin and MONAI layouts, but for the MLP's ``fc1`` / ``fc2``), and
+names the layout change between them:
 
   dense   Dense kernel (I, O)                  <-> Linear weight (O, I)
   conv    Conv kernel (k, k, k, I / g, O)      <-> Conv3d weight (O, I / g, k, k, k)
+  conv2   Conv kernel (k, k, I, O)             <-> Conv2d weight (O, I, k, k)
   convT   ConvTranspose kernel (k, k, k, I, O) <-> un-flipped, (I, O, k, k, k)
   plain   norm scale / bias, biases, tables    <-> weight / bias, unchanged
 
@@ -46,12 +48,14 @@ KeyMap = List[Tuple[Tuple[str, ...], str, str]]
 _TO_PORT = {
     "dense": lambda a: a.T,
     "conv": lambda a: a.transpose(4, 3, 0, 1, 2),
+    "conv2": lambda a: a.transpose(3, 2, 0, 1),
     "convT": lambda a: a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2),
     "plain": lambda a: a,
 }
 _TO_JAX = {
     "dense": lambda a: a.T,
     "conv": lambda a: a.transpose(2, 3, 4, 1, 0),
+    "conv2": lambda a: a.transpose(2, 3, 1, 0),
     "convT": lambda a: a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1],
     "plain": lambda a: a,
 }
@@ -405,24 +409,188 @@ def key_map(params: Dict) -> KeyMap:
             lambda k: (f"layers_{k}_blocks_", f"layers_{k}_downsample"),
             lambda k: f"encoder.layers.{k}")
 
+    def patch_embed3d(path, prefix, pe):
+        # PatchEmbed3D: Conv_0, and its LayerNorm wrapper when it has one
+        conv(path, f"{prefix}.proj", pe)
+        if "LayerNorm_0" in pe:
+            norm(path + ("LayerNorm_0",), f"{prefix}.norm", pe["LayerNorm_0"])
+
+    def scales(path, prefix, p):
+        # layer-scale vectors of a block
+        for g in ("gamma_1", "gamma_2"):
+            if g in p:
+                out.append((path + (g,), f"{prefix}.{g}", "plain"))
+
+    def focalnet_encoder(enc):
+        patch_embed3d(("encoder", "patch_embed"), "encoder.patch_embed",
+                      enc["patch_embed"])
+        i = 0
+        while f"layers_{i}_downsample" in enc:
+            for j, blk in numbered(enc, f"layers_{i}_blocks_"):
+                bp = ("encoder", f"layers_{i}_blocks_{j}")
+                base = f"encoder.layers.{i}.blocks.{j}"
+                norm(bp + ("norm1",), f"{base}.norm1", blk["norm1"])
+                norm(bp + ("norm2",), f"{base}.norm2", blk["norm2"])
+                mp, m = bp + ("modulation",), blk["modulation"]
+                mod = f"{base}.modulation"
+                kernel(mp + ("f",), f"{mod}.f", m["f"], "dense")
+                for k, fl in numbered(m, "focal_layers_"):
+                    conv(mp + (f"focal_layers_{k}",),
+                         f"{mod}.focal_layers.{k}", fl)
+                conv(mp + ("h",), f"{mod}.h", m["h"])
+                kernel(mp + ("proj",), f"{mod}.proj", m["proj"], "dense")
+                dense_mlp(bp + ("mlp",), f"{base}.mlp", blk["mlp"])
+                scales(bp, base, blk)
+            patch_embed3d(("encoder", f"layers_{i}_downsample"),
+                          f"encoder.layers.{i}.downsample",
+                          enc[f"layers_{i}_downsample"])
+            norm(("encoder", f"norm{i}"), f"encoder.norm{i}", enc[f"norm{i}"])
+            i += 1
+
+    def lrg_encoder(enc):
+        patch_embed3d(("encoder", "patch_embed_local"),
+                      "encoder.patch_embed_local", enc["patch_embed_local"])
+        for name, convs in (("patch_embed_region", ("down", "proj")),
+                            ("patch_embed_global", ("down1", "down2",
+                                                    "proj"))):
+            pp, pe = ("encoder", name), enc[name]
+            for c in convs:
+                kernel(pp + (c,), f"encoder.{name}.{c}", pe[c], "conv")
+            norm(pp + ("LayerNorm_0",), f"encoder.{name}.norm",
+                 pe["LayerNorm_0"])
+        i = 0
+        while f"norm{i}" in enc:
+            stage = f"encoder.layers.{i}"
+            for j, blk in numbered(enc, f"layers_{i}_blocks_"):
+                bp, base = ("encoder", f"layers_{i}_blocks_{j}"), \
+                    f"{stage}.blocks.{j}"
+                norm(bp + ("norm1",), f"{base}.norm1", blk["norm1"])
+                norm(bp + ("norm2",), f"{base}.norm2", blk["norm2"])
+                for d in ("qkv", "proj"):
+                    for s in ("local", "region", "global"):
+                        kernel(bp + ("attn", f"{d}_{s}"),
+                               f"{base}.attn.{d}_{s}",
+                               blk["attn"][f"{d}_{s}"], "dense")
+                dense_mlp(bp + ("mlp",), f"{base}.mlp", blk["mlp"])
+            for s in ("local", "region"):
+                swin_merging(("encoder", f"downsample_{s}_{i}"),
+                             f"{stage}.downsample_{s}",
+                             enc[f"downsample_{s}_{i}"])
+            kernel(("encoder", f"downsample_global_{i}"),
+                   f"{stage}.downsample_global",
+                   enc[f"downsample_global_{i}"], "dense")
+            norm(("encoder", f"norm{i}"), f"encoder.norm{i}", enc[f"norm{i}"])
+            i += 1
+
+    def unetr(tree):
+        vit = tree["vit"]
+        conv(("vit", "patch_embed"), "vit.patch_embed.proj",
+             vit["patch_embed"])
+        for leaf in ("pos_embed", "cls_token"):
+            if leaf in vit:
+                out.append((("vit", leaf), f"vit.{leaf}", "plain"))
+        for i, blk in numbered(vit, "blocks_"):
+            bp, base = ("vit", f"blocks_{i}"), f"vit.blocks.{i}"
+            norm(bp + ("norm1",), f"{base}.norm1", blk["norm1"])
+            norm(bp + ("norm2",), f"{base}.norm2", blk["norm2"])
+            for d in ("qkv", "proj"):
+                kernel(bp + ("attn", d), f"{base}.attn.{d}", blk["attn"][d],
+                       "dense")
+            dense_mlp(bp + ("mlp",), f"{base}.mlp", blk["mlp"])
+            scales(bp, base, blk)
+        norm(("vit", "norm"), "vit.norm", vit["norm"])
+        if "encoder1" not in tree:     # the vit subtree alone
+            return
+        res_block(("encoder1",), "encoder1", tree["encoder1"])
+        for k in (2, 3, 4):
+            ep, e = (f"encoder{k}",), tree[f"encoder{k}"]
+            kernel(ep + ("transp_conv_init", "ConvTranspose_0"),
+                   f"encoder{k}.transp_conv_init.conv",
+                   e["transp_conv_init"]["ConvTranspose_0"], "convT")
+            for i, up in numbered(e, "up_"):
+                kernel(ep + (f"up_{i}", "ConvTranspose_0"),
+                       f"encoder{k}.up.{i}.conv", up["ConvTranspose_0"],
+                       "convT")
+                res_block(ep + (f"res_{i}",), f"encoder{k}.res.{i}",
+                          e[f"res_{i}"])
+        for k in (5, 4, 3, 2):
+            dp, d = (f"decoder{k}",), tree[f"decoder{k}"]
+            kernel(dp + ("transp_conv", "ConvTranspose_0"),
+                   f"decoder{k}.transp_conv.conv",
+                   d["transp_conv"]["ConvTranspose_0"], "convT")
+            res_block(dp + ("conv_block",), f"decoder{k}.conv_block",
+                      d["conv_block"])
+        conv(("out", "conv"), "out.conv.conv", tree["out"]["conv"])
+
+    def swin2d(tree):
+        bb, root = tree["backbone"], ("backbone",)
+        pe = bb["patch_embed"]
+        kernel(root + ("patch_embed", "proj"), "backbone.patch_embed.proj",
+               pe["proj"], "conv2")
+        norm(root + ("patch_embed", "norm"), "backbone.patch_embed.norm",
+             pe["norm"])
+        if "absolute_pos_embed" in bb:
+            out.append((root + ("absolute_pos_embed",),
+                        "backbone.absolute_pos_embed", "plain"))
+        i = 0
+        while f"layers_{i}_blocks_0" in bb:
+            for j, blk in numbered(bb, f"layers_{i}_blocks_"):
+                bp = root + (f"layers_{i}_blocks_{j}",)
+                base = f"backbone.layers.{i}.blocks.{j}"
+                norm(bp + ("norm1",), f"{base}.norm1", blk["norm1"])
+                norm(bp + ("norm2",), f"{base}.norm2", blk["norm2"])
+                for d in ("qkv", "proj"):
+                    kernel(bp + ("attn", d), f"{base}.attn.{d}",
+                           blk["attn"][d], "dense")
+                table(bp + ("attn",), f"{base}.attn")
+                dense_mlp(bp + ("mlp",), f"{base}.mlp", blk["mlp"])
+            if f"layers_{i}_downsample" in bb:
+                dp, d = root + (f"layers_{i}_downsample",), \
+                    bb[f"layers_{i}_downsample"]
+                norm(dp + ("norm",), f"backbone.layers.{i}.downsample.norm",
+                     d["norm"])
+                kernel(dp + ("reduction",),
+                       f"backbone.layers.{i}.downsample.reduction",
+                       d["reduction"], "dense")
+            i += 1
+        if "norm" in bb:
+            norm(root + ("norm",), "backbone.norm", bb["norm"])
+        if "head" in bb:
+            kernel(root + ("head",), "backbone.head", bb["head"], "dense")
+        for k, lin in numbered(tree, "linear_c"):
+            kernel((f"linear_c{k}",), f"linear_c{k}", lin, "dense")
+        kernel(("linear_fuse",), "linear_fuse", tree["linear_fuse"], "dense")
+        norm(("fuse_norm",), "fuse_norm", tree["fuse_norm"])
+        kernel(("linear_pred",), "linear_pred", tree["linear_pred"], "dense")
+
     if "swinViT" in params:
         swin_unetr_official(params)
         return out
     if "final_0" in params:
         nnformer(params)
         return out
+    if "vit" in params:
+        unetr(params)
+        return out
+    if "backbone" in params:
+        swin2d(params)
+        return out
     enc = params["encoder"]
     if "levels_0" in enc:
         gcvit_encoder(enc)
     elif "patch_embed1" in enc:
         segformer_encoder(enc)
+    elif "patch_embed_local" in enc:
+        lrg_encoder(enc)
+    elif "modulation" in enc.get("layers_0_blocks_0", {}):
+        focalnet_encoder(enc)
     elif "layers_0_downsample" in enc:
         video_swin_encoder(enc)
     else:
         swin_encoder(enc)
     if "decoder" in params:
         unetr_decoder(params["decoder"])
-    else:
+    elif "linear_pred" in params:
         segformer_head(params)
     return out
 

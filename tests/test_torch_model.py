@@ -155,20 +155,14 @@ def test_encoder_matches_pallas_absorbed_forms(monkeypatch):
                                    atol=ATOL)
 
 
-@pytest.mark.parametrize("what", ["LRGFormerUNETR", "FocalNetUNETR",
-                                  "UNETR_Official", "Swin2D",
-                                  "--flat_optimizer"])
+@pytest.mark.parametrize("what", ["--flat_optimizer"])
 def test_unported_options_raise(what):
-    """The models of ROADMAP items 13e, 13h and 13i, and --flat_optimizer
-    ("Do not port"), raise and name the ROADMAP."""
+    """--flat_optimizer ("Do not port") raises and names the ROADMAP."""
     from medicalsemseg_tpu_torch.train.state import make_optimizer
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "--flat_optimizer":
-            cfg = small_cfg(flat_optimizer=True)
-            make_optimizer(cfg, build_model(cfg), 1)
-        else:
-            build_model(small_cfg(model=what))
+        cfg = small_cfg(flat_optimizer=True)
+        make_optimizer(cfg, build_model(cfg), 1)
 
 
 def train_step_both(cfg: Config, seed: int = 0, batch: int = 2,

@@ -186,15 +186,16 @@ def test_last_merging_is_not_computed(monkeypatch):
     assert all(p.grad is None for p in model.layers[1].downsample.parameters())
 
 
-@pytest.mark.parametrize("name", ["FocalNetUNETR", "UNETR_Official",
-                                  "LRGFormerUNETR", "Swin2D"])
-def test_models_still_to_port_name_their_items(name):
-    with pytest.raises(NotImplementedError, match="13e, 13h and 13i"):
-        build_model(_cfg(model=name))
-
-
 @pytest.mark.parametrize("name", ["nnFormer", "VideoSwinUNETR",
-                                  "SwinUNETR_Official"])
+                                  "SwinUNETR_Official", "FocalNetUNETR",
+                                  "UNETR_Official", "LRGFormerUNETR",
+                                  "Swin2D"])
 def test_new_models_build(name):
     assert name in MODEL_NAMES
-    assert sum(p.numel() for p in build_model(_cfg(model=name)).parameters())
+    cfg = _cfg(model=name, input_dim=2 if name == "Swin2D" else 3)
+    assert sum(p.numel() for p in build_model(cfg).parameters())
+
+
+def test_unknown_model_raises_naming_the_models():
+    with pytest.raises(ValueError, match="Swin2D"):
+        build_model(_cfg(model="UNet"))

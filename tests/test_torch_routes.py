@@ -10,12 +10,14 @@ whether its kernel takes a call. Here, on the CPU:
 * the sweep: for the configurations the CLIs accept (models nnFormerUNETR,
   GCViTUNETR, SegFormer3D, SwinSegFormer, nnFormer with and without
   --ref_quirk_rel_pos, VideoSwinUNETR, SwinUNETR_Official with
-  MEDSEG_OFFICIAL_FUSED on and off; --vol_size 64 .. 192; --hidden_dim 24,
+  MEDSEG_OFFICIAL_FUSED on and off, FocalNetUNETR, UNETR_Official (ViT-B
+  whatever the flags); --vol_size 64 .. 192; --hidden_dim 24,
   48, 96; --num_heads 3 6 12 24 and 1 2 4 8; bf16, fp16, fp32; inference,
   and training for the models that train through kernels: nnFormerUNETR,
   SwinSegFormer, GCViTUNETR's local blocks and MLPs, nnFormer; the MONAI
-  blocks of VideoSwinUNETR and SwinUNETR_Official train plain in both
-  packages, so they add no training site) every fused call site of every
+  blocks of VideoSwinUNETR and SwinUNETR_Official and the MLPs of
+  FocalNetUNETR and UNETR_Official train plain in both packages, so they
+  add no training site) every fused call site of every
   block, with the shape the port's module sees. The port's
   predicate takes every one of them, whether the JAX predicate sends it to
   Pallas or keeps XLA (K3 and K4 at C = 768 in training), head dims 48 and
@@ -134,6 +136,25 @@ def _official_sites(vol, hidden, heads, window):
         grid = _ceil(grid, 2)
 
 
+def _focalnet_sites(hidden, heads, train):
+    """FocalNetUNETR: K2 in every block's MLP (hidden 4C) of the four stages
+    at inference, as the JAX block calls Pallas (``use_pallas and
+    deterministic``); in training both packages run the MLP plain."""
+    if train:
+        return []
+    return [("mlp", (c, c, 4 * c), True)
+            for c in (hidden * 2 ** i for i in range(len(heads)))
+            for _ in range(2)]
+
+
+def _unetr_sites(train):
+    """UNETR_Official: ViT-B whatever --hidden_dim says: K2 at C = 768 (hidden
+    3072) in the MLPs of its 12 blocks at inference, as the JAX block calls
+    Pallas; plain in training in both packages. Its global self-attention
+    is XLA in JAX and plain PyTorch in the port."""
+    return [] if train else [("mlp", (768, 768, 3072), True)] * 12
+
+
 def _segformer_sites(vol, hidden, heads, jax_fits):
     """SegFormer3D at inference: K7 in every block of the four stages (7^3
     stride-4 embedding, then 3^3 stride 2; spatial reduction 8, 4, 2, 1)."""
@@ -183,7 +204,8 @@ def _sweep(jax_fits):
     for model, vol, hidden, heads, dtype in itertools.product(
             ("nnFormerUNETR", "GCViTUNETR", "SegFormer3D", "SwinSegFormer",
              "nnFormer", "nnFormer+quirk", "VideoSwinUNETR",
-             "SwinUNETR_Official+fused", "SwinUNETR_Official"),
+             "SwinUNETR_Official+fused", "SwinUNETR_Official",
+             "FocalNetUNETR", "UNETR_Official"),
             VOLS, HIDDEN, HEADS, DTYPES):
         modes = (False,) if model == "SegFormer3D" else (False, True)
         for train in modes:
@@ -202,6 +224,10 @@ def _sweep(jax_fits):
                     else WINDOW))
             elif model == "SwinUNETR_Official":
                 sites = []      # the gate off: plain in both packages
+            elif model == "FocalNetUNETR":
+                sites = _focalnet_sites(hidden, heads, train)
+            elif model == "UNETR_Official":
+                sites = _unetr_sites(train)
             else:
                 sites = list(_segformer_sites(vol, hidden, heads, jax_fits))
             for kind, shape, pallas in sites:
@@ -250,6 +276,16 @@ def test_sweep_kernel_wherever_jax_runs_pallas(jax_fits):
     quirk = [r for r in rows if r[0] == "nnFormer+quirk" and r[5]
              and r[6] == "attn"]
     assert quirk and all(r[9] and not r[8] for r in quirk)
+    # FocalNetUNETR's MLPs at the flagship's four widths and UNETR_Official's
+    # at ViT-B's 768 take K2 wherever the JAX block runs Pallas (inference);
+    # ViT-B's width takes the tensor-core route in bf16 and fp16
+    for model, widths in (("FocalNetUNETR", {24, 48, 96, 192, 384, 768}),
+                          ("UNETR_Official", {768})):
+        mine = [r for r in rows if r[0] == model]
+        assert mine and all(r[9] and r[8] and not r[5] for r in mine)
+        assert {r[7][0] for r in mine} == widths
+    assert kmlp.mlp_route(BF16, 768, 768, 3072) == "tensor_core"
+    assert kmlp.mlp_route(F16, 768, 768, 3072) == "tensor_core"
 
 
 class _FakeEntry:
