@@ -1,4 +1,4 @@
-"""Labelled evaluation on one GPU (counterpart of
+"""Labelled evaluation (counterpart of
 medicalsemseg_tpu/cli/run_evaluation.py).
 
     python -m medicalsemseg_tpu_torch.cli.run_evaluation --data_path <dir> \\
@@ -17,6 +17,10 @@ Dice (sums over counts, NaN for absent classes) and HD95 (mean of the finite
 values) and their means. ``--save_eval_output`` writes
 ``eval_output/Fold{k}/{pred,img,gt}`` with the sample's affine as it is.
 ``--resume`` is a torch checkpoint of the port or of the reference.
+Under ``torchrun --nproc_per_node N`` every rank scores whole volumes of
+its own on its card (``--val_group_policy`` picks which, as in the JAX
+package) and the per-volume scores are gathered (``all_gather_object``) in
+the datalist's order before the means, so they are a one-process run's.
 """
 
 from __future__ import annotations
@@ -37,11 +41,12 @@ from medicalsemseg_tpu_torch.data.dataset import (
     EvalLoader,
 )
 from medicalsemseg_tpu_torch.infer.sliding_window import (
-    bucket_pad,
+    rank_volumes,
     sliding_window_inference,
 )
 from medicalsemseg_tpu_torch.infer.tta import mirror_tta
 from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
+from medicalsemseg_tpu_torch.parallel import dist as pdist
 from medicalsemseg_tpu_torch.train.loop import valid_extent_mask
 from medicalsemseg_tpu_torch.train.metrics import dice_per_class, hausdorff95
 from medicalsemseg_tpu_torch.utils.params import load_checkpoint
@@ -59,8 +64,10 @@ def eval_model(model: torch.nn.Module, loader, cfg: Config,
     n_cls = cfg.output_dim
     air_cval = ((0.0 - cfg.t_norm_mean) / cfg.t_norm_std
                 if cfg.t_normalize else 0.0)
-    all_dice, all_nn, all_hd, records = [], [], [], []
-    for i, sample in enumerate(loader):
+    scored = []   # (index in the datalist, dice, not-nan, HD95, record)
+    for i, sample, padded, orig in rank_volumes(
+            loader, pdist.get_rank(), pdist.get_world_size(),
+            cfg.sw_bucket_multiple, air_cval, cfg.val_group_policy):
         t0 = time.perf_counter()
         calls, windows = 0, 0
 
@@ -76,8 +83,6 @@ def eval_model(model: torch.nn.Module, loader, cfg: Config,
             windows += model_in[0].shape[0]
             return tta(model_in)
 
-        padded, orig = bucket_pad(sample.image, cfg.sw_bucket_multiple,
-                                  air_cval)
         vol = torch.from_numpy(padded)[None].to(device)
         aff = torch.from_numpy(
             np.diag(sample.original_affine)[:3].astype(np.float32))[None]
@@ -102,9 +107,6 @@ def eval_model(model: torch.nn.Module, loader, cfg: Config,
         hd = hausdorff95(pred, gt, n_cls, include_background=False,
                          device=cfg.device_hd95, on=device)
         hd95_seconds = time.perf_counter() - t1
-        all_dice.append(dice)
-        all_nn.append(nn)
-        all_hd.append(hd)
         finite_hd = hd[np.isfinite(hd)]
         name = os.path.basename(sample.name)
         print(f"[{i}] {name}: mDice {dice[nn > 0].mean():.4f} HD95 "
@@ -119,12 +121,20 @@ def eval_model(model: torch.nn.Module, loader, cfg: Config,
                 os.makedirs(d, exist_ok=True)
                 nifti.save(nifti.NiftiImage(arr, sample.affine),
                            os.path.join(d, name))
-        records.append({"name": name, "shape": tuple(pred.shape),
-                        "windows": windows, "predictor_calls": calls,
-                        "predict_seconds": predict_seconds,
-                        "hd95_seconds": hd95_seconds,
-                        "seconds": time.perf_counter() - t0})
+        scored.append((i, dice, nn, hd, {
+            "name": name, "shape": tuple(pred.shape), "windows": windows,
+            "predictor_calls": calls, "predict_seconds": predict_seconds,
+            "hd95_seconds": hd95_seconds,
+            "seconds": time.perf_counter() - t0}))
 
+    if pdist.get_world_size() > 1:
+        import torch.distributed as dist
+
+        parts = [None] * pdist.get_world_size()
+        dist.all_gather_object(parts, scored)
+        scored = sorted((v for part in parts for v in part),
+                        key=lambda v: v[0])
+    _, all_dice, all_nn, all_hd, records = (list(c) for c in zip(*scored))
     dice_all, nn_all = np.stack(all_dice), np.stack(all_nn)
     class_dice = np.where(nn_all.sum(0) > 0,
                           dice_all.sum(0) / np.maximum(nn_all.sum(0), 1),
@@ -142,10 +152,7 @@ def eval_model(model: torch.nn.Module, loader, cfg: Config,
 
 
 def main(cfg: Config) -> Dict:
-    dev = resolve_device(cfg.device)
-    if cfg.world_size > 1:
-        raise NotImplementedError("more than one device is not ported yet "
-                                  "(ROADMAP queue 1 item 11, multi-GPU)")
+    dev = pdist.init_distributed_mode(cfg, resolve_device(cfg.device))
     data_json = os.path.join(cfg.data_path, cfg.task, cfg.json_list)
     files = load_decathlon_datalist(data_json, "validation")
     ds = CachedVolumeDataset(files, cfg, cache_rate=0.0, mode="val")
@@ -169,4 +176,7 @@ if __name__ == "__main__":
     args = get_args()
     if args.output_dir:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    main(args)
+    try:
+        main(args)
+    finally:
+        pdist.shutdown()

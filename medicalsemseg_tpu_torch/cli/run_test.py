@@ -1,8 +1,8 @@
-"""Label-free prediction on one GPU (counterpart of
-medicalsemseg_tpu/cli/run_test.py).
+"""Label-free prediction (counterpart of medicalsemseg_tpu/cli/run_test.py).
 
     python -m medicalsemseg_tpu_torch.cli.run_test --data_path <dir> \\
         --task <Task> --resume model.pth --save_eval_output --output_dir out
+    torchrun --nproc_per_node N -m medicalsemseg_tpu_torch.cli.run_test ...
 
 Takes the flags of ``medicalsemseg_tpu_torch.config`` (the JAX package's,
 plus ``--device``, default ``cuda``). Loads the test datalist, runs Gaussian
@@ -13,6 +13,9 @@ uint8 labels, restores the original spacing by nearest-neighbour
 resampling when ``--t_voxel_spacings`` is set, and writes NIfTIs under
 ``test_output/Fold{k}/{pred,img,rs}``. ``--resume`` is a torch checkpoint of
 the port or of the reference (``{'model': state_dict}`` or a bare one).
+Under torchrun every rank predicts whole volumes of its own
+(``--val_group_policy`` picks which, as in the JAX package) and writes their
+files; together they write the files of a one-process run.
 """
 
 from __future__ import annotations
@@ -33,11 +36,12 @@ from medicalsemseg_tpu_torch.data.dataset import (
     EvalLoader,
 )
 from medicalsemseg_tpu_torch.infer.sliding_window import (
-    bucket_pad,
+    rank_volumes,
     sliding_window_inference,
 )
 from medicalsemseg_tpu_torch.infer.tta import mirror_tta
 from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
+from medicalsemseg_tpu_torch.parallel import dist as pdist
 from medicalsemseg_tpu_torch.utils.params import load_checkpoint
 
 
@@ -51,15 +55,18 @@ def resample_3d_nearest(vol: np.ndarray, target_size) -> np.ndarray:
 
 def test_model(model: torch.nn.Module, loader, cfg: Config,
                device: torch.device) -> List[Dict]:
-    """Predict every volume of ``loader``; returns one record per volume:
-    name, shape, windows, predictor calls (model forwards: 8 per window
-    batch with ``--tta_mirror``), seconds from the preprocessed
-    volume to the label map on the host (``predict_seconds``) and to the
-    written files (``seconds``)."""
+    """Predict this rank's volumes of ``loader`` (every one in a single
+    process); returns one record per volume: name, shape, windows,
+    predictor calls (model forwards: 8 per window batch with
+    ``--tta_mirror``), seconds from the preprocessed volume to the label map
+    on the host (``predict_seconds``) and to the written files
+    (``seconds``)."""
     air_cval = ((0.0 - cfg.t_norm_mean) / cfg.t_norm_std
                 if cfg.t_normalize else 0.0)
     records = []
-    for sample in loader:
+    for _, sample, padded, orig in rank_volumes(
+            loader, pdist.get_rank(), pdist.get_world_size(),
+            cfg.sw_bucket_multiple, air_cval, cfg.val_group_policy):
         t0 = time.perf_counter()
         calls, windows = 0, 0
 
@@ -76,8 +83,6 @@ def test_model(model: torch.nn.Module, loader, cfg: Config,
             windows += model_in[0].shape[0]
             return tta(model_in)
 
-        padded, orig = bucket_pad(sample.image, cfg.sw_bucket_multiple,
-                                  air_cval)
         vol = torch.from_numpy(padded)[None].to(device)
         aff = torch.from_numpy(
             np.diag(sample.original_affine)[:3].astype(np.float32))[None]
@@ -121,10 +126,7 @@ def test_model(model: torch.nn.Module, loader, cfg: Config,
 
 
 def main(cfg: Config) -> List[Dict]:
-    dev = resolve_device(cfg.device)
-    if cfg.world_size > 1:
-        raise NotImplementedError("more than one device is not ported yet "
-                                  "(ROADMAP queue 1 item 11, multi-GPU)")
+    dev = pdist.init_distributed_mode(cfg, resolve_device(cfg.device))
     data_json = os.path.join(cfg.data_path, cfg.task, cfg.json_list)
     files = load_decathlon_datalist(data_json, "test")
     loader = EvalLoader(CachedVolumeDataset(files, cfg, cache_rate=0.0,
@@ -149,4 +151,7 @@ if __name__ == "__main__":
     args = get_args()
     if args.output_dir:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
-    main(args)
+    try:
+        main(args)
+    finally:
+        pdist.shutdown()

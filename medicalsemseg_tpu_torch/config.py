@@ -163,12 +163,14 @@ class Config:
     compute_dtype: str = "bfloat16"  # bf16 replaces torch.cuda.amp fp16+GradScaler
     sw_batch_size: int = 16  # windows per sliding-window predictor call
     metric_readback_freq: int = 20  # steps between device->host metric reads
-    profile_dir: Optional[str] = None  # not ported: the entry points raise
-    mesh_shape: Optional[Tuple[int, ...]] = None  # multi-device layout; the
-    # port runs one device
+    profile_dir: Optional[str] = None  # torch.profiler trace of the first
+    # trained epoch (utils/profiling.py)
+    mesh_shape: Optional[Tuple[int, ...]] = None  # (dp,): the training
+    # ranks under torchrun (parallel/mesh.py); default the largest divisor
+    # of the global batch that is at most the world size
     drop_path_rate: float = 0.2
     device_data_pipeline: bool = False  # device-resident volume cache with
-    # on-device crops and augmentation; not ported: the entry points raise
+    # on-device crops and augmentation (data/device_pipeline.py)
     remat: str = "conv"  # the JAX package's rematerialisation policy. The
     # port rematerialises nothing (batch 8 of the flagship fits one 80 GB
     # card as autograd saves it), so "none" and "conv" run the same code;
@@ -176,8 +178,8 @@ class Config:
     # for them
     tta_mirror: bool = False  # nn-UNet-style 8-way flip TTA at inference
     sw_bucket_multiple: int = 32  # pad eval volumes to spatial multiples
-    val_group_policy: str = "bucket"  # multi-device validation grouping;
-    # one device here, no effect
+    val_group_policy: str = "bucket"  # how volume-parallel validation,
+    # test and evaluation share the volumes out over the ranks
     grad_accum_steps: int = 1  # micro-batch accumulation: gradients are
     # averaged and the optimizer steps every k-th call
     pallas_train: bool = True  # the JAX package's switch for its fused

@@ -11,7 +11,7 @@ times ``t_n_patches_per_image`` crops.
 from __future__ import annotations
 
 import concurrent.futures as cf
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -65,6 +65,29 @@ def _collate(crops: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
             for k in crops[0] if crops[0][k] is not None}
 
 
+def epoch_order(rng: np.random.Generator, n: int, length: int) -> np.ndarray:
+    """A permutation of range(n) drawn from ``rng``, followed by further
+    ones until it holds at least ``length`` entries."""
+    order = rng.permutation(n)
+    while n and len(order) < length:
+        order = np.concatenate([order, rng.permutation(n)])
+    return order
+
+
+def rank_share(cfg: Config, dp: int) -> Config:
+    """This rank's loader settings when dp ranks split the global batch b =
+    n_images_per_batch x t_n_patches_per_image: n_images / g volumes x
+    patches g / dp crops each, g = gcd(n_images, dp), which is b / dp
+    crops (dp divides b)."""
+    import dataclasses
+    import math
+
+    g = math.gcd(cfg.n_images_per_batch, dp)
+    return dataclasses.replace(
+        cfg, n_images_per_batch=cfg.n_images_per_batch // g,
+        t_n_patches_per_image=cfg.t_n_patches_per_image * g // dp)
+
+
 class TrainLoader:
     """Random-crop batch iterator with an ordered worker pool.
 
@@ -72,14 +95,19 @@ class TrainLoader:
     ``n_images_per_batch`` (the last, short group is dropped; a dataset
     smaller than one group wraps around). Each batch draws from its own
     stream seeded (seed, epoch, batch), so the batches are bit-identical for
-    any worker count."""
+    any worker count. ``steps`` fixes the steps of an epoch (a data-parallel
+    rank takes the whole run's count): the order then runs on through more
+    permutations where one is too short."""
 
     def __init__(self, dataset: CachedVolumeDataset, cfg: Config,
-                 seed: int = 0, prefetch: int = 2):
+                 seed: int = 0, prefetch: int = 2,
+                 steps: Optional[int] = None):
         self.ds, self.cfg = dataset, cfg
-        self.seed, self.prefetch = seed, prefetch
+        self.seed, self.prefetch, self.steps = seed, prefetch, steps
 
     def steps_per_epoch(self) -> int:
+        if self.steps is not None:
+            return self.steps
         return max(len(self.ds) // self.cfg.n_images_per_batch, 1)
 
     def _make_batch(self, order: np.ndarray, epoch: int, b: int):
@@ -95,10 +123,11 @@ class TrainLoader:
         return _collate(crops)
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.random.default_rng(
-            np.random.SeedSequence([self.seed, epoch])).permutation(
-                len(self.ds))
         n_batches = self.steps_per_epoch()
+        order = epoch_order(
+            np.random.default_rng(np.random.SeedSequence([self.seed, epoch])),
+            len(self.ds),
+            0 if self.steps is None else n_batches * self.cfg.n_images_per_batch)
         workers = _pool_size(self.cfg, self.ds.mode)
         # ordered bounded prefetch: workers + prefetch batches in flight,
         # always yielded in batch order

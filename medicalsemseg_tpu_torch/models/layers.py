@@ -243,24 +243,41 @@ class BatchNorm(nn.Module):
     (``torch.nn.BatchNorm3d`` would keep the unbiased one), as JAX's
     ``mutable=["batch_stats"]`` apply does on every micro-step.
     ``running_mean`` and ``running_var`` are the JAX model's
-    ``batch_stats``."""
+    ``batch_stats``. Under data parallelism (``process_group`` set by
+    :func:`set_batchnorm_group`) the batch statistics are the global
+    batch's: [sum x, sum x^2, n] is all-reduced over the group through the
+    autograd-aware ``torch.distributed.nn.functional.all_reduce``, which is
+    what the JAX package's one SPMD program computes."""
 
     momentum = 0.9   # flax's: the weight of the running statistics
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
+    def _batch_moments(self, xf: torch.Tensor):
+        axes = tuple(range(xf.dim() - 1))
+        if self.process_group is None:
+            return xf.mean(axes), (xf * xf).mean(axes)
+        from torch.distributed.nn.functional import all_reduce
+
+        c = xf.shape[-1]
+        sums = all_reduce(torch.cat([
+            xf.sum(axes), (xf * xf).sum(axes),
+            xf.new_full((1,), float(xf.numel() // c))]),
+            group=self.process_group)
+        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, ex2 = self._batch_moments(xf)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -272,6 +289,16 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean) * mul + self.bias.float()
         return y.to(x.dtype)
+
+
+def set_batchnorm_group(model: nn.Module, group) -> int:
+    """Make every :class:`BatchNorm` of ``model`` reduce its training
+    statistics over ``group`` (None: this process's batch alone); returns
+    how many there are."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.process_group = group
+    return len(norms)
 
 
 class Mlp(nn.Module):

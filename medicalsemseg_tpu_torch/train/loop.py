@@ -7,6 +7,11 @@ logging. Per-step metrics accumulate in a small device-side window and are
 read back every ``cfg.metric_readback_freq`` steps, so the host does not
 wait for the card after every step; the global averages equal per-step
 accounting, and a non-finite loss stops the run within one window.
+
+Over several processes a data-parallel step returns the global batch's
+metrics, so the windows and the logged train Dice are the global batch's;
+validation spreads whole volumes over the ranks
+(``infer.sliding_window.rank_volumes``) and sums the meters over them.
 """
 
 from __future__ import annotations
@@ -20,9 +25,10 @@ import torch
 
 from medicalsemseg_tpu_torch.config import Config
 from medicalsemseg_tpu_torch.infer.sliding_window import (
-    bucket_pad,
+    rank_volumes,
     sliding_window_inference,
 )
+from medicalsemseg_tpu_torch.parallel.dist import get_rank, get_world_size
 from medicalsemseg_tpu_torch.train.losses import build_loss
 from medicalsemseg_tpu_torch.train.metrics import dice_per_class
 from medicalsemseg_tpu_torch.train.schedule import warmup_cosine_lr
@@ -114,7 +120,7 @@ def train_one_epoch(state: TrainState, train_step, loader, epoch: int,
     if acc is not None:  # the loader yielded more steps than advertised
         flush(acc, steps - 1)
 
-    logger.synchronize_between_processes()
+    logger.synchronize_between_processes(state.group)
     print("Training averaged stats:", logger.log_all_average())
     return state, {f"train/{k}": m.global_avg for k, m in logger.meters.items()}
 
@@ -143,8 +149,11 @@ def make_val_metrics(loss_fn, n_cls: int):
 
 def run_validation(state: TrainState, loader, cfg: Config, epoch: int,
                    log_writer=None) -> Dict[str, float]:
-    """Whole-volume sliding-window validation on one device: loss and
-    per-class Dice."""
+    """Whole-volume sliding-window validation: loss and per-class Dice.
+    Over several processes every rank predicts its share of the volumes
+    whole (``--val_group_policy`` picks the shares, as in the JAX package)
+    and the meters are summed over the ranks; every rank must call it with
+    the same weights."""
     loss_fn = build_loss(cfg)
     n_cls = cfg.output_dim
     device = next(state.model.parameters()).device
@@ -157,9 +166,22 @@ def run_validation(state: TrainState, loader, cfg: Config, epoch: int,
     for name in ["loss", "mDice"] + _class_meter_names(n_cls):
         logger.add_meter(name, SmoothedValue(100, "{value:.6f}"))
 
-    for sample in logger.log_every(loader, 5, f"Val: [{epoch}]",
-                                   total=len(loader)):
-        padded, orig = bucket_pad(sample.image, cfg.sw_bucket_multiple, cval)
+    def volume_metrics(logits, sample, orig):
+        lab = sample.label[..., 0].astype(np.int64)
+        pads = [(0, logits.shape[1 + i] - lab.shape[i]) for i in range(3)]
+        labels = torch.from_numpy(np.pad(lab, pads))[None].to(device)
+        loss, dice, not_nan = val_metrics(logits, labels, orig)
+        dice, not_nan = dice.cpu().numpy(), not_nan.cpu().numpy()
+        kw = {name: dice[c] for c, name in enumerate(_class_meter_names(n_cls))
+              if not_nan[c] > 0}
+        mdice = dice[not_nan > 0].mean() if (not_nan > 0).any() else np.nan
+        logger.update(loss=float(loss), mDice=mdice, **kw)
+
+    world = get_world_size()
+    volumes = rank_volumes(loader, get_rank(), world, cfg.sw_bucket_multiple,
+                           cval, cfg.val_group_policy)
+    for _, sample, padded, orig in logger.log_every(
+            volumes, 5, f"Val: [{epoch}]", total=-(-len(loader) // world)):
         vol = torch.from_numpy(padded)[None].to(device)
         affine_xyz = torch.from_numpy(
             np.diag(sample.original_affine)[:3].astype(np.float32))[None]
@@ -168,15 +190,7 @@ def run_validation(state: TrainState, loader, cfg: Config, epoch: int,
                 vol, affine_xyz.to(device), cfg.vol_size3(), cfg.sw_batch_size,
                 forward, n_cls, overlap=cfg.val_infer_overlap,
                 mode="gaussian", cval=cval)
-            lab = sample.label[..., 0].astype(np.int64)
-            pads = [(0, logits.shape[1 + i] - lab.shape[i]) for i in range(3)]
-            labels = torch.from_numpy(np.pad(lab, pads))[None].to(device)
-            loss, dice, not_nan = val_metrics(logits, labels, orig)
-        dice, not_nan = dice.cpu().numpy(), not_nan.cpu().numpy()
-        kw = {name: dice[c] for c, name in enumerate(_class_meter_names(n_cls))
-              if not_nan[c] > 0}
-        mdice = dice[not_nan > 0].mean() if (not_nan > 0).any() else np.nan
-        logger.update(loss=float(loss), mDice=mdice, **kw)
+            volume_metrics(logits, sample, orig)
 
     logger.synchronize_between_processes()
     print("Validation averaged stats:", logger.log_all_average())

@@ -3,8 +3,9 @@
 Equivalents of the reference's SmoothedValue / MetricLogger
 (reference: utils/misc.py:16-178): windowed medians/averages, global
 averages, per-iteration timing with ETA. Copy of
-medicalsemseg_tpu/utils/logger.py; the port runs one process, so the
-cross-process synchronisation is a no-op until multi-GPU is ported.
+medicalsemseg_tpu/utils/logger.py; under ``torch.distributed`` the
+cross-process synchronisation is an fp64 all_reduce of [count, total], the
+reference's; in one process it is a no-op.
 """
 
 from __future__ import annotations
@@ -32,9 +33,24 @@ class SmoothedValue:
         self.count += n
         self.total += value * n
 
-    def synchronize_between_processes(self):
-        """One process: nothing to sum (the reference all-reduces
-        [count, total], utils/misc.py:34-45)."""
+    def synchronize_between_processes(self, group=None):
+        """Sum [count, total] over the processes of ``group`` (default: the
+        world), the reference's fp64 all_reduce (utils/misc.py:34-45).
+        Every rank of the group calls it for the same meters in the same
+        order."""
+        import torch
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size(group) == 1:
+            return
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=dev)
+        dist.all_reduce(t, group=group)
+        self.count = int(t[0].item())
+        self.total = float(t[1].item())
 
     @property
     def median(self):
@@ -76,9 +92,9 @@ class MetricLogger:
     def add_meter(self, name: str, meter: SmoothedValue):
         self.meters[name] = meter
 
-    def synchronize_between_processes(self):
+    def synchronize_between_processes(self, group=None):
         for m in self.meters.values():
-            m.synchronize_between_processes()
+            m.synchronize_between_processes(group)
 
     def log_all_average(self) -> str:
         return self.delimiter.join(

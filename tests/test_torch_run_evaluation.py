@@ -215,7 +215,41 @@ def test_vote_cli_checks_fold_counts(tmp_path):
         port_vote.main(args)
 
 
-def test_unported_flags_raise(tmp_path):
-    cfg = port_cli.get_args(ARGV + ["--world_size", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(cfg)
+_EVAL_RANKS = """
+    import json, os, sys
+    import numpy as np
+    from medicalsemseg_tpu_torch.cli import run_evaluation as cli
+
+    res = cli.main(cli.get_args(sys.argv[1:]))
+    if int(os.environ["RANK"]) == 0:
+        json.dump({k: np.asarray(res[k]).tolist() for k in
+                   ("mDice", "mHD95", "class_dice", "class_hd95", "hd95")}
+                  | {"names": [r["name"] for r in res["records"]]},
+                  open(os.path.join(os.environ["OUT"],
+                                    f"eval{os.environ['WORLD_SIZE']}.json"),
+                       "w"))
+"""
+
+
+def test_two_ranks_score_as_one(tmp_path):
+    """Two gloo ranks score a volume each and gather the per-volume Dice
+    and HD95 in the datalist's order: mDice and mHD95 (and the per-class
+    lists) within 1e-6 of one process's, every rank two CPU threads."""
+    from tests.test_torch_dist import run_ranks
+
+    _write_eval_set(tmp_path)
+    _, params = jax_params(port_cli.get_args(ARGV), seed=5)
+    import torch
+
+    torch.save({"model": state_dict_from_jax(params)}, tmp_path / "w.pth")
+    argv = ARGV + ["--data_path", str(tmp_path), "--device", "cpu",
+                   "--resume", str(tmp_path / "w.pth"), "--output_dir",
+                   str(tmp_path / "out")]
+    for n in (1, 2):
+        run_ranks(_EVAL_RANKS, n, tmp_path, argv=argv)
+    one, two = (json.loads((tmp_path / f"eval{n}.json").read_text())
+                for n in (1, 2))
+    assert two["names"] == one["names"] and len(one["names"]) == 2
+    for k in ("mDice", "mHD95", "class_dice", "class_hd95", "hd95"):
+        np.testing.assert_allclose(two[k], one[k], rtol=0, atol=1e-6,
+                                   err_msg=k)

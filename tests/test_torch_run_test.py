@@ -111,10 +111,35 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         port_cli.main(cfg)
 
 
-def test_unported_flags_raise(tmp_path):
-    cfg = port_cli.get_args(ARGV + ["--world_size", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(cfg)
+@pytest.mark.parametrize("policy", ["bucket", "sorted_max"])
+def test_two_ranks_write_the_files_of_one(tmp_path, policy):
+    """``torchrun --nproc_per_node 2``: each rank predicts one of the two
+    volumes whole and writes its files; together they are the one-process
+    run's files, voxel for voxel (both runs two CPU threads a rank). Under
+    ``sorted_max`` both volumes are padded to their group's maximum, as
+    the JAX package's 2-device run pads them."""
+    from tests.test_torch_dist import torchrun
+
+    _write_test_set(tmp_path)
+    _, params = jax_params(port_cli.get_args(ARGV), seed=3)
+    torch.save({"model": state_dict_from_jax(params)}, tmp_path / "w.pth")
+    argv = ARGV + ["--data_path", str(tmp_path), "--device", "cpu",
+                   "--resume", str(tmp_path / "w.pth"), "--val_group_policy",
+                   policy]
+    outs = {}
+    for n in (1, 2):
+        text = torchrun("medicalsemseg_tpu_torch.cli.run_test",
+                        argv + ["--output_dir", str(tmp_path / f"w{n}")], n)
+        assert f"process {n - 1} of {n}" in text
+        outs[n] = sorted(glob.glob(str(tmp_path / f"w{n}" / "test_output"
+                                       / "Fold0" / "*" / "*")))
+    assert [os.path.relpath(p, tmp_path / "w2") for p in outs[2]] == [
+        os.path.relpath(p, tmp_path / "w1") for p in outs[1]]
+    assert len(outs[1]) == 6
+    for a, b in zip(outs[1], outs[2]):
+        ia, ib = nifti.load(a), nifti.load(b)
+        np.testing.assert_array_equal(ia.data, ib.data)
+        np.testing.assert_array_equal(ia.affine, ib.affine)
 
 
 def test_port_imports_no_jax():
