@@ -24,8 +24,11 @@ Phases, in order; any failure exits non-zero:
                  K9 (Winograd F(2^3, 3^3) conv) at the shapes of one
                  predictor call and of one training step, bare and with the
                  scale / shift / LeakyReLU epilogue, and K10 (im2col conv,
-                 forward and dx) at the full-resolution shapes, each beside
-                 the library's conv (`--kernels conv` runs these two alone);
+                 forward and dx) at the full-resolution shapes in bf16, and
+                 in fp16 and fp32 at one of them, each beside the library's
+                 conv, with K10 at 8 and 128 output channels and at 8 input
+                 channels on small odd volumes (`--kernels conv` runs these
+                 two alone);
                  and K1-K4, K6, K7 in fp32 at their four stages beside an
                  fp32 bound (`--kernels fp32`). The heads launches of K1, K3
                  and K6, their GEMM launches (K1's and K6's projection, K3's
@@ -83,8 +86,10 @@ Phases, in order; any failure exits non-zero:
                  step from the gate, one step's gradients against fp32 plain
                  and against the ungated step, ms per step beside ungated;
  12. conv3d    - the function conv3x3x3 (K10 forward and dx, dW through K5)
-                 at the full-resolution shapes, batch 4: value and gradients
-                 against autograd through the library's conv, and times;
+                 at the full-resolution shapes, batch 4, then at 8 input
+                 channels in bf16, fp16 and fp32 and at 48 in fp16 and fp32:
+                 value and gradients against autograd through the library's
+                 conv (fp32 without TF32), the launches by route, and times;
  13. fp32      - --compute_dtype float32 through the kernels: the prediction
                  CLI on one volume (labels against the plain versions), two
                  training steps through the training CLI at batch 2, one
@@ -213,10 +218,11 @@ model (SwinUNETR_Official's call also with MEDSEG_OFFICIAL_FUSED=1);
 training step at batch 8 of the flagship, SwInception and SwinDepth, one
 micro-step at batch 4, one predictor call of each zoo model, SwInception and
 SwinDepth, and one of the flagship without and with the fused decoder;
-`--phases k9_parts`, `--phases k5_parts`, `--phases attn_parts`, `--phases
-mlp_parts` and `--phases sr_parts` time K9, K5, the tensor-core launches of
-K1 and K3, the tensor-core K2 and K4, and the tensor-core K7, built with one
-part or another compiled out. The phases model, zoo, cli, train, train_b4,
+`--phases k9_parts`, `--phases k5_parts`, `--phases k10_parts`, `--phases
+attn_parts`, `--phases mlp_parts` and `--phases sr_parts` time K9, K5, K10's
+tensor-core route, the tensor-core launches of K1 and K3, the tensor-core K2
+and K4, and the tensor-core K7, built with one part or another compiled
+out. The phases model, zoo, cli, train, train_b4,
 train_cli and fp32 print the launches of K1, K3, K6, K2, K4 and K7 by route
 and require the tensor cores on
 the bf16 and fp16 paths, the CUDA cores on the fp32 ones, for the heads
@@ -246,8 +252,9 @@ PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5",
                  "r15", "official", "zoo_rest")
-EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "attn_parts", "mlp_parts",
-                "sr_parts", "zoo_grads", "heads_forms", "profile_official")
+EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "k10_parts", "attn_parts",
+                "mlp_parts", "sr_parts", "zoo_grads", "heads_forms",
+                "profile_official")
 
 # flagship stages at roi 96, patch 2: (token grid, C, heads); window 6
 STAGES = ((48, 48, 3), (24, 96, 6), (12, 192, 12), (6, 384, 24))
@@ -511,7 +518,7 @@ ROUTE_TOTALS = {name: {"tensor_core": 0, "cuda_core": 0} for name in (
     "window_attention", "window_attention_bwd", "global_window_attention",
     "fused_mlp", "fused_mlp_bwd", "window_attention_gemm",
     "window_attention_bwd_gemm", "global_window_attention_gemm",
-    "sr_attention")}
+    "sr_attention", "conv3x3x3")}
 # the GEMM launches of K1, K3 and K6 (K1's and K6's projection, K3's dx and
 # dw) have routes of their own (window_attention.gemm_route): the kernels
 # line carries them as launches_by_gemm_route
@@ -1489,6 +1496,10 @@ WINO_PREDICT = ((96, 48, 2), (48, 48, 2), (24, 96, 2))
 # MEDSEG_WINOGRAD_TRAIN=1: (C, Co) of the forward and of dx (dy's channels in)
 WINO_TRAIN = ((48, 48), (96, 48))
 IM2COL_BATCHES = (1, 4)
+# K10 against its plain version in fp16 (an ulp is 2^-10 relative: a
+# flipped rounding) and fp32 (no rounding to flip, only the order of sums)
+F16_KERNEL_TOL = 4e-3
+F32_KERNEL_TOL = 1e-4
 
 
 def _time_once_ms(fn):
@@ -1507,14 +1518,14 @@ def _time_once_ms(fn):
     return start.elapsed_time(end)
 
 
-def _conv_work(batch, edge, c, co, epilogue=False):
+def _conv_work(batch, edge, c, co, epilogue=False, elem=2):
     """Of one 3^3 conv over batch x edge^3 voxels: the 27-tap FLOPs, the
     FLOPs of the 64 Winograd products per 2^3 tile, and the bytes (x read
-    once, y written once, bf16; the weights once; the epilogue's fp32 scale
-    and shift)."""
+    once, y written once, of ``elem`` bytes; the weights once; the
+    epilogue's fp32 scale and shift)."""
     m = batch * edge ** 3
     tiles = batch * (-(-edge // 2)) ** 3
-    nbytes = m * (c + co) * 2 + 27 * c * co * 2
+    nbytes = m * (c + co) * elem + 27 * c * co * elem
     if epilogue:
         nbytes += batch * 2 * c * 4
     return 2 * 27 * m * c * co, 2 * 64 * tiles * c * co, nbytes
@@ -1539,10 +1550,10 @@ def _conv_kernels(k9r, k10r):
     gen = torch.Generator(device="cuda").manual_seed(9)
     bf = torch.bfloat16
 
-    def case(batch, dims, c, co):
-        x = torch.randn(batch, *dims, c, generator=gen, device="cuda").to(bf)
+    def case(batch, dims, c, co, dt=bf):
+        x = torch.randn(batch, *dims, c, generator=gen, device="cuda").to(dt)
         w = (torch.randn(co, c, 3, 3, 3, generator=gen, device="cuda")
-             * (27 * c) ** -0.5).to(bf)
+             * (27 * c) ** -0.5).to(dt)
         return x, w
 
     def epilogue(batch, c):
@@ -1552,10 +1563,10 @@ def _conv_kernels(k9r, k10r):
         return (1 + 0.3 * torch.randn(batch, c, generator=gen, device="cuda"),
                 1 + torch.randn(batch, c, generator=gen, device="cuda"))
 
-    def check(tag, rep, name, fn, plain):
+    def check(tag, rep, name, fn, plain, tol=KERNEL_ATOL):
         got = fn()
         torch.cuda.synchronize()
-        _compare(f"{tag} {name}", got, plain(), rep)
+        _compare(f"{tag} {name}", got, plain(), rep, tol)
         _require(torch.equal(got, fn()),
                  f"{tag} {name}: a second run is not bit-equal")
 
@@ -1573,6 +1584,15 @@ def _conv_kernels(k9r, k10r):
                   lambda: k9.winograd_conv3d_f23_plain(x, w, epilogue=ep,
                                                        lrelu=True))
             check("K10", k10r, name, lambda: k10.conv3x3x3_fwd(x, w),
+                  lambda: k10.conv3x3x3_plain(x, w))
+        # K10 at the edges of its widths: 8 and 128 output channels (a
+        # tensor-core block of 16 and one of 128), 8 input channels (one k
+        # step of 16, half of it zero)
+        for dims, c, co in (((5, 7, 9), 16, 8), ((5, 7, 9), 8, 24),
+                            ((6, 10, 35), 40, 128), ((6, 10, 35), 8, 128)):
+            x, w = case(2, dims, c, co)
+            check("K10", k10r, f"2x{'x'.join(map(str, dims))}, {c}->{co}",
+                  lambda: k10.conv3x3x3_fwd(x, w),
                   lambda: k10.conv3x3x3_plain(x, w))
 
         def k9_stage(path, batch, edge, c, co, with_ep):
@@ -1638,6 +1658,7 @@ def _conv_kernels(k9r, k10r):
                     bound, by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
                     k10r["per_stage"].append({
                         "path": what, "batch": batch, "C": ci, "Co": cj,
+                        "dtype": "bfloat16", "route": "tensor_core",
                         "ms": ms, "plain_ms": pms, "library_ms": lms,
                         "flops": flops, "bytes": nbytes, "bound_ms": bound,
                         "bound_by": by})
@@ -1647,6 +1668,39 @@ def _conv_kernels(k9r, k10r):
                           flush=True)
                     del x, w
                     torch.cuda.empty_cache()
+
+        # the fp16 and fp32 forms at one batch-1 shape: fp16 on the tensor
+        # cores (bound at the bf16 rate), fp32 on the CUDA cores (bound at
+        # the fp32 rate, the library's conv without TF32)
+        for dt, route, peak, tol in (
+                (torch.float16, "tensor_core", PEAK_BF16_FLOPS, F16_KERNEL_TOL),
+                (torch.float32, "cuda_core", PEAK_FP32_FLOPS, F32_KERNEL_TOL)):
+            ci = cj = 48
+            x, w = case(1, (CROP,) * 3, ci, cj, dt)
+            dname = str(dt).split(".")[-1]
+            name = f"fwd 1x{CROP}^3, {ci}->{cj}, {dname}"
+            before = k10.route_launches[route]
+            check("K10", k10r, name, lambda: k10.conv3x3x3_fwd(x, w),
+                  lambda: k10.conv3x3x3_plain(x, w), tol)
+            _require(k10.route_launches[route] == before + 2,
+                     f"K10 {name}: not on the {route} route")
+            ms = _time_ms(lambda: k10.conv3x3x3_fwd(x, w), 5)
+            pms = _time_once_ms(lambda: k10.conv3x3x3_plain(x, w))
+            with _no_tf32():
+                lms = _time_ms(lambda: _lib_conv(x, w), 5)
+            flops, _, nbytes = _conv_work(1, CROP, ci, cj,
+                                          elem=x.element_size())
+            bound, by = _bound(flops, nbytes, peak)
+            k10r["per_stage"].append({
+                "path": "fwd", "batch": 1, "C": ci, "Co": cj, "dtype": dname,
+                "route": route, "ms": ms, "plain_ms": pms, "library_ms": lms,
+                "flops": flops, "bytes": nbytes, "bound_ms": bound,
+                "bound_by": by})
+            print(f"  K10 {name}: kernel {ms:.3f} ms, plain {pms:.1f} ms, "
+                  f"F.conv3d {lms:.3f} ms, bound {bound:.4f} ms by {by} "
+                  f"({flops:.3e} FLOP, {nbytes:.3e} B)", flush=True)
+            del x, w
+            torch.cuda.empty_cache()
 
     # K9: the six launches of one predictor call with the fused decoder
     stages = {(s["edge"], s["C"]): s for s in k9r["per_stage"]
@@ -1658,7 +1712,8 @@ def _conv_kernels(k9r, k10r):
     # K10: one call of the function at batch 4, 48 -> 48: forward and dx
     # (the same shape); its dW is K5's launch, in K5's row
     main = next(s for s in k10r["per_stage"]
-                if s["batch"] == TRAIN_B4_BATCH and (s["C"], s["Co"]) == (48, 48))
+                if s["batch"] == TRAIN_B4_BATCH and s["dtype"] == "bfloat16"
+                and (s["C"], s["Co"]) == (48, 48))
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
         k10r[key] = 2 * main[key]
     k10r["bound_by"] = main["bound_by"]
@@ -2200,7 +2255,7 @@ def _reset_launches():
                kga.route_launches, kmlp.route_launches,
                kmlp.bwd_route_launches, kwa.gemm_route_launches,
                kwa.bwd_gemm_route_launches, kga.gemm_route_launches,
-               ksr.route_launches):
+               ksr.route_launches, k10.route_launches, k5.route_launches):
         for route in by:
             by[route] = 0
 
@@ -3143,6 +3198,77 @@ def phase_k5_parts():
               f"{label}: {ms:.3f} ms", flush=True)
 
 
+# MEDSEG_K10_SKIP bits (csrc/conv3d.cu): 1 the staging of x, 2 the products
+# (ldmatrix and wgmma), 4 the epilogue, 8 the weight copies
+K10_PARTS = (("whole", 0), ("without the staging of x", 1),
+             ("without the products", 2), ("without the epilogue", 4),
+             ("without the weight copies", 8),
+             ("products and weight copies only", 5),
+             ("products alone", 13),
+             ("staging and epilogue only", 10),
+             ("walk, ring and barriers only", 15))
+
+
+def phase_k10_parts():
+    """K10's tensor-core route at batch 4 of 96^3, forward 48 -> 48 and dx
+    48 -> 96 (blocks of 48 and 96 output channels), built with parts
+    compiled out (MEDSEG_K10_SKIP in csrc/conv3d.cu), as phase_k9_parts
+    does for K9; only the whole kernel is compared with its plain
+    version."""
+    import ctypes
+
+    import torch
+
+    from medicalsemseg_tpu_torch.ops import kernels
+    from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "k10_parts")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(kernels.CSRC_DIR, "conv3d.cu")
+    jobs = {}
+    for _, mask in K10_PARTS:
+        so = os.path.join(out_dir, f"k10_skip_{mask}.so")
+        jobs[mask] = (so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+             f"-DMEDSEG_K10_SKIP={mask}", "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for mask, (so, proc) in jobs.items():
+        o, err = proc.communicate()
+        _require(proc.returncode == 0, f"k10_parts: nvcc failed:\n{o}\n{err}")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    shape = (TRAIN_B4_BATCH, CROP, CROP, CROP)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for what, c, co in (("fwd", 48, 48), ("dx", 48, 96)):
+        x = torch.randn(*shape, c, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        w = (torch.randn(co, c, 3, 3, 3, generator=gen, device="cuda")
+             * (27 * c) ** -0.5).to(torch.bfloat16)
+        n, _ = k10.block_width(co)
+        wk = k10.kernel_weights(w, n)
+        cp = -(-c // k10.IN_CHANNEL_STEP) * k10.IN_CHANNEL_STEP
+        y = torch.empty(*shape, co, dtype=torch.bfloat16, device="cuda")
+        for label, mask in K10_PARTS:
+            fn = ctypes.CDLL(jobs[mask][0]).medseg_conv3x3x3
+            fn.argtypes, fn.restype = [p] * 3 + [i] * 10 + [p], i
+
+            def launch():
+                rc = fn(kernels.ptr(x), kernels.ptr(wk), kernels.ptr(y),
+                        *shape, c, co, cp, n, 0, kernels.ROUTES["tensor_core"],
+                        kernels.stream_handle(x.device))
+                _require(rc == 0, f"k10_parts: launch failed ({rc})")
+
+            ms = _time_ms(launch, 5)
+            if mask == 0:
+                want = k10.conv3x3x3_plain(x, w).float()
+                rel = float((y.float() - want).norm() / want.norm())
+                _require(rel <= 1e-2, f"k10_parts: the whole kernel is "
+                         f"{rel:.2e} from its plain version")
+            print(f"k10_parts: {what} {TRAIN_B4_BATCH}x{CROP}^3, {c}->{co}, "
+                  f"{label}: {ms:.3f} ms", flush=True)
+        del x, w, wk, y
+        torch.cuda.empty_cache()
+
+
 def _profiled(title, fn):
     """Run ``fn`` (already warm) under torch.profiler and print its device
     time by kernel name."""
@@ -3668,24 +3794,40 @@ def phase_train_wino():
     return launches
 
 
+# (dtype, C, Co, batch, edge) of the conv3d phase's calls of conv3x3x3: the
+# full-resolution shapes of the batch-4 path in bf16 (timed), 8 input
+# channels in each dtype (K5 on the tensor cores in bf16 only), and the
+# fp16 and fp32 forms at batch 1 (timed)
+CONV3D_CASES = (("bfloat16", 48, 48, TRAIN_B4_BATCH, CROP),
+                ("bfloat16", 96, 48, TRAIN_B4_BATCH, CROP),
+                ("bfloat16", 8, 16, 2, 32), ("float16", 8, 16, 2, 32),
+                ("float32", 8, 16, 2, 32), ("float16", 48, 48, 1, CROP),
+                ("float32", 48, 48, 1, CROP))
+# conv3x3x3 in fp32 against the library's fp32 conv without TF32: only the
+# order of the fp32 sums differs (K5's weight gradient adds ~10^6 products)
+FP32_LIBRARY_REL_TOL = 1e-5
+
+
 def phase_conv3d():
     """The function conv3x3x3 (K10 forward and dx, K5 for dW) as a user
-    calls it, at the full-resolution shapes of the batch-4 path, against
-    autograd through the library's conv."""
+    calls it, at CONV3D_CASES, against autograd through the library's conv
+    (fp32 without TF32); each call must take K10 twice and K5 once, on the
+    routes its dtype and channels pick."""
     import torch
 
     from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
+    from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
 
     gen = torch.Generator(device="cuda").manual_seed(10)
-    bf = torch.bfloat16
     total = dict.fromkeys(_read_launches(), 0)
-    for c, co in DW27_CONVS:
-        x = torch.randn(TRAIN_B4_BATCH, CROP, CROP, CROP, c, generator=gen,
-                        device="cuda").to(bf).requires_grad_(True)
+    for dname, c, co, batch, edge in CONV3D_CASES:
+        dt = getattr(torch, dname)
+        shape = (batch, edge, edge, edge)
+        x = torch.randn(*shape, c, generator=gen,
+                        device="cuda").to(dt).requires_grad_(True)
         w = (torch.randn(co, c, 3, 3, 3, generator=gen, device="cuda")
-             * (27 * c) ** -0.5).to(bf).requires_grad_(True)
-        dy = torch.randn(TRAIN_B4_BATCH, CROP, CROP, CROP, co, generator=gen,
-                         device="cuda").to(bf)
+             * (27 * c) ** -0.5).to(dt).requires_grad_(True)
+        dy = torch.randn(*shape, co, generator=gen, device="cuda").to(dt)
 
         def ours():
             y = k10.conv3x3x3(x, w)
@@ -3696,28 +3838,44 @@ def phase_conv3d():
             dx, dw = torch.autograd.grad(y, (x, w), dy.permute(0, 4, 1, 2, 3))
             return y.detach().permute(0, 2, 3, 4, 1), dx, dw
 
+        name = f"conv3d: conv3x3x3 {batch}x{edge}^3, {c}->{co}, {dname}"
         _reset_launches()
         got = ours()
         torch.cuda.synchronize()
         launches = _read_launches()
-        _require_launches(f"conv3d {c}->{co}", launches, {
+        _require_launches(name, launches, {
             **dict.fromkeys(launches, 0), "conv3x3x3": 2, "dw27": 1})
+        k10_route = k10.conv_route(dt)
+        k5_route = ("tensor_core" if dt == torch.bfloat16 and c % 8 == 0
+                    and co % 8 == 0 else "cuda_core")
+        _require(k10.route_launches[k10_route] == 2
+                 and k5.route_launches[k5_route] == 1,
+                 f"{name}: K10 {k10.route_launches}, K5 {k5.route_launches}, "
+                 f"want K10 2 on {k10_route}, K5 1 on {k5_route}")
+        print(f"{name}: K10 {k10.route_launches}, K5 {k5.route_launches}",
+              flush=True)
         for k, v in launches.items():
             total[k] += v
-        want = library()
-        name = f"conv3d: conv3x3x3 {TRAIN_B4_BATCH}x{CROP}^3, {c}->{co}"
+        for r, n in k10.route_launches.items():
+            ROUTE_TOTALS["conv3x3x3"][r] += n
+        tol = FP32_LIBRARY_REL_TOL if dt == torch.float32 else LIBRARY_REL_TOL
+        with _no_tf32():
+            want = library()
         for what, g, r in zip(("y", "dx", "dw"), got, want):
             _require(g.shape == r.shape and g.dtype == r.dtype,
                      f"{name} {what}: {tuple(g.shape)} {g.dtype}")
             rel = float((g.float() - r.float()).norm() / r.float().norm())
             print(f"{name} {what}: rel norm err vs the library {rel:.3e} "
-                  f"(tol {LIBRARY_REL_TOL})", flush=True)
-            _require(rel <= LIBRARY_REL_TOL, f"{name} {what}: disagrees with "
-                     "the library's conv")
+                  f"(tol {tol})", flush=True)
+            _require(rel <= tol, f"{name} {what}: disagrees with the "
+                     "library's conv")
         del got, want
-        t = [_time_ms(fn, 3) for fn in (ours, library, library, ours)]
-        print(f"{name}: forward + dx + dW {t[0]:.2f} ms, library "
-              f"{t[1]:.2f}, library {t[2]:.2f}, ours {t[3]:.2f}", flush=True)
+        if edge == CROP:
+            with _no_tf32():
+                t = [_time_ms(fn, 3) for fn in (ours, library, library, ours)]
+            print(f"{name}: forward + dx + dW {t[0]:.2f} ms, library "
+                  f"{t[1]:.2f}, library {t[2]:.2f}, ours {t[3]:.2f}",
+                  flush=True)
         del x, w, dy
         torch.cuda.empty_cache()
     return total
@@ -7083,6 +7241,8 @@ def main(argv=None) -> int:
             phase_k9_parts()
         if "k5_parts" in phases:
             phase_k5_parts()
+        if "k10_parts" in phases:
+            phase_k10_parts()
         if "attn_parts" in phases:
             phase_attn_parts()
         if "mlp_parts" in phases:

@@ -212,11 +212,11 @@ __device__ __forceinline__ uint32_t act2(uint32_t v, float2 scale,
   return as_u32(__floats2bfloat162_rn(lo, hi));
 }
 
-// Stage channels c0 .. c0 + ckp of the halo tile in that layout, as
-// conv_tile.cuh's stage_input does (with ep (2 x ckp fp32, this chunk's
-// scale and shift rows, in shared memory, zero past C) applied inside the
-// volume only), by the consumers' threads: kBatch 16-byte loads in flight a
-// thread before the first store.
+// Stage channels c0 .. c0 + ckp of the halo tile in that layout, zero
+// outside the volume and past C (with ep (2 x ckp fp32, this chunk's scale
+// and shift rows, in shared memory, zero past C) applied inside the volume
+// only), by the consumers' threads: kBatch 16-byte loads in flight a thread
+// before the first store.
 constexpr int kBatch = 4;
 
 __device__ __forceinline__ void stage_swizzled(

@@ -119,7 +119,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_dw27.restype = i
     lib.medseg_winograd_f23.argtypes = [p] * 4 + [i] * 9 + [f, p]
     lib.medseg_winograd_f23.restype = i
-    lib.medseg_conv3x3x3.argtypes = [p] * 3 + [i] * 8 + [p]
+    lib.medseg_conv3x3x3.argtypes = [p] * 3 + [i] * 10 + [p]
     lib.medseg_conv3x3x3.restype = i
     lib.medseg_dice_ce_sums.argtypes = [p] * 4 + [i, ll, i, i, i, p]
     lib.medseg_dice_ce_sums.restype = i

@@ -9,20 +9,24 @@ function stands beside them as the hand-written measure of it.
 
   forward  ``conv3x3x3_fwd``: y = conv(x, w), products of the inputs as they
            are, sums in fp32, one rounding to x's dtype (``csrc/conv3d.cu``;
-           its header says what bounds it on the card);
+           its header says how the kernel is built for the card);
   dx       the same kernel on dy with the spatially flipped, in / out
            swapped weights;
   dW       im2col(x)^T @ dy summed over every voxel is the function of
            kernel K5 (``ops.kernels.dw27``), which serves it: one kernel for
            both TPU functions, as K3 serves both attention backwards.
 
-``x`` is channels-last (B, D, H, W, C), ``w`` in torch layout (Co, C, 3, 3, 3).
-The kernel takes bf16 tensors of any D, H, W and any channel counts (the TPU
-kernel's rules C % 8, C <= 128, H >= 8, W % 8 and its bound on the im2col
-scratch are rules of its layout); K5 wants at least 16 input channels.
+``x`` is channels-last (B, D, H, W, C), ``w`` in torch layout (Co, C, 3, 3, 3),
+both bf16, fp16 or fp32, as the JAX function computes in ``x.dtype``. Two
+routes (:func:`conv_route`): bf16 and fp16 run on the tensor cores
+(``wgmma``, every output channel up to 128 in one block, the weights in the
+layout of :func:`kernel_weights`), fp32 on the CUDA cores in fp32 FMA (TF32
+would change the function). Both take any D, H, W and any channel counts
+(the TPU kernel's rules C % 8, C <= 128, H >= 8, W % 8 and its bound on the
+im2col scratch are rules of its layout), and so does K5.
 
-A CPU tensor goes through :func:`conv3x3x3_plain`; a CUDA tensor
-launches the kernel or raises.
+A CPU tensor goes through :func:`conv3x3x3_plain`; a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,10 +36,58 @@ import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
-from medicalsemseg_tpu_torch.ops.kernels.winograd3d import pad_kernel_weights
 
-# kernel launches through conv3x3x3_fwd() (forward and input gradient)
+# kernel launches through conv3x3x3_fwd() (forward and input gradient), and
+# by route
 launches = 0
+route_launches = {"cuda_core": 0, "tensor_core": 0}
+
+# the output channels a tensor-core block may own (the widths csrc/conv3d.cu
+# instantiates); wider Co takes further blocks
+BLOCK_WIDTHS = (16, 32, 48, 64, 96, 128)
+# input channels per wgmma k step and per staged chunk (kCK)
+IN_CHANNEL_STEP = 16
+CHUNK_CHANNELS = 48
+
+
+def conv_route(dtype) -> str:
+    """The route the dtype picks: the tensor cores for bf16 and fp16, the
+    CUDA cores for fp32."""
+    return "tensor_core" if kernels.tensor_core_dtype(dtype) else "cuda_core"
+
+
+def block_width(co: int):
+    """(N, blocks along Co) of the tensor-core route: the fewest blocks of
+    at most 128 output channels, each as narrow as an instantiated width
+    allows."""
+    nz = -(-co // BLOCK_WIDTHS[-1])
+    per = -(-co // nz)
+    return min(n for n in BLOCK_WIDTHS if n >= per), nz
+
+
+def kernel_weights(w: torch.Tensor, n: int) -> torch.Tensor:
+    """(Co, C, 3, 3, 3) -> the tensor-core route's layout, zero padded, as
+    (Co blocks, 27 CP n) with CP = C padded to 16: per Co block, per chunk of
+    48 input channels (c0, its nks = ckp / 16 k steps), per tap (kd-major),
+    per k step, [2 halves of 8 input channels][n output channels][8], so that
+    one tap of one chunk is one contiguous copy laid out as the K-major core
+    matrices wgmma reads (csrc/conv3d.cu):
+
+        out[z, 27 c0 n + tap nks 16 n + ks 16 n + half 8 n + j 8 + e]
+            = w[z n + j, c0 + 16 ks + 8 half + e, tap]."""
+    co, c = w.shape[:2]
+    step, chunk = IN_CHANNEL_STEP, CHUNK_CHANNELS
+    cp = -(-c // step) * step
+    nz = -(-co // n)
+    wt = w.new_zeros((nz * n, cp, 27))
+    wt[:co, :c] = w.reshape(co, c, 27)
+    wt = wt.reshape(nz, n, cp, 27)
+    parts = []
+    for c0 in range(0, cp, chunk):
+        nks = min(chunk, cp - c0) // step
+        blk = wt[:, :, c0:c0 + nks * step].reshape(nz, n, nks, 2, 8, 27)
+        parts.append(blk.permute(0, 5, 2, 3, 1, 4).reshape(nz, -1))
+    return torch.cat(parts, dim=1).contiguous()
 
 
 def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -68,26 +120,37 @@ def conv3x3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3x3_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3x3: no kernel for {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"conv3x3x3: x is {x.dtype}, the kernel takes "
-                         "bfloat16")
-    kernels.check_tensor("x", x, x.device, torch.bfloat16)
+    return _launch(x, w)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch, whatever the device (the tests drive it on CPU
+    tensors with a stand-in library)."""
+    code = kernels.dtype_code("x", x.dtype)
+    kernels.check_tensor("x", x, x.device, x.dtype)
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, expected {x.device}")
-
+    route = conv_route(x.dtype)
     b, d, h, wd, c = x.shape
     co = w.shape[0]
-    # (27 taps, Co, C), kd-major, then the kernels' padded (27, CoP, CP)
-    wk = pad_kernel_weights(w.permute(2, 3, 4, 0, 1).reshape(27, co, c))
+    if route == "tensor_core":
+        n, _ = block_width(co)
+        wk = kernel_weights(w, n)
+        cp = -(-c // IN_CHANNEL_STEP) * IN_CHANNEL_STEP
+    else:
+        # (27 taps, C, Co), kd-major
+        wk = w.permute(2, 3, 4, 1, 0).reshape(27, c, co).contiguous()
+        cp, n = c, co
     y = torch.empty((b, d, h, wd, co), dtype=x.dtype, device=x.device)
 
     global launches
     lib = kernels.load()
     err = lib.medseg_conv3x3x3(
         kernels.ptr(x), kernels.ptr(wk), kernels.ptr(y), b, d, h, wd, c, co,
-        wk.shape[2], wk.shape[1], kernels.stream_handle(x.device))
+        cp, n, code, kernels.ROUTES[route], kernels.stream_handle(x.device))
     kernels.check(lib, err, "conv3x3x3")
     launches += 1
+    route_launches[route] += 1
     return y
 
 

@@ -27,8 +27,10 @@ import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
 
-# kernel launches through dw27()
+# kernel launches through dw27(), and by route (the tensor cores: bf16 with
+# channels in 8s; the CUDA cores: everything else)
 launches = 0
+route_launches = {"cuda_core": 0, "tensor_core": 0}
 
 # channels per block tile, voxels per spatial tile and dy rows per run of
 # the tensor-core kernel (kCT, kWT, kHRun in csrc/dw27.cu)
@@ -41,11 +43,13 @@ _ROUTE_TENSOR_CORES = 2
 
 
 def dw27_applicable(shape, cin: int) -> bool:
-    """Whether the kernel is the route for a conv with ``cin`` input channels
-    over a (D, H, W) volume: channels wide enough that the 27 tap products
-    are matrix products and not outer products (the JAX package's rule).
-    Its other rule, W a multiple of 8, is a TPU layout rule: this kernel
-    bounds-checks every row and takes any W."""
+    """Whether the kernel is the route for a model's conv with ``cin`` input
+    channels over a (D, H, W) volume (``ops.convgrad``): channels wide
+    enough that the 27 tap products are matrix products and not outer
+    products (the JAX package's rule). Its other rule, W a multiple of 8, is
+    a TPU layout rule: this kernel bounds-checks every row and takes any W.
+    It routes the models' convolutions and bounds nothing else: the kernel
+    takes any channel count, as ``conv3x3x3``'s dW needs from 8 up."""
     del shape
     return cin >= 16
 
@@ -93,14 +97,17 @@ def dw27(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         return dw27_plain(x, dy)
     if x.device.type != "cuda":
         raise ValueError(f"dw27: no kernel for {x.device}")
+    return _launch(x, dy)
 
+
+def _launch(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch, whatever the device (the tests drive it on CPU
+    tensors with a stand-in library)."""
     b, d, h, w, c = x.shape
     co = dy.shape[-1]
     if x.dtype not in _ROUTES:
         raise ValueError(f"dw27: x is {x.dtype}, expected bfloat16, float16 "
                          "or float32")
-    if not dw27_applicable((d, h, w), c):
-        raise ValueError(f"dw27: {c} input channels, the kernel takes >= 16")
     kernels.check_tensor("x", x, x.device, x.dtype)
     kernels.check_tensor("dy", dy, x.device, x.dtype)
 
@@ -119,4 +126,5 @@ def dw27(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         b, d, h, w, c, co, shares, route, kernels.stream_handle(x.device))
     kernels.check(lib, err, "dw27")
     launches += 1
+    route_launches["tensor_core" if use_mma else "cuda_core"] += 1
     return out

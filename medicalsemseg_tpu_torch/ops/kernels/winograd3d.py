@@ -46,10 +46,6 @@ launches = 0
 MIN_CHANNELS = 16
 MAX_CHANNELS = 128
 
-# input channels per mma step and output channels per block (kCoB) in
-# csrc/conv_tile.cuh: pad_kernel_weights pads K10's weights to multiples
-IN_CHANNEL_STEP = 16
-BLOCK_OUT_CHANNELS = 48
 # K9 stages 48 input channels at a time (kCK) and owns 48 output channels a
 # block: kernel_weights_f23 pads both to multiples
 CHUNK_CHANNELS = 48
@@ -92,20 +88,6 @@ def transform_weights_f23(w: torch.Tensor) -> torch.Tensor:
     (a, b, c) = (d, h, w) index in a-major order (the JAX package's
     function and layout)."""
     return _transform_weights(w).transpose(1, 2)
-
-
-def pad_kernel_weights(w: torch.Tensor) -> torch.Tensor:
-    """(P, Co, C) -> (P, CoP, CP) contiguous, zero padded so that the kernels
-    of csrc/conv_tile.cuh read whole chunks: C to a multiple of 16, Co to one
-    of 48."""
-    p, co, c = w.shape
-    cp = -(-c // IN_CHANNEL_STEP) * IN_CHANNEL_STEP
-    cop = -(-co // BLOCK_OUT_CHANNELS) * BLOCK_OUT_CHANNELS
-    if (cp, cop) == (c, co):
-        return w.contiguous()
-    out = w.new_zeros((p, cop, cp))
-    out[:, :co, :c] = w
-    return out
 
 
 def kernel_weights_f23(u: torch.Tensor) -> torch.Tensor:

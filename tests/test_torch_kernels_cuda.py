@@ -718,9 +718,12 @@ def test_winograd_gates_on_the_card(gen, monkeypatch):
 
 def test_conv_wrappers_reject_what_the_kernels_do_not_take(gen):
     x, w = _conv_case(gen, (1, 2, 2, 2), 16, 16)
+    # K9 is bf16 only; K10 takes bf16, fp16 and fp32, as its JAX function
+    with pytest.raises(ValueError, match="bfloat16"):
+        k9.winograd_conv3d_f23(x.float(), w.float())
+    with pytest.raises(ValueError, match="float64"):
+        k10.conv3x3x3_fwd(x.double(), w.double())
     for fn in (k9.winograd_conv3d_f23, k10.conv3x3x3_fwd):
-        with pytest.raises(ValueError, match="bfloat16"):
-            fn(x.float(), w.float())
         with pytest.raises(ValueError, match="contiguous"):
             fn(x.transpose(1, 2), w)
         with pytest.raises(ValueError, match="not"):

@@ -132,12 +132,6 @@ def test_weight_transform_matches_jax():
     np.testing.assert_allclose(
         got.numpy(), np.asarray(jax_k9.transform_weights_f23(jnp.asarray(w))),
         rtol=1e-6, atol=1e-6)
-    # the kernels' layout: (points, Co to 48s, C to 16s), zero padded
-    padded = k9.pad_kernel_weights(got.transpose(1, 2))
-    assert padded.shape == (64, 48, 32) and padded.is_contiguous()
-    assert torch.equal(padded[:, :10, :24], got.transpose(1, 2))
-    assert padded[:, 10:].abs().max() == 0 and padded[:, :, 24:].abs().max() == 0
-    assert k9.pad_kernel_weights(torch.zeros(27, 96, 48)).shape == (27, 96, 48)
 
 
 @pytest.mark.parametrize("cin", [1, 15, 16, 48, 96, 127, 128, 192])
