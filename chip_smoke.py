@@ -518,7 +518,7 @@ ROUTE_TOTALS = {name: {"tensor_core": 0, "cuda_core": 0} for name in (
     "window_attention", "window_attention_bwd", "global_window_attention",
     "fused_mlp", "fused_mlp_bwd", "window_attention_gemm",
     "window_attention_bwd_gemm", "global_window_attention_gemm",
-    "sr_attention", "conv3x3x3")}
+    "sr_attention", "conv3x3x3", "winograd_conv3d_f23")}
 # the GEMM launches of K1, K3 and K6 (K1's and K6's projection, K3's dx and
 # dw) have routes of their own (window_attention.gemm_route): the kernels
 # line carries them as launches_by_gemm_route
@@ -1500,6 +1500,11 @@ IM2COL_BATCHES = (1, 4)
 # flipped rounding) and fp32 (no rounding to flip, only the order of sums)
 F16_KERNEL_TOL = 4e-3
 F32_KERNEL_TOL = 1e-4
+# K9 against its plain version by dtype: in bf16 and fp16 both round V at the
+# same points and y once, so they differ where a differently ordered fp32 sum
+# flips a rounding; in fp32 only the order of the sums differs
+K9_DTYPE_TOL = {"bfloat16": KERNEL_ATOL, "float16": F16_KERNEL_TOL,
+                "float32": F32_KERNEL_TOL}
 
 
 def _time_once_ms(fn):
@@ -1595,15 +1600,23 @@ def _conv_kernels(k9r, k10r):
                   lambda: k10.conv3x3x3_fwd(x, w),
                   lambda: k10.conv3x3x3_plain(x, w))
 
-        def k9_stage(path, batch, edge, c, co, with_ep):
-            x, w = case(batch, (edge,) * 3, c, co)
+        def k9_stage(path, batch, edge, c, co, with_ep, dt=bf):
+            x, w = case(batch, (edge,) * 3, c, co, dt)
             kw = (dict(epilogue=epilogue(batch, c), lrelu=True) if with_ep
                   else {})
             form = "epilogue + lrelu" if with_ep else "bare"
+            dname = str(dt).split(".")[-1]
+            route = k9.winograd_route(dt)
             name = f"{path} {batch}x{edge}^3, {c}->{co}, {form}"
+            if dt != bf:
+                name += f", {dname}"
+            before = k9.route_launches[route]
             check("K9", k9r, name,
                   lambda: k9.winograd_conv3d_f23(x, w, **kw),
-                  lambda: k9.winograd_conv3d_f23_plain(x, w, **kw))
+                  lambda: k9.winograd_conv3d_f23_plain(x, w, **kw),
+                  K9_DTYPE_TOL[dname])
+            _require(k9.route_launches[route] == before + 2,
+                     f"K9 {name}: not on the {route} route")
             ms = _time_ms(lambda: k9.winograd_conv3d_f23(x, w, **kw), 5)
             pms = _time_once_ms(
                 lambda: k9.winograd_conv3d_f23_plain(x, w, **kw))
@@ -1613,15 +1626,18 @@ def _conv_kernels(k9r, k10r):
                 sc, sh = (t[:, None, None, None, :] for t in kw["epilogue"])
                 lms = None
                 chain = _time_ms(lambda: _lib_conv(F.leaky_relu(
-                    (x.float() * sc + sh).to(bf), 0.01), w), 5)
+                    (x.float() * sc + sh).to(dt), 0.01), w), 5)
             else:
                 lms = _time_ms(lambda: _lib_conv(x, w), 5)
                 chain = None
-            direct, wino, nbytes = _conv_work(batch, edge, c, co, with_ep)
-            bound, by = _bound(wino, nbytes, PEAK_BF16_FLOPS)
+            direct, wino, nbytes = _conv_work(batch, edge, c, co, with_ep,
+                                              elem=x.element_size())
+            bound, by = _bound(wino, nbytes, PEAK_FP32_FLOPS if dt ==
+                               torch.float32 else PEAK_BF16_FLOPS)
             k9r["per_stage"].append({
                 "path": path, "batch": batch, "edge": edge, "C": c, "Co": co,
-                "epilogue": with_ep, "ms": ms, "plain_ms": pms,
+                "epilogue": with_ep, "dtype": dname, "route": route,
+                "ms": ms, "plain_ms": pms,
                 "library_ms": lms, "chain_ms": chain, "flops": wino,
                 "direct_flops": direct, "bytes": nbytes, "bound_ms": bound,
                 "bound_by": by})
@@ -1637,6 +1653,15 @@ def _conv_kernels(k9r, k10r):
         for edge, c, _ in WINO_PREDICT:
             for with_ep in (False, True):
                 k9_stage("predict", PREDICT_BATCH, edge, c, c, with_ep)
+        # the fp16 and fp32 forms at the predictor call's shapes: fp16 on
+        # the tensor cores (bound at the bf16 rate), fp32 on the CUDA cores
+        # (bound at the fp32 rate, the library's conv without TF32)
+        with _no_tf32():
+            for dt in (torch.float16, torch.float32):
+                for edge, c, _ in WINO_PREDICT:
+                    for with_ep in (False, True):
+                        k9_stage("predict", PREDICT_BATCH, edge, c, c,
+                                 with_ep, dt)
         for c, co in WINO_TRAIN:
             k9_stage("train fwd", TRAIN_BATCH, CROP, c, co, False)
             if c != co:
@@ -1704,7 +1729,8 @@ def _conv_kernels(k9r, k10r):
 
     # K9: the six launches of one predictor call with the fused decoder
     stages = {(s["edge"], s["C"]): s for s in k9r["per_stage"]
-              if s["path"] == "predict" and s["epilogue"]}
+              if s["path"] == "predict" and s["epilogue"]
+              and s["dtype"] == "bfloat16"}
     for key in ("ms", "plain_ms", "chain_ms", "bound_ms"):
         k9r[key] = sum(n * stages[(edge, c)][key]
                        for edge, c, n in WINO_PREDICT)
@@ -2255,7 +2281,8 @@ def _reset_launches():
                kga.route_launches, kmlp.route_launches,
                kmlp.bwd_route_launches, kwa.gemm_route_launches,
                kwa.bwd_gemm_route_launches, kga.gemm_route_launches,
-               ksr.route_launches, k10.route_launches, k5.route_launches):
+               ksr.route_launches, k10.route_launches, k5.route_launches,
+               k9.route_launches):
         for route in by:
             by[route] = 0
 
@@ -2842,12 +2869,14 @@ def phase_k9_parts():
         out, err = proc.communicate()
         _require(proc.returncode == 0, f"k9_parts: nvcc failed:\n{out}\n{err}")
         fn = ctypes.CDLL(so).medseg_winograd_f23
-        fn.argtypes, fn.restype = [p] * 4 + [i] * 9 + [f, p], i
+        fn.argtypes, fn.restype = [p] * 4 + [i] * 9 + [f, i, i, p], i
 
         def launch():
+            # bf16 (dtype code 0) on the tensor-core route
             rc = fn(kernels.ptr(x), kernels.ptr(u), None, kernels.ptr(y), b,
                     edge, edge, edge, c, c, u.shape[1] * k9.CHUNK_CHANNELS,
-                    u.shape[0] * k9.CHUNK_CHANNELS, 0, 0.01,
+                    u.shape[0] * k9.CHUNK_CHANNELS, 0, 0.01, 0,
+                    kernels.ROUTES["tensor_core"],
                     kernels.stream_handle(x.device))
             _require(rc == 0, f"k9_parts: launch failed ({rc})")
 
@@ -3544,7 +3573,7 @@ def _k9_launches_required(model, run, gate):
     count = [0]
 
     def conv1_hook(mod, args, out):
-        count[0] += int(out.is_cuda and out.dtype == torch.bfloat16
+        count[0] += int(out.is_cuda
                         and k9.winograd_f23_applicable(tuple(out.shape[1:4]),
                                                        out.shape[-1]))
 
@@ -3567,6 +3596,15 @@ def _k9_launches_required(model, run, gate):
     return count[0]
 
 
+# K9's launches in one flagship predictor call under MEDSEG_FUSED_DECODER=1
+# (conv2 of the six res blocks at 48 and 96 channels), in every dtype
+WINO_FUSED_LAUNCHES = 6
+# the fused call in fp16 and fp32 against the unfused call in the same dtype:
+# fp16 rounds 8x finer than bf16 (2^-11 against 2^-8), so a third of the
+# bf16 limit below; fp32 has no rounding to the dtype, and the Winograd sums
+# differ from the direct conv's (TF32 off) by their order only
+FUSED_F16_REL_TOL = 1e-2
+FUSED_F32_REL_TOL = 1e-4
 # one predictor call with K9 in the decoder against the same call through the
 # library's convs, both bf16 with K1/K2: Winograd in bf16 carries about twice
 # the direct conv's rounding (0.7 % against 0.3 % max relative error in the
@@ -3576,7 +3614,8 @@ WINO_MODEL_REL_TOL = 3e-2
 
 
 def phase_fused():
-    """The no-gradient paths that run K9, at full flagship width."""
+    """The no-gradient paths that run K9, at full flagship width; the fused
+    decoder in bf16, fp16 and fp32."""
     import copy
 
     import numpy as np
@@ -3585,6 +3624,7 @@ def phase_fused():
     from medicalsemseg_tpu_torch.cli import run_test
     from medicalsemseg_tpu_torch.config import get_args
     from medicalsemseg_tpu_torch.data import nifti
+    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 
     total = dict.fromkeys(_read_launches(), 0)
 
@@ -3630,12 +3670,17 @@ def phase_fused():
                     out = gpu(xb)
                     torch.cuda.synchronize()
                     launches = _read_launches()
+                    by_route = dict(k9.route_launches)
                     peak = torch.cuda.max_memory_allocated()
                     _require(bool(torch.isfinite(out).all()),
                              f"fused {model_name} {gate}: logits of "
                              f"{PREDICT_BATCH} windows")
                     del out
                 add(launches)
+                for r, n in by_route.items():
+                    ROUTE_TOTALS["winograd_conv3d_f23"][r] += n
+                _require(by_route["tensor_core"] == need, f"fused {model_name} "
+                         f"{gate}: K9 by route {by_route}")
                 others = (ZOO_LAUNCHES[model_name] if not flagship else
                           {"window_attention": 8, "fused_mlp": 8})
                 _require_launches(
@@ -3673,6 +3718,63 @@ def phase_fused():
                       f"{t[1][1] / 2 ** 30:.2f} unset", flush=True)
         del model, gpu, xb
         torch.cuda.empty_cache()
+
+    # --compute_dtype float16 and float32 under the fused decoder, as the JAX
+    # package runs them: K9 on the tensor cores and on the CUDA cores, each
+    # call against the unfused call in the same dtype (TF32 off)
+    cfg = get_args(FLAGSHIP_ARGS + ["--compute_dtype", "float32"])
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = _seeded_model(cfg, gen).to("cuda")
+    xb = (torch.randn(FP16_WINDOWS, 96, 96, 96, 1, generator=gen).to("cuda"),
+          torch.full((FP16_WINDOWS, 3), 0.5, device="cuda"),
+          torch.ones(FP16_WINDOWS, 3, device="cuda"))
+    for dt, route, tol in ((torch.float16, "tensor_core", FUSED_F16_REL_TOL),
+                           (torch.float32, "cuda_core", FUSED_F32_REL_TOL)):
+        dname = str(dt).split(".")[-1]
+        net = copy.deepcopy(model)
+        net.dtype = dt
+        with torch.inference_mode(), _no_tf32():
+            need = _k9_launches_required(net, lambda: net(xb),
+                                         "MEDSEG_FUSED_DECODER")
+            with _gates():
+                base = net(xb)
+            with _gates("MEDSEG_FUSED_DECODER"):
+                _reset_launches()
+                got = net(xb)
+                torch.cuda.synchronize()
+                launches = _read_launches()
+                by_route = dict(k9.route_launches)
+            add(launches)
+            for r, n in by_route.items():
+                ROUTE_TOTALS["winograd_conv3d_f23"][r] += n
+            _require(need == WINO_FUSED_LAUNCHES, f"fused {dname}: the gate "
+                     f"opens for {need} convs (want {WINO_FUSED_LAUNCHES})")
+            _require_launches(f"fused {dname} (one predictor call)", launches,
+                              {**dict.fromkeys(launches, 0),
+                               "window_attention": 8, "fused_mlp": 8,
+                               "winograd_conv3d_f23": need})
+            _require(by_route[route] == need, f"fused {dname}: K9 by route "
+                     f"{by_route} (want {need} on the {route} route)")
+            _require(got.shape == (FP16_WINDOWS, 96, 96, 96, 14)
+                     and bool(torch.isfinite(got).all()),
+                     f"fused {dname}: logits {tuple(got.shape)}")
+            rel = float((got.float() - base.float()).norm()
+                        / base.float().norm())
+            t = []
+            for on in (True, False, False, True):
+                with _gates(*(("MEDSEG_FUSED_DECODER",) if on else ())):
+                    t.append(_time_ms(lambda: net(xb), 2))
+        print(f"fused: nnFormerUNETR MEDSEG_FUSED_DECODER=1, --compute_dtype "
+              f"{dname}, one predictor call ({FP16_WINDOWS} windows): rel "
+              f"norm err vs the unfused call {rel:.3e} (tol {tol}); K9 "
+              f"launches by route {by_route}; =1 {t[0]:.1f} ms, unset "
+              f"{t[1]:.1f}, unset {t[2]:.1f}, =1 {t[3]:.1f}", flush=True)
+        _require(rel <= tol, f"fused {dname}: logits disagree with the "
+                 "unfused call")
+        del net, base, got
+        torch.cuda.empty_cache()
+    del model, xb
+    torch.cuda.empty_cache()
 
     # the prediction CLI on the smaller synthetic volume, fused decoder
     shape = (200, 180, 120)
@@ -4526,7 +4628,8 @@ def phase_eval():
     saved prediction, bit-equal to the CLI's device HD95 (a class's HD95
     reads its own masks alone, so three classes hold the host path as well
     as thirteen, in a tenth of the host's time); then the fold majority-vote
-    CLI over three fold directories, held against majority_vote_np."""
+    CLI over three fold directories of the smaller volume, held against
+    majority_vote_np."""
     import shutil
 
     import numpy as np
@@ -4625,9 +4728,10 @@ def phase_eval():
                  and np.isfinite(want).any(),
                  "eval: no organ has a finite HD95")
 
+        # the vote over the smaller volume's prediction alone: each fold's
+        # copy of the larger one cost a gzip NIfTI write of seconds
         folds = os.path.join(tmp, "folds")
-        preds = sorted(os.listdir(os.path.join(dev_dir, "eval_output",
-                                               "Fold0", "pred")))
+        preds = ["img1.nii.gz"]
         stacks = {}
         for k in range(3):
             d = os.path.join(folds, f"Fold{k}", "pred")
@@ -4651,7 +4755,7 @@ def phase_eval():
             _require(got.dtype == np.uint8
                      and np.array_equal(got, want_vote.astype(np.uint8)),
                      f"eval: majority vote of {name} disagrees")
-        print(f"eval: majority vote over 3 folds of 2 volumes in "
+        print(f"eval: majority vote over 3 folds of 1 volume in "
               f"{vote_s:.2f} s agrees with majority_vote_np", flush=True)
         shutil.rmtree(folds)
     return total

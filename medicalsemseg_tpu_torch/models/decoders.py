@@ -39,14 +39,15 @@ from medicalsemseg_tpu_torch.ops.resize import resize_trilinear
 
 def decoder_fuse_enabled(x: torch.Tensor) -> bool:
     """The fused decoder form (``MEDSEG_FUSED_DECODER``, read at call time,
-    off by default) for an activation ``x``: on the card in the kernel's
-    dtype, bf16. (A CPU tensor of any float dtype passes under the tests'
-    hook ``winograd3d.ALLOW_CPU`` and runs K9's plain version.)"""
+    off by default) for an activation ``x``: on the card in any compute
+    dtype. The JAX gate checks no dtype and its kernel computes in x's, so
+    ``--compute_dtype float16 | float32`` fuse as bf16 does (K9 takes all
+    three); the shape and channel window is ``winograd_f23_applicable`` in
+    ``UnetResBlock._fused``. (A CPU tensor passes under the tests' hook
+    ``winograd3d.ALLOW_CPU`` and runs K9's plain version.)"""
     if os.environ.get("MEDSEG_FUSED_DECODER", "0") == "0":
         return False
-    if x.is_cuda:
-        return x.dtype == torch.bfloat16
-    return k9.ALLOW_CPU
+    return x.is_cuda or k9.ALLOW_CPU
 
 
 class Convolution(nn.Module):
@@ -65,10 +66,11 @@ class UnetResBlock(nn.Module):
     count changes, then lrelu.
 
     Fused form (``eval()`` without gradients, ``decoder_fuse_enabled``, the
-    channel count inside K9's window): ``norm1`` is reduced to its fp32
-    statistics, and ``conv2`` runs as kernel K9 with the normalize and
-    LeakyReLU pass folded into its input as a per-(sample, channel) scale
-    and shift, so the normalized volume is never written. ``fusable=False``
+    channel count inside K9's window), in the compute dtype of ``y``:
+    ``norm1`` is reduced to its fp32 statistics, and ``conv2`` runs as
+    kernel K9 with the normalize and LeakyReLU pass folded into its input as
+    a per-(sample, channel) scale and shift, so the normalized volume is
+    never written. ``fusable=False``
     keeps the block out of the fused form (the decoders of UNETR and
     SwinUNETR_Official: their JAX modules pass no ``fuse`` to them)."""
 

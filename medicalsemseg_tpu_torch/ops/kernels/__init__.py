@@ -35,7 +35,7 @@ TILE_ROWS = 32
 # dynamic shared memory a block may ask for on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448
 # the routes of the kernels that have two (K1, K3, K6 heads launches and
-# GEMM launches; K2, K4, K7), with their codes in the C entry points
+# GEMM launches; K2, K4, K7, K9, K10), with their codes in the C entry points
 # (kRouteCudaCore, kRouteTensorCore in csrc/mma_tile.cuh)
 ROUTES = {"cuda_core": 0, "tensor_core": 1}
 
@@ -117,7 +117,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_fused_mlp_bwd.restype = i
     lib.medseg_dw27.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.medseg_dw27.restype = i
-    lib.medseg_winograd_f23.argtypes = [p] * 4 + [i] * 9 + [f, p]
+    lib.medseg_winograd_f23.argtypes = [p] * 4 + [i] * 9 + [f, i, i, p]
     lib.medseg_winograd_f23.restype = i
     lib.medseg_conv3x3x3.argtypes = [p] * 3 + [i] * 10 + [p]
     lib.medseg_conv3x3x3.restype = i

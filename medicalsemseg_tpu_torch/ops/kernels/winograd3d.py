@@ -16,6 +16,13 @@ input-transform stages round to x's dtype, the weights are transformed in
 fp32 and rounded once, products add in fp32, the output transform is fp32
 and the result rounds once.
 
+The JAX kernel computes in x's dtype, whatever it is (its fused decoder runs
+it in the model's compute dtype), and so does K9. Two routes
+(:func:`winograd_route`): bf16 and fp16 run on the tensor cores (``wgmma``,
+the weights laid out by :func:`kernel_weights_f23` in x's type), fp32 on the
+CUDA cores in fp32 FMA (TF32 would change the function; the weights go as
+(64, C, Co) fp32). Any other dtype raises.
+
 The CUDA source is ``csrc/winograd3d.cu``; its header says what bounds it on
 the card and how the design answers that. It reads ``x`` from its own layout
 and checks bounds at the border, so any D, H, W runs: the TPU kernel's shape
@@ -24,7 +31,7 @@ counterpart. What remains of its gate is the channel window
 :data:`MIN_CHANNELS` <= C < :data:`MAX_CHANNELS`
 (:func:`winograd_f23_applicable`): below it the products are outer products,
 at 128 and above the direct conv fills the tensor cores anyway. The kernel
-itself takes any channel counts; it is bf16 only.
+itself takes any channel counts.
 
 A CPU tensor goes through :func:`winograd_conv3d_f23_plain`; a CUDA tensor
 launches the kernel or raises.
@@ -39,8 +46,9 @@ import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
 
-# kernel launches through winograd_conv3d_f23()
+# kernel launches through winograd_conv3d_f23(), and by route
 launches = 0
+route_launches = {"cuda_core": 0, "tensor_core": 0}
 
 # the channel window of the gate (the JAX package's winograd_f23_applicable)
 MIN_CHANNELS = 16
@@ -60,6 +68,13 @@ _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 _AT = ((1.0, 1.0, 1.0, 0.0), (0.0, 1.0, -1.0, -1.0))
 
 
+def winograd_route(dtype) -> str:
+    """The route the dtype picks: the tensor cores for bf16 and fp16, the
+    CUDA cores for fp32; raises for any other dtype."""
+    kernels.dtype_code("x", dtype)
+    return "tensor_core" if kernels.tensor_core_dtype(dtype) else "cuda_core"
+
+
 def winograd_f23_applicable(shape, cin: int) -> bool:
     """Whether K9 is the route for a conv with ``cin`` input channels over a
     (D, H, W) volume: the channel window only."""
@@ -71,9 +86,13 @@ def winograd_f23_applicable(shape, cin: int) -> bool:
 def _points_matrix(device: torch.device) -> torch.Tensor:
     """(64, 27) fp32: row (a, b, c), column (r, s, t) holds G[a, r] G[b, s]
     G[c, t], the weight transform as one matrix (a constant, kept per
-    device)."""
-    g = torch.tensor(_G, dtype=torch.float32)
-    return torch.einsum("ar,bs,ct->abcrst", g, g, g).reshape(64, 27).to(device)
+    device). Made outside inference mode: a cached inference tensor could
+    not be saved for a later backward (a training step after a predictor
+    call)."""
+    with torch.inference_mode(False):
+        g = torch.tensor(_G, dtype=torch.float32)
+        return torch.einsum("ar,bs,ct->abcrst", g, g, g).reshape(
+            64, 27).to(device)
 
 
 def _transform_weights(w: torch.Tensor) -> torch.Tensor:
@@ -199,16 +218,28 @@ def winograd_conv3d_f23(x: torch.Tensor, w: torch.Tensor, epilogue=None,
         return winograd_conv3d_f23_plain(x, w, epilogue, lrelu, neg_slope)
     if x.device.type != "cuda":
         raise ValueError(f"winograd_conv3d_f23: no kernel for {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"winograd_conv3d_f23: x is {x.dtype}, the kernel "
-                         "takes bfloat16")
-    kernels.check_tensor("x", x, x.device, torch.bfloat16)
+    return _launch(x, w, epilogue, lrelu, neg_slope)
+
+
+def _launch(x, w, epilogue, lrelu, neg_slope):
+    """The kernel's launch, whatever the device (the tests drive it on CPU
+    tensors with a stand-in library)."""
+    code = kernels.dtype_code("x", x.dtype)
+    kernels.check_tensor("x", x, x.device, x.dtype)
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, expected {x.device}")
-
-    u = kernel_weights_f23(_transform_weights(w).to(torch.bfloat16))
+    route = winograd_route(x.dtype)
+    b, d, h, wd, c = x.shape
+    co = w.shape[0]
+    if route == "tensor_core":
+        u = kernel_weights_f23(_transform_weights(w).to(x.dtype))
+        cp, cop = u.shape[1] * CHUNK_CHANNELS, u.shape[0] * CHUNK_CHANNELS
+    else:
+        u = transform_weights_f23(w).contiguous()
+        cp, cop = c, co
     ep = None
     if epilogue is not None:
+        scale, shift = epilogue
         ep = torch.stack([scale, shift], dim=1).float().contiguous()
         kernels.check_tensor("epilogue", ep, x.device, torch.float32,
                              (b, 2, c))
@@ -218,9 +249,9 @@ def winograd_conv3d_f23(x: torch.Tensor, w: torch.Tensor, epilogue=None,
     lib = kernels.load()
     err = lib.medseg_winograd_f23(
         kernels.ptr(x), kernels.ptr(u), kernels.ptr(ep), kernels.ptr(y),
-        b, d, h, wd, c, co, u.shape[1] * CHUNK_CHANNELS,
-        u.shape[0] * CHUNK_CHANNELS, int(lrelu),
-        float(neg_slope), kernels.stream_handle(x.device))
+        b, d, h, wd, c, co, cp, cop, int(lrelu), float(neg_slope), code,
+        kernels.ROUTES[route], kernels.stream_handle(x.device))
     kernels.check(lib, err, "winograd_conv3d_f23")
     launches += 1
+    route_launches[route] += 1
     return y

@@ -113,8 +113,12 @@ def test_argtypes_rows_match_the_c_signatures():
         want = [ctypes.c_void_p if k.endswith("*") else ctype[k]
                 for k in kinds]
         assert list(lib.functions[name].argtypes) == want, name
+    # K9's: x, u, ep, y and the stream; the sizes, lrelu, then the dtype and
+    # the route after the slope
     conv = lib.functions["medseg_winograd_f23"].argtypes
-    assert (conv.count(ctypes.c_void_p), conv.count(ctypes.c_int)) == (5, 9)
+    assert (conv.count(ctypes.c_void_p), conv.count(ctypes.c_int)) == (5, 11)
+    assert conv[-4:] == [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p]
 
 
 @pytest.mark.parametrize("name", ["medseg_window_attention_fwd",

@@ -366,9 +366,11 @@ def test_fused_loss_function_on_the_card(gen):
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
+    # K5's launch takes any channel count (F6; the models' routing rule
+    # dw27_applicable still says no below 16)
     x = torch.zeros(1, 2, 2, 2, 8, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=">= 16"):
-        k5.dw27(x, x)                                   # too few channels
+    got = k5.dw27(x, x)
+    assert got.shape == (3, 3, 3, 8, 8) and got.abs().max() == 0
     x = torch.zeros(1, 2, 2, 2, 16, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="float32"):
         k5.dw27(x, x.float())                           # dtypes differ
@@ -616,6 +618,50 @@ def test_winograd_kernel(gen, shape, c, co, epilogue):
     assert (got.float() - lib).norm() <= 2e-2 * lib.norm()
 
 
+# K9 in fp16 (the tensor cores) and fp32 (the CUDA cores), the dtypes the
+# JAX fused decoder runs it in besides bf16: odd volumes, channel counts at
+# 16, 48, 96 and 127 (one and several input chunks and output-channel
+# blocks, ragged ones). Against the plain version on the same inputs,
+# elementwise with atol = rtol: in fp16 both round V at the same points and
+# y once (a flipped rounding is an ulp, 2^-10 relative), in fp32 there is no
+# rounding to flip, only sums in another order (tests/test_torch_conv3d_cuda.py)
+K9_DTYPE_TOL = {torch.float16: 4e-3, torch.float32: 1e-4}
+K9_DTYPE_SHAPES = [
+    ((1, 5, 7, 9), 16, 16),
+    ((2, 4, 8, 16), 48, 48),
+    ((1, 5, 7, 9), 96, 96),
+    ((1, 9, 11, 13), 127, 127),
+    ((2, 3, 9, 35), 48, 127),
+    ((1, 6, 10, 24), 127, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("epilogue", [None, "lrelu"])
+@pytest.mark.parametrize("shape,c,co", K9_DTYPE_SHAPES)
+def test_winograd_kernel_dtypes(gen, shape, c, co, epilogue, dtype):
+    x, w = (t.to(dtype) for t in _conv_case(gen, shape, c, co))
+    kw = {}
+    if epilogue is not None:
+        b = shape[0]
+        kw = dict(epilogue=(1 + 0.3 * torch.randn(b, c, generator=gen,
+                                                  device="cuda"),
+                            3 + torch.randn(b, c, generator=gen,
+                                            device="cuda")),
+                  lrelu=True)
+    route = k9.winograd_route(dtype)
+    assert route == ("tensor_core" if dtype == torch.float16
+                     else "cuda_core")
+    before = (k9.launches, k9.route_launches[route])
+    got = k9.winograd_conv3d_f23(x, w, **kw)
+    torch.cuda.synchronize()
+    assert (k9.launches, k9.route_launches[route]) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert got.shape == (*shape, co) and got.dtype == dtype
+    _close(got, k9.winograd_conv3d_f23_plain(x, w, **kw), K9_DTYPE_TOL[dtype])
+    assert torch.equal(got, k9.winograd_conv3d_f23(x, w, **kw))
+
+
 @pytest.mark.parametrize("shape,c,co", CONV_SHAPES)
 def test_im2col_conv_kernel(gen, shape, c, co):
     x, w = _conv_case(gen, shape, c, co)
@@ -709,8 +755,11 @@ def test_winograd_gates_on_the_card(gen, monkeypatch):
         monkeypatch.setenv("MEDSEG_FUSED_DECODER", "1")
         have, n = launched(lambda: blk(x))
         assert n == 1
-        _, n = launched(lambda: blk(x.float()))          # fp32 stays unfused
-        assert n == 0
+        # fp32 and fp16 fuse too, as in the JAX package (K9 on the CUDA
+        # cores and on the tensor cores)
+        for dt in (torch.float32, torch.float16):
+            _, n = launched(lambda: blk(x.to(dt)))
+            assert n == 1
     _, n = launched(lambda: blk(x))                      # gradients enabled
     assert n == 0
     assert (have.float() - want.float()).norm() <= 3e-2 * want.float().norm()
@@ -718,11 +767,10 @@ def test_winograd_gates_on_the_card(gen, monkeypatch):
 
 def test_conv_wrappers_reject_what_the_kernels_do_not_take(gen):
     x, w = _conv_case(gen, (1, 2, 2, 2), 16, 16)
-    # K9 is bf16 only; K10 takes bf16, fp16 and fp32, as its JAX function
-    with pytest.raises(ValueError, match="bfloat16"):
-        k9.winograd_conv3d_f23(x.float(), w.float())
-    with pytest.raises(ValueError, match="float64"):
-        k10.conv3x3x3_fwd(x.double(), w.double())
+    # K9 and K10 take bf16, fp16 and fp32, as their JAX functions
+    for fn in (k9.winograd_conv3d_f23, k10.conv3x3x3_fwd):
+        with pytest.raises(ValueError, match="float64"):
+            fn(x.double(), w.double())
     for fn in (k9.winograd_conv3d_f23, k10.conv3x3x3_fwd):
         with pytest.raises(ValueError, match="contiguous"):
             fn(x.transpose(1, 2), w)
