@@ -187,7 +187,22 @@ Phases, in order; any failure exits non-zero:
                  the card against the same loader's on the CPU (equal
                  without normalisation, within 1e-6 with channel
                  normalisation), then two epochs through the training CLI
-                 with --device_data_pipeline.
+                 with --device_data_pipeline;
+ 24. remat     - block rematerialisation, and MEDSEG_WINOGRAD=1 in fp32:
+                 the flagship at batch 8 of 96^3 in bf16 with drop path
+                 0.2, one step's loss and gradients under --remat conv,
+                 mixed and full against two runs under none (within twice
+                 their spread, at least 1e-5 relative), then ms per step,
+                 peak memory and K1-K4 launches by route under each mode;
+                 batch 16 under full and mixed (must fit); SwInception at
+                 batch 2, its BatchNorm running statistics after one step
+                 under conv against none; one fp32 predictor call of two
+                 windows with MEDSEG_WINOGRAD=1 (its 3^3 convs without
+                 TF32, counted) against the unset call (logits within 1e-2,
+                 A/B/B/A ms).
+Every training phase runs the default --remat conv, as the JAX package
+does: each Swin block of the Swin UNETR models runs its forward again in
+the backward, so K1 and K2 launch twice a block and step (REMAT_FORWARDS).
 The kernels group `f5` (in the default set) holds the same paths' kernels at
 their shapes against their plain versions, timed: K7's streaming route at
 SegFormer3D's four stages at vol 160 (M = 125) and at stage 4 with
@@ -248,7 +263,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "train_b4", "train_cli", "fused", "train_wino", "conv3d", "fp32",
           "eval", "f5", "r15", "zoo_train", "swin_opts", "zoo_official",
-          "zoo_rest", "dist", "profile_dir", "device_pipeline")
+          "zoo_rest", "dist", "profile_dir", "device_pipeline", "remat")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5",
                  "r15", "official", "zoo_rest")
@@ -314,11 +329,16 @@ def _queued_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_card():
+def _card_label():
+    """The card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    line = out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    line = _card_label()
     print(line, flush=True)
     return line
 
@@ -2308,6 +2328,20 @@ def _read_launches():
 
 SWIN_KERNELS = ("window_attention", "fused_mlp", "window_attention_bwd",
                 "fused_mlp_bwd")
+# Under the default --remat conv (as in the JAX package) each Swin block of
+# the Swin UNETR models runs its forward again in the backward
+# (models/layers.py checkpoint_block): a training step launches K1 and K2
+# twice a block, K3 and K4 once. The recompute keeps the conv outputs, so
+# K9 (MEDSEG_WINOGRAD_TRAIN) and K5 launch as without remat.
+REMAT_FORWARDS = 2
+
+
+def _swin_step_launches(blocks, kernels=SWIN_KERNELS):
+    """The launches of ``kernels`` (of K1-K4) in training steps through
+    ``blocks`` checkpointed Swin blocks in all (blocks a step times
+    steps)."""
+    return {k: blocks if k.endswith("_bwd") else REMAT_FORWARDS * blocks
+            for k in kernels}
 
 
 def _require_launches(phase, launches, want):
@@ -2604,11 +2638,12 @@ def phase_train():
              and losses[-1] <= TRAIN_LOSS_FALL * losses[0],
              f"train: the loss did not fall at every step to "
              f"{TRAIN_LOSS_FALL} of the first: {losses}")
-    # 8 Swin blocks per step; batch 8 of 96^3 is 7.08M voxels, over the
-    # window of K5's gate, and the loss is the unfused one
+    # 8 Swin blocks per step, recomputed (REMAT_FORWARDS); batch 8 of 96^3
+    # is 7.08M voxels, over the window of K5's gate, and the loss is the
+    # unfused one
     _require_launches(f"train ({TRAIN_STEPS} steps)", launches, {
         **dict.fromkeys(launches, 0),
-        **dict.fromkeys(SWIN_KERNELS, 8 * TRAIN_STEPS)})
+        **_swin_step_launches(8 * TRAIN_STEPS)})
 
     # one step's gradients: bf16 + kernels vs fp32 + plain
     del state, m
@@ -2729,7 +2764,7 @@ def phase_train_b4():
     _require(all(b < a for a, b in zip(per_update, per_update[1:])),
              f"train_b4: the loss did not fall after every update: {losses}")
     _require_launches(f"train_b4 ({n} micro-steps)", launches, {
-        **dict.fromkeys(SWIN_KERNELS, 8 * n), "dw27": 3 * n,
+        **_swin_step_launches(8 * n), "dw27": 3 * n,
         "dice_ce_sums": n, "dice_ce_dlogits": n})
 
     # the micro-step with and without each kernel, in the order A, B, B, A;
@@ -3450,9 +3485,11 @@ def phase_train_cli():
             "window_attention_bwd": 8 * steps, "fused_mlp_bwd": 8 * steps,
             "dw27": 0, "dice_ce_sums": 0, "dice_ce_dlogits": 0})
         for name in ("window_attention", "fused_mlp"):
-            _require(launches[name] > 8 * steps and launches[name] % 8 == 0,
+            _require(launches[name] > REMAT_FORWARDS * 8 * steps
+                     and launches[name] % 8 == 0,
                      f"train_cli: {name} launched {launches[name]} times "
-                     f"(training steps and validation calls, 8 each)")
+                     f"(training steps, {REMAT_FORWARDS} x 8 each, and "
+                     f"validation calls, 8 each)")
         print(f"train_cli: 2 epochs ({steps} steps at batch {TRAIN_BATCH}, 2 "
               f"validations of 4 volumes) in {wall:.1f} s, peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
@@ -3567,6 +3604,7 @@ def _k9_launches_required(model, run, gate):
     import torch
 
     from medicalsemseg_tpu_torch.models.decoders import UnetResBlock
+    from medicalsemseg_tpu_torch.models.layers import remat_replaying
     from medicalsemseg_tpu_torch.ops import convgrad
     from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 
@@ -3578,6 +3616,8 @@ def _k9_launches_required(model, run, gate):
                                                        out.shape[-1]))
 
     def conv_hook(mod, args, out):
+        if remat_replaying():   # the recompute keeps the forward's output
+            return
         x = args[0]
         count[0] += int(convgrad.wino23_eligible(x))
         if gate == "MEDSEG_WINOGRAD_TRAIN":
@@ -3872,7 +3912,7 @@ def phase_train_wino():
              f"train_wino: the loss did not fall at every step: {losses}")
     _require_launches(f"train_wino ({WINO_TRAIN_STEPS} steps)", launches, {
         **dict.fromkeys(launches, 0),
-        **dict.fromkeys(SWIN_KERNELS, 8 * WINO_TRAIN_STEPS),
+        **_swin_step_launches(8 * WINO_TRAIN_STEPS),
         "winograd_conv3d_f23": need * WINO_TRAIN_STEPS})
     del state
 
@@ -4179,7 +4219,7 @@ def phase_fp32():
         with _plain_kernels():
             want_loss, want = _grads_of(model, loss_fn, batch)
     _require_launches("fp32 gradients (one step)", delta, {
-        **dict.fromkeys(SWIN_KERNELS, 8), "dw27": 3})
+        **_swin_step_launches(8), "dw27": 3})
     rel = _rel_norm(got, want)
     print(f"fp32: gradients of one step (batch {FP32_TRAIN_BATCH}), fp32 "
           f"kernels vs fp32 plain: loss {got_loss:.6f} vs {want_loss:.6f}, "
@@ -4883,7 +4923,7 @@ def phase_f5():
     # every block on the kernels (head dim 32: the CUDA-core heads route);
     # stage 4 (C = 768): K3's GEMM launches and K4 on the CUDA cores
     _require_launches("f5 hidden 96 (one step)", launches,
-                      dict.fromkeys(SWIN_KERNELS, 8))
+                      _swin_step_launches(8))
     _require(routes["fused_mlp_bwd"]["cuda_core"] == 2
              and routes["window_attention_bwd_gemm"]["cuda_core"] == 2,
              f"f5: stage 4's backward by route {routes['fused_mlp_bwd']}, "
@@ -5037,12 +5077,14 @@ def phase_r15():
         routes = _add_routes(f"r15 training step {step}")
         add(launches)
     _require_launches("r15 training step", launches,
-                      dict.fromkeys(SWIN_KERNELS, 8))
-    _require(routes["window_attention"] == {"tensor_core": 0, "cuda_core": 8}
+                      _swin_step_launches(8))
+    _require(routes["window_attention"] == {
+        "tensor_core": 0, "cuda_core": REMAT_FORWARDS * 8}
              and routes["window_attention_bwd"] == {"tensor_core": 0,
                                                     "cuda_core": 8},
              f"r15: the heads launches by route {routes['window_attention']},"
-             f" {routes['window_attention_bwd']} (want 8 on the CUDA cores)")
+             f" {routes['window_attention_bwd']} (want {REMAT_FORWARDS} x 8 "
+             "and 8 on the CUDA cores)")
     print(f"r15: heads 1 2 4 8, batch {R15_BATCH} x 96^3, bf16: ms per step "
           f"{' '.join(f'{t:.0f}' for t in times)}; loss "
           f"{float(m['loss']):.4f}; launches {launches}", flush=True)
@@ -5077,7 +5119,9 @@ def phase_r15():
 # unfused attention) and K2 / K4 in all 8 MLPs; SwinSegFormer runs K1-K4 in
 # its 8 Swin blocks; SegFormer3D runs none of them (K7 has no backward
 # kernel); SwInception and SwinDepth run K1 / K3 in their 8 blocks and no K2
-# / K4 (their inception and depthwise MLPs have no kernel); K5 and K8 stay
+# / K4 (their inception and depthwise MLPs have no kernel), and K1 twice a
+# block (REMAT_FORWARDS: the JAX factory gives --remat to their Swin
+# encoder, not to GC-ViT's, SwinSegFormer's or nnFormer's); K5 and K8 stay
 # off at batch 8 (K5's gate window ends at 4M voxels; the loss is the
 # unfused one).
 ZOO_TRAIN_LAUNCHES = {
@@ -5085,8 +5129,10 @@ ZOO_TRAIN_LAUNCHES = {
                    "fused_mlp": 8, "fused_mlp_bwd": 8},
     "SegFormer3D": {},
     "SwinSegFormer": dict.fromkeys(SWIN_KERNELS, 8),
-    "SwInception": {"window_attention": 8, "window_attention_bwd": 8},
-    "SwinDepth": {"window_attention": 8, "window_attention_bwd": 8},
+    "SwInception": _swin_step_launches(8, ("window_attention",
+                                           "window_attention_bwd")),
+    "SwinDepth": _swin_step_launches(8, ("window_attention",
+                                         "window_attention_bwd")),
     # the official nnFormer: K1 / K3 in its 11 Swin blocks, K2 / K4 in
     # their MLPs and the 3 cross blocks'; the MONAI blocks train plain
     "nnFormer": {"window_attention": 11, "window_attention_bwd": 11,
@@ -5638,7 +5684,8 @@ SWIN_OPTS_AFFINE = (0.8, 0.8, 2.5)
 # kernel launches of one predictor call and of one training step: the
 # inception and depthwise MLPs have no kernel, so those models launch K1
 # (K3) in their 8 blocks and no K2 (K4); the attention options take every
-# block off K1 / K3 (the unfused attention), not off K2 / K4
+# block off K1 / K3 (the unfused attention), not off K2 / K4; in a step the
+# forward kernels launch twice a block (REMAT_FORWARDS)
 SWIN_OPTS_CALL = {
     "SwInception": {"window_attention": 8},
     "SwinDepth": {"window_attention": 8},
@@ -5647,8 +5694,8 @@ SWIN_OPTS_CALL = {
 }
 SWIN_OPTS_STEP = {
     **{name: ZOO_TRAIN_LAUNCHES[name] for name in SWIN_MLP_MODELS},
-    "embedding": dict.fromkeys(SWIN_KERNELS, 8),
-    "attention": {"fused_mlp": 8, "fused_mlp_bwd": 8},
+    "embedding": _swin_step_launches(8),
+    "attention": _swin_step_launches(8, ("fused_mlp", "fused_mlp_bwd")),
 }
 SWIN_OPTS_FLAGS = {"SwInception": ["--model", "SwInception"],
                    "SwinDepth": ["--model", "SwinDepth"],
@@ -5738,11 +5785,14 @@ def _k5_launches_required(model, run):
     from the port's gate (``dw27_eligible``) and the input of every 3^3 /
     stride-1 conv whose weight takes a gradient, seen by hooks in a run
     with the gate shut."""
+    from medicalsemseg_tpu_torch.models.layers import remat_replaying
     from medicalsemseg_tpu_torch.ops import convgrad
 
     count = [0]
 
     def hook(mod, args, out):
+        if remat_replaying():   # a block's recompute: no second dW
+            return
         with _dw27_mode("1"):
             count[0] += int(mod.weight.requires_grad
                             and convgrad.dw27_eligible(args[0].shape))
@@ -5901,7 +5951,8 @@ def _swin_opts_gated():
     _require(bool(torch.isfinite(m["loss"])), "swin_opts gated: loss")
     _require_launches("swin_opts gated step", launches, {
         "dw27": need_k5, "winograd_conv3d_f23": need_k9,
-        "window_attention": 8, "window_attention_bwd": 8})
+        **_swin_step_launches(8, ("window_attention",
+                                  "window_attention_bwd"))})
     for name, tol in (("dw27", LIBRARY_REL_TOL),
                       ("winograd_conv3d_f23", WINO_LIBRARY_REL_TOL)):
         errs = held.errors[name]
@@ -7030,7 +7081,7 @@ def phase_dist():
                 add(r["launches"])
                 _require_launches(f"dist {tag} rank {r['rank']}",
                                   r["launches"], {
-                                      **dict.fromkeys(SWIN_KERNELS, 8),
+                                      **_swin_step_launches(8),
                                       "dw27": DIST_K5_A_STEP})
             _require(loss_rel <= DIST_LOSS_RTOL and gn_rel <= DIST_GRAD_NORM_RTOL
                      and mean_lr <= DIST_PARAM_MEAN_LR,
@@ -7178,6 +7229,9 @@ def phase_profile_dir():
         _require(peak > 0, f"profile_dir: device_memory_stats {stats}")
         _require_launches("profile_dir (2 steps)", launches, {
             "window_attention_bwd": 16, "fused_mlp_bwd": 16})
+        # the forward kernels: twice a block and step, and the validation's
+        _require(min(launches["window_attention"], launches["fused_mlp"])
+                 >= REMAT_FORWARDS * 16, f"profile_dir: launches {launches}")
     return launches
 
 
@@ -7259,7 +7313,268 @@ def phase_device_pipeline():
               flush=True)
         _require_launches("device_pipeline (4 steps)", launches, {
             "window_attention_bwd": 32, "fused_mlp_bwd": 32})
+        _require(min(launches["window_attention"], launches["fused_mlp"])
+                 >= REMAT_FORWARDS * 32,
+                 f"device_pipeline: launches {launches}")
     return launches
+
+
+# --remat: the flagship at batch 8 under each mode; each parameter's
+# gradient under a mode against "none"'s within twice the spread of two
+# "none" runs (K3's index_add_ atomics make the card's backward not
+# bit-exact), and never under this relative L2 floor
+REMAT_GRAD_FLOOR = 1e-5
+REMAT_LOSS_RTOL = 1e-6
+REMAT_TIMED_STEPS = 3
+REMAT_BIG_BATCH = 16
+REMAT_STATS_BATCH = 2
+# SwInception's BatchNorm running statistics after one step under "conv"
+# against "none": the same forward, the recompute moves nothing
+REMAT_STATS_RTOL = 1e-6
+# MEDSEG_WINOGRAD=1 in fp32: the 3^3 convs without TF32, against the
+# library's default (TF32 allowed), in one predictor call of two windows
+FP32_WINDOWS = 2
+FP32_LOGITS_RTOL = 1e-2
+
+
+def _set_remat(model, mode):
+    """Every rematerialising module of ``model`` (the Swin encoder's stages,
+    the UNETR decoder) under ``mode``."""
+    from medicalsemseg_tpu_torch.models.decoders import SwinUNETRDecoder
+    from medicalsemseg_tpu_torch.models.swin import BasicLayer
+
+    for m in model.modules():
+        if isinstance(m, (BasicLayer, SwinUNETRDecoder)):
+            m.remat = mode
+
+
+def _remat_grads(model, loss_fn, batch, card):
+    """One step's loss and gradients (same weights, batch and DropPath
+    draws) under each mode, against two runs under "none"."""
+    runs = {}
+    for tag in ("none", "none again", "conv", "mixed", "full"):
+        _set_remat(model, tag.split()[0])
+        runs[tag] = _grads_of(model, loss_fn, batch)
+    names = [n for n, _ in model.named_parameters()]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm()) if bool(b.any()) else float(
+            (a - b).norm())
+
+    (l0, g0), (_, g1) = runs["none"], runs["none again"]
+    spread = [rel(a, b) for a, b in zip(g1, g0)]
+    print(f"remat: gradients of one step, batch {TRAIN_BATCH}, {card}: two "
+          f"runs under none differ by at most {max(spread):.3e} (a "
+          f"parameter's relative L2), {sum(v > 0 for v in spread)} of "
+          f"{len(spread)} parameters not bit-equal", flush=True)
+    for mode in ("conv", "mixed", "full"):
+        lm, gm = runs[mode]
+        errs = [(rel(a, b), max(2 * s, REMAT_GRAD_FLOOR), n)
+                for a, b, s, n in zip(gm, g0, spread, names)]
+        worst = max(errs, key=lambda e: e[0] / e[1])
+        print(f"remat: {mode}: loss {lm:.7f} vs {l0:.7f}; worst gradient "
+              f"{worst[2]} {worst[0]:.3e} (tol {worst[1]:.3e}); "
+              f"{sum(e[0] == 0 for e in errs)} of {len(errs)} bit-equal",
+              flush=True)
+        _require(abs(lm - l0) <= REMAT_LOSS_RTOL * abs(l0),
+                 f"remat {mode}: the loss moved")
+        _require(worst[0] <= worst[1], f"remat {mode}: {worst[2]}'s gradient "
+                 "differs from none's beyond the run-to-run spread")
+
+
+def _remat_exact_fp32(card):
+    """One fp32 predictor call of FP32_WINDOWS windows with MEDSEG_WINOGRAD=1
+    (the no-gradient 3^3 convs in true fp32, as the JAX package's F(4^3,
+    3^3) branch computes them in fp32) against the same call unset (TF32
+    allowed, the library's default) and unset with TF32 off everywhere; the
+    convs that ran without TF32 counted against the 3^3 / stride-1 convs
+    that hooks see."""
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+    from medicalsemseg_tpu_torch.ops import convgrad
+
+    cfg = get_args(FLAGSHIP_ARGS + ["--compute_dtype", "float32"])
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = _seeded_model(cfg, gen).to("cuda")
+    vol = torch.randn(FP32_WINDOWS, 96, 96, 96, 1, generator=gen).to("cuda")
+    x_in = (vol, torch.full((FP32_WINDOWS, 3), 0.5, device="cuda"),
+            torch.ones(FP32_WINDOWS, 3, device="cuda"))
+    need, ran = [0], [0]
+    no_tf32 = convgrad.no_tf32
+
+    def counted():
+        ran[0] += 1
+        return no_tf32()
+
+    def hook(mod, args, out):
+        need[0] += 1
+
+    with torch.inference_mode():
+        hooks = [m.register_forward_hook(hook) for m in model.modules()
+                 if _is_conv3_s1(m)]
+        with _gates():
+            base = model(x_in)
+        for h in hooks:
+            h.remove()
+        convgrad.no_tf32 = counted
+        try:
+            with _gates("MEDSEG_WINOGRAD"):
+                got = model(x_in)
+                torch.cuda.synchronize()
+        finally:
+            convgrad.no_tf32 = no_tf32
+
+        def call_ms(on):
+            with _gates(*(("MEDSEG_WINOGRAD",) if on else ())):
+                return _time_ms(lambda: model(x_in), 2)
+
+        t = [call_ms(on) for on in (True, False, False, True)]
+        with _no_tf32(), _gates():      # every conv and product in fp32
+            exact = model(x_in)
+            t_fp32 = _time_ms(lambda: model(x_in), 2)
+    rel = float((got - base).norm() / base.norm())
+    rel_fp32 = float((got - exact).norm() / exact.norm())
+    print(f"remat: fp32 predictor call of {FP32_WINDOWS} windows, {card}: "
+          f"MEDSEG_WINOGRAD=1 ran {ran[0]} convs without TF32 (of "
+          f"{need[0]} 3^3 / stride-1 convs); logits vs unset rel norm err "
+          f"{rel:.3e} (tol {FP32_LOGITS_RTOL}), vs TF32 off everywhere "
+          f"{rel_fp32:.3e}; ms =1 {t[0]:.1f}, unset {t[1]:.1f}, unset "
+          f"{t[2]:.1f}, =1 {t[3]:.1f}, TF32 off everywhere {t_fp32:.1f}",
+          flush=True)
+    _require(ran[0] == need[0] > 0, f"remat: {ran[0]} convs ran without "
+             f"TF32, the gate takes {need[0]}")
+    _require(bool(torch.isfinite(got).all()) and rel <= FP32_LOGITS_RTOL,
+             "remat: the logits without TF32 disagree with the library's "
+             "default")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_remat():
+    """--remat on the card: the flagship at batch 8 in bf16 (drop path 0.2)
+    under each mode, gradients against "none" and ms, peak memory and K1-K4
+    launches by route of a step; batch 16 under "full" and "mixed";
+    SwInception's running statistics under "conv"; then one fp32 predictor
+    call with MEDSEG_WINOGRAD=1."""
+    import statistics
+
+    import torch
+
+    from medicalsemseg_tpu_torch.config import get_args
+    from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+
+    card = _card_label()
+    total = dict.fromkeys(_read_launches(), 0)
+
+    def add(delta):
+        for k, v in delta.items():
+            total[k] += v
+
+    cfg, model, state, train_step = _train_setup()
+    _require(cfg.remat == "conv" and cfg.drop_path_rate == 0.2,
+             f"remat: the defaults are --remat {cfg.remat}, drop path "
+             f"{cfg.drop_path_rate}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = _train_batch(gen, TRAIN_BATCH, cfg.output_dim)
+    _reset_launches()
+    _remat_grads(model, build_loss(cfg), batch, card)
+    add(_read_launches())
+
+    for mode in ("none", "conv", "mixed", "full"):
+        _set_remat(model, mode)
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        times = []
+        for _ in range(REMAT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            m = train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches, routes = _read_launches(), _read_routes()
+        add(launches)
+        _require(bool(torch.isfinite(m["loss"])), f"remat {mode}: loss")
+        fwd = 8 * (1 if mode == "none" else REMAT_FORWARDS)
+        _require_launches(f"remat {mode} ({REMAT_TIMED_STEPS} steps)",
+                          launches, {
+                              **dict.fromkeys(launches, 0),
+                              "window_attention": fwd * REMAT_TIMED_STEPS,
+                              "fused_mlp": fwd * REMAT_TIMED_STEPS,
+                              "window_attention_bwd": 8 * REMAT_TIMED_STEPS,
+                              "fused_mlp_bwd": 8 * REMAT_TIMED_STEPS})
+        per_step = {k: {r: v // REMAT_TIMED_STEPS for r, v in routes[k].items()
+                        if v} for k in SWIN_KERNELS}
+        print(f"remat: --remat {mode}, batch {TRAIN_BATCH} x 96^3, bf16, "
+              f"{card}: ms per step {statistics.median(times):.1f} (median "
+              f"of {[round(t, 1) for t in times]}, after one warm-up), peak "
+              f"device memory {peak:.2f} GiB, launches per step by route "
+              f"{per_step}", flush=True)
+
+    big = _train_batch(gen, REMAT_BIG_BATCH, cfg.output_dim)
+    for mode in ("full", "mixed"):
+        _set_remat(model, mode)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        times = []
+        try:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                m = train_step(state, big)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        except torch.cuda.OutOfMemoryError:
+            raise PhaseError(
+                f"remat {mode}: batch {REMAT_BIG_BATCH} does not fit the card "
+                f"(peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                "when it ran out)") from None
+        add(_read_launches())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"remat: --remat {mode}, batch {REMAT_BIG_BATCH} x 96^3, bf16, "
+              f"{card}: loss {float(m['loss']):.4f}, ms per step "
+              f"{times[1]:.1f} (the first, with the library's choice of "
+              f"algorithms, {times[0]:.1f}), peak device memory {peak:.2f} "
+              f"GiB", flush=True)
+        _require(bool(torch.isfinite(m["loss"])), f"remat {mode}: batch "
+                 f"{REMAT_BIG_BATCH} loss")
+    del model, state, big
+    torch.cuda.empty_cache()
+
+    # SwInception: BatchNorm inside the checkpointed Swin blocks
+    cfg_s = get_args(TRAIN_ARGS + ["--model", "SwInception"])
+    model_s = init_weights(build_model(cfg_s), torch.Generator().manual_seed(
+        cfg_s.seed)).to("cuda")
+    start = {k: v.clone() for k, v in model_s.state_dict().items()}
+    small = {k: v[:REMAT_STATS_BATCH] for k, v in batch.items()}
+    stats = {}
+    _reset_launches()
+    for mode in ("none", "conv"):
+        model_s.load_state_dict(start)
+        _set_remat(model_s, mode)
+        _grads_of(model_s, build_loss(cfg_s), small)
+        stats[mode] = {k: v.clone() for k, v in model_s.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))}
+    add(_read_launches())
+    worst = max(float((stats["conv"][k] - v).norm() / v.norm())
+                for k, v in stats["none"].items())
+    equal = all(torch.equal(stats["conv"][k], v)
+                for k, v in stats["none"].items())
+    moved = sum(not torch.equal(v, start[k]) for k, v in stats["none"].items())
+    print(f"remat: SwInception batch {REMAT_STATS_BATCH}, one step under conv "
+          f"vs none, {card}: {len(stats['none'])} running statistics "
+          f"({moved} moved), bit-equal {equal}, worst rel diff {worst:.3e} "
+          f"(tol {REMAT_STATS_RTOL})", flush=True)
+    _require(moved == len(stats["none"]) and worst <= REMAT_STATS_RTOL,
+             "remat: SwInception's running statistics under conv differ")
+    del model_s, start
+    torch.cuda.empty_cache()
+
+    _remat_exact_fp32(card)
+    return total
 
 
 def main(argv=None) -> int:
@@ -7328,7 +7643,8 @@ def main(argv=None) -> int:
                             ("zoo_rest", phase_zoo_rest),
                             ("dist", phase_dist),
                             ("profile_dir", phase_profile_dir),
-                            ("device_pipeline", phase_device_pipeline)):
+                            ("device_pipeline", phase_device_pipeline),
+                            ("remat", phase_remat)):
             if name in phases:
                 t0 = time.perf_counter()
                 launches = phase()

@@ -28,7 +28,10 @@ whole file list, as the JAX package's at the same device count. Every rank
 validates a share of the volumes; rank 0 alone writes checkpoints and logs.
 ``--profile_dir`` traces the first trained epoch (``utils/profiling.py``),
 ``--device_data_pipeline`` keeps the volumes on the card and crops there
-(``data/device_pipeline.py``).
+(``data/device_pipeline.py``). ``--remat conv | mixed | full | none``
+(default ``conv``; ``--no_remat``) picks the blocks' rematerialisation
+(``models/layers.py`` ``checkpoint_block``); ``--flat_optimizer`` runs the
+same AdamW as without it (``train/state.py``).
 """
 
 from __future__ import annotations
@@ -72,13 +75,6 @@ from medicalsemseg_tpu_torch.utils.profiling import (
 )
 from medicalsemseg_tpu_torch.utils.tags import experiment_tags, log_metrics
 
-# flags of the JAX entry point whose paths are not ported: (flag, is it set?, what)
-_UNPORTED = (
-    ("--remat full / mixed", lambda c: c.remat in ("full", "mixed"),
-     "ROADMAP 'Do not port': block rematerialisation"),
-)
-
-
 class JsonlWriter:
     """Minimal scalar sink (a tensorboard stand-in; scalars are logged at
     epoch_1000x)."""
@@ -100,9 +96,6 @@ class JsonlWriter:
 def main(cfg: Config) -> dict:
     if cfg.input_dim != 3:
         raise ValueError("the CLIs feed 3D volumes only (--input_dim 3)")
-    for flag, is_set, where in _UNPORTED:
-        if is_set(cfg):
-            raise NotImplementedError(f"{flag} is not ported ({where})")
     device = pdist.init_distributed_mode(cfg, resolve_device(cfg.device))
     rank, main_process = pdist.get_rank(), pdist.is_main_process()
     if cfg.anomaly_detection:

@@ -171,11 +171,13 @@ class Config:
     drop_path_rate: float = 0.2
     device_data_pipeline: bool = False  # device-resident volume cache with
     # on-device crops and augmentation (data/device_pipeline.py)
-    remat: str = "conv"  # the JAX package's rematerialisation policy. The
-    # port rematerialises nothing (batch 8 of the flagship fits one 80 GB
-    # card as autograd saves it), so "none" and "conv" run the same code;
-    # "full" and "mixed" are not ported and the training entry point raises
-    # for them
+    remat: str = "conv"  # block rematerialisation in training
+    # (models/layers.py checkpoint_block), in the Swin encoder's blocks and
+    # the UNETR decoder's: "none" keeps what autograd saves; "full"
+    # recomputes each block in the backward from its input; "conv" does the
+    # same but keeps the conv modules' outputs, so only the rest is
+    # recomputed; "mixed" is "conv" with the decoder's two full-resolution
+    # blocks under "full"
     tta_mirror: bool = False  # nn-UNet-style 8-way flip TTA at inference
     sw_bucket_multiple: int = 32  # pad eval volumes to spatial multiples
     val_group_policy: str = "bucket"  # how volume-parallel validation,
@@ -186,7 +188,8 @@ class Config:
     # kernels in training; the port always trains through its kernels
     ref_quirk_rel_pos: bool = False  # reproduce the reference's colliding
     # GC-ViT/nnFormer rel-pos index strides (GCViTUNETR reads it)
-    flat_optimizer: bool = False  # not ported (make_optimizer raises)
+    flat_optimizer: bool = False  # the JAX package's flat-buffer AdamW, a
+    # TPU-side fusion of the same arithmetic: here the usual AdamW runs
     device_hd95: bool = False  # run_evaluation: HD95's nearest-neighbour
     # distances as chunked fp32 products on the card (train/metrics.py)
     fused_loss: bool = False  # DiceCE through the fused kernel K8
@@ -369,8 +372,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--pallas_train", dest="pallas_train",
                    action="store_true", help=argparse.SUPPRESS)
     _add_bool_flag(g, "flat_optimizer", False,
-                   help="flat-buffer AdamW: the whole optimizer as one "
-                        "fused pass (train/flat_optim.py)")
+                   help="the JAX package's flat-buffer AdamW; here the "
+                        "same AdamW arithmetic as without the flag")
     _add_bool_flag(g, "fused_loss", False)
     _add_bool_flag(g, "device_hd95", False,
                    help="run_evaluation: compute HD95 surface distances "

@@ -30,6 +30,7 @@ from medicalsemseg_tpu_torch.models.layers import (
     ConvTranspose3d,
     Dropout,
     InstanceNorm,
+    checkpoint_block,
     leaky_relu,
     linear,
 )
@@ -152,12 +153,20 @@ class SwinUNETRDecoder(nn.Module):
 
     unet_encoders: [0] raw volume, [1] stem, [k + 2] stage k output;
     unet_decoders: [0] the patch-size upsample (by the patch of each axis),
-    [i + 1] stage i upsample."""
+    [i + 1] stage i upsample.
+
+    Each block runs under the rematerialisation mode ``remat``
+    (``layers.checkpoint_block``, the JAX decoder's ``remat_module``);
+    ``"mixed"`` gives the two full-resolution blocks, ``unet_encoders[0]``
+    and ``unet_decoders[0]`` (the JAX ``encoder0`` / ``decoder0``, whose
+    kept conv outputs are the largest), ``"full"`` and the others
+    ``"conv"``."""
 
     def __init__(self, in_chans: int, out_channels: int, hidden_size: int = 48,
                  patch_size: Tuple[int, int, int] = (2, 2, 2),
-                 num_layers: int = 4):
+                 num_layers: int = 4, remat: str = "none"):
         super().__init__()
+        self.remat = remat
         h = hidden_size
         self.unet_encoders = nn.ModuleList(
             [UnetrBasicBlock(in_chans, h), UnetrBasicBlock(h, h)]
@@ -171,12 +180,15 @@ class SwinUNETRDecoder(nn.Module):
 
     def decode(self, vol: torch.Tensor, z: List[torch.Tensor]) -> torch.Tensor:
         nl = len(self.unet_decoders) - 1
-        enc0 = self.unet_encoders[0](vol)
-        enc = [self.unet_encoders[k + 1](z[k]) for k in range(nl + 1)]
+        mode = self.remat
+        hires = "full" if mode == "mixed" else mode
+        enc0 = checkpoint_block(self.unet_encoders[0], hires, vol)
+        enc = [checkpoint_block(self.unet_encoders[k + 1], mode, z[k])
+               for k in range(nl + 1)]
         x = enc[-1]
         for i in range(nl - 1, -1, -1):
-            x = self.unet_decoders[i + 1](x, enc[i])
-        x = self.unet_decoders[0](x, enc0)
+            x = checkpoint_block(self.unet_decoders[i + 1], mode, x, enc[i])
+        x = checkpoint_block(self.unet_decoders[0], hires, x, enc0)
         return self.out(x)
 
 
@@ -192,9 +204,10 @@ class SwinUNETRCustom(SwinUNETRDecoder):
     def __init__(self, encoder: nn.Module, in_chans: int,
                  out_channels: int, hidden_size: int = 48,
                  patch_size: Tuple[int, int, int] = (2, 2, 2),
-                 num_layers: int = 4, dtype: torch.dtype = torch.bfloat16):
+                 num_layers: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 remat: str = "none"):
         super().__init__(in_chans, out_channels, hidden_size, patch_size,
-                         num_layers=num_layers)
+                         num_layers=num_layers, remat=remat)
         self.encoder = encoder
         self.dtype = dtype
 

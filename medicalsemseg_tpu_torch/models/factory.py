@@ -120,7 +120,8 @@ def _swin_encoder(cfg: Config, mlp_type: str) -> SwinEncoder3D:
         lcv_patch_voxel_mean=cfg.lcv_patch_voxel_mean,
         rel_crop_pos_emb=cfg.rel_crop_pos_emb,
         rel_pos_bias_affine=cfg.rel_pos_bias_affine,
-        abs_pos_emb=cfg.abs_pos_emb, global_token=cfg.global_token)
+        abs_pos_emb=cfg.abs_pos_emb, global_token=cfg.global_token,
+        remat=cfg.remat)
 
 
 def build_model(cfg: Config) -> nn.Module:
@@ -230,9 +231,13 @@ def build_model(cfg: Config) -> nn.Module:
             mlp_ratio=3.0, qkv_bias=cfg.qkv_bias,
             ref_quirk_index=cfg.ref_quirk_rel_pos,
             drop_path_rate=cfg.drop_path_rate)
+    # the UNETR decoder rematerialises under --remat in every model that
+    # has it, the Swin encoder (_swin_encoder) in the three Swin UNETR
+    # models; the other models ignore the flag, as in the JAX factory
     return SwinUNETRCustom(encoder, cfg.in_chans, cfg.output_dim,
                            hidden_size=cfg.hidden_dim, patch_size=patch,
-                           num_layers=len(cfg.depths), dtype=dtype)
+                           num_layers=len(cfg.depths), dtype=dtype,
+                           remat=cfg.remat)
 
 
 def _trunc_normal_(t: torch.Tensor, std: float,

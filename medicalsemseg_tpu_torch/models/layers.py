@@ -9,11 +9,13 @@ memory format, so the convolutions copy nothing to change layout.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import threading
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint as tcp
 
 from medicalsemseg_tpu_torch.ops import convgrad
 from medicalsemseg_tpu_torch.ops.convgrad import Conv3x3x3Fn
@@ -47,6 +49,181 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.01)
+
+
+# -- block rematerialisation (the JAX package's ``remat_module``) --
+
+REMAT_MODES = ("none", "conv", "mixed", "full")
+
+# the ops whose outputs a "conv" block keeps where a conv module computes
+# them: the products (the convolution, the matmul of a 1^3 conv, K9's
+# launch); the layout copies, casts and bias additions around them are
+# recomputed
+_CONV_PRODUCTS = frozenset((torch.ops.aten.convolution.default,
+                            torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default,
+                            torch.ops.aten.bmm.default,
+                            torch.ops.medseg.winograd_f23.default))
+
+
+class _RematState(threading.local):
+    conv = 0          # the depth of conv_out calls running
+    block = None      # the checkpointed block running, forward or recompute
+    replay = False    # whether that is its recompute in the backward
+    sum_i = 0         # the next of its BatchNorm sums to hand back
+
+
+_TLS = _RematState()
+
+
+def remat_replaying() -> bool:
+    """Whether this is a checkpointed block's recompute in the backward."""
+    return _TLS.replay
+
+
+def _keep_conv_products(ctx, op, *args, **kwargs):
+    return (tcp.CheckpointPolicy.MUST_SAVE
+            if _TLS.conv and op in _CONV_PRODUCTS
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def conv_out(fn: Callable, *args) -> torch.Tensor:
+    """``fn(*args)``, a conv module's output marked as saved: the
+    counterpart of ``checkpoint_name(y, "conv_out")``. In a "conv" block
+    the selective-checkpoint policy keeps the products computed inside
+    (``_CONV_PRODUCTS``), so the block's recompute takes them back instead
+    of computing them again; elsewhere the mark changes nothing."""
+    _TLS.conv += 1
+    try:
+        return fn(*args)
+    finally:
+        _TLS.conv -= 1
+
+
+def _generators(fn) -> List[torch.Generator]:
+    """The generators that the DropPath and Dropout modules of ``fn`` draw
+    from (the train state's, once set), each once."""
+    if not isinstance(fn, nn.Module):
+        return []
+    gens = {}
+    for m in fn.modules():
+        g = getattr(m, "generator", None)
+        if isinstance(m, (DropPath, Dropout)) and g is not None:
+            gens[id(g)] = g
+    return list(gens.values())
+
+
+class _Block:
+    """One checkpointed block: the states of the generators its forward
+    draws from, and the BatchNorm sums its forward all-reduced, for its
+    recompute."""
+
+    def __init__(self, fn: Callable):
+        self.gens = _generators(fn)
+        self.drawn = [g.get_state() for g in self.gens]
+        self.sums: List[torch.Tensor] = []
+
+    def contexts(self, keep_convs: bool):
+        """``checkpoint``'s ``context_fn``: the forward's context and the
+        recompute's, with the "conv" policy's pair where ``keep_convs``."""
+        fwd, rec = _InBlock(self, False), _InBlock(self, True)
+        if keep_convs:
+            fwd.mode, rec.mode = tcp.create_selective_checkpoint_contexts(
+                _keep_conv_products)
+        return fwd, rec
+
+
+class _InBlock:
+    """Entered around a checkpointed block's forward, or (``replay``) its
+    recompute in the backward, which draws what the forward drew: the
+    generators are put back for it and restored after it."""
+
+    def __init__(self, block: _Block, replay: bool):
+        self.block, self.replay, self.mode = block, replay, None
+
+    def __enter__(self):
+        b = self.block
+        self.prev = (_TLS.block, _TLS.replay, _TLS.sum_i)
+        _TLS.block, _TLS.replay, _TLS.sum_i = b, self.replay, 0
+        if self.replay:
+            self.now = [g.get_state() for g in b.gens]
+            for g, s in zip(b.gens, b.drawn):
+                g.set_state(s)
+        if self.mode is not None:
+            self.mode.__enter__()
+
+    def __exit__(self, *exc):
+        if self.mode is not None:
+            self.mode.__exit__(*exc)
+        _TLS.block, _TLS.replay, _TLS.sum_i = self.prev
+        if self.replay:
+            for g, s in zip(self.block.gens, self.now):
+                g.set_state(s)
+
+
+def checkpoint_block(fn: Callable, mode: str, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the rematerialisation ``mode``
+    (``Config.remat``; the JAX package's ``remat_module``):
+
+      * ``"none"``: as it is;
+      * ``"full"``: ``torch.utils.checkpoint`` (non-reentrant): the forward
+        keeps only what goes into ``fn`` and the backward runs ``fn`` again;
+      * ``"conv"``: the same, but what the block's conv modules compute
+        (:func:`conv_out`) is kept, through a selective-checkpoint policy,
+        so the recompute runs everything but the convolutions; ``"mixed"``
+        is ``"conv"`` here (the UNETR decoder gives its two full-resolution
+        blocks ``"full"``).
+
+    Values never change: the recompute draws the DropPath and Dropout masks
+    of the forward (``checkpoint`` itself restores the default generators
+    only), BatchNorm moves its running statistics once, in the forward, and
+    under data parallelism takes its all-reduced sums from the forward
+    instead of reducing again. Without gradients ``fn`` runs directly, as
+    JAX's remat changes nothing there."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {mode!r}; one of "
+                         f"{', '.join(REMAT_MODES)}")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    block = _Block(fn)
+    return tcp.checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: block.contexts(mode != "full"),
+                          **kwargs)
+
+
+class _ReplayedSums(torch.autograd.Function):
+    """A BatchNorm's all-reduced sums from its block's forward, handed to
+    the block's recompute in place of a second ``all_reduce``; the gradient
+    is the all-reduce of the incoming one, as ``all_reduce``'s is."""
+
+    @staticmethod
+    def forward(ctx, local, reduced, group):
+        ctx.group = group
+        return reduced.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None, None
+
+
+def _group_sums(local: torch.Tensor, group) -> torch.Tensor:
+    """``local`` summed over ``group``, autograd-aware; in a checkpointed
+    block's recompute the sums of its forward."""
+    from torch.distributed.nn.functional import all_reduce
+
+    b = _TLS.block
+    if b is not None and _TLS.replay:
+        sums = _ReplayedSums.apply(local, b.sums[_TLS.sum_i], group)
+        _TLS.sum_i += 1
+        return sums
+    sums = all_reduce(local, group=group)
+    if b is not None:
+        b.sums.append(sums.detach())
+    return sums
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
@@ -142,10 +319,12 @@ class Conv3d(nn.Module):
     enabled goes through ``Conv3x3x3Fn`` (its ``_FastConv3dS1``), whose
     weight gradient may take kernel K5 and whose forward and input gradient
     take kernel K9 under ``MEDSEG_WINOGRAD_TRAIN``; without gradients the
-    same shape takes K9 under ``MEDSEG_WINOGRAD`` (``ops.convgrad``). Every
-    other shape (strided, grouped), and without a gate every shape without
-    gradients, goes to cuDNN (oneDNN on the CPU) on the channels_last_3d
-    view (a grouped conv on a contiguous copy)."""
+    same shape takes K9 (bf16), or the library's conv without TF32 (fp32),
+    under ``MEDSEG_WINOGRAD`` (``ops.convgrad``). Every other shape (strided,
+    grouped), and without a gate every shape without gradients, goes to
+    cuDNN (oneDNN on the CPU) on the channels_last_3d view (a grouped conv
+    on a contiguous copy). With gradients, each route's output is a
+    :func:`conv_out`, which a "conv" rematerialised block keeps."""
 
     def __init__(self, in_ch: int, out_ch: int,
                  kernel_size: Union[int, Tuple3] = 3,
@@ -170,14 +349,22 @@ class Conv3d(nn.Module):
         b = None if self.bias is None else self.bias.to(dt)
         dense_s1 = self.groups == 1 and self.stride == 1
         if self.kernel_size == 1 and dense_s1:
-            return F.linear(x, self.weight[:, :, 0, 0, 0].to(dt), b)
+            return conv_out(F.linear, x, self.weight[:, :, 0, 0, 0].to(dt), b)
         if self.kernel_size == 3 and dense_s1 and self.padding == 1:
             if torch.is_grad_enabled():
-                y = Conv3x3x3Fn.apply(x, self.weight.to(dt))
+                y = conv_out(Conv3x3x3Fn.apply, x, self.weight.to(dt))
                 return y if b is None else y + b
             if convgrad.winograd_infer_eligible(x):
                 y = k9.winograd_conv3d_f23(x.contiguous(), self.weight.to(dt))
                 return y if b is None else y + b
+            if convgrad.exact_fp32_eligible(x):
+                with convgrad.no_tf32():
+                    return self._library(x, b)
+        return conv_out(self._library, x, b)
+
+    def _library(self, x: torch.Tensor, b: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+        dt = x.dtype
         xn = to_ncdhw(x)
         if self.groups > 1:
             # on the channels-last view cuDNN runs a depthwise conv as one
@@ -208,6 +395,9 @@ class ConvTranspose3d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_out(self._library, x)
+
+    def _library(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv_transpose3d(to_ncdhw(x), self.weight.to(dt), b,
@@ -247,7 +437,10 @@ class BatchNorm(nn.Module):
     :func:`set_batchnorm_group`) the batch statistics are the global
     batch's: [sum x, sum x^2, n] is all-reduced over the group through the
     autograd-aware ``torch.distributed.nn.functional.all_reduce``, which is
-    what the JAX package's one SPMD program computes."""
+    what the JAX package's one SPMD program computes. Inside a checkpointed
+    block (:func:`checkpoint_block`) the statistics move in the forward only
+    and the recompute reuses the forward's reduced sums, as flax's
+    ``nn.remat`` updates ``batch_stats`` once."""
 
     momentum = 0.9   # flax's: the weight of the running statistics
 
@@ -264,13 +457,10 @@ class BatchNorm(nn.Module):
         axes = tuple(range(xf.dim() - 1))
         if self.process_group is None:
             return xf.mean(axes), (xf * xf).mean(axes)
-        from torch.distributed.nn.functional import all_reduce
-
         c = xf.shape[-1]
-        sums = all_reduce(torch.cat([
+        sums = _group_sums(torch.cat([
             xf.sum(axes), (xf * xf).sum(axes),
-            xf.new_full((1,), float(xf.numel() // c))]),
-            group=self.process_group)
+            xf.new_full((1,), float(xf.numel() // c))]), self.process_group)
         return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -278,12 +468,14 @@ class BatchNorm(nn.Module):
         if self.training:
             mean, ex2 = self._batch_moments(xf)
             var = torch.clamp(ex2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean.detach())
-                self.running_var.copy_(m * self.running_var
-                                       + (1 - m) * var.detach())
+            # moved once, by the forward: not again by its recompute
+            if not remat_replaying():
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean.detach())
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var.detach())
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         mul = torch.rsqrt(var + self.eps) * self.weight.float()

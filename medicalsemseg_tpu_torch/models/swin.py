@@ -44,6 +44,7 @@ from medicalsemseg_tpu_torch.models.layers import (
     InceptionMlp,
     LayerNorm,
     Mlp,
+    checkpoint_block,
     linear,
 )
 from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
@@ -291,15 +292,19 @@ class PatchMerging(nn.Module):
 class BasicLayer(nn.Module):
     """A stage: ``depth`` alternating W-MSA / SW-MSA blocks, then merging;
     with ``global_token`` also ``gt_upsample``, the dense layer that widens
-    the global token to the next stage's channels."""
+    the global token to the next stage's channels. Each block runs under
+    the rematerialisation mode ``remat`` (``layers.checkpoint_block``; the
+    JAX layer's ``remat_module(SwinBlock, remat)``)."""
 
     def __init__(self, dim: int, input_resolution: Tuple3, depth: int,
                  num_heads: int, window_size: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False,
                  drop_path_rates: Sequence[float] = (0.0,),
                  mlp_type: str = "dense", rel_pos_bias_affine: bool = False,
-                 global_token: bool = False, ref_quirk_index: bool = False):
+                 global_token: bool = False, ref_quirk_index: bool = False,
+                 remat: str = "none"):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList([
             SwinBlock(dim, input_resolution, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
@@ -317,7 +322,7 @@ class BasicLayer(nn.Module):
         leaves the merging out (its result is then None), for a caller that
         does not read it."""
         for blk in self.blocks:
-            x, gt = blk(x, affine=affine, gt=gt)
+            x, gt = checkpoint_block(blk, self.remat, x, affine=affine, gt=gt)
         if gt is not None:
             gt = linear(gt, self.gt_upsample)
         return x, self.downsample(x) if downsample else None, gt
@@ -348,7 +353,8 @@ class SwinEncoder3D(nn.Module):
     added to every token), ``abs_pos_emb`` (the fixed sin-cos table, added
     after the stem output is taken), ``rel_pos_bias_affine`` (reads the
     voxel spacing ``affine`` (B, 3)) and ``global_token`` (a learned token
-    threaded through every block)."""
+    threaded through every block). ``remat`` is every block's
+    rematerialisation mode (:class:`BasicLayer`)."""
 
     def __init__(self, img_size: Tuple3, patch_size: Tuple3 = (2, 2, 2),
                  in_chans: int = 1, embed_dim: int = 48,
@@ -366,7 +372,8 @@ class SwinEncoder3D(nn.Module):
                  lcv_patch_voxel_mean: bool = False,
                  rel_crop_pos_emb: bool = False,
                  rel_pos_bias_affine: bool = False,
-                 abs_pos_emb: bool = False, global_token: bool = False):
+                 abs_pos_emb: bool = False, global_token: bool = False,
+                 remat: str = "none"):
         super().__init__()
         self.embed_dim = embed_dim
         self.lcv_concat_vector = lcv_concat_vector
@@ -398,7 +405,7 @@ class SwinEncoder3D(nn.Module):
                 embed_dim * 2 ** i, grid, depths[i], num_heads[i],
                 window_sizes[i], mlp_ratio, qkv_bias,
                 dpr[sum(depths[:i]):sum(depths[:i + 1])], mlp_type,
-                rel_pos_bias_affine, global_token))
+                rel_pos_bias_affine, global_token, remat=remat))
             self.add_module(f"norm{i}", LayerNorm(embed_dim * 2 ** (i + 1)))
             grid = tuple(-(-g // 2) for g in grid)
 

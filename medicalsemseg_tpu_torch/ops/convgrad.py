@@ -7,12 +7,16 @@ as the JAX package leaves both to XLA, unless one of its two Winograd gates
 is set; both are read at call time:
 
   ``MEDSEG_WINOGRAD=1``        without gradients (the JAX primal), an eligible
-                               conv runs kernel K9 (``ops.kernels.winograd3d``,
-                               F(2^3, 3^3)); ``models.layers.Conv3d`` asks
-                               :func:`winograd_infer_eligible`. The JAX
-                               package sends fp32 inputs to its F(4^3, 3^3)
-                               formulation in XLA, which is not ported: fp32
-                               keeps the library's conv here;
+                               bf16 conv runs kernel K9 (``ops.kernels.
+                               winograd3d``, F(2^3, 3^3)) and an fp32 one the
+                               library's conv in true fp32 (TF32 off, which
+                               would round the inputs to 10 mantissa bits):
+                               the JAX package's fp32 branch, F(4^3, 3^3) in
+                               fp32 in XLA, lies within 3e-5 of max |y| of
+                               the exact conv (``tests/test_torch_winograd_
+                               f43.py``); ``models.layers.Conv3d`` asks
+                               :func:`winograd_infer_eligible` and
+                               :func:`exact_fp32_eligible`;
   ``MEDSEG_WINOGRAD_TRAIN=1``  with gradients, the forward value of
                                ``Conv3x3x3Fn`` and dx (K9 on dy with the
                                flipped, in / out swapped weights, gated on
@@ -40,6 +44,7 @@ x, which K5 does not make) have no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -92,6 +97,24 @@ def winograd_infer_eligible(x: torch.Tensor) -> bool:
     return _env_on("MEDSEG_WINOGRAD") and wino23_eligible(x)
 
 
+def exact_fp32_eligible(x: torch.Tensor) -> bool:
+    """``MEDSEG_WINOGRAD``: the no-gradient conv over an fp32 ``x`` runs
+    under :func:`no_tf32`."""
+    return _env_on("MEDSEG_WINOGRAD") and x.dtype == torch.float32
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN's convolutions in true fp32 inside the block (its TF32 switch
+    off, then back as it was)."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
 def winograd_train_eligible(x: torch.Tensor) -> bool:
     """``MEDSEG_WINOGRAD_TRAIN``: under gradients, a conv over ``x`` (the
     forward's input, or dy for the input gradient) takes K9."""
@@ -107,20 +130,35 @@ def _ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1).contiguous()
 
 
+@torch.library.custom_op("medseg::winograd_f23", mutates_args=())
+def winograd_f23(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``k9.winograd_conv3d_f23(x, w)`` as an op of the dispatcher, which
+    the selective checkpoint of a "conv" block sees, as it sees the
+    library's convolution; a launch outside the dispatcher it would not."""
+    return k9.winograd_conv3d_f23(x, w)
+
+
+@winograd_f23.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:-1], w.shape[0]))
+
+
 class Conv3x3x3Fn(torch.autograd.Function):
     """y = conv(x, w) for channels-last x (B, D, H, W, C) and a torch-layout
     weight w (Co, C, 3, 3, 3) of x's dtype -> (B, D, H, W, Co). The backward
     casts dy to x's dtype and returns dW in w's layout and dtype (a bf16
     model's dW is rounded to bf16 before it reaches the fp32 parameter, as
     with the library's own weight gradient). Kernel K9 has no backward of
-    its own: its training path is this function's forward and dx."""
+    its own: its training path is this function's forward and dx. The
+    forward launches K9 through :func:`winograd_f23`, a dispatcher op, so
+    that a rematerialised block keeps its output (``models.layers``)."""
 
     @staticmethod
     def forward(ctx, x, w):
         x = x.contiguous()
         ctx.save_for_backward(x, w)
         if winograd_train_eligible(x):
-            return k9.winograd_conv3d_f23(x, w)
+            return winograd_f23(x, w)
         return _ndhwc(F.conv3d(_ncdhw(x), w, padding=1))
 
     @staticmethod

@@ -11,7 +11,9 @@ The optimizer is the optax chain re-made: global-norm clipping that scales by
 1e-6 and would differ), then AdamW(0.9, 0.95, eps 1e-6) with weight decay on
 parameters of two or more dimensions only, its LR set from the per-epoch
 schedule before every update; ``grad_accum_steps`` averages micro-batch
-gradients and updates every k-th call, as ``optax.MultiSteps`` does.
+gradients and updates every k-th call, as ``optax.MultiSteps`` does. The
+JAX package's ``--flat_optimizer`` computes this same arithmetic as one pass
+over flat buffers, a fusion for the TPU; here the flag takes this optimizer.
 
 Data parallelism (:func:`distribute`): the model runs wrapped in
 ``DistributedDataParallel`` over the training ranks' group, each rank on its
@@ -69,10 +71,8 @@ def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
 
 def make_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int
                    ) -> Tuple[torch.optim.Optimizer, Callable[[int], float]]:
-    if cfg.flat_optimizer:
-        raise NotImplementedError(
-            "--flat_optimizer is a TPU-side fusion of the optimizer and is "
-            "not ported (ROADMAP, do not port)")
+    """``torch.optim.AdamW`` over two groups (decayed, not decayed), with
+    ``--flat_optimizer`` too: the JAX flat pass's numbers are these."""
     schedule = make_epoch_schedule(cfg.lr, cfg.warmup_epochs, cfg.epochs,
                                    steps_per_epoch)
     mask = weight_decay_mask(model)

@@ -169,9 +169,10 @@ def _count_k9(monkeypatch):
 
 def test_winograd_gate_routes_the_no_gradient_conv(monkeypatch):
     """MEDSEG_WINOGRAD=1: without gradients a bf16 conv inside the channel
-    window runs K9 (its plain version here); fp32 keeps the library's conv
-    bit for bit (the JAX package's fp32 branch, F(4^3, 3^3), is not ported);
-    with gradients, and with the gate unset, nothing changes."""
+    window runs K9 (its plain version here); fp32 keeps the library's conv,
+    without TF32, which changes nothing on the CPU (its cases:
+    ``tests/test_torch_winograd_f43.py``); with gradients, and with the gate
+    unset, nothing changes."""
     monkeypatch.setattr(k9, "ALLOW_CPU", True)
     x, w, _ = _case(3, shape=(1, 4, 6, 8))
     conv = Conv3d(16, 8, 3, bias=True)

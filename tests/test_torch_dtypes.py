@@ -1,5 +1,5 @@
 """The compute dtypes of the PyTorch port's kernels K1, K2 and K7 against the
-JAX package, and the training CLI's messages for flags it does not port.
+JAX package, and the training CLI's flags that it once refused.
 
 The JAX kernels take whatever dtype their input has and round to it
 (``.astype(x_ref.dtype)``), so the JAX package runs ``--compute_dtype
@@ -143,16 +143,43 @@ def test_wrappers_name_the_dtypes_they_take():
         kernels.dtype_code("x", torch.float64)
 
 
-# the ids the cases had while two more flags raised, kept
-@pytest.mark.parametrize("flag,item", [
-    (["--remat", "full"], "ROADMAP 'Do not port'"),
-    (["--remat", "mixed"], "ROADMAP 'Do not port'"),
-], ids=["flag2-ROADMAP 'Do not port'", "flag3-ROADMAP 'Do not port'"])
-def test_unported_training_flags_name_their_roadmap_item(flag, item):
-    """The training CLI names the ROADMAP entry of each flag it refuses."""
-    with pytest.raises(NotImplementedError) as err:
-        run_training.main(get_args(["--device", "cpu"] + flag))
-    assert item in str(err.value)
+# the ids the cases had while the training CLI refused these flags, kept
+@pytest.mark.parametrize("flag", [["--remat", "full"], ["--remat", "mixed"]],
+                         ids=["flag2-ROADMAP 'Do not port'",
+                              "flag3-ROADMAP 'Do not port'"])
+def test_unported_training_flags_name_their_roadmap_item(flag):
+    """``--remat full`` and ``--remat mixed``, refused until the port had
+    block rematerialisation, in the CLIs' default compute dtype (bf16): the
+    model the flags build takes a training-mode forward and backward (drop
+    path 0.2, the train state's generator) whose loss, gradients and
+    generator state equal ``--no_remat``'s bit for bit."""
+    from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
+    from medicalsemseg_tpu_torch.train.losses import build_loss
+    from medicalsemseg_tpu_torch.train.state import create_train_state
+
+    small = ["--device", "cpu", "--vol_size", "16", "--hidden_dim", "12",
+             "--depths", "1", "1", "--num_heads", "2", "2", "--window_size",
+             "2", "--output_dim", "3", "--drop_path_rate", "0.2"]
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 16, 16, 16, 1, generator=g)
+    y = torch.randint(0, 3, (2, 16, 16, 16), generator=g)
+    runs = []
+    for argv in (small + ["--no_remat"], small + flag):
+        cfg = get_args(argv)
+        model = build_model(cfg)
+        init_weights(model, torch.Generator().manual_seed(0))
+        state = create_train_state(cfg, model, 1)
+        model.train()
+        loss = build_loss(cfg)(model((x, None, None)), y)
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        runs.append((cfg.remat, loss.detach(), grads,
+                     state.generator.get_state()))
+    (m0, l0, g0, s0), (m1, l1, g1, s1) = runs
+    assert (m0, m1) == ("none", flag[1])
+    assert torch.equal(l1, l0) and torch.equal(s1, s0)
+    for a, b in zip(g1, g0):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 @pytest.mark.parametrize("flag", [["--device_data_pipeline"],
@@ -162,7 +189,6 @@ def test_ported_training_flags_pass_the_check(tmp_path, flag):
     now (their runs: ``test_torch_run_training.py``,
     ``test_torch_profiling.py``): the CLI takes them and goes on to the
     data, here a folder with no datalist."""
-    assert not [row for row in run_training._UNPORTED if row[0] == flag[0]]
     with pytest.raises(FileNotFoundError, match="dataset.json"):
         run_training.main(get_args(["--device", "cpu", "--data_path",
                                     str(tmp_path)] + flag))

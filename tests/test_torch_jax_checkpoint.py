@@ -7,7 +7,8 @@ The JAX states are built abstractly (``jax.eval_shape`` of the JAX
 ``create_train_state``: nothing is initialised or compiled) and filled with
 seeded numpy values: parameters, BatchNorm statistics, AdamW's moments, the
 accumulated gradients of ``optax.MultiSteps`` and the counters. SegFormer3D
-has BatchNorm statistics; the flagship runs with and without MultiSteps.
+has BatchNorm statistics; the flagship runs with and without MultiSteps,
+and under ``--flat_optimizer``.
 """
 
 import importlib.util
@@ -165,14 +166,35 @@ def test_converted_checkpoint_loads_bit_equal(tmp_path, name, argv, accum):
 
 
 def test_flat_optimizer_checkpoint_is_refused(tmp_path):
+    """A checkpoint of a JAX run under ``--flat_optimizer`` (refused until
+    the port took the flag) converts, with the flag and without it, into
+    ``torch.optim.AdamW``'s state, which the port runs either way: the flat
+    moments cut back along the parameters' ravel order, bit-equal."""
+    from jax.flatten_util import ravel_pytree
+
     argv = FLAGSHIP + OPTIM + ["--flat_optimizer"]
     state = seeded_state(argv, seed=1, step=2, updates=2, mini_step=0)
+    flat, unravel = ravel_pytree(state.params)
+    # the fused form's master copy is the parameters themselves
+    state = state.replace(opt_state=state.opt_state._replace(flat_p=flat))
     jax_ckpt.save_checkpoint(str(tmp_path), "flat", state, 0)
+    mu = state_dict_from_jax(_np(unravel(state.opt_state.m)))
+    nu = state_dict_from_jax(_np(unravel(state.opt_state.v)))
+    params = state_dict_from_jax({"params": _np(state.params)})
     for flags in (argv, FLAGSHIP + OPTIM):      # with and without the flag
-        with pytest.raises(ValueError, match="flat_optimizer"):
-            tool().convert(flags + ["--resume", str(tmp_path / "flat"),
-                                    "--out", str(tmp_path / "x.pth")])
-    assert not os.path.exists(tmp_path / "x.pth")
+        out = str(tmp_path / f"x{len(flags)}.pth")
+        tool().convert(flags + ["--resume", str(tmp_path / "flat"),
+                                "--out", out])
+        _, port = _port_state(flags)
+        port, _ = ckpt.load_checkpoint(out, port)
+        assert (port.step, port.updates) == (2, 2)
+        assert isinstance(port.optimizer, torch.optim.AdamW)
+        for n, p in port.model.named_parameters():
+            assert torch.equal(p.detach(), params[n]), n
+            st = port.optimizer.state[p]
+            assert float(st["step"]) == 2, n
+            assert torch.equal(st["exp_avg"], mu[n]), n
+            assert torch.equal(st["exp_avg_sq"], nu[n]), n
 
 
 def test_mismatched_model_flags_are_refused_naming_the_keys(tmp_path):

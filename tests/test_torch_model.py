@@ -157,12 +157,24 @@ def test_encoder_matches_pallas_absorbed_forms(monkeypatch):
 
 @pytest.mark.parametrize("what", ["--flat_optimizer"])
 def test_unported_options_raise(what):
-    """--flat_optimizer ("Do not port") raises and names the ROADMAP."""
+    """--flat_optimizer, refused until the port took the flag: it makes the
+    optimizer of the run without it, ``torch.optim.AdamW`` over the same
+    two groups with the same settings, as the JAX flat pass computes the
+    optax chain's numbers."""
     from medicalsemseg_tpu_torch.train.state import make_optimizer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg = small_cfg(flat_optimizer=True)
-        make_optimizer(cfg, build_model(cfg), 1)
+    cfg = small_cfg(flat_optimizer=True)
+    model = build_model(cfg)
+    opt, sched = make_optimizer(cfg, model, 3)
+    ref, ref_sched = make_optimizer(cfg.replace(flat_optimizer=False),
+                                    model, 3)
+    assert type(opt) is type(ref) is torch.optim.AdamW
+    assert opt.defaults == ref.defaults
+    assert [(g["weight_decay"], [id(p) for p in g["params"]])
+            for g in opt.param_groups] == [
+        (g["weight_decay"], [id(p) for p in g["params"]])
+        for g in ref.param_groups]
+    assert [sched(i) for i in range(6)] == [ref_sched(i) for i in range(6)]
 
 
 def train_step_both(cfg: Config, seed: int = 0, batch: int = 2,

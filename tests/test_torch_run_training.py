@@ -131,13 +131,27 @@ def test_train_validate_checkpoint_and_resume(tmp_path):
     assert payload["epoch"] == 2 and payload["step"] == 6
 
 
-# the id the case had while three more flags raised, kept
-@pytest.mark.parametrize("flag,match", [
-    (["--remat", "full"], "rematerialisation"),
-], ids=["flag3-rematerialisation"])
-def test_unported_flags_raise(flag, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(get_args(ARGV + flag))
+# the id the case had while the CLI refused the flag, kept
+@pytest.mark.parametrize("flag", [["--remat", "full"]],
+                         ids=["flag3-rematerialisation"])
+def test_unported_flags_raise(tmp_path, flag):
+    """``--remat full``, refused until the port had block rematerialisation:
+    an epoch of two steps at drop path 0.2 through the CLI writes the same
+    checkpoint, bit for bit, as ``--remat none``."""
+    _write_train_set(tmp_path)
+    saved = []
+    for remat in (["--remat", "none"], flag):
+        out = str(tmp_path / remat[1])
+        os.makedirs(out)
+        cli.main(get_args(ARGV + remat + [
+            "--data_path", str(tmp_path), "--output_dir", out, "--epochs",
+            "1", "--val_interval", "5", "--drop_path_rate", "0.2"]))
+        saved.append(torch.load(os.path.join(out, "checkpoint-0.pth"),
+                                weights_only=True))
+    assert saved[0]["updates"] == saved[1]["updates"] == 2
+    for k, v in saved[0]["model"].items():
+        assert torch.equal(saved[1]["model"][k], v), k
+    assert torch.equal(saved[1]["generator"], saved[0]["generator"])
 
 
 def test_world_size_without_a_launcher_names_torchrun(tmp_path):

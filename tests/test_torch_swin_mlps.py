@@ -248,4 +248,7 @@ def test_swinception_blocks_run_k1_k3_not_k2(monkeypatch):
     model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
     x_in = (torch.randn(1, 32, 32, 32, 1), torch.rand(1, 3), torch.ones(1, 3))
     model.train()(x_in).sum().backward()
-    assert calls == {"attn": 6, "attn_bwd": 6, "mlp": 0, "mlp_bwd": 0}
+    # under the default --remat conv each block's forward runs again in the
+    # backward (models/layers.py checkpoint_block): K1 twice a block
+    assert cfg.remat == "conv"
+    assert calls == {"attn": 12, "attn_bwd": 6, "mlp": 0, "mlp_bwd": 0}

@@ -218,7 +218,24 @@ def test_resumed_optimizer_state_matches(jax_side):
                    float(jax_side["sched"](1)), "resumed step", updates=2)
 
 
-def test_flat_optimizer_raises():
+def test_flat_optimizer_raises(jax_side):
+    """``--flat_optimizer``, refused until the port took the flag: its
+    three steps against the JAX package's three steps of the optax chain
+    (which the JAX flat pass computes exactly, ``tests/test_flat_optim.py``)
+    at the limits of ``test_one_and_three_steps_match``."""
     cfg = _cfg(flat_optimizer=True)
-    with pytest.raises(NotImplementedError, match="flat_optimizer"):
-        pstate.make_optimizer(cfg, torch.nn.Linear(2, 2), 1)
+    params = jax_side["params"]
+    state = _port_state(cfg, params)
+    assert isinstance(state.optimizer, torch.optim.AdamW)
+    step = pstate.make_train_step(cfg)
+    for i, (batch, (m, want_p, _)) in enumerate(
+            zip(jax_side["batches"], jax_side["runs"])):
+        got = step(state, _tb(batch))
+        np.testing.assert_allclose(float(got["loss"]), float(m["loss"]),
+                                   rtol=1e-4, err_msg=f"step {i}")
+        np.testing.assert_allclose(float(got["grad_norm"]),
+                                   float(m["grad_norm"]), rtol=5e-3,
+                                   err_msg=f"step {i}")
+        _assert_params(_port_params(state, params), want_p,
+                       float(jax_side["sched"](i)), f"step {i}", updates=i + 1)
+    assert state.updates == 3

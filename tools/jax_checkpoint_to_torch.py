@@ -23,8 +23,13 @@ everything and goes on at the next epoch, ``run_test.py`` and
 What is carried over:
   * the parameters and the BatchNorm statistics (``state_dict_from_jax``);
   * AdamW's moments and its update count, found in the restored optax state
-    wherever the clip / masked-decay chain and ``optax.MultiSteps`` put them
-    (``load_adamw_state_from_optax``);
+    wherever the clip / masked-decay chain and ``optax.MultiSteps`` put them,
+    or in the flat AdamW's state of a run under ``--flat_optimizer`` (its
+    flat ``m`` and ``v`` cut back into per-parameter trees along the
+    parameters' ravel order; a fused run's ``flat_p`` is its parameters
+    themselves, and must equal them). They go into ``torch.optim.AdamW``'s
+    state (``load_adamw_state_from_optax``), which the port runs with the
+    flag or without it;
   * ``step`` (the JAX state's, one per micro-step), ``updates`` (MultiSteps'
     ``gradient_step``, or ``step`` without accumulation) and the epoch;
   * the gradients of a checkpoint saved inside an accumulation: optax keeps
@@ -35,15 +40,14 @@ The port's random generator (DropPath, Dropout) is seeded from ``--seed`` as
 the port's ``create_train_state`` seeds it; the two packages' random streams
 differ in any case.
 
-Refused, each with a message: a checkpoint saved under ``--flat_optimizer``
-(the flat buffers are a TPU-side fusion the port does not take; it refuses
-the flag too), and flags whose model does not match the checkpoint (the
-port's strict ``load_state_dict`` names the keys).
+Refused with a message: flags whose model does not match the checkpoint
+(the port's strict ``load_state_dict`` names the keys).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 from typing import Dict, Optional, Tuple
@@ -57,6 +61,29 @@ if _REPO not in sys.path:
 # the flat optimizer's state fields (medicalsemseg_tpu/train/flat_optim.py
 # FlatAdamWState) that no optax state has
 _FLAT_FIELDS = ("wd_mask", "flat_p")
+
+
+def _moments(opt, params, resume):
+    """(first moments, second moments, update count) of the restored
+    optimizer state ``opt``: optax's AdamW state, or the flat AdamW's cut
+    back into trees shaped like ``params``."""
+    import jax
+    from jax.flatten_util import ravel_pytree
+
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    flat = _find(opt, ("m", "v", "count") + _FLAT_FIELDS)
+    if flat is not None:
+        raveled, unravel = ravel_pytree(params)
+        if np.asarray(flat.flat_p).size and not np.array_equal(
+                np.asarray(flat.flat_p), np.asarray(raveled)):
+            raise ValueError(f"{resume}: the flat optimizer's master "
+                             "parameters differ from the parameters")
+        return (to_np(unravel(flat.m)), to_np(unravel(flat.v)),
+                int(flat.count))
+    adam = _find(opt, ("mu", "nu", "count"))
+    if adam is None:
+        raise ValueError(f"{resume}: no AdamW state in the optimizer state")
+    return to_np(adam.mu), to_np(adam.nu), int(adam.count)
 
 
 def _parse(argv) -> Tuple[str, list]:
@@ -166,11 +193,10 @@ def convert(argv) -> str:
     if not jcfg.resume:
         raise ValueError("--resume <the JAX checkpoint directory> is required")
     saved = _metadata_tree(jcfg.resume)
-    if jcfg.flat_optimizer or _has_key(saved.get("opt_state"), _FLAT_FIELDS):
-        raise ValueError(
-            f"{jcfg.resume}: saved under --flat_optimizer; its flat buffers "
-            "are a TPU-side fusion of the optimizer that the port does not "
-            "take (it refuses the flag too)")
+    # the JAX state as the checkpoint holds it: its optimizer is the flat
+    # one exactly when the flat fields are there, whatever the flags say
+    jcfg = dataclasses.replace(jcfg, flat_optimizer=_has_key(
+        saved.get("opt_state"), _FLAT_FIELDS))
 
     # the port's state from the same flags, on the CPU
     cfg = get_args(rest + ["--device", "cpu"])
@@ -205,12 +231,8 @@ def convert(argv) -> str:
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
 
     opt = restored.opt_state
-    adam = _find(opt, ("mu", "nu", "count"))
-    if adam is None:
-        raise ValueError(f"{jcfg.resume}: no AdamW state in the optimizer "
-                         "state")
-    load_adamw_state_from_optax(state.optimizer, model, to_np(adam.mu),
-                                to_np(adam.nu), int(adam.count))
+    load_adamw_state_from_optax(state.optimizer, model,
+                                *_moments(opt, restored.params, jcfg.resume))
 
     state.step = int(restored.step)
     state.updates, state.accum = state.step, []
