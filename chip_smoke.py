@@ -251,6 +251,7 @@ last the line
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -803,21 +804,25 @@ def _mlp_reference(x, a, kw, grad=False):
     return {"reference": fwd_bwd}
 
 
-def _read_routes():
-    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
-    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
-    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
-    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
+def kernel_routes(kernel, launch=None):
+    """{route: launches} of a kernel in the port's launch registry."""
+    from medicalsemseg_tpu_torch.ops.kernels import routes
 
-    return {"window_attention": dict(kwa.route_launches),
-            "window_attention_bwd": dict(kwa.bwd_route_launches),
-            "global_window_attention": dict(kga.route_launches),
-            "fused_mlp": dict(kmlp.route_launches),
-            "fused_mlp_bwd": dict(kmlp.bwd_route_launches),
-            "window_attention_gemm": dict(kwa.gemm_route_launches),
-            "window_attention_bwd_gemm": dict(kwa.bwd_gemm_route_launches),
-            "global_window_attention_gemm": dict(kga.gemm_route_launches),
-            "sr_attention": dict(ksr.route_launches)}
+    return routes(kernel, launch)
+
+
+def _read_routes():
+    from medicalsemseg_tpu_torch.ops.kernels import routes
+
+    return {"window_attention": routes("K1", "heads"),
+            "window_attention_bwd": routes("K3", "heads"),
+            "global_window_attention": routes("K6", "heads"),
+            "fused_mlp": routes("K2"),
+            "fused_mlp_bwd": routes("K4"),
+            "window_attention_gemm": routes("K1", "gemm"),
+            "window_attention_bwd_gemm": routes("K3", "gemm"),
+            "global_window_attention_gemm": routes("K6", "gemm"),
+            "sr_attention": routes("K7")}
 
 
 def _add_routes(phase, routes=None):
@@ -1630,12 +1635,12 @@ def _conv_kernels(k9r, k10r):
             name = f"{path} {batch}x{edge}^3, {c}->{co}, {form}"
             if dt != bf:
                 name += f", {dname}"
-            before = k9.route_launches[route]
+            before = kernel_routes("K9")[route]
             check("K9", k9r, name,
                   lambda: k9.winograd_conv3d_f23(x, w, **kw),
                   lambda: k9.winograd_conv3d_f23_plain(x, w, **kw),
                   K9_DTYPE_TOL[dname])
-            _require(k9.route_launches[route] == before + 2,
+            _require(kernel_routes("K9")[route] == before + 2,
                      f"K9 {name}: not on the {route} route")
             ms = _time_ms(lambda: k9.winograd_conv3d_f23(x, w, **kw), 5)
             pms = _time_once_ms(
@@ -1724,10 +1729,10 @@ def _conv_kernels(k9r, k10r):
             x, w = case(1, (CROP,) * 3, ci, cj, dt)
             dname = str(dt).split(".")[-1]
             name = f"fwd 1x{CROP}^3, {ci}->{cj}, {dname}"
-            before = k10.route_launches[route]
+            before = kernel_routes("K10")[route]
             check("K10", k10r, name, lambda: k10.conv3x3x3_fwd(x, w),
                   lambda: k10.conv3x3x3_plain(x, w), tol)
-            _require(k10.route_launches[route] == before + 2,
+            _require(kernel_routes("K10")[route] == before + 2,
                      f"K10 {name}: not on the {route} route")
             ms = _time_ms(lambda: k10.conv3x3x3_fwd(x, w), 5)
             pms = _time_once_ms(lambda: k10.conv3x3x3_plain(x, w))
@@ -2284,46 +2289,24 @@ def phase_cli():
 
 
 def _reset_launches():
-    from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
-    from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
-    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
-    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
-    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
-    from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
-    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
-    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
+    from medicalsemseg_tpu_torch.ops.kernels import reset_launches
 
-    kwa.launches = kwa.bwd_launches = kmlp.launches = kmlp.bwd_launches = 0
-    k5.launches = k8.launches = k8.bwd_launches = 0
-    kga.launches = ksr.launches = 0
-    k9.launches = k10.launches = 0
-    for by in (kwa.route_launches, kwa.bwd_route_launches,
-               kga.route_launches, kmlp.route_launches,
-               kmlp.bwd_route_launches, kwa.gemm_route_launches,
-               kwa.bwd_gemm_route_launches, kga.gemm_route_launches,
-               ksr.route_launches, k10.route_launches, k5.route_launches,
-               k9.route_launches):
-        for route in by:
-            by[route] = 0
+    reset_launches()
 
 
 def _read_launches():
-    from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
-    from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
-    from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
-    from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
-    from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
-    from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
-    from medicalsemseg_tpu_torch.ops.kernels import window_attention as kwa
-    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
+    from medicalsemseg_tpu_torch.ops.kernels import launches
 
-    return {"window_attention": kwa.launches, "fused_mlp": kmlp.launches,
-            "winograd_conv3d_f23": k9.launches, "conv3x3x3": k10.launches,
-            "window_attention_bwd": kwa.bwd_launches,
-            "fused_mlp_bwd": kmlp.bwd_launches, "dw27": k5.launches,
-            "global_window_attention": kga.launches,
-            "sr_attention": ksr.launches,
-            "dice_ce_sums": k8.launches, "dice_ce_dlogits": k8.bwd_launches}
+    return {"window_attention": launches("K1", "heads"),
+            "fused_mlp": launches("K2"),
+            "winograd_conv3d_f23": launches("K9"),
+            "conv3x3x3": launches("K10"),
+            "window_attention_bwd": launches("K3", "heads"),
+            "fused_mlp_bwd": launches("K4"), "dw27": launches("K5"),
+            "global_window_attention": launches("K6", "heads"),
+            "sr_attention": launches("K7"),
+            "dice_ce_sums": launches("K8", "forward"),
+            "dice_ce_dlogits": launches("K8", "backward")}
 
 
 SWIN_KERNELS = ("window_attention", "fused_mlp", "window_attention_bwd",
@@ -3664,7 +3647,6 @@ def phase_fused():
     from medicalsemseg_tpu_torch.cli import run_test
     from medicalsemseg_tpu_torch.config import get_args
     from medicalsemseg_tpu_torch.data import nifti
-    from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 
     total = dict.fromkeys(_read_launches(), 0)
 
@@ -3710,7 +3692,7 @@ def phase_fused():
                     out = gpu(xb)
                     torch.cuda.synchronize()
                     launches = _read_launches()
-                    by_route = dict(k9.route_launches)
+                    by_route = kernel_routes("K9")
                     peak = torch.cuda.max_memory_allocated()
                     _require(bool(torch.isfinite(out).all()),
                              f"fused {model_name} {gate}: logits of "
@@ -3783,7 +3765,7 @@ def phase_fused():
                 got = net(xb)
                 torch.cuda.synchronize()
                 launches = _read_launches()
-                by_route = dict(k9.route_launches)
+                by_route = kernel_routes("K9")
             add(launches)
             for r, n in by_route.items():
                 ROUTE_TOTALS["winograd_conv3d_f23"][r] += n
@@ -3958,7 +3940,6 @@ def phase_conv3d():
     import torch
 
     from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
-    from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     total = dict.fromkeys(_read_launches(), 0)
@@ -3990,15 +3971,14 @@ def phase_conv3d():
         k10_route = k10.conv_route(dt)
         k5_route = ("tensor_core" if dt == torch.bfloat16 and c % 8 == 0
                     and co % 8 == 0 else "cuda_core")
-        _require(k10.route_launches[k10_route] == 2
-                 and k5.route_launches[k5_route] == 1,
-                 f"{name}: K10 {k10.route_launches}, K5 {k5.route_launches}, "
+        k10_routes, k5_routes = kernel_routes("K10"), kernel_routes("K5")
+        _require(k10_routes[k10_route] == 2 and k5_routes[k5_route] == 1,
+                 f"{name}: K10 {k10_routes}, K5 {k5_routes}, "
                  f"want K10 2 on {k10_route}, K5 1 on {k5_route}")
-        print(f"{name}: K10 {k10.route_launches}, K5 {k5.route_launches}",
-              flush=True)
+        print(f"{name}: K10 {k10_routes}, K5 {k5_routes}", flush=True)
         for k, v in launches.items():
             total[k] += v
-        for r, n in k10.route_launches.items():
+        for r, n in k10_routes.items():
             ROUTE_TOTALS["conv3x3x3"][r] += n
         tol = FP32_LIBRARY_REL_TOL if dt == torch.float32 else LIBRARY_REL_TOL
         with _no_tf32():
@@ -7177,6 +7157,9 @@ TRACE_KERNELS = {"window_attention": "window_attention_heads_tc",
                  "fused_mlp": "fused_mlp_tc",
                  "window_attention_bwd": "window_attention_bwd_heads_tc",
                  "fused_mlp_bwd": "fused_mlp_bwd_w_tc"}
+# the program's spans (utils/profiling.py) that a traced training epoch holds
+TRACE_SPANS = ("train_step.forward", "train_step.backward", "remat.recompute",
+               "K1", "K2", "K3", "K4")
 
 
 def _pipe_args(tmp, *extra):
@@ -7189,7 +7172,8 @@ def _pipe_args(tmp, *extra):
 def phase_profile_dir():
     """One epoch of two steps (the flagship at batch 2) through the training
     CLI with --profile_dir: the trace file exists and holds the kernels of
-    K1-K4 among its events, and device_memory_stats() reports a peak."""
+    K1-K4 among its events and the program's spans (``TRACE_SPANS``), and
+    device_memory_stats() reports a peak."""
     import numpy as np
     import torch
 
@@ -7216,16 +7200,23 @@ def phase_profile_dir():
         kernels = [e for e in events if e.get("cat") == "kernel"]
         found = {k: sum(name in e.get("name", "") for e in kernels)
                  for k, name in TRACE_KERNELS.items()}
+        spans = collections.Counter(
+            e.get("name") for e in events
+            if e.get("cat") == "user_annotation")
         stats = device_memory_stats()
         peak = max((s["peak_bytes_in_use"] for s in stats.values()), default=0)
         print(f"profile_dir: 1 epoch of 2 steps at batch {PIPE_BATCH} in "
               f"{wall:.1f} s with the trace; {path}: {size / 2 ** 20:.1f} MiB, "
               f"{len(events)} events, {len(kernels)} kernel events; the "
-              f"kernels of K1-K4 by name {found}; device_memory_stats "
+              f"kernels of K1-K4 by name {found}; the spans "
+              f"{ {k: spans[k] for k in TRACE_SPANS} }; device_memory_stats "
               f"{stats}; launches "
               f"{ {k: v for k, v in launches.items() if v} }", flush=True)
         _require(all(found.values()), f"profile_dir: a kernel of K1-K4 is "
                  f"not in the trace: {found}")
+        _require(all(spans[k] for k in TRACE_SPANS),
+                 f"profile_dir: a span is not in the trace: "
+                 f"{ {k: spans[k] for k in TRACE_SPANS} }")
         _require(peak > 0, f"profile_dir: device_memory_stats {stats}")
         _require_launches("profile_dir (2 steps)", launches, {
             "window_attention_bwd": 16, "fused_mlp_bwd": 16})

@@ -42,6 +42,7 @@ from medicalsemseg_tpu_torch.infer.sliding_window import (
 from medicalsemseg_tpu_torch.infer.tta import mirror_tta
 from medicalsemseg_tpu_torch.models.factory import build_model, init_weights
 from medicalsemseg_tpu_torch.parallel import dist as pdist
+from medicalsemseg_tpu_torch.utils import profiling
 from medicalsemseg_tpu_torch.utils.params import load_checkpoint
 
 
@@ -60,68 +61,78 @@ def test_model(model: torch.nn.Module, loader, cfg: Config,
     predictor calls (model forwards: 8 per window batch with
     ``--tta_mirror``), seconds from the preprocessed volume to the label map
     on the host (``predict_seconds``) and to the written files
-    (``seconds``)."""
+    (``seconds``). A volume is the span ``test_model.volume`` (its unit the
+    volume's index, with its ``windows`` and ``calls``), over
+    ``test_model.h2d`` (the copy to the card), the sliding window's spans
+    and ``test_model.readback`` (the argmax and the label map to the
+    host)."""
     air_cval = ((0.0 - cfg.t_norm_mean) / cfg.t_norm_std
                 if cfg.t_normalize else 0.0)
     records = []
-    for _, sample, padded, orig in rank_volumes(
+    for i, sample, padded, orig in rank_volumes(
             loader, pdist.get_rank(), pdist.get_world_size(),
             cfg.sw_bucket_multiple, air_cval, cfg.val_group_policy):
-        t0 = time.perf_counter()
-        calls, windows = 0, 0
+        with profiling.span("test_model.volume", unit=i) as volume_span:
+            t0 = time.perf_counter()
+            calls, windows = 0, 0
 
-        def forward(model_in):
-            nonlocal calls
-            calls += 1
-            return model(model_in)
+            def forward(model_in):
+                nonlocal calls
+                calls += 1
+                return model(model_in)
 
-        # with TTA the stitcher blends the mean probabilities of the flips
-        tta = mirror_tta(forward) if cfg.tta_mirror else forward
+            # with TTA the stitcher blends the mean probabilities of the flips
+            tta = mirror_tta(forward) if cfg.tta_mirror else forward
 
-        def predictor(model_in):
-            nonlocal windows
-            windows += model_in[0].shape[0]
-            return tta(model_in)
+            def predictor(model_in):
+                nonlocal windows
+                windows += model_in[0].shape[0]
+                return tta(model_in)
 
-        vol = torch.from_numpy(padded)[None].to(device)
-        aff = torch.from_numpy(
-            np.diag(sample.original_affine)[:3].astype(np.float32))[None]
-        logits = sliding_window_inference(
-            vol, aff.to(device), cfg.vol_size3(), cfg.batch_size_val,
-            predictor, cfg.output_dim, overlap=cfg.val_infer_overlap,
-            mode="gaussian", cval=air_cval)
-        logits = logits[0, :orig[0], :orig[1], :orig[2]]
-        pred = logits.argmax(-1).to(torch.uint8).cpu().numpy()
-        predict_seconds = time.perf_counter() - t0
+            with profiling.span("test_model.h2d", bytes=padded.nbytes):
+                vol = torch.from_numpy(padded)[None].to(device)
+            aff = torch.from_numpy(
+                np.diag(sample.original_affine)[:3].astype(np.float32))[None]
+            logits = sliding_window_inference(
+                vol, aff.to(device), cfg.vol_size3(), cfg.batch_size_val,
+                predictor, cfg.output_dim, overlap=cfg.val_infer_overlap,
+                mode="gaussian", cval=air_cval)
+            with profiling.span("test_model.readback") as readback:
+                logits = logits[0, :orig[0], :orig[1], :orig[2]]
+                pred = logits.argmax(-1).to(torch.uint8).cpu().numpy()
+                readback.set(bytes=pred.nbytes)
+            predict_seconds = time.perf_counter() - t0
 
-        pred_rs = None
-        if cfg.t_voxel_spacings:
-            pred_rs = resample_3d_nearest(pred, sample.original_shape)
+            pred_rs = None
+            if cfg.t_voxel_spacings:
+                pred_rs = resample_3d_nearest(pred, sample.original_shape)
 
-        img_name = os.path.basename(sample.name).split("img")[-1]
-        if cfg.save_eval_output and cfg.output_dir:
-            out_dir = os.path.join(cfg.output_dir, "test_output",
-                                   f"Fold{cfg.cv_fold}")
-            # zero translation, as the reference writes them
-            affine = sample.affine.copy()
-            affine[0:3, 3] = 0
-            orig_affine = sample.original_affine.copy()
-            orig_affine[0:3, 3] = 0
-            outputs = [("pred", pred, affine),
-                       ("img", sample.image[..., 0], affine)]
-            if pred_rs is not None:
-                outputs.append(("rs", pred_rs, orig_affine))
-            for sub, arr, aff_out in outputs:
-                d = os.path.join(out_dir, sub)
-                os.makedirs(d, exist_ok=True)
-                nifti.save(nifti.NiftiImage(arr, aff_out),
-                           os.path.join(d, img_name))
-        seconds = time.perf_counter() - t0
-        print(f"{img_name}: predicted in {seconds:.1f}s shape {pred.shape}")
-        records.append({"name": img_name, "shape": tuple(pred.shape),
-                        "windows": windows, "predictor_calls": calls,
-                        "predict_seconds": predict_seconds,
-                        "seconds": seconds})
+            img_name = os.path.basename(sample.name).split("img")[-1]
+            if cfg.save_eval_output and cfg.output_dir:
+                out_dir = os.path.join(cfg.output_dir, "test_output",
+                                       f"Fold{cfg.cv_fold}")
+                # zero translation, as the reference writes them
+                affine = sample.affine.copy()
+                affine[0:3, 3] = 0
+                orig_affine = sample.original_affine.copy()
+                orig_affine[0:3, 3] = 0
+                outputs = [("pred", pred, affine),
+                           ("img", sample.image[..., 0], affine)]
+                if pred_rs is not None:
+                    outputs.append(("rs", pred_rs, orig_affine))
+                for sub, arr, aff_out in outputs:
+                    d = os.path.join(out_dir, sub)
+                    os.makedirs(d, exist_ok=True)
+                    nifti.save(nifti.NiftiImage(arr, aff_out),
+                               os.path.join(d, img_name))
+            seconds = time.perf_counter() - t0
+            volume_span.set(windows=windows, calls=calls)
+            print(f"{img_name}: predicted in {seconds:.1f}s "
+                  f"shape {pred.shape}")
+            records.append({"name": img_name, "shape": tuple(pred.shape),
+                            "windows": windows, "predictor_calls": calls,
+                            "predict_seconds": predict_seconds,
+                            "seconds": seconds})
     return records
 
 

@@ -6,7 +6,11 @@ computed host-side in NumPy, as in the JAX package (MONAI semantics). The
 loop runs eagerly over batches of ``sw_batch`` windows: gather the windows
 on the device, call the predictor once per batch, and blend each window's
 class-major probabilities into the output and count volumes by indexed adds,
-in window order, as the JAX ``fori_loop`` does.
+in window order, as the JAX ``fori_loop`` does. Each predictor call is
+three spans, ``sw.gather``, ``sw.predictor`` and ``sw.blend`` (with the
+call's ``windows``), and the divide by the counts with the crop is
+``sw.normalise``; :func:`rank_volumes`' padding of a volume is ``sw.pad``
+(``utils/profiling.py``).
 
 Over several processes (``torch.distributed``): :func:`rank_volumes` hands
 each rank whole volumes, which it predicts with the one-device function
@@ -27,6 +31,8 @@ from typing import Callable, Iterator, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from medicalsemseg_tpu_torch.utils import profiling
 
 Tuple3 = Tuple[int, int, int]
 
@@ -111,28 +117,32 @@ def sliding_window_inference(
     imap = torch.from_numpy(_importance_map(roi, mode, sigma_scale)).to(
         dev)[None]  # (1, *roi)
 
-    results = []
+    blends = []
     for bi in range(b):
         out = torch.zeros((n_classes,) + image_size, dtype=torch.float32,
                           device=dev)
         cnt = torch.zeros((1,) + image_size, dtype=torch.float32, device=dev)
         for i0 in range(0, len(starts), sw_batch_size):
             batch = starts[i0:i0 + sw_batch_size]
-            wins = torch.stack([x[bi, s0:s0 + roi[0], s1:s1 + roi[1],
-                                  s2:s2 + roi[2]] for s0, s1, s2 in batch])
             k = len(batch)
-            probs = predictor((wins, centers[i0:i0 + k],
-                               affine[bi].expand(k, 3)))
-            probs = probs.float().permute(0, 4, 1, 2, 3)  # class-major
-            for i, (s0, s1, s2) in enumerate(batch):
-                sl = (slice(None), slice(s0, s0 + roi[0]),
-                      slice(s1, s1 + roi[1]), slice(s2, s2 + roi[2]))
-                out[sl] += imap * probs[i]
-                cnt[sl] += imap
-        results.append((out / cnt).permute(1, 2, 3, 0))
-    result = torch.stack(results)
-    return result[:, pads[0][0]:pads[0][0] + d0, pads[1][0]:pads[1][0] + h0,
-                  pads[2][0]:pads[2][0] + w0]
+            with profiling.span("sw.gather", windows=k):
+                wins = torch.stack([x[bi, s0:s0 + roi[0], s1:s1 + roi[1],
+                                      s2:s2 + roi[2]] for s0, s1, s2 in batch])
+            with profiling.span("sw.predictor", windows=k):
+                probs = predictor((wins, centers[i0:i0 + k],
+                                   affine[bi].expand(k, 3)))
+            with profiling.span("sw.blend", windows=k):
+                probs = probs.float().permute(0, 4, 1, 2, 3)  # class-major
+                for i, (s0, s1, s2) in enumerate(batch):
+                    sl = (slice(None), slice(s0, s0 + roi[0]),
+                          slice(s1, s1 + roi[1]), slice(s2, s2 + roi[2]))
+                    out[sl] += imap * probs[i]
+                    cnt[sl] += imap
+        blends.append((out, cnt))
+    with profiling.span("sw.normalise"):
+        result = torch.stack([(o / c).permute(1, 2, 3, 0) for o, c in blends])
+        return result[:, pads[0][0]:pads[0][0] + d0,
+                      pads[1][0]:pads[1][0] + h0, pads[2][0]:pads[2][0] + w0]
 
 
 def _importance_map(roi: Tuple3, mode: str, sigma_scale: float) -> np.ndarray:
@@ -204,18 +214,22 @@ def sliding_window_inference_sharded(
         s0, s1, s2 = (int(v) for v in starts[i])
         sl = (slice(None), slice(s0, s0 + roi[0]), slice(s1, s1 + roi[1]),
               slice(s2, s2 + roi[2]))
-        prob = predictor((x[sl[1:]][None],
-                          torch.from_numpy(centers[i:i + 1]).to(dev),
-                          affine))[0]
-        wgt = imap * float(valid[i])
-        out[sl] += wgt * prob.float().permute(3, 0, 1, 2)
-        cnt[sl] += wgt
+        with profiling.span("sw.gather", windows=1):
+            model_in = (x[sl[1:]][None],
+                        torch.from_numpy(centers[i:i + 1]).to(dev), affine)
+        with profiling.span("sw.predictor", windows=1):
+            prob = predictor(model_in)[0]
+        with profiling.span("sw.blend", windows=1):
+            wgt = imap * float(valid[i])
+            out[sl] += wgt * prob.float().permute(3, 0, 1, 2)
+            cnt[sl] += wgt
     dist.all_reduce(out, group=group)
     dist.all_reduce(cnt, group=group)
-    result = (out / cnt).permute(1, 2, 3, 0)
-    return result[pads[0][0]:pads[0][0] + shape[0],
-                  pads[1][0]:pads[1][0] + shape[1],
-                  pads[2][0]:pads[2][0] + shape[2]][None]
+    with profiling.span("sw.normalise"):
+        result = (out / cnt).permute(1, 2, 3, 0)
+        return result[pads[0][0]:pads[0][0] + shape[0],
+                      pads[1][0]:pads[1][0] + shape[1],
+                      pads[2][0]:pads[2][0] + shape[2]][None]
 
 
 def grouped_padded_volumes(loader, n_group: int, multiple: int, cval: float,
@@ -307,5 +321,7 @@ def rank_volumes(loader, rank: int, world: int, multiple: int, cval: float,
         raise ValueError(f"unknown grouping policy: {policy!r}")
     for i in range(rank, len(items), world):
         sample = items[i]
-        padded, orig = bucket_pad(sample.image, multiple, cval)
+        with profiling.span("sw.pad", unit=i) as sp:
+            padded, orig = bucket_pad(sample.image, multiple, cval)
+            sp.set(bytes=padded.nbytes)
         yield i, sample, padded, orig

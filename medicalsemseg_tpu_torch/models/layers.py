@@ -22,6 +22,7 @@ from medicalsemseg_tpu_torch.ops.convgrad import Conv3x3x3Fn
 from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 from medicalsemseg_tpu_torch.ops.kernels import layer_norm
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
+from medicalsemseg_tpu_torch.utils import profiling
 
 
 Tuple3 = Tuple[int, int, int]
@@ -136,13 +137,19 @@ class _Block:
 class _InBlock:
     """Entered around a checkpointed block's forward, or (``replay``) its
     recompute in the backward, which draws what the forward drew: the
-    generators are put back for it and restored after it."""
+    generators are put back for it and restored after it. A recompute is
+    the span ``remat.recompute``."""
 
     def __init__(self, block: _Block, replay: bool):
         self.block, self.replay, self.mode = block, replay, None
 
     def __enter__(self):
         b = self.block
+        if self.replay:
+            # closed in __exit__, also where checkpoint stops the recompute
+            # early by raising
+            self.span = profiling.span("remat.recompute")
+            self.span.__enter__()
         self.prev = (_TLS.block, _TLS.replay, _TLS.sum_i)
         _TLS.block, _TLS.replay, _TLS.sum_i = b, self.replay, 0
         if self.replay:
@@ -159,6 +166,7 @@ class _InBlock:
         if self.replay:
             for g, s in zip(self.block.gens, self.now):
                 g.set_state(s)
+            self.span.__exit__(*exc)
 
 
 def checkpoint_block(fn: Callable, mode: str, *args, **kwargs):

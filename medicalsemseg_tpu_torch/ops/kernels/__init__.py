@@ -11,6 +11,8 @@ checkout (listed in ``.gitignore``).
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises if that is not 0, because a
 refused launch never runs and a later synchronise would not report it.
+Every wrapper counts its launches in one registry (:func:`count_launch`,
+read by :func:`launches` and :func:`routes`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from collections.abc import Mapping
+from typing import Dict, Optional, Tuple
+
+from medicalsemseg_tpu_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -41,6 +46,61 @@ ROUTES = {"cuda_core": 0, "tensor_core": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+
+# -- the launch registry: every launch of a kernel, counted by kernel ("K1"
+# to "K10"), launch and route. K1, K3 and K6 make two launches a call,
+# "heads" and "gemm" (the projection; K3's dx and dw); K8 "forward" (its
+# sums) and "backward" (dlogits); the others one: "backward" for K4 and K5,
+# "forward" for the rest (K9 and K10 also where the same launch computes an
+# input gradient). K8 has the one route "cuda_core".
+_launches: Dict[Tuple[str, str, str], int] = {}
+
+
+def count_launch(kernel: str, launch: str, route: str) -> None:
+    """Count one launch, and name its route on the kernel wrapper's span
+    (``route``; ``gemm_route`` for a "gemm" launch) while tracing."""
+    key = (kernel, launch, route)
+    _launches[key] = _launches.get(key, 0) + 1
+    if profiling.tracing():
+        profiling.tag("gemm_route" if launch == "gemm" else "route", route)
+
+
+def launches(kernel: Optional[str] = None, launch: Optional[str] = None,
+             route: Optional[str] = None) -> int:
+    """Launches counted since the process started (or since
+    :func:`reset_launches`), summed over every key that matches the ones
+    given."""
+    return sum(n for (k, la, r), n in list(_launches.items())
+               if kernel in (None, k) and launch in (None, la)
+               and route in (None, r))
+
+
+def routes(kernel: str, launch: Optional[str] = None) -> Dict[str, int]:
+    """{route: launches} of a kernel (and launch)."""
+    return {r: launches(kernel, launch, r) for r in ROUTES}
+
+
+def reset_launches() -> None:
+    _launches.clear()
+
+
+class RouteCounts(Mapping):
+    """A read-only view {route: launches} of one kernel's launch in the
+    registry."""
+
+    def __init__(self, kernel: str, launch: str):
+        self.kernel, self.launch = kernel, launch
+
+    def __getitem__(self, route: str) -> int:
+        if route not in ROUTES:
+            raise KeyError(route)
+        return launches(self.kernel, self.launch, route)
+
+    def __iter__(self):
+        return iter(ROUTES)
+
+    def __len__(self) -> int:
+        return len(ROUTES)
 
 
 def _sources():

@@ -36,11 +36,7 @@ import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
-
-# kernel launches through conv3x3x3_fwd() (forward and input gradient), and
-# by route
-launches = 0
-route_launches = {"cuda_core": 0, "tensor_core": 0}
+from medicalsemseg_tpu_torch.utils import profiling
 
 # the output channels a tensor-core block may own (the widths csrc/conv3d.cu
 # instantiates); wider Co takes further blocks
@@ -107,6 +103,7 @@ def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+@profiling.spanned("K10")
 def conv3x3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y (B, D, H, W, Co) = conv(x (B, D, H, W, C), w (Co, C, 3, 3, 3)),
     both of one dtype."""
@@ -143,14 +140,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         cp, n = c, co
     y = torch.empty((b, d, h, wd, co), dtype=x.dtype, device=x.device)
 
-    global launches
     lib = kernels.load()
     err = lib.medseg_conv3x3x3(
         kernels.ptr(x), kernels.ptr(wk), kernels.ptr(y), b, d, h, wd, c, co,
         cp, n, code, kernels.ROUTES[route], kernels.stream_handle(x.device))
     kernels.check(lib, err, "conv3x3x3")
-    launches += 1
-    route_launches[route] += 1
+    kernels.count_launch("K10", "forward", route)
     return y
 
 

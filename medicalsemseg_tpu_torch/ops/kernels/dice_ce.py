@@ -22,10 +22,7 @@ from __future__ import annotations
 import torch
 
 from medicalsemseg_tpu_torch.ops import kernels
-
-# kernel launches through dice_ce_sums() and dice_ce_dlogits()
-launches = 0
-bwd_launches = 0
+from medicalsemseg_tpu_torch.utils import profiling
 
 # a voxel's classes live in one thread's registers (kMaxCls in csrc/dice_ce.cu)
 MAX_CLASSES = 32
@@ -80,6 +77,7 @@ def _check(logits, labels):
     kernels.check_tensor("labels", labels, logits.device, labels.dtype)
 
 
+@profiling.spanned("K8")
 def dice_ce_sums(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """logits (B, M, C) fp32 and labels (B, M) int32 or int64, both
     contiguous -> the (B, 4, C) fp32 sums of :func:`dice_ce_sums_plain`."""
@@ -94,7 +92,6 @@ def _launch_sums(logits, labels):
     """Check the tensors and launch (any device: the CPU tests drive this
     path with a stand-in library)."""
     _check(logits, labels)
-    global launches
     b, m, c = logits.shape
     dev = logits.device
     lib = kernels.load()
@@ -109,10 +106,11 @@ def _launch_sums(logits, labels):
         kernels.ptr(out), b, m, c, blocks, int(labels.dtype == torch.int64),
         kernels.stream_handle(dev))
     kernels.check(lib, err, "dice_ce_sums")
-    launches += 1
+    kernels.count_launch("K8", "forward", "cuda_core")
     return out
 
 
+@profiling.spanned("K8")
 def dice_ce_dlogits(logits: torch.Tensor, labels: torch.Tensor,
                     ca: torch.Tensor, cp: torch.Tensor, ce: torch.Tensor
                     ) -> torch.Tensor:
@@ -137,7 +135,6 @@ def _launch_dlogits(logits, labels, ca, cp, ce):
         raise ValueError(f"ce has {ce.numel()} elements, expected 1")
     kernels.check_tensor("ce", ce, dev, torch.float32)
 
-    global bwd_launches
     lib = kernels.load()
     out = torch.empty_like(logits)
     err = lib.medseg_dice_ce_dlogits(
@@ -145,7 +142,7 @@ def _launch_dlogits(logits, labels, ca, cp, ce):
         kernels.ptr(cp), kernels.ptr(ce), kernels.ptr(out), b, m, c,
         int(labels.dtype == torch.int64), kernels.stream_handle(dev))
     kernels.check(lib, err, "dice_ce_dlogits")
-    bwd_launches += 1
+    kernels.count_launch("K8", "backward", "cuda_core")
     return out
 
 

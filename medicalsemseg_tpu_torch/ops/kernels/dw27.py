@@ -26,11 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
-
-# kernel launches through dw27(), and by route (the tensor cores: bf16 with
-# channels in 8s; the CUDA cores: everything else)
-launches = 0
-route_launches = {"cuda_core": 0, "tensor_core": 0}
+from medicalsemseg_tpu_torch.utils import profiling
 
 # channels per block tile, voxels per spatial tile and dy rows per run of
 # the tensor-core kernel (kCT, kWT, kHRun in csrc/dw27.cu)
@@ -86,6 +82,7 @@ def launch_shares(shape, co: int, route: int, device) -> int:
     return max(1, min(work, resident // out_tiles))
 
 
+@profiling.spanned("K5")
 def dw27(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dW of the 3^3 conv for ``x`` (B, D, H, W, C) and the output gradient
     ``dy`` (B, D, H, W, Co), both contiguous and both bf16, fp16 or fp32
@@ -115,7 +112,6 @@ def _launch(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     use_mma = x.dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0
     route = _ROUTE_TENSOR_CORES if use_mma else _ROUTES[x.dtype]
 
-    global launches
     lib = kernels.load()
     shares = launch_shares(x.shape, co, route, x.device)
     part = torch.empty((shares, 27 * c * co), dtype=torch.float32,
@@ -125,6 +121,7 @@ def _launch(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         kernels.ptr(x), kernels.ptr(dy), kernels.ptr(part), kernels.ptr(out),
         b, d, h, w, c, co, shares, route, kernels.stream_handle(x.device))
     kernels.check(lib, err, "dw27")
-    launches += 1
-    route_launches["tensor_core" if use_mma else "cuda_core"] += 1
+    # the tensor cores: bf16 with channels in 8s; the CUDA cores: the rest
+    kernels.count_launch("K5", "backward",
+                         "tensor_core" if use_mma else "cuda_core")
     return out

@@ -27,14 +27,7 @@ from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels.window_attention import (
     MAX_HEAD_DIM, ROUTES, head_runs, pick_gemm_route, pick_route,
     wide_scratch)
-
-# kernel launches through global_window_attention() (one per call; the call
-# is two CUDA launches: heads, then projection), in all, by the route of the
-# heads launch and by the route of the projection launch (K1's pickers,
-# window_attention.attention_route and gemm_route)
-launches = 0
-route_launches = dict.fromkeys(ROUTES, 0)
-gemm_route_launches = dict.fromkeys(ROUTES, 0)
+from medicalsemseg_tpu_torch.utils import profiling
 
 
 def global_window_attention_plain(
@@ -69,6 +62,7 @@ def global_window_attention_plain(
     return out
 
 
+@profiling.spanned("K6")
 def global_window_attention(
     wins: torch.Tensor, q_global: torch.Tensor, wkv: torch.Tensor,
     bkv: Optional[torch.Tensor], wproj: torch.Tensor, bproj: torch.Tensor,
@@ -129,7 +123,6 @@ def _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, *, ln, ln_eps,
     if gemm == "tensor_core":
         kernels.check_aligned(wins=wins, wproj=wproj)
 
-    global launches
     lib = kernels.load()
     attn = torch.empty_like(wins)
     out = torch.empty_like(wins)
@@ -144,7 +137,8 @@ def _launch(wins, q_global, wkv, bkv, wproj, bproj, bias, *, ln, ln_eps,
         ROUTES[route], code, float(ln_eps), float(hd ** -0.5),
         kernels.stream_handle(dev))
     kernels.check(lib, err, "global_window_attention")
-    launches += 1
-    route_launches[route] += 1
-    gemm_route_launches[gemm] += 1
+    # two launches a call, by K1's pickers' routes (attention_route,
+    # gemm_route)
+    kernels.count_launch("K6", "heads", route)
+    kernels.count_launch("K6", "gemm", gemm)
     return out

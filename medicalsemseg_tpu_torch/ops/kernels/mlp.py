@@ -34,14 +34,20 @@ import torch
 import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
+from medicalsemseg_tpu_torch.utils import profiling
 
-# kernel launches through fused_mlp() and fused_mlp_bwd(), and the same by
-# route
-launches = 0
-bwd_launches = 0
 ROUTES = kernels.ROUTES
-route_launches = dict.fromkeys(ROUTES, 0)
-bwd_route_launches = dict.fromkeys(ROUTES, 0)
+# K2's launches by route, a read-only view of the launch registry
+# (``kernels.launches``) under the name the benchmark reads;
+# ``bwd_launches``, K4's, is the module's ``__getattr__``
+route_launches = kernels.RouteCounts("K2", "forward")
+
+
+def __getattr__(name: str):
+    if name == "bwd_launches":
+        return kernels.launches("K4")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 # The widest C and Co of K2 and K4, on either route. K2 on the CUDA cores:
 # shared memory per block grows with C and Co (csrc/mlp.cu), 203 KB of the
@@ -173,6 +179,7 @@ def bwd_plan(m: int, c: int, hdim: int, sms: int):
     return sl, shares, grid_a, tiles * TC_TILE_ROWS
 
 
+@profiling.spanned("K2")
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor,
               ln: Optional[torch.Tensor] = None, ln_eps: float = 1e-5,
@@ -215,7 +222,6 @@ def _launch_fwd(x, w1, b1, w2, b2, ln, ln_eps, residual, route):
     if ln is not None:
         kernels.check_tensor("ln", ln, dev, f32, (2, c))
 
-    global launches
     lib = kernels.load()
     out = torch.empty((m, co), dtype=dt, device=dev)
     cot, hsplit, part = 0, 0, None
@@ -230,8 +236,7 @@ def _launch_fwd(x, w1, b1, w2, b2, ln, ln_eps, residual, route):
         m, c, hdim, co, int(residual), ROUTES[route], cot, hsplit, code,
         float(ln_eps), kernels.stream_handle(dev))
     kernels.check(lib, err, "fused_mlp")
-    launches += 1
-    route_launches[route] += 1
+    kernels.count_launch("K2", "forward", route)
     return out
 
 
@@ -320,7 +325,6 @@ def _launch_bwd(x, w1, b1, w2, ln, dy, ln_eps, residual, route):
     kernels.check_tensor("w2", w2, dev, dt, (c, hdim))
     kernels.check_tensor("ln", ln, dev, f32, (2, c))
 
-    global bwd_launches
     lib = kernels.load()
     dhb, sl = None, 0
     if route == "tensor_core":
@@ -345,8 +349,7 @@ def _launch_bwd(x, w1, b1, w2, ln, dy, ln_eps, residual, route):
         kernels.ptr(out_w), m, c, hdim, grid_a, nsplit, sl, int(residual),
         ROUTES[route], code, float(ln_eps), kernels.stream_handle(dev))
     kernels.check(lib, err, "fused_mlp_bwd")
-    bwd_launches += 1
-    bwd_route_launches[route] += 1
+    kernels.count_launch("K4", "backward", route)
     hc = hdim * c
     # the tensor-core kernels sum dW2 transposed (csrc/mlp_bwd.cu)
     dw2 = (out_w[hc:2 * hc].view(hdim, c).t() if route == "tensor_core"
@@ -362,6 +365,7 @@ class FusedMlpFn(torch.autograd.Function):
     weight gradient is rounded through a bf16 cast."""
 
     @staticmethod
+    @profiling.spanned("K2")
     def forward(ctx, x, ln, w1, b1, w2, b2, ln_eps, residual):
         dt = x.dtype
         ctx.save_for_backward(x, ln, w1, b1, w2)
@@ -371,10 +375,13 @@ class FusedMlpFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # unpacking may run a checkpointed block's recompute: outside K4
         x, ln, w1, b1, w2 = ctx.saved_tensors
-        dt = x.dtype
-        dx, dln, dw1, db1, dw2, db2 = fused_mlp_bwd(
-            x, w1.to(dt), b1.float(), w2.to(dt), ln.float(),
-            dy.to(dt).contiguous(), ctx.ln_eps, ctx.residual)
-        return (dx, dln.to(ln.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
-                dw2.to(w2.dtype), db2.to(b1.dtype), None, None)
+        with profiling.span("K4"):
+            dt = x.dtype
+            dx, dln, dw1, db1, dw2, db2 = fused_mlp_bwd(
+                x, w1.to(dt), b1.float(), w2.to(dt), ln.float(),
+                dy.to(dt).contiguous(), ctx.ln_eps, ctx.residual)
+            return (dx, dln.to(ln.dtype), dw1.to(w1.dtype),
+                    db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b1.dtype),
+                    None, None)

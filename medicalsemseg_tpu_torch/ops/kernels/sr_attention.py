@@ -35,11 +35,9 @@ import torch
 
 from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels.window_attention import MAX_HEAD_DIM
+from medicalsemseg_tpu_torch.utils import profiling
 
-# kernel launches through sr_attention(), and the same by route
-launches = 0
 ROUTES = kernels.ROUTES
-route_launches = dict.fromkeys(ROUTES, 0)
 
 # the tensor-core route (csrc/sr_attention.cu): head dim 16, at most 64
 # reduced keys and 24 heads (C <= 384); a block owns a group of at most 6
@@ -158,6 +156,7 @@ def sr_attention_plain(
     return out
 
 
+@profiling.spanned("K7")
 def sr_attention(
     x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, wq: torch.Tensor,
     bq: Optional[torch.Tensor], wproj: torch.Tensor, bproj: torch.Tensor,
@@ -210,7 +209,6 @@ def _launch(x, k, v, wq, bq, wproj, bproj, num_heads, residual, route):
     if residual is not None:
         kernels.check_tensor("residual", residual, dev, dt, (b, n, c))
 
-    global launches
     lib = kernels.load()
     rows = groups = slots = 0
     if route == "tensor_core":
@@ -234,6 +232,5 @@ def _launch(x, k, v, wq, bq, wproj, bproj, num_heads, residual, route):
         groups, slots, ROUTES[route], code, float(hd ** -0.5),
         kernels.stream_handle(dev))
     kernels.check(lib, err, "sr_attention")
-    launches += 1
-    route_launches[route] += 1
+    kernels.count_launch("K7", "forward", route)
     return out

@@ -52,15 +52,9 @@ from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
 from medicalsemseg_tpu_torch.ops.window import (_official_attn_mask,
                                                 gather_rel_bias)
+from medicalsemseg_tpu_torch.utils import profiling
 
 Tuple3 = Tuple[int, int, int]
-
-# kernel launches through window_attention() (one per call; the call is two
-# CUDA launches: heads, then projection)
-launches = 0
-# kernel launches through window_attention_bwd() (one per call; the call is
-# three CUDA launches and three sums of partials)
-bwd_launches = 0
 
 MAX_HEAD_DIM = 96
 # the largest head dims of the one-pass CUDA-core heads forms of K1 / K6 and
@@ -81,15 +75,19 @@ MAX_TOKENS, BWD_MAX_TOKENS = 343, 216
 ROUTES = kernels.ROUTES
 TC_HEAD_DIM = 16
 TC_MAX_TOKENS = 224
-# the same launches as above, by the route of the heads launch and by the
-# route of the GEMM launches (K1's projection; K3's dx and dw)
-route_launches = dict.fromkeys(ROUTES, 0)
-bwd_route_launches = dict.fromkeys(ROUTES, 0)
-gemm_route_launches = dict.fromkeys(ROUTES, 0)
-bwd_gemm_route_launches = dict.fromkeys(ROUTES, 0)
+# K1's calls by the route of their heads launch, a read-only view of the
+# launch registry (``kernels.launches``) under the name the benchmark reads;
+# ``bwd_launches``, K3's calls, is the module's ``__getattr__``
+route_launches = kernels.RouteCounts("K1", "heads")
 # dW rows a block of K3's tensor-core dw launch owns: four warps of three
 # 16-row m-tiles at C <= 48 (all of [dWqkv | dWproj]), of two above
 DW_ROWS_NARROW, DW_ROWS = 192, 128
+
+
+def __getattr__(name: str):
+    if name == "bwd_launches":
+        return kernels.launches("K3", "heads")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def attention_route(dtype, n: int, head_dim: int) -> str:
@@ -243,6 +241,7 @@ def window_attention_plain(
     return out
 
 
+@profiling.spanned("K1")
 def window_attention(
     wins: torch.Tensor, wqkv: torch.Tensor, bqkv: Optional[torch.Tensor],
     wproj: torch.Tensor, bproj: torch.Tensor, bias: torch.Tensor, *,
@@ -310,7 +309,6 @@ def _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, *, grid_dims, window,
     if gemm == "tensor_core":
         kernels.check_aligned(wins=wins, wproj=wproj)
 
-    global launches
     lib = kernels.load()
     attn = torch.empty_like(wins)
     out = torch.empty_like(wins)
@@ -325,9 +323,8 @@ def _launch_fwd(wins, wqkv, bqkv, wproj, bproj, bias, *, grid_dims, window,
         *grid_dims, shifted, int(residual), ROUTES[gemm], ROUTES[route], code,
         float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention")
-    launches += 1
-    route_launches[route] += 1
-    gemm_route_launches[gemm] += 1
+    kernels.count_launch("K1", "heads", route)
+    kernels.count_launch("K1", "gemm", gemm)
     return out
 
 
@@ -441,7 +438,6 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
     if ln is not None:
         kernels.check_tensor("ln", ln, dev, f32, (2, c))
 
-    global bwd_launches
     lib = kernels.load()
     blocks = kernels.resident_blocks(dev)
     # one block per (run of windows, head)
@@ -484,9 +480,8 @@ def _launch_bwd(wins, wqkv, bqkv, wproj, bias, dy, *, grid_dims, window,
         nchunk, grid_dx, nsplit, ROUTES[gemm], ROUTES[route], code,
         float(ln_eps), float(hd ** -0.5), kernels.stream_handle(dev))
     kernels.check(lib, err, "window_attention_bwd")
-    bwd_launches += 1
-    bwd_route_launches[route] += 1
-    bwd_gemm_route_launches[gemm] += 1
+    kernels.count_launch("K3", "heads", route)
+    kernels.count_launch("K3", "gemm", gemm)
     cc = c * c
     return (dx, out_w[:3 * cc].view(3 * c, c), out_w[4 * cc:4 * cc + 3 * c],
             out_w[3 * cc:4 * cc].view(c, c), out_w[4 * cc + 3 * c:], dbias,
@@ -502,6 +497,7 @@ class WindowAttentionFn(torch.autograd.Function):
     outside the kernel, as the JAX package's ``segment_sum`` is."""
 
     @staticmethod
+    @profiling.spanned("K1")
     def forward(ctx, wins, ln, wqkv, bqkv, wproj, bproj, table, rel_index,
                 grid_dims, window, shift, ln_eps, residual):
         dt = wins.dtype
@@ -516,18 +512,22 @@ class WindowAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # unpacking may run a checkpointed block's recompute: outside K3
         wins, ln, wqkv, bqkv, wproj, table, rel_index = ctx.saved_tensors
-        dt = wins.dtype
-        n, nh = wins.shape[1], table.shape[1]
-        bias = gather_rel_bias(table, rel_index, n)
-        dx, dwqkv, dbqkv, dwproj, dbproj, dbias, dln = window_attention_bwd(
-            wins, wqkv.to(dt), None if bqkv is None else bqkv.float(),
-            wproj.to(dt), bias, dy.to(dt).contiguous(),
-            ln=None if ln is None else ln.float(), **ctx.geom)
-        dtable = torch.zeros_like(table, dtype=torch.float32).index_add_(
-            0, rel_index, dbias.permute(1, 2, 0).reshape(n * n, nh))
-        return (dx, None if ln is None else dln.to(ln.dtype),
-                dwqkv.to(wqkv.dtype),
-                None if bqkv is None else dbqkv.to(bqkv.dtype),
-                dwproj.to(wproj.dtype), dbproj.to(wproj.dtype),
-                dtable.to(table.dtype), None, None, None, None, None, None)
+        with profiling.span("K3"):
+            dt = wins.dtype
+            n, nh = wins.shape[1], table.shape[1]
+            bias = gather_rel_bias(table, rel_index, n)
+            dx, dwqkv, dbqkv, dwproj, dbproj, dbias, dln = \
+                window_attention_bwd(
+                    wins, wqkv.to(dt), None if bqkv is None else bqkv.float(),
+                    wproj.to(dt), bias, dy.to(dt).contiguous(),
+                    ln=None if ln is None else ln.float(), **ctx.geom)
+            dtable = torch.zeros_like(table, dtype=torch.float32).index_add_(
+                0, rel_index, dbias.permute(1, 2, 0).reshape(n * n, nh))
+            return (dx, None if ln is None else dln.to(ln.dtype),
+                    dwqkv.to(wqkv.dtype),
+                    None if bqkv is None else dbqkv.to(bqkv.dtype),
+                    dwproj.to(wproj.dtype), dbproj.to(wproj.dtype),
+                    dtable.to(table.dtype), None, None, None, None, None,
+                    None)

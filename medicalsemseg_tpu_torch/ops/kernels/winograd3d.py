@@ -45,10 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from medicalsemseg_tpu_torch.ops import kernels
-
-# kernel launches through winograd_conv3d_f23(), and by route
-launches = 0
-route_launches = {"cuda_core": 0, "tensor_core": 0}
+from medicalsemseg_tpu_torch.utils import profiling
 
 # the channel window of the gate (the JAX package's winograd_f23_applicable)
 MIN_CHANNELS = 16
@@ -193,6 +190,7 @@ def winograd_conv3d_f23_plain(x: torch.Tensor, w: torch.Tensor, epilogue=None,
     return torch.cat([_plain_one(x[i:i + 1], u, d, h, wd) for i in range(b)])
 
 
+@profiling.spanned("K9")
 def winograd_conv3d_f23(x: torch.Tensor, w: torch.Tensor, epilogue=None,
                         lrelu: bool = False,
                         neg_slope: float = 0.01) -> torch.Tensor:
@@ -245,13 +243,11 @@ def _launch(x, w, epilogue, lrelu, neg_slope):
                              (b, 2, c))
     y = torch.empty((b, d, h, wd, co), dtype=x.dtype, device=x.device)
 
-    global launches
     lib = kernels.load()
     err = lib.medseg_winograd_f23(
         kernels.ptr(x), kernels.ptr(u), kernels.ptr(ep), kernels.ptr(y),
         b, d, h, wd, c, co, cp, cop, int(lrelu), float(neg_slope), code,
         kernels.ROUTES[route], kernels.stream_handle(x.device))
     kernels.check(lib, err, "winograd_conv3d_f23")
-    launches += 1
-    route_launches[route] += 1
+    kernels.count_launch("K9", "forward", route)
     return y

@@ -33,6 +33,7 @@ from medicalsemseg_tpu_torch.train.losses import build_loss
 from medicalsemseg_tpu_torch.train.metrics import dice_per_class
 from medicalsemseg_tpu_torch.train.schedule import warmup_cosine_lr
 from medicalsemseg_tpu_torch.train.state import TrainState, make_eval_forward
+from medicalsemseg_tpu_torch.utils import profiling
 from medicalsemseg_tpu_torch.utils.logger import MetricLogger, SmoothedValue
 
 
@@ -112,13 +113,16 @@ def train_one_epoch(state: TrainState, train_step, loader, epoch: int,
         if put_batch is not None:
             batch = put_batch(batch)
         metrics = train_step(state, batch)
-        acc = _metric_window(metrics) if acc is None else \
-            _metric_window_add(acc, metrics)
+        with profiling.span("train_one_epoch.metric_window"):
+            acc = _metric_window(metrics) if acc is None else \
+                _metric_window_add(acc, metrics)
         if (it + 1) % freq == 0 or it + 1 == steps:
-            flush(acc, it)
+            with profiling.span("train_one_epoch.readback"):
+                flush(acc, it)
             acc = None
     if acc is not None:  # the loader yielded more steps than advertised
-        flush(acc, steps - 1)
+        with profiling.span("train_one_epoch.readback"):
+            flush(acc, steps - 1)
 
     logger.synchronize_between_processes(state.group)
     print("Training averaged stats:", logger.log_all_average())

@@ -43,6 +43,7 @@ from medicalsemseg_tpu_torch.models.layers import (
 from medicalsemseg_tpu_torch.train.losses import build_loss
 from medicalsemseg_tpu_torch.train.metrics import dice_per_class
 from medicalsemseg_tpu_torch.train.schedule import make_epoch_schedule
+from medicalsemseg_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -185,7 +186,11 @@ def make_train_step(cfg: Config):
     device. The step updates ``state`` in place and returns ``loss``,
     ``dice_sum`` (C,), ``dice_count`` (C,) and ``grad_norm`` (the micro-batch
     gradient's global norm before clipping) as device tensors: nothing is
-    read back to the host here. Under :func:`distribute` the batch is this
+    read back to the host here. A step is the span ``train_step``, its unit
+    ``state.step``, over ``train_step.forward`` (the model's call),
+    ``.loss``, ``.backward``, ``.update`` (the gradient's norm, the
+    accumulation, the clip, AdamW and zeroing the gradients) and
+    ``.metrics``. Under :func:`distribute` the batch is this
     rank's rows, the metrics are the global batch's, and ``grad_norm`` is
     the norm of the mean gradient accumulated so far: the ranks' average on
     a synchronising micro-step (with k = 1 on every step: the global batch's
@@ -195,32 +200,35 @@ def make_train_step(cfg: Config):
 
     def forward_loss(module, batch):
         model_in = (batch["image"], batch.get("crop_loc"), batch.get("affine"))
-        logits = module(model_in)
-        if isinstance(logits, (list, tuple)):
-            return (_deep_supervision_loss(loss_fn, logits, batch["label"]),
-                    logits[0])
-        return loss_fn(logits, batch["label"]), logits
+        with profiling.span("train_step.forward"):
+            logits = module(model_in)
+        with profiling.span("train_step.loss"):
+            if isinstance(logits, (list, tuple)):
+                return (_deep_supervision_loss(loss_fn, logits,
+                                               batch["label"]), logits[0])
+            return loss_fn(logits, batch["label"]), logits
 
     def local_step(state, batch):
         params = [p for g in state.optimizer.param_groups for p in g["params"]]
         loss, logits = forward_loss(state.model, batch)
         # a parameter the loss does not reach (the last stage's
         # gt_upsample under --global_token) gets a zero gradient, as in JAX
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            params, torch.autograd.grad(loss, params, allow_unused=True))]
-        grad_norm = global_norm(grads)
-
-        k = state.grad_accum_steps
-        if k > 1:
-            if not state.accum:
-                state.accum = [torch.zeros_like(g) for g in grads]
-            for a, g in zip(state.accum, grads):
-                a.add_(g)
-            if (state.step + 1) % k == 0:
-                _apply_update(state, [a / k for a in state.accum])
-                state.accum = []
-        else:
-            _apply_update(state, grads)
+        with profiling.span("train_step.backward"):
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+                params, torch.autograd.grad(loss, params, allow_unused=True))]
+        with profiling.span("train_step.update"):
+            grad_norm = global_norm(grads)
+            k = state.grad_accum_steps
+            if k > 1:
+                if not state.accum:
+                    state.accum = [torch.zeros_like(g) for g in grads]
+                for a, g in zip(state.accum, grads):
+                    a.add_(g)
+                if (state.step + 1) % k == 0:
+                    _apply_update(state, [a / k for a in state.accum])
+                    state.accum = []
+            else:
+                _apply_update(state, grads)
         return loss, logits, grad_norm
 
     def ddp_step(state, batch):
@@ -235,35 +243,38 @@ def make_train_step(cfg: Config):
         sync = micro == k
         with contextlib.nullcontext() if sync else state.ddp.no_sync():
             loss, logits = forward_loss(state.ddp, batch)
-            loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        mean = [g / micro for g in grads] if micro > 1 else grads
-        grad_norm = global_norm(mean)
-        if sync:
-            state.accum = []
-            _apply_update(state, mean)
-        else:
-            for p, g in zip(params, grads):
-                p.grad = g
-            state.accum = grads
+            with profiling.span("train_step.backward"):
+                loss.backward()
+        with profiling.span("train_step.update"):
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            mean = [g / micro for g in grads] if micro > 1 else grads
+            grad_norm = global_norm(mean)
+            if sync:
+                state.accum = []
+                _apply_update(state, mean)
+            else:
+                for p, g in zip(params, grads):
+                    p.grad = g
+                state.accum = grads
         return loss, logits, grad_norm
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        state.model.train()
-        step = local_step if state.ddp is None else ddp_step
-        loss, logits, grad_norm = step(state, batch)
-        state.step += 1
+        with profiling.span("train_step", unit=state.step):
+            state.model.train()
+            step = local_step if state.ddp is None else ddp_step
+            loss, logits, grad_norm = step(state, batch)
+            state.step += 1
 
-        with torch.no_grad():
-            pred = logits.argmax(-1)
-            dice, not_nan = dice_per_class(pred, batch["label"], n_classes)
-            out = {"loss": loss.detach(), "dice_sum": dice.sum(0),
-                   "dice_count": not_nan.sum(0)}
-            if state.ddp is not None:
-                out = _global_metrics(out, state.group)
-        out["grad_norm"] = grad_norm
+            with profiling.span("train_step.metrics"), torch.no_grad():
+                pred = logits.argmax(-1)
+                dice, not_nan = dice_per_class(pred, batch["label"], n_classes)
+                out = {"loss": loss.detach(), "dice_sum": dice.sum(0),
+                       "dice_count": not_nan.sum(0)}
+                if state.ddp is not None:
+                    out = _global_metrics(out, state.group)
+            out["grad_norm"] = grad_norm
         return out
 
     return train_step

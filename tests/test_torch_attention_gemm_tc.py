@@ -151,9 +151,7 @@ def _entry(lib, which):
 
 
 def _counts(which):
-    return {"K1": (kwa.route_launches, kwa.gemm_route_launches),
-            "K3": (kwa.bwd_route_launches, kwa.bwd_gemm_route_launches),
-            "K6": (kga.route_launches, kga.gemm_route_launches)}[which]
+    return kernels.routes(which, "heads"), kernels.routes(which, "gemm")
 
 
 @pytest.mark.parametrize("which", ["K1", "K3", "K6"])
@@ -410,10 +408,11 @@ def test_k1_projection_tensor_cores(gen, c, nh, shift, ln, res, dtype):
                               qkv_bias=ln)
     kw = dict(grid_dims=(grid // WS,) * 3, window=(WS,) * 3,
               shift=(shift,) * 3, ln=lnp if ln else None, residual=res)
-    before = dict(kwa.gemm_route_launches)
+    before = dict(kernels.routes("K1", "gemm"))
     got = kwa.window_attention(wins, **a, **kw)
     torch.cuda.synchronize()
-    assert kwa.gemm_route_launches["tensor_core"] == before["tensor_core"] + 1
+    assert (kernels.routes("K1", "gemm")["tensor_core"]
+            == before["tensor_core"] + 1)
     want = kwa.window_attention_plain(wins, **a, **kw)
     _close(got, want, TOL[dtype][0])
     # the same heads launch with the CUDA-core projection: the two
@@ -436,10 +435,11 @@ def test_k6_projection_tensor_cores(gen, c, nh, absorbed, dtype):
                 bkv=a["bqkv"][c:].contiguous() if absorbed else None,
                 wproj=a["wproj"], bproj=a["bproj"], bias=a["bias"])
     kw = dict(ln=lnp if absorbed else None, residual=absorbed)
-    before = dict(kga.gemm_route_launches)
+    before = dict(kernels.routes("K6", "gemm"))
     got = kga.global_window_attention(wins, **args, **kw)
     torch.cuda.synchronize()
-    assert kga.gemm_route_launches["tensor_core"] == before["tensor_core"] + 1
+    assert (kernels.routes("K6", "gemm")["tensor_core"]
+            == before["tensor_core"] + 1)
     _close(got, kga.global_window_attention_plain(wins, **args, **kw),
            TOL[dtype][0])
 
@@ -475,10 +475,10 @@ def test_k3_dx_dw_tensor_cores(gen, c, nh, grid, shift, ln, res, dtype):
     b = {k: v for k, v in a.items() if k != "bproj"}
     kw = dict(grid_dims=(grid // WS,) * 3, window=(WS,) * 3,
               shift=(shift,) * 3, ln=lnp if ln else None, residual=res)
-    before = dict(kwa.bwd_gemm_route_launches)
+    before = dict(kernels.routes("K3", "gemm"))
     got = kwa.window_attention_bwd(wins, dy=dy, **b, **kw)
     torch.cuda.synchronize()
-    assert (kwa.bwd_gemm_route_launches["tensor_core"]
+    assert (kernels.routes("K3", "gemm")["tensor_core"]
             == before["tensor_core"] + 1)
     _check_k3(got, kwa.window_attention_bwd_plain(wins, dy=dy, **b, **kw),
               dtype)

@@ -116,8 +116,7 @@ def _entry(lib, which):
 
 
 def _counts(which):
-    return dict({"K1": kwa.route_launches, "K3": kwa.bwd_route_launches,
-                 "K6": kga.route_launches}[which])
+    return kernels.routes(which, "heads")
 
 
 @pytest.mark.parametrize("which", ["K1", "K3", "K6"])
@@ -153,12 +152,11 @@ def test_a_failed_launch_raises(fake_lib, which, dtype):
     the entry point returns is raised, and nothing is counted."""
     _entry(fake_lib, which).err = 1
     wins, a, kw = _case(dtype)
-    before = _counts(which), kwa.launches, kwa.bwd_launches, kga.launches
+    before = _counts(which), kernels.launches()
     with pytest.raises(RuntimeError, match="launch refused"):
         _launch(which, wins, a, kw)
     assert len(_entry(fake_lib, which).calls) == 1
-    assert (_counts(which), kwa.launches, kwa.bwd_launches,
-            kga.launches) == before
+    assert (_counts(which), kernels.launches()) == before
 
 
 def test_forcing_the_tensor_cores_on_fp32_raises(fake_lib):
@@ -244,10 +242,11 @@ def test_k1_tensor_cores(gen, c, nh, shift, ln, res, dtype):
                               qkv_bias=ln)
     kw = dict(grid_dims=(grid // WS,) * 3, window=(WS,) * 3,
               shift=(shift,) * 3, ln=lnp if ln else None, residual=res)
-    before = dict(kwa.route_launches)
+    before = dict(kernels.routes("K1", "heads"))
     got = kwa.window_attention(wins, **a, **kw)
     torch.cuda.synchronize()
-    assert kwa.route_launches["tensor_core"] == before["tensor_core"] + 1
+    assert (kernels.routes("K1", "heads")["tensor_core"]
+            == before["tensor_core"] + 1)
     _close(got, kwa.window_attention_plain(wins, **a, **kw), TOL[dtype][0])
 
 
@@ -265,10 +264,11 @@ def test_k6_tensor_cores(gen, c, nh, absorbed, dtype):
                 bkv=a["bqkv"][c:].contiguous() if absorbed else None,
                 wproj=a["wproj"], bproj=a["bproj"], bias=a["bias"])
     kw = dict(ln=lnp if absorbed else None, residual=absorbed)
-    before = dict(kga.route_launches)
+    before = dict(kernels.routes("K6", "heads"))
     got = kga.global_window_attention(wins, **args, **kw)
     torch.cuda.synchronize()
-    assert kga.route_launches["tensor_core"] == before["tensor_core"] + 1
+    assert (kernels.routes("K6", "heads")["tensor_core"]
+            == before["tensor_core"] + 1)
     _close(got, kga.global_window_attention_plain(wins, **args, **kw),
            TOL[dtype][0])
 
@@ -292,10 +292,11 @@ def test_k3_tensor_cores(gen, c, nh, grid, shift, ln, res, dtype):
     b = {k: v for k, v in a.items() if k != "bproj"}
     kw = dict(grid_dims=(grid // WS,) * 3, window=(WS,) * 3,
               shift=(shift,) * 3, ln=lnp if ln else None, residual=res)
-    before = dict(kwa.bwd_route_launches)
+    before = dict(kernels.routes("K3", "heads"))
     got = kwa.window_attention_bwd(wins, dy=dy, **b, **kw)
     torch.cuda.synchronize()
-    assert kwa.bwd_route_launches["tensor_core"] == before["tensor_core"] + 1
+    assert (kernels.routes("K3", "heads")["tensor_core"]
+            == before["tensor_core"] + 1)
     want = kwa.window_attention_bwd_plain(wins, dy=dy, **b, **kw)
     _, norm_tol, max_tol = TOL[dtype]
     for name, g, w in zip(K3_NAMES, got, want):

@@ -14,8 +14,8 @@ fp32. The CPU side of the routes is ``tests/test_torch_conv3d_routes.py``.
 import pytest
 import torch
 
+from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
-from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
 
 pytestmark = pytest.mark.cuda
 
@@ -48,10 +48,10 @@ def _case(gen, dims, c, co, dtype):
 
 
 def _check(x, w, route):
-    before = dict(k10.route_launches)
+    before = dict(kernels.routes("K10"))
     got = k10.conv3x3x3_fwd(x, w)
     torch.cuda.synchronize()
-    assert k10.route_launches[route] == before[route] + 1
+    assert kernels.routes("K10")[route] == before[route] + 1
     want = k10.conv3x3x3_plain(x, w)
     assert got.shape == want.shape and got.dtype == want.dtype
     g, r = got.float(), want.float()
@@ -109,11 +109,12 @@ def test_conv3x3x3_with_gradients_at_8_channels(gen, dtype):
     x, w = _case(gen, (2, 6, 7, 9), 8, 16, dtype)
     dy = torch.randn(2, 6, 7, 9, 16, generator=gen, device="cuda").to(dtype)
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    before = (k10.launches, k5.launches)
+    before = (kernels.launches("K10"), kernels.launches("K5"))
     y = k10.conv3x3x3(xr, wr)
     dx, dw = torch.autograd.grad(y, (xr, wr), dy)
     torch.cuda.synchronize()
-    assert (k10.launches - before[0], k5.launches - before[1]) == (2, 1)
+    assert (kernels.launches("K10") - before[0],
+            kernels.launches("K5") - before[1]) == (2, 1)
     assert dx.dtype == dw.dtype == dtype
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False

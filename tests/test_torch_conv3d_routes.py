@@ -124,7 +124,7 @@ def _x(dtype, c, shape=(1, 3, 5, 7)):
 def test_wrapper_hands_over_and_counts_the_route(fake_lib, dtype, route, c,
                                                  co):
     x, w = _x(dtype, c), _w(co, c).to(dtype)
-    before, routes = k10.launches, dict(k10.route_launches)
+    before, routes = kernels.launches("K10"), dict(kernels.routes("K10"))
     y = k10._launch(x, w)
     assert y.shape == (1, 3, 5, 7, co) and y.dtype == dtype
     args = fake_lib.medseg_conv3x3x3.calls[-1]
@@ -135,20 +135,20 @@ def test_wrapper_hands_over_and_counts_the_route(fake_lib, dtype, route, c,
         assert cp == -(-c // 16) * 16 and n == k10.block_width(co)[0]
     else:
         assert (cp, n) == (c, co)
-    assert k10.launches == before + 1
+    assert kernels.launches("K10") == before + 1
     want = dict(routes)
     want[route] += 1
-    assert k10.route_launches == want
+    assert kernels.routes("K10") == want
 
 
 @pytest.mark.parametrize("dtype", [BF16, F16, F32])
 def test_a_failed_launch_raises_and_counts_nothing(fake_lib, dtype):
     fake_lib.medseg_conv3x3x3.err = 1
-    before, routes = k10.launches, dict(k10.route_launches)
+    before, routes = kernels.launches("K10"), dict(kernels.routes("K10"))
     with pytest.raises(RuntimeError, match="launch refused"):
         k10._launch(_x(dtype, 16), _w(16, 16).to(dtype))
     assert len(fake_lib.medseg_conv3x3x3.calls) == 1
-    assert (k10.launches, k10.route_launches) == (before, routes)
+    assert (kernels.launches("K10"), kernels.routes("K10")) == (before, routes)
 
 
 def test_float64_raises(fake_lib):
@@ -167,10 +167,11 @@ def test_conv3x3x3_dw_at_8_channels_reaches_k5(fake_lib, monkeypatch, dtype,
     monkeypatch.setattr(k5, "dw27", k5._launch)
     x = _x(dtype, 8).requires_grad_(True)
     w = _w(16, 8).to(dtype).requires_grad_(True)
-    before = (k10.launches, k5.launches)
+    before = (kernels.launches("K10"), kernels.launches("K5"))
     y = k10.conv3x3x3(x, w)
     dx, dw = torch.autograd.grad(y, (x, w), torch.zeros_like(y))
-    assert (k10.launches - before[0], k5.launches - before[1]) == (2, 1)
+    assert (kernels.launches("K10") - before[0],
+            kernels.launches("K5") - before[1]) == (2, 1)
     assert dx.shape == x.shape and dw.shape == w.shape and dw.dtype == dtype
     conv_calls = fake_lib.medseg_conv3x3x3.calls
     assert [a[7:9] for a in conv_calls] == [(8, 16), (16, 8)]

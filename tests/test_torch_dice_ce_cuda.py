@@ -19,6 +19,12 @@ from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
 
 
+def _k8_launches():
+    """K8's launches so far: (sums, dlogits)."""
+    return (kernels.launches("K8", "forward"),
+            kernels.launches("K8", "backward"))
+
+
 class _FakeEntry:
     def __init__(self, err):
         self.err, self.calls = err, []
@@ -51,7 +57,7 @@ def test_launch_paths_hand_over_shapes_and_label_width(fake_lib, label_dtype):
     b, m, c = 3, 1000, 14
     logits = torch.zeros(b, m, c)
     labels = torch.zeros(b, m, dtype=label_dtype)
-    before = (k8.launches, k8.bwd_launches)
+    before = _k8_launches()
     out = k8._launch_sums(logits, labels)
     assert out.shape == (b, 4, c)
     call = fake_lib.medseg_dice_ce_sums.calls[-1]
@@ -61,7 +67,7 @@ def test_launch_paths_hand_over_shapes_and_label_width(fake_lib, label_dtype):
     assert dl.shape == logits.shape
     call = fake_lib.medseg_dice_ce_dlogits.calls[-1]
     assert call[6:10] == (b, m, c, int(label_dtype == torch.int64))
-    assert (k8.launches, k8.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert _k8_launches() == (before[0] + 1, before[1] + 1)
 
 
 def test_slab_count_follows_the_card(fake_lib):
@@ -79,13 +85,13 @@ def test_failed_launches_raise_and_count_nothing(fake_lib):
     fake_lib.medseg_dice_ce_dlogits.err = 1
     logits, labels = torch.zeros(2, 10, 3), torch.zeros(2, 10,
                                                         dtype=torch.int64)
-    before = (k8.launches, k8.bwd_launches)
+    before = _k8_launches()
     with pytest.raises(RuntimeError, match="launch refused"):
         k8._launch_sums(logits, labels)
     with pytest.raises(RuntimeError, match="launch refused"):
         k8._launch_dlogits(logits, labels, torch.zeros(2, 3),
                            torch.zeros(2, 3), torch.zeros(1))
-    assert (k8.launches, k8.bwd_launches) == before
+    assert _k8_launches() == before
 
 
 # ---- on the card
@@ -117,7 +123,7 @@ def _unaligned(t):
 
 def _check_both(logits, labels, gen):
     b, m, c = logits.shape
-    before = (k8.launches, k8.bwd_launches)
+    before = _k8_launches()
     got = k8.dice_ce_sums(logits, labels)
     torch.cuda.synchronize()
     want = k8.dice_ce_sums_plain(logits, labels)
@@ -130,7 +136,7 @@ def _check_both(logits, labels, gen):
     ce = torch.rand(1, generator=gen, device="cuda")
     dl = k8.dice_ce_dlogits(logits, labels, ca, cp, ce)
     torch.cuda.synchronize()
-    assert (k8.launches, k8.bwd_launches) == (before[0] + 2, before[1] + 1)
+    assert _k8_launches() == (before[0] + 2, before[1] + 1)
     ref = k8.dice_ce_dlogits_plain(logits, labels, ca, cp, ce)
     assert dl.shape == ref.shape and torch.isfinite(dl).all()
     assert (dl - ref).norm() <= DLOGITS_NORM_TOL * ref.norm()

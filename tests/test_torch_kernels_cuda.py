@@ -12,6 +12,7 @@ import torch
 
 from medicalsemseg_tpu_torch.ops import convgrad
 from medicalsemseg_tpu_torch.ops import window as tw
+from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
 from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
 from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
@@ -45,6 +46,19 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _k8_launches():
+    """K8's launches so far: (sums, dlogits)."""
+    return (kernels.launches("K8", "forward"),
+            kernels.launches("K8", "backward"))
+
+
+def _swin_calls():
+    """Calls of K1, K3, K2 and K4 so far (K1 and K3 make two launches a
+    call: their heads launches count the calls)."""
+    return (kernels.launches("K1", "heads"), kernels.launches("K3", "heads"),
+            kernels.launches("K2"), kernels.launches("K4"))
+
+
 def _close(got, want, tol=TOL):
     assert got.dtype == want.dtype
     g, w = got.float(), want.float()
@@ -76,10 +90,10 @@ def test_window_attention_kernel(gen, dims, ws, c, nh, shift, ln_res,
                       0.1 * torch.randn(c, generator=gen, device=dev)])
     kw = dict(grid_dims=tuple(d // ws for d in dims), window=(ws,) * 3,
               shift=(shift,) * 3, ln=ln if ln_res else None, residual=ln_res)
-    before = kwa.launches
+    before = kernels.launches("K1", "heads")
     got = kwa.window_attention(wins, **args, **kw)
     torch.cuda.synchronize()
-    assert kwa.launches == before + 1
+    assert kernels.launches("K1", "heads") == before + 1
     _close(got, kwa.window_attention_plain(wins, **args, **kw),
            DTYPE_TOL[dtype][0])
 
@@ -148,10 +162,10 @@ def test_window_attention_backward_kernel(gen, dims, ws, c, nh, shift, ln, res,
                        0.1 * torch.randn(c, generator=gen, device=dev)])
     kw = dict(grid_dims=tuple(d // ws for d in dims), window=(ws,) * 3,
               shift=(shift,) * 3, ln=lnp if ln else None, residual=res)
-    before = kwa.bwd_launches
+    before = kernels.launches("K3", "heads")
     got = kwa.window_attention_bwd(wins, **args, **kw)
     torch.cuda.synchronize()
-    assert kwa.bwd_launches == before + 1
+    assert kernels.launches("K3", "heads") == before + 1
     _grads_close(("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias", "dln"),
                  got, kwa.window_attention_bwd_plain(wins, **args, **kw),
                  dtype)
@@ -176,10 +190,10 @@ def test_mlp_backward_kernel(gen, m, c, res, dtype):
         ln=torch.stack([1 + 0.3 * torch.randn(c, generator=gen, device=dev),
                         0.1 * torch.randn(c, generator=gen, device=dev)]),
         dy=dy, residual=res)
-    before = kmlp.bwd_launches
+    before = kernels.launches("K4")
     got = kmlp.fused_mlp_bwd(x, **args)
     torch.cuda.synchronize()
-    assert kmlp.bwd_launches == before + 1
+    assert kernels.launches("K4") == before + 1
     _grads_close(("dx", "dln", "dw1", "db1", "dw2", "db2"), got,
                  kmlp.fused_mlp_bwd_plain(x, **args), dtype)
     again = kmlp.fused_mlp_bwd(x, **args)
@@ -199,7 +213,7 @@ def test_autograd_functions_run_the_backward_kernels(gen):
         f32((2 * ws - 1) ** 3, nh))]
     idx = torch.from_numpy(tw.relative_position_index((ws,) * 3)).long().reshape(
         -1).to(dev)
-    before = (kwa.launches, kwa.bwd_launches, kmlp.launches, kmlp.bwd_launches)
+    before = _swin_calls()
     wins = tw.window_partition(x, ws)
     out = kwa.WindowAttentionFn.apply(wins, *p, idx, (2, 2, 2), (ws,) * 3,
                                       (1, 1, 1), 1e-5, False)
@@ -209,7 +223,7 @@ def test_autograd_functions_run_the_backward_kernels(gen):
     y = kmlp.FusedMlpFn.apply(out.reshape(-1, c), *q, 1e-5, True)
     y.float().square().sum().backward()
     torch.cuda.synchronize()
-    after = (kwa.launches, kwa.bwd_launches, kmlp.launches, kmlp.bwd_launches)
+    after = _swin_calls()
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
     assert x.grad.dtype == bf and torch.isfinite(x.grad.float()).all()
     for t in p + q:
@@ -255,10 +269,10 @@ def _sums_close(got, want):
 def test_dw27_kernel(gen, shape, c, co, dtype):
     x = torch.randn(*shape, c, generator=gen, device="cuda").to(dtype)
     dy = torch.randn(*shape, co, generator=gen, device="cuda").to(dtype)
-    before = k5.launches
+    before = kernels.launches("K5")
     got = k5.dw27(x, dy)
     torch.cuda.synchronize()
-    assert k5.launches == before + 1
+    assert kernels.launches("K5") == before + 1
     assert got.shape == (3, 3, 3, c, co) and got.dtype == torch.float32
     _sums_close(got, k5.dw27_plain(x, dy))
     if shape[1:] == (1, 1, 1):
@@ -297,11 +311,11 @@ def test_conv_function_takes_k5_on_the_card(gen, monkeypatch):
     for mode in ("1", "0"):
         monkeypatch.setenv("MEDSEG_DW27_PALLAS", mode)
         xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        before = k5.launches
+        before = kernels.launches("K5")
         y = convgrad.Conv3x3x3Fn.apply(xr, wr)
         grads[mode] = torch.autograd.grad(y, (xr, wr), dy)
         torch.cuda.synchronize()
-        assert k5.launches - before == (1 if mode == "1" else 0)
+        assert kernels.launches("K5") - before == (1 if mode == "1" else 0)
     assert torch.equal(grads["1"][0], grads["0"][0])          # dx: same call
     a, b = grads["1"][1].float(), grads["0"][1].float()
     assert grads["1"][1].dtype == torch.bfloat16 and a.shape == w.shape
@@ -320,7 +334,7 @@ def test_dice_ce_kernels(gen, b, m, c, label_dtype):
     logits = torch.randn(b, m, c, generator=gen, device="cuda") * 2.0
     labels = torch.randint(0, c, (b, m), generator=gen,
                            device="cuda").to(label_dtype)
-    before = (k8.launches, k8.bwd_launches)
+    before = _k8_launches()
     got = k8.dice_ce_sums(logits, labels)
     torch.cuda.synchronize()
     want = k8.dice_ce_sums_plain(logits, labels)
@@ -333,7 +347,7 @@ def test_dice_ce_kernels(gen, b, m, c, label_dtype):
     ce = torch.rand(1, generator=gen, device="cuda")
     dl = k8.dice_ce_dlogits(logits, labels, ca, cp, ce)
     torch.cuda.synchronize()
-    assert (k8.launches, k8.bwd_launches) == (before[0] + 2, before[1] + 1)
+    assert _k8_launches() == (before[0] + 2, before[1] + 1)
     ref = k8.dice_ce_dlogits_plain(logits, labels, ca, cp, ce)
     # elementwise in fp32 with another exp and another order of the C-term
     # sums: a few ulps of values of O(1)
@@ -350,11 +364,11 @@ def test_fused_loss_function_on_the_card(gen):
     logits = (torch.randn(2, 9, 10, 11, 14, generator=gen, device="cuda")
               * 2.0).requires_grad_(True)
     labels = torch.randint(0, 14, (2, 9, 10, 11), generator=gen, device="cuda")
-    before = (k8.launches, k8.bwd_launches)
+    before = _k8_launches()
     loss = k8.dice_ce_fused(logits, labels)
     (g,) = torch.autograd.grad(loss, logits)
     torch.cuda.synchronize()
-    assert (k8.launches, k8.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert _k8_launches() == (before[0] + 1, before[1] + 1)
     ref = dice_ce_loss(logits, labels)
     (ref_g,) = torch.autograd.grad(ref, logits)
     assert abs(float(loss.detach()) - float(ref.detach())) <= 1e-5 * abs(
@@ -441,10 +455,10 @@ def test_global_window_attention_kernel(gen, batch, dims, ws, c, nh, ln_res,
     ln = torch.stack([1 + 0.3 * torch.randn(c, generator=gen, device=dev),
                       0.1 * torch.randn(c, generator=gen, device=dev)])
     kw = dict(ln=ln if ln_res else None, residual=ln_res)
-    before = kga.launches
+    before = kernels.launches("K6", "heads")
     got = kga.global_window_attention(wins, **args, **kw)
     torch.cuda.synchronize()
-    assert kga.launches == before + 1
+    assert kernels.launches("K6", "heads") == before + 1
     _close(got, kga.global_window_attention_plain(wins, **args, **kw),
            DTYPE_TOL[dtype][0])
 
@@ -471,10 +485,10 @@ def test_sr_attention_kernel(gen, b, n, m, c, nh, bq, res, dtype):
         wproj=(torch.randn(c, c, generator=gen, device=dev) * c ** -0.5).to(bf),
         bproj=torch.randn(c, generator=gen, device=dev) * 0.1,
         num_heads=nh, residual=act(n) if res else None)
-    before = ksr.launches
+    before = kernels.launches("K7")
     got = ksr.sr_attention(x, **args)
     torch.cuda.synchronize()
-    assert ksr.launches == before + 1
+    assert kernels.launches("K7") == before + 1
     _close(got, ksr.sr_attention_plain(x, **args), DTYPE_TOL[dtype][0])
 
 
@@ -596,10 +610,10 @@ def test_winograd_kernel(gen, shape, c, co, epilogue):
                             3 + torch.randn(b, c, generator=gen,
                                             device="cuda")),
                   lrelu=epilogue == "lrelu")
-    before = k9.launches
+    before = kernels.launches("K9")
     got = k9.winograd_conv3d_f23(x, w, **kw)
     torch.cuda.synchronize()
-    assert k9.launches == before + 1
+    assert kernels.launches("K9") == before + 1
     assert got.shape == (*shape, co) and got.dtype == torch.bfloat16
     _close(got, k9.winograd_conv3d_f23_plain(x, w, **kw))
     assert torch.equal(got, k9.winograd_conv3d_f23(x, w, **kw))
@@ -652,11 +666,11 @@ def test_winograd_kernel_dtypes(gen, shape, c, co, epilogue, dtype):
     route = k9.winograd_route(dtype)
     assert route == ("tensor_core" if dtype == torch.float16
                      else "cuda_core")
-    before = (k9.launches, k9.route_launches[route])
+    before = (kernels.launches("K9"), kernels.routes("K9")[route])
     got = k9.winograd_conv3d_f23(x, w, **kw)
     torch.cuda.synchronize()
-    assert (k9.launches, k9.route_launches[route]) == (before[0] + 1,
-                                                       before[1] + 1)
+    assert (kernels.launches("K9"), kernels.routes("K9")[route]) == (
+        before[0] + 1, before[1] + 1)
     assert got.shape == (*shape, co) and got.dtype == dtype
     _close(got, k9.winograd_conv3d_f23_plain(x, w, **kw), K9_DTYPE_TOL[dtype])
     assert torch.equal(got, k9.winograd_conv3d_f23(x, w, **kw))
@@ -665,10 +679,10 @@ def test_winograd_kernel_dtypes(gen, shape, c, co, epilogue, dtype):
 @pytest.mark.parametrize("shape,c,co", CONV_SHAPES)
 def test_im2col_conv_kernel(gen, shape, c, co):
     x, w = _conv_case(gen, shape, c, co)
-    before = k10.launches
+    before = kernels.launches("K10")
     got = k10.conv3x3x3_fwd(x, w)
     torch.cuda.synchronize()
-    assert k10.launches == before + 1
+    assert kernels.launches("K10") == before + 1
     assert got.shape == (*shape, co) and got.dtype == torch.bfloat16
     _close(got, k10.conv3x3x3_plain(x, w))
     assert torch.equal(got, k10.conv3x3x3_fwd(x, w))
@@ -683,11 +697,12 @@ def test_im2col_conv_function_on_the_card(gen):
     x, w = _conv_case(gen, (2, 6, 7, 9), 32, 16)
     dy = torch.randn(2, 6, 7, 9, 16, generator=gen, device="cuda").bfloat16()
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    before = (k10.launches, k5.launches)
+    before = (kernels.launches("K10"), kernels.launches("K5"))
     y = k10.conv3x3x3(xr, wr)
     dx, dw = torch.autograd.grad(y, (xr, wr), dy)
     torch.cuda.synchronize()
-    assert (k10.launches - before[0], k5.launches - before[1]) == (2, 1)
+    assert (kernels.launches("K10") - before[0],
+            kernels.launches("K5") - before[1]) == (2, 1)
     xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     yl = torch.nn.functional.conv3d(xl.permute(0, 4, 1, 2, 3), wl, padding=1)
     dxl, dwl = torch.autograd.grad(yl, (xl, wl), dy.permute(0, 4, 1, 2, 3))
@@ -713,10 +728,10 @@ def test_winograd_gates_on_the_card(gen, monkeypatch):
         conv.weight.copy_(w.float())
 
     def launched(fn):
-        before = k9.launches
+        before = kernels.launches("K9")
         out = fn()
         torch.cuda.synchronize()
-        return out, k9.launches - before
+        return out, kernels.launches("K9") - before
 
     with torch.no_grad():
         ref, n = launched(lambda: conv(x))

@@ -169,8 +169,8 @@ def _entry(lib, which):
 
 
 def _counts(which):
-    return dict({"K2": kmlp.route_launches,
-                 "K4": kmlp.bwd_route_launches}[which])
+    return dict({"K2": kernels.routes("K2"),
+                 "K4": kernels.routes("K4")}[which])
 
 
 @pytest.mark.parametrize("which", ["K2", "K4"])
@@ -219,11 +219,11 @@ def test_a_failed_launch_raises(fake_lib, which, dtype):
     """No route falls back to the other or to the plain version: the error
     the entry point returns is raised, and nothing is counted."""
     _entry(fake_lib, which).err = 1
-    before = (_counts(which), kmlp.launches, kmlp.bwd_launches)
+    before = (_counts(which), kernels.launches())
     with pytest.raises(RuntimeError, match="launch refused"):
         _launch(which, dtype)
     assert len(_entry(fake_lib, which).calls) == 1
-    assert (_counts(which), kmlp.launches, kmlp.bwd_launches) == before
+    assert (_counts(which), kernels.launches()) == before
 
 
 @pytest.mark.parametrize("which", ["K2", "K4"])
@@ -417,10 +417,10 @@ def _close(got, want, tol):
 def test_k2_routes(gen, c, hdim, m, ln_res, route, dtype):
     x, a, ln = _card_case(gen, m, c, hdim, getattr(torch, dtype))
     kw = dict(ln=ln if ln_res else None, residual=ln_res)
-    before = dict(kmlp.route_launches)
+    before = dict(kernels.routes("K2"))
     got = kmlp.fused_mlp(x, **a, **kw, route=route)
     torch.cuda.synchronize()
-    assert kmlp.route_launches[route] == before[route] + 1
+    assert kernels.routes("K2")[route] == before[route] + 1
     _close(got, kmlp.fused_mlp_plain(x, **a, **kw), TOL[dtype][0])
     if route == "tensor_core":  # a hidden split adds its partials in order
         assert torch.equal(got, kmlp.fused_mlp(x, **a, **kw, route=route))
@@ -440,10 +440,10 @@ def test_k4_routes(gen, c, hdim, res, route, dtype):
     args = dict(w1=a["w1"], b1=a["b1"], w2=a["w2"], ln=ln,
                 dy=torch.randn(x.shape, generator=gen, device="cuda").to(dt),
                 residual=res)
-    before = dict(kmlp.bwd_route_launches)
+    before = dict(kernels.routes("K4"))
     got = kmlp.fused_mlp_bwd(x, **args, route=route)
     torch.cuda.synchronize()
-    assert kmlp.bwd_route_launches[route] == before[route] + 1
+    assert kernels.routes("K4")[route] == before[route] + 1
     want = kmlp.fused_mlp_bwd_plain(x, **args)
     _, norm_tol, max_tol = TOL[dtype]
     for name, g, w in zip(K4_NAMES, got, want):
@@ -473,8 +473,8 @@ def test_k2_tensor_cores_with_other_output_widths(gen, c, co, hdim, m, ln,
                * hdim ** -0.5).to(dt)
     a["b2"] = torch.randn(co, generator=gen, device="cuda") * 0.1
     kw = dict(ln=lnp if ln else None, residual=False)
-    before = dict(kmlp.route_launches)
+    before = dict(kernels.routes("K2"))
     got = kmlp.fused_mlp(x, **a, **kw)
     torch.cuda.synchronize()
-    assert kmlp.route_launches["tensor_core"] == before["tensor_core"] + 1
+    assert kernels.routes("K2")["tensor_core"] == before["tensor_core"] + 1
     _close(got, kmlp.fused_mlp_plain(x, **a, **kw), TOL[dtype][0])

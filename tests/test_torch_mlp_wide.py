@@ -19,6 +19,7 @@ bit-equal.
 import pytest
 import torch
 
+from medicalsemseg_tpu_torch.ops import kernels
 from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
 
 BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
@@ -71,10 +72,10 @@ def test_cuda_core_route_at_wide_widths(gen, c, ln_res, dtype):
         1 + 0.3 * torch.randn(c, generator=gen, device="cuda"),
         0.1 * torch.randn(c, generator=gen, device="cuda")])
         if ln_res else None))
-    by = kmlp.route_launches["cuda_core"]
+    by = kernels.routes("K2")["cuda_core"]
     got = kmlp.fused_mlp(x, **a, **kw, route="cuda_core")
     torch.cuda.synchronize()
-    assert kmlp.route_launches["cuda_core"] == by + 1
+    assert kernels.routes("K2")["cuda_core"] == by + 1
     want = kmlp.fused_mlp_plain(x, **a, **kw)
     g, w = got.float(), want.float()
     assert got.shape == want.shape and torch.isfinite(g).all()
@@ -101,10 +102,10 @@ def test_backward_at_wide_widths(gen, m, c, res, dtype):
                  0.1 * torch.randn(c, generator=gen, device="cuda")]),
              dy=torch.randn(m, c, generator=gen, device="cuda").to(dtype),
              residual=res)
-    by = kmlp.bwd_route_launches["cuda_core"]
+    by = kernels.routes("K4")["cuda_core"]
     got = kmlp.fused_mlp_bwd(x, **a)
     torch.cuda.synchronize()
-    assert kmlp.bwd_route_launches["cuda_core"] == by + 1
+    assert kernels.routes("K4")["cuda_core"] == by + 1
     norm_tol, max_tol = GRAD_TOL[dtype]
     for g, w in zip(got, kmlp.fused_mlp_bwd_plain(x, **a)):
         assert g.shape == w.shape and g.dtype == w.dtype

@@ -1,5 +1,5 @@
 """The port's profiling hooks (``utils/profiling.py``) on the CPU:
-``trace`` writes a Chrome trace holding the annotated region,
+``trace`` writes a Chrome trace holding the program's span,
 ``device_memory_stats`` is empty without a card, and the training CLI's
 ``--profile_dir`` traces the first trained epoch and no other."""
 
@@ -18,7 +18,7 @@ from tests.test_torch_run_training import ARGV, _write_train_set
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "prof")) as path:
-        with profiling.annotate("medseg_region"):
+        with profiling.span("medseg_region"):
             torch.randn(64, 64) @ torch.randn(64, 64)
     assert path == str(tmp_path / "prof" / "trace_rank0.json")
     events = json.load(open(path))["traceEvents"]

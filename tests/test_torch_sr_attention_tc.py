@@ -169,7 +169,7 @@ def _args(call):
 def test_launch_hands_over_the_route_and_the_plan(fake_lib, dtype, c, nh,
                                                   route):
     x, a = _case(dtype, c=c, nh=nh)
-    before, by = ksr.launches, dict(ksr.route_launches)
+    before, by = kernels.launches("K7"), dict(kernels.routes("K7"))
     out = ksr._launch(x, **a, route=None)
     assert out.shape == x.shape and out.dtype == dtype
     (call,) = fake_lib.medseg_sr_attention_fwd.calls
@@ -184,8 +184,8 @@ def test_launch_hands_over_the_route_and_the_plan(fake_lib, dtype, c, nh,
     else:
         assert plan == (0, 0, 0)
     assert call[19] == pytest.approx((c // nh) ** -0.5)
-    assert ksr.launches == before + 1
-    assert ksr.route_launches[route] == by[route] + 1
+    assert kernels.launches("K7") == before + 1
+    assert kernels.routes("K7")[route] == by[route] + 1
 
 
 def test_forced_cuda_core_route_and_refused_tensor_cores(fake_lib):
@@ -206,10 +206,10 @@ def test_forced_cuda_core_route_and_refused_tensor_cores(fake_lib):
 def test_failed_launch_raises_and_counts_nothing(fake_lib):
     fake_lib.medseg_sr_attention_fwd.err = 1
     x, a = _case(BF16)
-    before, by = ksr.launches, dict(ksr.route_launches)
+    before, by = kernels.launches("K7"), dict(kernels.routes("K7"))
     with pytest.raises(RuntimeError, match="launch refused"):
         ksr._launch(x, **a, route=None)
-    assert ksr.launches == before and ksr.route_launches == by
+    assert kernels.launches("K7") == before and kernels.routes("K7") == by
 
 
 def test_tensor_core_route_refuses_unaligned_tensors(fake_lib):
@@ -275,12 +275,12 @@ def _close(got, want, tol):
 
 
 def _run(x, a, route=None):
-    by = dict(ksr.route_launches)
+    by = dict(kernels.routes("K7"))
     got = ksr.sr_attention(x, **a, route=route)
     torch.cuda.synchronize()
     want = route or ksr.sr_route(x.dtype, x.shape[2], a["num_heads"],
                                  a["k"].shape[1])
-    assert ksr.route_launches[want] == by[want] + 1
+    assert kernels.routes("K7")[want] == by[want] + 1
     return got
 
 

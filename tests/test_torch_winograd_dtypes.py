@@ -133,7 +133,7 @@ def test_launch_hands_over_codes_weights_and_counts(fake_lib, dtype, route,
     x = torch.zeros(2, 3, 5, 7, c, dtype=dtype)
     w = torch.randn(co, c, 3, 3, 3, generator=gen).to(dtype)
     ep = ((torch.ones(2, c), torch.zeros(2, c)) if with_ep else None)
-    before, routes = k9.launches, dict(k9.route_launches)
+    before, routes = kernels.launches("K9"), dict(kernels.routes("K9"))
     y = k9._launch(x, w, ep, True, 0.01)
     assert y.shape == (2, 3, 5, 7, co) and y.dtype == dtype
     args = fake_lib.calls[-1]
@@ -153,19 +153,19 @@ def test_launch_hands_over_codes_weights_and_counts(fake_lib, dtype, route,
         assert (cp, cop) == (c, co)
         assert torch.equal(u, ref)
     assert (args[2] is None) == (not with_ep)
-    assert k9.launches == before + 1
+    assert kernels.launches("K9") == before + 1
     want = dict(routes)
     want[route] += 1
-    assert k9.route_launches == want
+    assert kernels.routes("K9") == want
 
 
 def test_a_failed_launch_raises_and_counts_nothing(fake_lib):
     fake_lib.err = 1
-    before, routes = k9.launches, dict(k9.route_launches)
+    before, routes = kernels.launches("K9"), dict(kernels.routes("K9"))
     with pytest.raises(RuntimeError, match="launch refused"):
         k9._launch(torch.zeros(1, 2, 2, 2, 16), torch.zeros(16, 16, 3, 3, 3),
                    None, False, 0.01)
-    assert (k9.launches, k9.route_launches) == (before, routes)
+    assert (kernels.launches("K9"), kernels.routes("K9")) == (before, routes)
 
 
 def test_float64_raises_before_any_launch(fake_lib):
