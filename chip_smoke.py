@@ -30,7 +30,11 @@ Phases, in order; any failure exits non-zero:
                  channels on small odd volumes (`--kernels conv` runs these
                  two alone);
                  and K1-K4, K6, K7 in fp32 at their four stages beside an
-                 fp32 bound (`--kernels fp32`). The heads launches of K1, K3
+                 fp32 bound (`--kernels fp32`); K11 (the decoder's
+                 InstanceNorm -> residual -> LeakyReLU chain, its three
+                 forms, forward and backward) at every decoder shape from
+                 96^3 x 48 to 3^3 x 768, batch 8 and 16, beside the plain
+                 chain and its byte bound (`--kernels norm`). The heads launches of K1, K3
                  and K6, their GEMM launches (K1's and K6's projection, K3's
                  dx and dw), and K2 and K4, have a tensor-core and a
                  CUDA-core route: both are held against plain (K3's and K4's
@@ -203,6 +207,10 @@ Phases, in order; any failure exits non-zero:
 Every training phase runs the default --remat conv, as the JAX package
 does: each Swin block of the Swin UNETR models runs its forward again in
 the backward, so K1 and K2 launch twice a block and step (REMAT_FORWARDS).
+Every phase that runs a model with UnetResBlocks also requires K11's
+launches (`_k11_launches`): its forward twice a block and forward (again
+in a rematerialising UNETR decoder's recompute), its backward twice a block
+and step.
 The kernels group `f5` (in the default set) holds the same paths' kernels at
 their shapes against their plain versions, timed: K7's streaming route at
 SegFormer3D's four stages at vol 160 (M = 125) and at stage 4 with
@@ -267,7 +275,7 @@ PHASES = ("card", "build", "kernels", "model", "zoo", "cli", "train",
           "zoo_rest", "dist", "profile_dir", "device_pipeline", "remat")
 # groups of the kernels phase, for --kernels
 KERNEL_GROUPS = ("swin", "zoo", "dw27", "dice_ce", "conv", "fp32", "f5",
-                 "r15", "official", "zoo_rest")
+                 "r15", "official", "zoo_rest", "norm")
 EXTRA_PHASES = ("profile", "k9_parts", "k5_parts", "k10_parts", "attn_parts",
                 "mlp_parts", "sr_parts", "zoo_grads", "heads_forms",
                 "profile_official")
@@ -876,9 +884,12 @@ def _kernel_reports():
             ("K9", "winograd_conv3d_f23", "winograd3d.cu",
              "winograd3d.py:212"),
             # forward :113, which is also dx; its dW :164 is K5's function
-            ("K10", "conv3x3x3", "conv3d.cu", "conv3d.py:113"))
+            ("K10", "conv3x3x3", "conv3d.cu", "conv3d.py:113"),
+            # no TPU kernel: XLA fuses the JAX InstanceNorm (layers.py:349)
+            ("K11", "instance_norm_act", "instance_norm.cu", None),
+            ("K11", "instance_norm_act_bwd", "instance_norm.cu", None))
     return {name: {"tag": tag, "name": name, "route": "cuda",
-                   "source": src + cu, "replaces": ref + at,
+                   "source": src + cu, "replaces": at and ref + at,
                    "library_ms": None, "per_stage": []}
             for tag, name, cu, at in rows}
 
@@ -911,6 +922,8 @@ def phase_kernels(groups=KERNEL_GROUPS):
         _official_kernels(rep["window_attention"])
     if "zoo_rest" in groups:
         _zoo_rest_kernels(rep)
+    if "norm" in groups:
+        _norm_kernels(rep["instance_norm_act"], rep["instance_norm_act_bwd"])
     for k in rep.values():
         k["launches"] = 0
         del k["tag"]
@@ -1839,6 +1852,136 @@ def _dw27_kernel(k5r):
     k5r["bound_by"] = main[(48, 48)]["bound_by"]
 
 
+# K11 in bf16 against the fp32 chain: the output and the input gradients
+# round once to bf16 (half an ulp, 2^-9 relative at most; the norm of the
+# error lies well below)
+K11_REL_TOL = 4e-3
+
+
+def _norm_bytes(b, n, c, form, backward, elem=2):
+    """Bytes of one K11 call with each input read once and each output
+    written once (the bound's count): forward x (and res) in, y out;
+    backward x, dy (and res) in, dx (and dres) out; the fp32 statistics,
+    parameters and their gradients beside them."""
+    vol = b * n * c * elem
+    streams = (2 + (form > 0) + 1 + (form > 0)) if backward else (
+        1 + (form > 0) + 1)
+    return streams * vol + 4 * (2 * (1 + (form == 2)) * b * c + 6 * c)
+
+
+# (edge, C) of the UNETR decoder's InstanceNorms in both benchmarked models
+# (hidden 48, four stages): 96^3 x 48 at full resolution down to 3^3 x 768
+# at stage 4; each at a training step's batch 8 and a predictor call's 16
+NORM_SHAPES = ((CROP, 48), (48, 48), (24, 96), (12, 192), (6, 384), (3, 768))
+
+
+def _norm_kernels(fwd, bwd):
+    """K11 against its plain version at every shape of the decoder
+    (``NORM_SHAPES``, batch 8 and 16), each form, in bf16: the output and
+    the input gradients against the plain chain run on the inputs' fp32
+    values (the chain in bf16 rounds the norm, up to 0.125 at 16, before the
+    residual add, and where the two nearly cancel flips the LeakyReLU's
+    mask: no reference for the residual forms); CUDA-event times of the
+    forward, the backward launch alone and forward + backward beside the
+    plain chain's in bf16 and the byte bound. The reports' own numbers are
+    those of batch 8 at 96^3, form 0."""
+    import torch
+
+    from medicalsemseg_tpu_torch.ops.kernels import instance_norm as k11
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    for edge, c in NORM_SHAPES:
+        for batch in (8, 16):
+            for form in (0, 1, 2):
+                _norm_case(k11, rnd, fwd, bwd, batch, edge, c, form, bf)
+    for rep in (fwd, bwd):
+        first = rep["per_stage"][0]
+        rep.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")})
+
+
+def _norm_case(k11, rnd, fwd, bwd, batch, edge, c, form, bf):
+    import torch
+
+    x = rnd(batch, edge, edge, edge, c, scale=1.5, shift=0.3).to(bf)
+    res = rnd(*x.shape, scale=2.0, shift=-0.4).to(bf) if form else None
+    w, b = rnd(c, scale=0.5, shift=1.0), rnd(c, scale=0.5)
+    rw, rb = ((rnd(c, scale=0.5, shift=1.0), rnd(c, scale=0.5))
+              if form == 2 else (None, None))
+    args = (x, w, b, res, rw, rb)
+    name = f"K11 form {form} {batch}x{edge}^3x{c}"
+    f32 = [t if t is None else t.detach().float().requires_grad_(True)
+           for t in args]
+    with torch.no_grad():
+        got = k11.instance_norm_act(*args)
+        torch.cuda.synchronize()
+        _compare_sums(name, got.float(), k11.instance_norm_act_plain(*f32),
+                      fwd, K11_REL_TOL)
+        _require(torch.equal(got, k11.instance_norm_act(*args)),
+                 f"{name}: a second run is not bit-equal")
+        del got
+    dy = rnd(*x.shape).to(bf)
+    leaves = [t if t is None else t.detach().requires_grad_(True)
+              for t in args]
+    ins = [t for t in leaves if t is not None]
+
+    def fwd_bwd(fn, leaves=leaves, dy=dy):
+        return torch.autograd.grad(fn(*leaves), [t for t in leaves
+                                                 if t is not None], dy)
+
+    grads = fwd_bwd(k11.instance_norm_act)
+    torch.cuda.synchronize()
+    want = fwd_bwd(k11.instance_norm_act_plain, f32, dy.float())
+    for i in (0, 3):     # dx, dres
+        if args[i] is not None:
+            j = sum(t is not None for t in args[:i])
+            _compare_sums(f"{name} d{('x', '', '', 'res')[i]}",
+                          grads[j].float(), want[j], bwd, K11_REL_TOL)
+    del grads, want
+    _, stats = k11._launch_fwd(x, w, b, res, rw, rb, 1e-5)
+    big = edge == CROP
+    with torch.no_grad():
+        ms = _time_ms(lambda: k11.instance_norm_act(*args), 10)
+        pms = _time_ms(lambda: k11.instance_norm_act_plain(*args),
+                       5 if big else 10)
+        bms = _time_ms(lambda: k11.instance_norm_act_bwd(
+            x, res, dy, stats, w, b, rw, rb), 10)
+    # the plain chain's backward alone, on a graph kept for the reruns
+    out = k11.instance_norm_act_plain(*leaves)
+    pbms = _time_ms(lambda: torch.autograd.grad(out, ins, dy,
+                                                retain_graph=True),
+                    3 if big else 10)
+    del out
+    fb = _time_ms(lambda: fwd_bwd(k11.instance_norm_act), 5)
+    pfb = _time_ms(lambda: fwd_bwd(k11.instance_norm_act_plain),
+                   3 if big else 10)
+    n = edge ** 3
+    nb_f = _norm_bytes(batch, n, c, form, False)
+    nb_b = _norm_bytes(batch, n, c, form, True)
+    bound_f, _ = _bound(0, nb_f, PEAK_FP32_FLOPS)
+    bound_b, _ = _bound(0, nb_b, PEAK_FP32_FLOPS)
+    shape = {"batch": batch, "edge": edge, "c": c, "form": form}
+    fwd["per_stage"].append({
+        **shape, "ms": ms, "plain_ms": pms, "fwd_bwd_ms": fb,
+        "plain_fwd_bwd_ms": pfb, "bytes": nb_f, "bound_ms": bound_f,
+        "bound_by": "bytes"})
+    bwd["per_stage"].append({
+        **shape, "ms": bms, "plain_ms": pbms, "bytes": nb_b,
+        "bound_ms": bound_b, "bound_by": "bytes"})
+    print(f"  {name}: forward {ms:.3f} ms (plain {pms:.3f}, bound "
+          f"{bound_f:.4f}: {bound_f / ms:.1%}); backward launch {bms:.3f} ms "
+          f"(plain backward {pbms:.3f}, bound {bound_b:.4f}: "
+          f"{bound_b / bms:.1%}); forward + backward {fb:.3f} ms (plain "
+          f"{pfb:.3f})", flush=True)
+    del x, res, dy, leaves, ins, stats, f32
+    torch.cuda.empty_cache()
+
+
 def _dice_ce_kernels(fwd, bwd):
     """K8 forward sums and dlogits against their plain versions at the
     logits of the batch-4 micro-step and of a batch-8 step."""
@@ -2037,8 +2180,9 @@ def _model_vs_cpu(tag, cfg, want, x_in, xb, other_routes=None, ref=None,
     (the encoder's pyramid, where the model has an ``encoder``, and the
     logits within MODEL_REL_TOL; ``ref``: the reference's logits, computed
     before on the same weights), then one predictor call on the windows
-    ``xb`` (CPU tensors): its launches, which must be ``want`` (0 for every
-    other kernel), on the tensor-core routes but for ``other_routes``
+    ``xb`` (CPU tensors): its launches, which must be ``want`` and K11's
+    (:func:`_k11_launches`; 0 for every other kernel), on the tensor-core
+    routes but for ``other_routes``
     ({kernel: launches}), with ``held`` every K1 and K2 launch held against
     its plain version (``_held_launches``); then peak memory and the call's
     ms with the kernels and with their plain versions. Returns (the call's
@@ -2110,7 +2254,8 @@ def _model_vs_cpu(tag, cfg, want, x_in, xb, other_routes=None, ref=None,
                  f"{tag}: logits of {n} windows")
         del out
         _require_launches(f"{tag} (one predictor call)", launches,
-                          {**dict.fromkeys(launches, 0), **want})
+                          {**dict.fromkeys(launches, 0),
+                           **_k11_launches(gpu, forwards=1), **want})
         for name, errs in (hl.errors.items() if held else ()):
             _require(len(errs) == launches[name], f"{tag}: {name} held "
                      f"{len(errs)} of {launches[name]} launches")
@@ -2268,7 +2413,8 @@ def phase_cli():
                               (0, 1))
         _require_launches(f"cli ({calls} predictor calls)", delta, {
             **dict.fromkeys(delta, 0), "window_attention": 8 * calls,
-            "fused_mlp": 8 * calls})
+            "fused_mlp": 8 * calls,
+            **_k11_launches(FLAGSHIP_ARGS, forwards=calls)})
         small_calls = None
         for name in ("GCViTUNETR", "SegFormer3D"):
             records, calls, delta = run(name, _zoo_args(name),
@@ -2276,7 +2422,8 @@ def phase_cli():
             small_calls = calls
             _require_launches(f"cli {name} ({calls} predictor calls)", delta, {
                 **dict.fromkeys(delta, 0),
-                **{k: n * calls for k, n in ZOO_LAUNCHES[name].items()}})
+                **{k: n * calls for k, n in ZOO_LAUNCHES[name].items()},
+                **_k11_launches(_zoo_args(name), forwards=calls)})
         # mirror TTA: 8 model calls for each of the plain run's window batches
         records, calls, delta = run("tta_mirror", FLAGSHIP_ARGS,
                                     "Task02_SmokeSmall", (1,), ["--tta_mirror"])
@@ -2284,7 +2431,8 @@ def phase_cli():
                  f"calls, want 8 x {small_calls}")
         _require_launches(f"cli tta_mirror ({calls} model calls)", delta, {
             **dict.fromkeys(delta, 0), "window_attention": 8 * calls,
-            "fused_mlp": 8 * calls})
+            "fused_mlp": 8 * calls,
+            **_k11_launches(FLAGSHIP_ARGS, forwards=calls)})
         return total
 
 
@@ -2306,7 +2454,9 @@ def _read_launches():
             "global_window_attention": launches("K6", "heads"),
             "sr_attention": launches("K7"),
             "dice_ce_sums": launches("K8", "forward"),
-            "dice_ce_dlogits": launches("K8", "backward")}
+            "dice_ce_dlogits": launches("K8", "backward"),
+            "instance_norm_act": launches("K11", "forward"),
+            "instance_norm_act_bwd": launches("K11", "backward")}
 
 
 SWIN_KERNELS = ("window_attention", "fused_mlp", "window_attention_bwd",
@@ -2325,6 +2475,59 @@ def _swin_step_launches(blocks, kernels=SWIN_KERNELS):
     steps)."""
     return {k: blocks if k.endswith("_bwd") else REMAT_FORWARDS * blocks
             for k in kernels}
+
+
+def _k11_launches(model, forwards=0, steps=0):
+    """K11's launches in ``forwards`` forwards without gradients and
+    ``steps`` training steps of ``model`` (a module, or a Config or the
+    command-line arguments of one, then built on the meta device). A
+    UnetResBlock's forward launches K11's forward twice: norm1 with its
+    LeakyReLU (the fused decoder's norm1 statistics alone), and norm2 with
+    the residual, norm3's shortcut normalised in the same launch, and the
+    closing LeakyReLU; a step launches its backward twice a block. A step
+    runs the blocks of a UNETR decoder that rematerialises (``remat`` other
+    than "none", the default "conv") forward again in the backward."""
+    import torch
+
+    from medicalsemseg_tpu_torch.models.decoders import (SwinUNETRDecoder,
+                                                         UnetResBlock)
+
+    if not isinstance(model, torch.nn.Module):
+        from medicalsemseg_tpu_torch.config import get_args
+        from medicalsemseg_tpu_torch.models.factory import build_model
+
+        cfg = get_args(model) if isinstance(model, list) else model
+        with torch.device("meta"):
+            model = build_model(cfg)
+
+    def blocks(m):
+        return sum(isinstance(b, UnetResBlock) for b in m.modules())
+
+    n = blocks(model)
+    again = sum(blocks(d) for d in model.modules()
+                if isinstance(d, SwinUNETRDecoder) and d.remat != "none")
+    return {"instance_norm_act": 2 * (n * (forwards + steps) + again * steps),
+            "instance_norm_act_bwd": 2 * n * steps}
+
+
+def _require_k11_with_validation(phase, launches, model, steps,
+                                 validated=True):
+    """K11's launches of a training CLI run: those of ``steps`` steps of
+    ``model`` (:func:`_k11_launches`) and of the validation's predictor
+    calls, a forward each, however many its volumes took (at least one with
+    ``validated``)."""
+    want = _k11_launches(model, steps=steps)
+    per_call = _k11_launches(model, forwards=1)["instance_norm_act"]
+    val = launches["instance_norm_act"] - want["instance_norm_act"]
+    calls = val // per_call if per_call else 0
+    _require(launches["instance_norm_act_bwd"] == want["instance_norm_act_bwd"]
+             and val == calls * per_call
+             and (calls > 0 or not validated or not per_call),
+             f"{phase}: K11 launched {launches['instance_norm_act']} forward "
+             f"and {launches['instance_norm_act_bwd']} backward (want "
+             f"{want['instance_norm_act_bwd']} backward, and "
+             f"{want['instance_norm_act']} forward in the steps and "
+             f"{per_call} a validation call)")
 
 
 def _require_launches(phase, launches, want):
@@ -2389,6 +2592,7 @@ class _plain_kernels:
         from medicalsemseg_tpu_torch.ops.kernels import dice_ce as k8
         from medicalsemseg_tpu_torch.ops.kernels import dw27 as k5
         from medicalsemseg_tpu_torch.ops.kernels import global_attention as kga
+        from medicalsemseg_tpu_torch.ops.kernels import instance_norm as k11
         from medicalsemseg_tpu_torch.ops.kernels import mlp as kmlp
         from medicalsemseg_tpu_torch.ops.kernels import sr_attention as ksr
         from medicalsemseg_tpu_torch.ops.kernels import conv3d as k10
@@ -2399,7 +2603,8 @@ class _plain_kernels:
                  (kmlp, "fused_mlp"), (kmlp, "fused_mlp_bwd"), (k5, "dw27"),
                  (kga, "global_window_attention"), (ksr, "sr_attention"),
                  (k8, "dice_ce_sums"), (k8, "dice_ce_dlogits"),
-                 (k9, "winograd_conv3d_f23"))
+                 (k9, "winograd_conv3d_f23"), (k11, "instance_norm_act"),
+                 (k11, "instance_norm_stats"))
         self.saved = [(mod, name, getattr(mod, name)) for mod, name in names]
         for mod, name in names:
             setattr(mod, name, getattr(mod, name + "_plain"))
@@ -2626,7 +2831,8 @@ def phase_train():
     # unfused one
     _require_launches(f"train ({TRAIN_STEPS} steps)", launches, {
         **dict.fromkeys(launches, 0),
-        **_swin_step_launches(8 * TRAIN_STEPS)})
+        **_swin_step_launches(8 * TRAIN_STEPS),
+        **_k11_launches(model, steps=TRAIN_STEPS)})
 
     # one step's gradients: bf16 + kernels vs fp32 + plain
     del state, m
@@ -2748,7 +2954,8 @@ def phase_train_b4():
              f"train_b4: the loss did not fall after every update: {losses}")
     _require_launches(f"train_b4 ({n} micro-steps)", launches, {
         **_swin_step_launches(8 * n), "dw27": 3 * n,
-        "dice_ce_sums": n, "dice_ce_dlogits": n})
+        "dice_ce_sums": n, "dice_ce_dlogits": n,
+        **_k11_launches(model, steps=n)})
 
     # the micro-step with and without each kernel, in the order A, B, B, A;
     # two micro-steps (one update) per reading, each route warmed first
@@ -3467,6 +3674,8 @@ def phase_train_cli():
         _require_launches(f"train_cli ({steps} steps at batch 8)", launches, {
             "window_attention_bwd": 8 * steps, "fused_mlp_bwd": 8 * steps,
             "dw27": 0, "dice_ce_sums": 0, "dice_ce_dlogits": 0})
+        _require_k11_with_validation(f"train_cli ({steps} steps at batch 8)",
+                                     launches, TRAIN_ARGS, steps)
         for name in ("window_attention", "fused_mlp"):
             _require(launches[name] > REMAT_FORWARDS * 8 * steps
                      and launches[name] % 8 == 0,
@@ -3513,6 +3722,9 @@ def phase_train_cli():
                 "window_attention_bwd": 8 * micro, "fused_mlp_bwd": 8 * micro,
                 "dw27": 3 * micro, "dice_ce_sums": micro,
                 "dice_ce_dlogits": micro})
+            _require_k11_with_validation(
+                f"train_cli {name} ({micro} micro-steps)", delta, TRAIN_ARGS,
+                micro)
             row = log(out_dir)[-1]
             _require(all(np.isfinite(row[k]) for k in
                          ("train/loss", "train/mDice", "val/loss", "val/mDice")),
@@ -3708,6 +3920,7 @@ def phase_fused():
                 _require_launches(
                     f"fused {model_name} {gate} (one predictor call)", launches,
                     {**dict.fromkeys(launches, 0), **others,
+                     **_k11_launches(gpu, forwards=1),
                      "winograd_conv3d_f23": need})
                 rel_base = float((got - base).norm() / base.norm())
                 line = (f"fused: {model_name} {gate}=1, one 96^3 window, bf16: "
@@ -3774,6 +3987,7 @@ def phase_fused():
             _require_launches(f"fused {dname} (one predictor call)", launches,
                               {**dict.fromkeys(launches, 0),
                                "window_attention": 8, "fused_mlp": 8,
+                               **_k11_launches(net, forwards=1),
                                "winograd_conv3d_f23": need})
             _require(by_route[route] == need, f"fused {dname}: K9 by route "
                      f"{by_route} (want {need} on the {route} route)")
@@ -3823,7 +4037,8 @@ def phase_fused():
                  "launched K9")
         _require_launches(f"fused cli ({calls} predictor calls)", delta, {
             **dict.fromkeys(delta, 0), "window_attention": 8 * calls,
-            "fused_mlp": 8 * calls, "winograd_conv3d_f23": per_call * calls})
+            "fused_mlp": 8 * calls, "winograd_conv3d_f23": per_call * calls,
+            **_k11_launches(FLAGSHIP_ARGS, forwards=calls)})
         pred = nifti.load(os.path.join(tmp, "out", "test_output", "Fold0",
                                        "pred", "0.nii.gz")).data
         _require(pred.shape == shape and pred.dtype == np.uint8
@@ -3895,6 +4110,7 @@ def phase_train_wino():
     _require_launches(f"train_wino ({WINO_TRAIN_STEPS} steps)", launches, {
         **dict.fromkeys(launches, 0),
         **_swin_step_launches(8 * WINO_TRAIN_STEPS),
+        **_k11_launches(model, steps=WINO_TRAIN_STEPS),
         "winograd_conv3d_f23": need * WINO_TRAIN_STEPS})
     del state
 
@@ -4084,7 +4300,8 @@ def phase_fp32():
             want = {**dict.fromkeys(delta, 0)}
             if not plain:
                 want.update({"window_attention": 8 * calls,
-                             "fused_mlp": 8 * calls})
+                             "fused_mlp": 8 * calls,
+                             **_k11_launches(cfg, forwards=calls)})
                 add(delta)
                 _check_routes("fp32 cli", "cuda_core")
             _require(calls > 0, "fp32 cli: no predictor call")
@@ -4130,6 +4347,8 @@ def phase_fp32():
         _require_launches(f"fp32 train_cli ({steps} steps)", delta, {
             "window_attention_bwd": 8 * steps, "fused_mlp_bwd": 8 * steps,
             "dw27": 3 * steps})
+        _require_k11_with_validation(f"fp32 train_cli ({steps} steps)", delta,
+                                     TRAIN_ARGS + fp32, steps)
         _require(all(np.isfinite(row[k]) for k in ("train/loss", "val/loss")),
                  f"fp32 train_cli: log row {row}")
         print(f"fp32: run_training --compute_dtype float32, {steps} steps at "
@@ -4148,7 +4367,7 @@ def phase_fp32():
         _reset_launches()
         got = model(xb)
         torch.cuda.synchronize()
-        n1 = _read_launches()["window_attention"]
+        n1 = _read_launches()
         _check_routes("fp32 model", "cuda_core")
         with _plain_kernels():
             want = model(xb)
@@ -4156,9 +4375,12 @@ def phase_fp32():
         print(f"fp32: one predictor call ({FP16_WINDOWS} windows), kernels vs "
               f"plain: rel norm err {rel:.3e} (tol {FP32_LOGIT_REL_TOL})",
               flush=True)
-        _require(n1 == 8 and got.dtype == torch.float32
+        _require(n1["window_attention"] == 8 and got.dtype == torch.float32
                  and bool(torch.isfinite(got).all()),
-                 f"fp32 model: K1 launched {n1} times, logits {got.dtype}")
+                 f"fp32 model: K1 launched {n1['window_attention']} times, "
+                 f"logits {got.dtype}")
+        _require_launches("fp32 model (one predictor call)", n1,
+                          _k11_launches(model, forwards=1))
         _require(rel <= FP32_LOGIT_REL_TOL, "fp32 model: the kernels' logits "
                  "disagree with the plain versions'")
 
@@ -4180,6 +4402,8 @@ def phase_fp32():
         _require(n16["window_attention"] == 8 and n16["fused_mlp"] == 8
                  and bool(torch.isfinite(got16).all()),
                  "fp16 model: K1/K2 not launched or non-finite logits")
+        _require_launches("fp16 model (one predictor call)", n16,
+                          _k11_launches(half, forwards=1))
         _require(rel16 <= MODEL_REL_TOL, "fp16 model: logits disagree with "
                  "the fp32 plain path")
         del half, got16, got, want
@@ -4199,7 +4423,8 @@ def phase_fp32():
         with _plain_kernels():
             want_loss, want = _grads_of(model, loss_fn, batch)
     _require_launches("fp32 gradients (one step)", delta, {
-        **_swin_step_launches(8), "dw27": 3})
+        **_swin_step_launches(8), "dw27": 3,
+        **_k11_launches(model, steps=1)})
     rel = _rel_norm(got, want)
     print(f"fp32: gradients of one step (batch {FP32_TRAIN_BATCH}), fp32 "
           f"kernels vs fp32 plain: loss {got_loss:.6f} vs {want_loss:.6f}, "
@@ -4703,7 +4928,8 @@ def phase_eval():
             _require_launches(f"eval {label} ({calls} predictor calls)",
                               delta, {**dict.fromkeys(delta, 0),
                                       "window_attention": 8 * calls,
-                                      "fused_mlp": 8 * calls})
+                                      "fused_mlp": 8 * calls,
+                                      **_k11_launches(cfg, forwards=calls)})
             for r in res["records"]:
                 print(f"eval: {label} HD95 {r['name']} {r['shape']}: "
                       f"{r['windows']} windows, {r['predictor_calls']} "
@@ -4902,8 +5128,8 @@ def phase_f5():
         add(launches)
     # every block on the kernels (head dim 32: the CUDA-core heads route);
     # stage 4 (C = 768): K3's GEMM launches and K4 on the CUDA cores
-    _require_launches("f5 hidden 96 (one step)", launches,
-                      _swin_step_launches(8))
+    _require_launches("f5 hidden 96 (one step)", launches, {
+        **_swin_step_launches(8), **_k11_launches(model, steps=1)})
     _require(routes["fused_mlp_bwd"]["cuda_core"] == 2
              and routes["window_attention_bwd_gemm"]["cuda_core"] == 2,
              f"f5: stage 4's backward by route {routes['fused_mlp_bwd']}, "
@@ -4998,7 +5224,9 @@ def _call_vs_plain(phase, args, want_launches):
                  f"{phase}: logits of {PREDICT_BATCH} windows")
         del out
         _require_launches(f"{phase} (one predictor call)", launches,
-                          {**dict.fromkeys(launches, 0), **want_launches})
+                          {**dict.fromkeys(launches, 0),
+                           **_k11_launches(model, forwards=1),
+                           **want_launches})
         for name in ("window_attention", "global_window_attention",
                      "sr_attention"):
             _require(routes[name]["tensor_core"] == 0,
@@ -5056,8 +5284,8 @@ def phase_r15():
         launches = _read_launches()
         routes = _add_routes(f"r15 training step {step}")
         add(launches)
-    _require_launches("r15 training step", launches,
-                      _swin_step_launches(8))
+    _require_launches("r15 training step", launches, {
+        **_swin_step_launches(8), **_k11_launches(model, steps=1)})
     _require(routes["window_attention"] == {
         "tensor_core": 0, "cuda_core": REMAT_FORWARDS * 8}
              and routes["window_attention_bwd"] == {"tensor_core": 0,
@@ -5276,9 +5504,9 @@ def _zoo_train_cli(name, tmp, batch_size, extra=()):
     checkpoint, then (where ZOO_B4_K5[name] is not None) one epoch of
     micro-steps at batch 4 with --grad_accum_steps 2 --fused_loss. Requires
     the backward kernels' launches of a step (ZOO_TRAIN_LAUNCHES[name]), K5's
-    of a batch-4 micro-step (ZOO_B4_K5[name]) and K8's, once forward and once
-    backward for each head (three under --deep_supervision). Returns the
-    launches of the runs."""
+    of a batch-4 micro-step (ZOO_B4_K5[name]), K8's, once forward and once
+    backward for each head (three under --deep_supervision), and K11's of
+    the steps and the validation. Returns the launches of the runs."""
     import numpy as np
     import torch
 
@@ -5332,6 +5560,8 @@ def _zoo_train_cli(name, tmp, batch_size, extra=()):
                 _require(launches[k] == v * micro,
                          f"zoo_train {name} CLI {tag}: {k} launched "
                          f"{launches[k]} times (want {v * micro})")
+        _require_k11_with_validation(f"zoo_train {name} CLI {tag}", launches,
+                                     base + extra, micro)
         print(f"zoo_train: {name} CLI {tag}: 1 epoch ({micro} steps, "
               f"validation of {ZOO_CLI_VOLUMES - n_train} volumes) in "
               f"{wall:.1f} s, loss {row['train/loss']:.4f}, val mDice "
@@ -5468,7 +5698,8 @@ def phase_zoo_train():
                 total[k] = total.get(k, 0) + v
             for i, step in enumerate(run["steps"]):
                 _require_launches(f"zoo_train {name} (step {i})", step, {
-                    **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name]})
+                    **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name],
+                    **_k11_launches(run["model"], steps=1)})
             _require(all(by["cuda_core"] == 0 for by in routes.values()),
                      f"zoo_train {name}: a launch took the CUDA cores "
                      f"{routes}")
@@ -5822,7 +6053,8 @@ def _swin_opts_predict_cli(tmp):
         _require_launches(
             f"swin_opts CLI embedding options {' '.join(tta)}", launches,
             {**dict.fromkeys(launches, 0),
-             **{k: v * calls for k, v in SWIN_OPTS_CALL["embedding"].items()}})
+             **{k: v * calls for k, v in SWIN_OPTS_CALL["embedding"].items()},
+             **_k11_launches(cfg, forwards=calls)})
         preds = os.listdir(os.path.join(out, "test_output", "Fold0", "pred"))
         _require(len(preds) == 1, f"swin_opts CLI: predictions {preds}")
         print(f"swin_opts: prediction CLI, flagship with "
@@ -5859,7 +6091,8 @@ def _swin_opts_train(tag, name, extra, batch_size, batch_fn, tmp=None):
         k5 = 3 * convgrad.dw27_eligible((batch_size, CROP, CROP, CROP, 48))
     for i, step in enumerate(run["steps"]):
         _require_launches(f"swin_opts {tag} (step {i})", step, {
-            **dict.fromkeys(step, 0), **SWIN_OPTS_STEP[tag], "dw27": k5})
+            **dict.fromkeys(step, 0), **SWIN_OPTS_STEP[tag], "dw27": k5,
+            **_k11_launches(run["model"], steps=1)})
     _require(all(by["cuda_core"] == 0 for by in routes.values()),
              f"swin_opts {tag}: a launch took the CUDA cores {routes}")
     losses = run["losses"]
@@ -5931,6 +6164,7 @@ def _swin_opts_gated():
     _require(bool(torch.isfinite(m["loss"])), "swin_opts gated: loss")
     _require_launches("swin_opts gated step", launches, {
         "dw27": need_k5, "winograd_conv3d_f23": need_k9,
+        **_k11_launches(model, steps=1),
         **_swin_step_launches(8, ("window_attention",
                                   "window_attention_bwd"))})
     for name, tol in (("dw27", LIBRARY_REL_TOL),
@@ -6105,7 +6339,8 @@ def _official_predict_cli(tmp):
                               ZOO_OFFICIAL_CUDA_CORE if gate else {}).items()})
         _require_launches(f"zoo_official CLI {label}", launches,
                           {**dict.fromkeys(launches, 0),
-                           **{k: v * calls for k, v in want.items()}})
+                           **{k: v * calls for k, v in want.items()},
+                           **_k11_launches(cfg, forwards=calls)})
         pred = nifti.load(os.path.join(out, "test_output", "Fold0", "pred",
                                        "ct0.nii.gz")).data
         _require(pred.shape == EVAL_SHAPES[1] and int(pred.max()) < 14,
@@ -6158,7 +6393,8 @@ def _official_eval(tmp):
     _require_launches(f"zoo_official eval ({calls} predictor calls)",
                       launches, {**dict.fromkeys(launches, 0),
                                  **{k: v * calls for k, v in
-                                    ZOO_OFFICIAL_CALL["nnFormer"].items()}})
+                                    ZOO_OFFICIAL_CALL["nnFormer"].items()},
+                                 **_k11_launches(cfg, forwards=calls)})
     _require(np.isfinite(res["mDice"]), "zoo_official eval: mDice")
     r = res["records"][0]
     print(f"zoo_official: evaluation CLI, nnFormer --device_hd95 on "
@@ -6191,7 +6427,8 @@ def _official_train(name, tmp):
     total = dict(run["launches"])
     for i, step in enumerate(run["steps"]):
         _require_launches(f"zoo_official {name} (step {i})", step, {
-            **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name]})
+            **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name],
+            **_k11_launches(run["model"], steps=1)})
     _require(all(by["cuda_core"] == 0 for by in run["routes"].values()),
              f"zoo_official {name}: a launch took the CUDA cores "
              f"{run['routes']}")
@@ -6369,7 +6606,8 @@ def _zoo_rest_predict_cli(tmp):
                  "predictor calls")
         _require_launches(f"zoo_rest CLI {label}", launches, {
             **dict.fromkeys(launches, 0), "winograd_conv3d_f23": k9,
-            **{k: v * calls for k, v in ZOO_REST_CALL[name].items()}})
+            **{k: v * calls for k, v in ZOO_REST_CALL[name].items()},
+            **_k11_launches(cfg, forwards=calls)})
         pred = nifti.load(os.path.join(out, "test_output", "Fold0", "pred",
                                        "ct0.nii.gz")).data
         _require(pred.shape == EVAL_SHAPES[1] and int(pred.max()) < 14,
@@ -6389,9 +6627,11 @@ def _zoo_rest_train(name, tmp):
     packages; LRGFormerUNETR's decoder takes K5 at this batch, each launch
     then held against cuDNN in one more step; the loss falls), the whole
     gradient of a batch-2 step in bf16 against fp32 plain at
-    TRAIN_GRAD_REL_TOL (no kernel runs at batch 2, so the bf16 run is its
-    own plain control), then the training CLI at batch 8. Returns the
-    launches."""
+    TRAIN_GRAD_REL_TOL, with the kernels (at batch 2 K11 alone, in the
+    UNETR decoder) and with their plain versions, then the training CLI at
+    batch 8. Returns the launches."""
+    import contextlib
+
     import torch
 
     vol = ZOO_REST_VOL[name]
@@ -6401,7 +6641,8 @@ def _zoo_rest_train(name, tmp):
     total = dict(run["launches"])
     for i, step in enumerate(run["steps"]):
         _require_launches(f"zoo_rest {name} (step {i})", step, {
-            **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name]})
+            **dict.fromkeys(step, 0), **ZOO_TRAIN_LAUNCHES[name],
+            **_k11_launches(run["model"], steps=1)})
     losses = run["losses"]
     _require(losses[-1] < losses[0], f"zoo_rest {name}: the loss did not "
              f"fall: {losses}")
@@ -6443,11 +6684,13 @@ def _zoo_rest_train(name, tmp):
         del batch
         torch.cuda.empty_cache()
     rel, ref = _zoo_grads(cfg, model, ZOO_GRAD_SEEDS[0],
-                          {"bf16 plain": _plain_kernels})
+                          {"kernels": contextlib.nullcontext,
+                           "bf16 plain": _plain_kernels})
     _zoo_grad_line(f"zoo_rest {name}", ZOO_GRAD_SEEDS[0], rel, ref)
-    _require(rel["bf16 plain"][1] <= TRAIN_GRAD_REL_TOL,
-             f"zoo_rest {name}: the bf16 gradient is {rel['bf16 plain'][1]:.3e}"
-             f" from fp32 plain (tol {TRAIN_GRAD_REL_TOL})")
+    for label, (_, err) in rel.items():
+        _require(err <= TRAIN_GRAD_REL_TOL,
+                 f"zoo_rest {name}: the {label} gradient is {err:.3e} from "
+                 f"fp32 plain (tol {TRAIN_GRAD_REL_TOL})")
     del model
     torch.cuda.empty_cache()
     cli = _zoo_train_cli(name, tmp, ZOO_TRAIN_BATCH, extra)
@@ -6489,8 +6732,9 @@ def _lrg_big_call():
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         launches = _read_launches()
-        _require(not any(launches.values()), f"zoo_rest LRGFormerUNETR "
-                 f"vol {LRG_BIG_VOL}: launches {launches}")
+        _require_launches(f"zoo_rest LRGFormerUNETR vol {LRG_BIG_VOL}",
+                          launches, {**dict.fromkeys(launches, 0),
+                                     **_k11_launches(model, forwards=1)})
         _require(tuple(got.shape) == (PREDICT_BATCH, *cfg.vol_size3(), 14)
                  and bool(torch.isfinite(got).all()),
                  f"zoo_rest LRGFormerUNETR vol {LRG_BIG_VOL}: logits")
@@ -7062,6 +7306,8 @@ def phase_dist():
                 _require_launches(f"dist {tag} rank {r['rank']}",
                                   r["launches"], {
                                       **_swin_step_launches(8),
+                                      **_k11_launches(TRAIN_ARGS + DIST_ARGS,
+                                                      steps=1),
                                       "dw27": DIST_K5_A_STEP})
             _require(loss_rel <= DIST_LOSS_RTOL and gn_rel <= DIST_GRAD_NORM_RTOL
                      and mean_lr <= DIST_PARAM_MEAN_LR,
@@ -7220,6 +7466,8 @@ def phase_profile_dir():
         _require(peak > 0, f"profile_dir: device_memory_stats {stats}")
         _require_launches("profile_dir (2 steps)", launches, {
             "window_attention_bwd": 16, "fused_mlp_bwd": 16})
+        _require_k11_with_validation("profile_dir (2 steps)", launches,
+                                     _pipe_args(tmp), 2, validated=False)
         # the forward kernels: twice a block and step, and the validation's
         _require(min(launches["window_attention"], launches["fused_mlp"])
                  >= REMAT_FORWARDS * 16, f"profile_dir: launches {launches}")
@@ -7304,6 +7552,8 @@ def phase_device_pipeline():
               flush=True)
         _require_launches("device_pipeline (4 steps)", launches, {
             "window_attention_bwd": 32, "fused_mlp_bwd": 32})
+        _require_k11_with_validation("device_pipeline (4 steps)", launches,
+                                     _pipe_args(tmp), 4)
         _require(min(launches["window_attention"], launches["fused_mlp"])
                  >= REMAT_FORWARDS * 32,
                  f"device_pipeline: launches {launches}")
@@ -7496,7 +7746,9 @@ def phase_remat():
                               "window_attention": fwd * REMAT_TIMED_STEPS,
                               "fused_mlp": fwd * REMAT_TIMED_STEPS,
                               "window_attention_bwd": 8 * REMAT_TIMED_STEPS,
-                              "fused_mlp_bwd": 8 * REMAT_TIMED_STEPS})
+                              "fused_mlp_bwd": 8 * REMAT_TIMED_STEPS,
+                              **_k11_launches(model,
+                                              steps=REMAT_TIMED_STEPS)})
         per_step = {k: {r: v // REMAT_TIMED_STEPS for r, v in routes[k].items()
                         if v} for k in SWIN_KERNELS}
         print(f"remat: --remat {mode}, batch {TRAIN_BATCH} x 96^3, bf16, "

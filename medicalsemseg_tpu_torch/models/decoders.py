@@ -6,9 +6,10 @@ SegFormerHeadOfficial).
 
 Module names follow MONAI's blocks as the reference model nests them
 (``unet_encoders.{k}.layer.conv1.conv``, ``unet_decoders.{k}.transp_conv.conv``,
-``out.conv.conv``), so a reference state_dict loads as it is. The 3^3 convs,
-InstanceNorm and the transposed convs are plain PyTorch (cuDNN on the card),
-as the JAX package leaves them to XLA by default; with
+``out.conv.conv``), so a reference state_dict loads as it is. The 3^3 convs
+and the transposed convs are plain PyTorch (cuDNN on the card), as the JAX
+package leaves them to XLA by default; every InstanceNorm with the LeakyReLU
+and residual add after it is kernel K11 on the card (``UnetResBlock``); with
 ``MEDSEG_FUSED_DECODER=1`` the second conv of an eligible ``UnetResBlock``
 takes kernel K9 with the norm before it folded in. The SegFormer heads follow
 the JAX scopes (``linear_c{k}.proj``, ``linear_fuse[_k].{conv,bn}``,
@@ -31,9 +32,9 @@ from medicalsemseg_tpu_torch.models.layers import (
     Dropout,
     InstanceNorm,
     checkpoint_block,
-    leaky_relu,
     linear,
 )
+from medicalsemseg_tpu_torch.ops.kernels import instance_norm as k11
 from medicalsemseg_tpu_torch.ops.kernels import winograd3d as k9
 from medicalsemseg_tpu_torch.ops.resize import resize_trilinear
 
@@ -64,7 +65,11 @@ class Convolution(nn.Module):
 
 class UnetResBlock(nn.Module):
     """conv3-IN-lrelu -> conv3-IN, plus a 1x1-IN shortcut when the channel
-    count changes, then lrelu.
+    count changes, then lrelu. Each InstanceNorm with what follows it is
+    one call of kernel K11 (``k11.instance_norm_act``): norm1 with its
+    LeakyReLU, and norm2 with the residual (norm3's shortcut normalised in
+    the same call) and the closing LeakyReLU; ``InstanceNorm`` holds their
+    parameters.
 
     Fused form (``eval()`` without gradients, ``decoder_fuse_enabled``, the
     channel count inside K9's window), in the compute dtype of ``y``:
@@ -96,17 +101,22 @@ class UnetResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv1(x)
         if self._fused(y):
-            var, mu = torch.var_mean(y.float(), dim=(1, 2, 3), correction=0)
-            sc = self.norm1.weight.float() * torch.rsqrt(var + self.norm1.eps)
+            mu, rstd = k11.instance_norm_stats(y, self.norm1.eps)
+            sc = self.norm1.weight.float() * rstd
             sh = self.norm1.bias.float() - mu * sc
             y = k9.winograd_conv3d_f23(
                 y.contiguous(), self.conv2.conv.weight.to(y.dtype),
                 epilogue=(sc, sh), lrelu=True)
         else:
-            y = self.conv2(leaky_relu(self.norm1(y)))
-        y = self.norm2(y)
-        res = self.norm3(self.conv3(x)) if hasattr(self, "conv3") else x
-        return leaky_relu(y + res)
+            n1 = self.norm1
+            y = self.conv2(k11.instance_norm_act(y, n1.weight, n1.bias,
+                                                 eps=n1.eps))
+        n2 = self.norm2
+        if hasattr(self, "conv3"):
+            n3 = self.norm3
+            return k11.instance_norm_act(y, n2.weight, n2.bias, self.conv3(x),
+                                         n3.weight, n3.bias, n2.eps)
+        return k11.instance_norm_act(y, n2.weight, n2.bias, x, eps=n2.eps)
 
 
 class UnetrBasicBlock(nn.Module):

@@ -48,10 +48,6 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
                     None if lin.bias is None else lin.bias.to(dt))
 
 
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=0.01)
-
-
 # -- block rematerialisation (the JAX package's ``remat_module``) --
 
 REMAT_MODES = ("none", "conv", "mixed", "full")
@@ -414,21 +410,17 @@ class ConvTranspose3d(nn.Module):
 
 
 class InstanceNorm(nn.Module):
-    """Affine InstanceNorm over the spatial dims of (B, D, H, W, C), fp32
-    statistics (population variance)."""
+    """The affine parameters of an InstanceNorm over the spatial dims of
+    (B, D, H, W, C) (fp32 statistics, population variance). The norm itself
+    runs inside ``UnetResBlock.forward`` with the LeakyReLU and residual add
+    after it: kernel K11 on the card (``ops/kernels/instance_norm.py``), its
+    plain version on the CPU."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(1, 2, 3), keepdim=True,
-                                   correction=0)
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
 class BatchNorm(nn.Module):

@@ -48,11 +48,13 @@ _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 # -- the launch registry: every launch of a kernel, counted by kernel ("K1"
-# to "K10"), launch and route. K1, K3 and K6 make two launches a call,
+# to "K11"), launch and route. K1, K3 and K6 make two launches a call,
 # "heads" and "gemm" (the projection; K3's dx and dw); K8 "forward" (its
-# sums) and "backward" (dlogits); the others one: "backward" for K4 and K5,
-# "forward" for the rest (K9 and K10 also where the same launch computes an
-# input gradient). K8 has the one route "cuda_core".
+# sums) and "backward" (dlogits); K11 "forward" (its statistics, merge and
+# apply launches, or the statistics alone) and "backward" (its three
+# launches); the others one: "backward" for K4 and K5, "forward" for the
+# rest (K9 and K10 also where the same launch computes an input gradient).
+# K8 and K11 have the one route "cuda_core".
 _launches: Dict[Tuple[str, str, str], int] = {}
 
 
@@ -185,6 +187,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.medseg_dice_ce_sums.restype = i
     lib.medseg_dice_ce_dlogits.argtypes = [p] * 6 + [i, ll, i, i, p]
     lib.medseg_dice_ce_dlogits.restype = i
+    lib.medseg_instance_norm_fwd.argtypes = (
+        [p] * 9 + [i, i, ll, i, i, i, i, i, f, p])
+    lib.medseg_instance_norm_fwd.restype = i
+    lib.medseg_instance_norm_bwd.argtypes = (
+        [p] * 13 + [i, i, ll, i, i, i, i, i, p])
+    lib.medseg_instance_norm_bwd.restype = i
     lib.medseg_cuda_error_string.argtypes = [i]
     lib.medseg_cuda_error_string.restype = ctypes.c_char_p
 
